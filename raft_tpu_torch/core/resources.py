@@ -1,0 +1,71 @@
+"""Execution context — the PyTorch counterpart of ``raft_tpu.core.resources``.
+
+What stays context-like in the port: which device to run on, the workspace
+budget tiled algorithms size their tiles from, and the dtype fed to
+matmul-heavy paths. Randomness is not a context resource here: every
+algorithm that draws numbers builds its own ``torch.Generator`` from its
+params' ``seed``.
+
+Device rule: an entry point runs on ``cuda`` unless the caller asks for the
+CPU. With no card and no CPU request it raises ``RuntimeError`` — it never
+falls back to the CPU quietly.
+
+TF32 is switched off for fp32 matmuls and cuDNN convolutions when this
+module is imported: ``raft_tpu``'s primitives default to
+``precision="highest"`` (``raft_tpu/ops/distance.py`` ``matmul_t``), so the
+port's fp32 products stay full fp32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DeviceLike = Union[str, torch.device]
+
+
+@dataclass
+class Resources:
+    """Execution context for raft_tpu_torch calls.
+
+    Attributes:
+      device: where entry points run; ``"cuda"`` by default.
+      workspace_bytes: soft budget tiled algorithms use to pick tile sizes.
+      compute_dtype: dtype of the coarse gemm inputs (fp32 accumulation).
+    """
+
+    device: DeviceLike = "cuda"
+    workspace_bytes: int = 1 << 30
+    compute_dtype: torch.dtype = torch.float32
+
+
+def resolve_device(device: Optional[DeviceLike] = None,
+                   res: Optional[Resources] = None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else
+    ``res.device``, else ``cuda``. Raises ``RuntimeError`` when that is a
+    CUDA device and no card is present."""
+    if device is None:
+        device = res.device if res is not None else "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "raft_tpu_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' (or Resources(device='cpu')) to "
+                "run on the CPU")
+        if dev.index is None:  # name the card, so device checks compare equal
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def resources_for(device: Optional[DeviceLike] = None,
+                  res: Optional[Resources] = None) -> Resources:
+    """``res`` with its device resolved (and overridden by ``device``)."""
+    res = res or Resources()
+    return Resources(resolve_device(device, res), res.workspace_bytes,
+                     res.compute_dtype)

@@ -1,0 +1,588 @@
+"""Strip scan — the IVF list-scan engine (counterpart of
+``raft_tpu/ops/strip_scan.py``).
+
+The unit of work is a **strip**: one probed list × up to ``C`` queries that
+probe it. Per strip the engine scores ``alpha·⟨q, x⟩ + bias`` for every
+entry of the list, keeps each query row's top-``kf`` inside the kernel,
+and a final merge gathers each (query, probe) pair's candidates and picks
+the query's top-k. Lists are length-classed (a class of ``w_blocks·512``
+entries, at most ``MAX_CLASS·512`` per fetch, longer lists as ``n_sub``
+sub-blocks whose running top-kf merges in the kernel).
+
+What stays from the JAX package: the plan (``_plan_device``, the static
+class layout), the merge (``merge_strip_candidates``), the per-class score
+and top-kf contract. What changed: the per-class kernel is
+``csrc/strip_scan.cu``, written by hand for Hopper (its note says how it
+is tiled), launched by :func:`strip_class` for CUDA tensors. Its plain
+twin :func:`_strip_class_plain` computes exactly the same function with
+PyTorch ops; :func:`strip_class` takes it only for tensors on the CPU.
+
+The final merge selects with a stable sort (``lax.top_k``'s lowest-index
+tie order), which is what the JAX package runs off the TPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.ops import _native
+from raft_tpu_torch.ops.select_k import (iter_topk_min, order_key,
+                                         pack_clamp_for, pack_values)
+
+C = 192          # query rows per strip
+MC = 512         # base entry block; a class-L strip reads L·MC entries
+MAX_CLASS = 8    # widest single fetch (w = 4096 entries)
+
+_PACK_BITS = 12  # low mantissa bits carrying the column (covers w ≤ 4096)
+_PACK_MASK = (1 << _PACK_BITS) - 1
+_NB = 128        # tournament bins (bin j = columns ≡ j mod _NB)
+_KEEP = 4        # survivors per bin in the tournament pool
+MAX_KF = 512     # widest per-row top-kf the kernel and its twin take
+_PLAIN_CHUNK_BYTES = 256 << 20  # score block per step of the plain twin
+
+#: launches of the hand-written K1 kernel (``csrc/strip_scan.cu``)
+STRIP_KERNEL = _native.KernelCounter("strip_scan")
+
+_B_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def strip_eligible(m: int) -> bool:
+    """True when a padded list length is a power-of-two multiple of MC."""
+    return m % MC == 0 and (m // MC) & (m // MC - 1) == 0
+
+
+def _bucket(n: int) -> int:
+    """Two buckets per octave (pow2 and 1.5·pow2), at least 8."""
+    n = max(int(n), 8)
+    p = 1 << math.floor(math.log2(n))
+    if n <= p:
+        return p
+    if n <= p + p // 2:
+        return p + p // 2
+    return 2 * p
+
+
+def max_class_for(dim: int) -> int:
+    """Largest fetch class for a row width (the JAX package's VMEM cap,
+    kept so that both packages plan the same classes)."""
+    if dim <= 0:
+        return MAX_CLASS
+    w_max = max(MC, (6 << 20) // (dim * 4 * 2))
+    cls = 1
+    while cls * 2 <= MAX_CLASS and cls * 2 * MC <= w_max:
+        cls *= 2
+    return cls
+
+
+def class_info(lens_np: np.ndarray, dim: int = 0):
+    """Ordered distinct (w_blocks, n_sub) classes and each list's class
+    ordinal, from per-list lengths."""
+    max_class = min(MAX_CLASS, max_class_for(dim)) if dim else MAX_CLASS
+    n_mc = np.maximum(-(-np.maximum(lens_np, 0) // MC), 1)
+    cls_full = (1 << np.ceil(np.log2(n_mc)).astype(np.int64))
+    w = np.minimum(cls_full, max_class)
+    sub = np.maximum(cls_full // max_class, 1)
+    keys = w * (1 << 20) + sub
+    uniq = np.unique(keys)
+    ordinal = np.searchsorted(uniq, keys).astype(np.int32)
+    classes = [(int(k_ >> 20), int(k_ & ((1 << 20) - 1))) for k_ in uniq]
+    return classes, ordinal
+
+
+def class_counts_of(cls_ord_np: np.ndarray, n_classes: int) -> Tuple[int, ...]:
+    return tuple(int(x) for x in np.bincount(cls_ord_np, minlength=n_classes))
+
+
+def static_caps(class_counts: Sequence[int], qt: int, p: int):
+    """Per-class worst-case strip counts for a qt-query tile."""
+    full = _ceil_div(qt * p, C)
+    return tuple(_bucket(min(qt * p, full + int(nc))) for nc in class_counts)
+
+
+def static_layout(classes, class_counts, qt: int, p: int):
+    """Worst-case per-class layout → (region_starts, s_tot, layout) with
+    layout entries (w_blocks, n_sub, start, count)."""
+    caps = static_caps(class_counts, qt, p)
+    starts = []
+    acc = 0
+    for cap in caps:
+        starts.append(acc)
+        acc += cap
+    layout = tuple((classes[c][0], classes[c][1], starts[c], caps[c])
+                   for c in range(len(classes)))
+    return tuple(starts), acc, layout
+
+
+def fit_q_tile(q: int, p: int, n_lists: int, n_classes: int, kf: int,
+               workspace_bytes: int, dim: int = 0,
+               class_counts: Optional[Sequence[int]] = None) -> int:
+    """Largest query tile whose plan tables, grouped queries and kernel
+    outputs stay inside the workspace budget."""
+    q_tile = min(q, 16384)
+    per_slot = kf * 8 + 4 + 2 * dim
+    if class_counts is None:
+        class_counts = tuple([n_lists] * max(n_classes, 1))
+
+    def rows_for(qt):
+        return sum(static_caps(class_counts, qt, p))
+
+    while (rows_for(q_tile) * C * per_slot > workspace_bytes
+           and q_tile > 512):
+        q_tile //= 2
+    return q_tile
+
+
+def _plan_device(probes: torch.Tensor, cls_ord: torch.Tensor, n_lists: int,
+                 region_starts: Tuple[int, ...], s_tot: int):
+    """Strip tables built on the probes' device: per-list pair counts by a
+    left binary search over the stably sorted pair lists, class-major strip
+    bases, and scatters of each pair's (strip, slot). Unused slots carry
+    qids = -1 and strip_list = -1. Returns (qids (s_tot, C), strip_list
+    (s_tot,), pair_strip (q, p), pair_slot (q, p), counts per class), all
+    int32 except counts (int64)."""
+    dev = probes.device
+    q, p = probes.shape
+    qp = q * p
+    n_classes = len(region_starts)
+    flat = probes.reshape(-1).to(torch.int64)
+    order = torch.argsort(flat, stable=True)
+    sorted_lists = flat[order]
+    bounds = torch.searchsorted(
+        sorted_lists, torch.arange(n_lists + 1, dtype=torch.int64, device=dev))
+    r = bounds[1:] - bounds[:-1]
+    n_qc = (r + C - 1) // C                          # strips per list
+
+    cls64 = cls_ord.to(device=dev, dtype=torch.int64)
+    list_order = torch.argsort(
+        cls64 * n_lists + torch.arange(n_lists, device=dev), stable=True)
+    n_qc_sorted = n_qc[list_order]
+    csum = torch.cumsum(n_qc_sorted, 0) - n_qc_sorted
+    cls_sorted = cls64[list_order]
+    counts = torch.zeros(n_classes, dtype=torch.int64, device=dev)
+    counts.index_add_(0, cls_sorted, n_qc_sorted)
+    class_first = torch.cumsum(counts, 0) - counts
+    starts = torch.tensor(region_starts, dtype=torch.int64, device=dev)
+    base_sorted = starts[cls_sorted] + (csum - class_first[cls_sorted])
+    strip_base = torch.zeros(n_lists, dtype=torch.int64, device=dev)
+    strip_base[list_order] = base_sorted
+
+    pair_off = torch.cumsum(r, 0) - r
+    rank = torch.arange(qp, device=dev) - pair_off[sorted_lists]
+    ps_sorted = strip_base[sorted_lists] + rank // C
+    slot_sorted = rank % C
+    pair_strip = torch.zeros(qp, dtype=torch.int64, device=dev)
+    pair_slot = torch.zeros(qp, dtype=torch.int64, device=dev)
+    pair_strip[order] = ps_sorted
+    pair_slot[order] = slot_sorted
+
+    strip_list = torch.full((s_tot,), -1, dtype=torch.int32, device=dev)
+    strip_list[ps_sorted] = sorted_lists.to(torch.int32)
+    qids = torch.full((s_tot, C), -1, dtype=torch.int32, device=dev)
+    qids[ps_sorted, slot_sorted] = (order // p).to(torch.int32)
+    return (qids, strip_list, pair_strip.to(torch.int32).reshape(q, p),
+            pair_slot.to(torch.int32).reshape(q, p), counts)
+
+
+def plan_tile(probes: torch.Tensor, start: int, qt: int, cls_ord, classes,
+              n_lists: int):
+    """Plan one query tile and fix its layout from the real per-class strip
+    counts (one small device→host fetch)."""
+    p = probes.shape[1]
+    n_classes = len(classes)
+    s_region = _bucket(min(qt * p, _ceil_div(qt * p, C) + n_lists))
+    region_starts = tuple(c * s_region for c in range(n_classes))
+    qids, strip_list, pair_strip, pair_slot, counts = _plan_device(
+        probes[start:start + qt], cls_ord, n_lists, region_starts,
+        n_classes * s_region)
+    counts_np = counts.cpu().numpy()
+    layout = tuple(
+        (classes[c][0], classes[c][1], c * s_region,
+         min(_bucket(int(counts_np[c])), s_region))
+        for c in range(n_classes) if counts_np[c] > 0
+    ) or ((1, 1, 0, 1),)
+    return qids, strip_list, pair_strip, pair_slot, layout
+
+
+def group_queries(queries_mat: torch.Tensor, qids: torch.Tensor) -> torch.Tensor:
+    """The (S, C, dim) bf16 query operand: row ``qids[s, i]`` of
+    ``queries_mat``, zeros where the slot is unused."""
+    a = queries_mat[qids.clamp(min=0).long()]
+    return torch.where((qids >= 0)[:, :, None], a,
+                       torch.zeros((), dtype=a.dtype, device=a.device)
+                       ).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# The per-class call: kernel K1 on CUDA tensors, its plain twin on the CPU
+# ---------------------------------------------------------------------------
+
+
+def tournament_engaged(kf: int, w: int, approx_ok: bool) -> bool:
+    """Whether the top-kf of a (·, w) block plays the 128-bin, keep-4
+    tournament (the JAX package's ``_topk_block`` rule): only when the
+    caller accepts its rare bin-collision loss, 16 ≤ kf ≤ 32, the pool can
+    hold kf, and it is less work than direct extraction."""
+    bs = w // _NB
+    wins = kf * w > _KEEP * w + kf * _KEEP * _NB
+    return not (not approx_ok or kf < 16 or kf > min(bs * _KEEP, _NB // 4)
+                or bs < 2 or not wins)
+
+
+def _extract_topk_packed(pv: torch.Tensor, kf: int):
+    """The kf smallest packed scores along the last axis, ascending →
+    (values with the column bits cleared, int32 columns). Packed values of
+    a row are unique, so this is a sort; values at the packing clamp come
+    back as +inf."""
+    _, order = torch.sort(order_key(pv), dim=-1, stable=True)
+    top = torch.gather(pv, -1, order[..., :kf]).view(torch.int32)
+    es = top & _PACK_MASK
+    vals = (top & ~_PACK_MASK).view(torch.float32)
+    vals = torch.where(vals >= pack_clamp_for(_PACK_BITS),
+                       torch.full_like(vals, float("inf")), vals)
+    return vals, es
+
+
+def _topk_block(s: torch.Tensor, kf: int, w: int, approx_ok: bool):
+    """Top-kf of (…, w) scores: packed extraction, after the tournament
+    (per bin the _KEEP smallest packed values) when it is engaged."""
+    pv = pack_values(s, _PACK_BITS)
+    if not tournament_engaged(kf, w, approx_ok):
+        return _extract_topk_packed(pv, kf)
+    bs = w // _NB
+    sv = pv.reshape(*pv.shape[:-1], bs, _NB)
+    _, order = torch.sort(order_key(sv), dim=-2, stable=True)
+    keep = torch.gather(sv, -2, order[..., :min(_KEEP, bs), :])
+    if bs < _KEEP:  # an exhausted bin contributes +inf (never extracted)
+        pad = torch.full((*keep.shape[:-2], _KEEP - bs, _NB), float("inf"),
+                         dtype=keep.dtype, device=keep.device)
+        keep = torch.cat([keep, pad], dim=-2)
+    pool = keep.reshape(*pv.shape[:-1], _KEEP * _NB)   # index t·_NB + bin
+    return _extract_topk_packed(pool, kf)
+
+
+def _extract_topk(v: torch.Tensor, offs: torch.Tensor, kf: int):
+    """kf masked-min passes over the last axis with earliest-column ties:
+    the sub-block merge of the running top-kf, pass for pass as the JAX
+    package runs it (an extracted slot turns +inf and may be picked again
+    once only +inf is left, carrying its offset)."""
+    n = v.shape[-1]
+    cols = torch.arange(n, device=v.device)
+    inf = torch.full((), float("inf"), dtype=v.dtype, device=v.device)
+    vals, es = [], []
+    for _ in range(kf):
+        mn = v.min(dim=-1).values
+        am = torch.where(v <= mn[..., None], cols, n).min(dim=-1).values
+        hit = cols == am[..., None]
+        es.append(torch.gather(offs, -1, am[..., None])[..., 0])
+        vals.append(mn)
+        v = torch.where(hit, inf, v)
+    return torch.stack(vals, -1), torch.stack(es, -1).to(torch.int32)
+
+
+def sub_block_liveness(bias: torch.Tensor, w: int, n_sub: int) -> torch.Tensor:
+    """(n_lists·n_sub,) int32: 0 where every bias lane of the (list,
+    sub-block) is non-finite, so the sub-block cannot rank."""
+    n_lists = bias.shape[0]
+    fin = torch.isfinite(bias[:, :n_sub * w]).reshape(n_lists, n_sub, w)
+    return fin.any(dim=2).to(torch.int32).reshape(-1)
+
+
+def _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf):
+    w = w_blocks * MC
+    if a.ndim != 3 or list_data.ndim != 3 or bias.ndim != 2:
+        raise ValueError("strip_class wants a (S, C, dim), list_data "
+                         "(n_lists, m, dim) and bias (n_lists, m)")
+    if a.shape[2] != list_data.shape[2]:
+        raise ValueError(f"dim mismatch: {a.shape[2]} != {list_data.shape[2]}")
+    if tuple(bias.shape) != tuple(list_data.shape[:2]):
+        raise ValueError("bias must be (n_lists, m) like list_data")
+    if strip_list.shape != (a.shape[0],):
+        raise ValueError("strip_list must hold one list id per strip")
+    if not 0 < kf <= min(MAX_KF, w):
+        raise ValueError(f"kf must be in [1, {min(MAX_KF, w)}], got {kf}")
+    if w > (1 << _PACK_BITS):
+        raise ValueError(f"class width {w} exceeds the packed-column range")
+    if n_sub * w > list_data.shape[1]:
+        raise ValueError(f"class spans {n_sub}×{w} entries but lists hold "
+                         f"{list_data.shape[1]}")
+    return w
+
+
+def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
+                       n_sub: int, alpha: float, kf: int,
+                       approx_ok: bool = False, strip_rows=None):
+    """The per-class function of K1, in PyTorch ops → ((S, C, kf) fp32
+    values, (S, C, kf) int32 within-list offsets).
+
+    Scores are ``alpha·(A·Bᵀ) + bias`` with both operands rounded to bf16
+    and the products summed in fp32 (``bf16 @ bf16`` on the CPU would
+    round the result to bf16, hence the fp32 matmul of bf16-rounded
+    values). Rows of padding strips (``strip_list == -1``) are left at
+    +inf / 0. Rows at or past ``strip_rows`` are unspecified (the kernel
+    skips them); this version computes them like the others. The merge
+    reads neither."""
+    w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf)
+    s_pad, c, dim = a.shape
+    dev = a.device
+    out_v = torch.full((s_pad, c, kf), float("inf"), dtype=torch.float32,
+                       device=dev)
+    out_e = torch.zeros((s_pad, c, kf), dtype=torch.int32, device=dev)
+    live_sub = sub_block_liveness(bias, w, n_sub).reshape(-1, n_sub) > 0
+    lst = strip_list.to(torch.int64).clamp(min=0)
+    real = strip_list >= 0
+    per_strip = max(1, c * w * 4 + w * dim * 4)
+    step = max(1, _PLAIN_CHUNK_BYTES // per_strip)
+    iota = torch.arange(kf, dtype=torch.int32, device=dev)
+    for j in range(n_sub):
+        live = real & live_sub[lst, j]
+        if j == 0:
+            dead = (real & ~live_sub[lst, 0]).nonzero()[:, 0]
+            out_v[dead] = float("inf")
+            out_e[dead] = iota
+        idx_all = live.nonzero()[:, 0]
+        for s0 in range(0, idx_all.numel(), step):
+            idx = idx_all[s0:s0 + step]
+            li = lst[idx]
+            b = list_data[li, j * w:(j + 1) * w].to(torch.bfloat16).float()
+            s = torch.matmul(a[idx].float(), b.transpose(1, 2))
+            s = alpha * s + bias[li, j * w:(j + 1) * w][:, None, :]
+            nv, ne = _topk_block(s, kf, w, approx_ok)
+            ne = ne + j * w
+            if j == 0:
+                out_v[idx], out_e[idx] = nv, ne
+            else:
+                mv, me = _extract_topk(torch.cat([out_v[idx], nv], -1),
+                                       torch.cat([out_e[idx], ne], -1), kf)
+                out_v[idx], out_e[idx] = mv, me
+    return out_v, out_e
+
+
+def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
+                      n_sub: int, alpha: float, kf: int, approx_ok: bool,
+                      strip_rows=None):
+    """Launch K1 (``csrc/strip_scan.cu``) on the current stream."""
+    w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf)
+    dev = a.device
+    if strip_rows is not None and (strip_rows.shape != strip_list.shape
+                                   or strip_rows.dtype != torch.int32):
+        raise ValueError("strip_rows must be int32 with one count per strip")
+    for name, t in (("strip_list", strip_list), ("list_data", list_data),
+                    ("bias", bias), ("strip_rows", strip_rows)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"the query operand must be bf16, got {a.dtype}")
+    if list_data.dtype not in _B_DTYPES:
+        raise TypeError(f"list_data must be int8, bf16 or fp32, got "
+                        f"{list_data.dtype}")
+    if bias.dtype != torch.float32 or strip_list.dtype != torch.int32:
+        raise TypeError("bias must be fp32 and strip_list int32")
+    for name, t in (("strip_list", strip_list), ("a", a),
+                    ("list_data", list_data), ("bias", bias),
+                    ("strip_rows", strip_rows)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    s_pad, c, dim = a.shape
+    sub_live = sub_block_liveness(bias, w, n_sub).contiguous()
+    out_v = torch.empty((s_pad, c, kf), dtype=torch.float32, device=dev)
+    out_e = torch.empty((s_pad, c, kf), dtype=torch.int32, device=dev)
+    if s_pad == 0:
+        return out_v, out_e
+    fn = _kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(strip_list.data_ptr(),
+            None if strip_rows is None else strip_rows.data_ptr(),
+            sub_live.data_ptr(), a.data_ptr(),
+            list_data.data_ptr(), bias.data_ptr(), out_v.data_ptr(),
+            out_e.data_ptr(), s_pad, c, dim, list_data.shape[1], w, n_sub,
+            kf, float(alpha), int(tournament_engaged(kf, w, approx_ok)),
+            _B_DTYPES[list_data.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"strip_scan kernel launch failed: CUDA error {rc}")
+    STRIP_KERNEL.launches += 1
+    return out_v, out_e
+
+
+def _kernel_fn():
+    fn = _native.load().raft_strip_scan
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
+                alpha: float, kf: int, approx_ok: bool = False,
+                strip_rows=None):
+    """Scan one length class: per strip ``s`` (list ``strip_list[s]``) and
+    query row, the top-kf of ``alpha·(A[s]·Bᵀ) + bias`` over the class's
+    ``w = w_blocks·512`` entries per sub-block, merged over ``n_sub``
+    sub-blocks → ((S, C, kf) fp32, (S, C, kf) int32 offsets in the list).
+    ``strip_rows`` (S,) int32, optional: strip s uses only its first
+    ``strip_rows[s]`` query rows; the others are left unspecified.
+
+    CUDA tensors launch kernel K1; CPU tensors take the plain twin."""
+    if a.device.type == "cuda":
+        return _strip_class_cuda(strip_list, a, list_data, bias, w_blocks,
+                                 n_sub, alpha, kf, approx_ok, strip_rows)
+    return _strip_class_plain(strip_list, a, list_data, bias, w_blocks,
+                              n_sub, alpha, kf, approx_ok, strip_rows)
+
+
+# ---------------------------------------------------------------------------
+# Tile body, merge, entry points
+# ---------------------------------------------------------------------------
+
+
+def _strip_tile_body(queries_mat, qids, strip_list, pair_strip, pair_slot,
+                     list_data, bias, list_ids, class_layout, k: int,
+                     kf: int, alpha: float, pair_const=None,
+                     approx_ok: bool = False):
+    """One query tile: group the queries per strip, run every length
+    class, then the candidate merge. A list's pairs fill its strips' slots
+    in order, so each strip's real rows are a prefix of its C slots."""
+    a_grouped = group_queries(queries_mat, qids)
+    strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+    outs_v, outs_e = [], []
+    for (w_blocks, n_sub, start, count) in class_layout:
+        ov, oe = strip_class(strip_list[start:start + count],
+                             a_grouped[start:start + count], list_data, bias,
+                             w_blocks, n_sub, alpha, kf, approx_ok,
+                             strip_rows[start:start + count])
+        outs_v.append(ov)
+        outs_e.append(oe)
+    out_v = torch.cat(outs_v, 0) if len(outs_v) > 1 else outs_v[0]
+    out_e = torch.cat(outs_e, 0) if len(outs_e) > 1 else outs_e[0]
+    return merge_strip_candidates(out_v, out_e, strip_list, pair_strip,
+                                  pair_slot, list_ids, class_layout, k, kf,
+                                  pair_const)
+
+
+def merge_strip_candidates(out_v, out_e, strip_list, pair_strip, pair_slot,
+                           list_ids, class_layout, k: int, kf: int,
+                           pair_const=None):
+    """Gather each (query, probe) pair's kf candidates, select the query's
+    top-k and translate (list, offset) to source ids.
+
+    ``pair_strip`` counts in the plan's numbering, where class regions may
+    leave gaps; the class outputs are concatenated densely, so each pair's
+    strip is remapped by its class's delta (the round-3 on-chip bug of the
+    JAX package lived here: without the remap, recall fell to 0.16 once a
+    class's padded count was below its region size)."""
+    q, p = pair_strip.shape
+    dev = out_v.device
+    ps = pair_strip.to(torch.int64)
+    if len(class_layout) > 1:
+        concat_starts = np.cumsum([0] + [cnt for (_, _, _, cnt)
+                                         in class_layout[:-1]])
+        deltas = torch.tensor(
+            [int(cs - start) for cs, (_, _, start, _)
+             in zip(concat_starts, class_layout)], dtype=torch.int64,
+            device=dev)
+        cls_idx = sum((ps >= start).to(torch.int64)
+                      for (_, _, start, _) in class_layout[1:])
+        ps_c = ps + deltas[cls_idx]
+    else:
+        ps_c = ps - class_layout[0][2]
+    slot = pair_slot.to(torch.int64)
+    cand_v = out_v[ps_c, slot]                       # (q, p, kf)
+    if pair_const is not None:
+        cand_v = cand_v + pair_const[:, :, None]
+    cand_v = cand_v.reshape(q, p * kf)
+    cand_e = out_e[ps_c, slot].reshape(q, p * kf).to(torch.int64)
+    kk = min(k, p * kf)
+    vals, sel = iter_topk_min(cand_v, kk)
+    sel = sel.to(torch.int64)
+    win_list = torch.gather(strip_list.to(torch.int64)[ps], 1, sel // kf)
+    win_off = torch.gather(cand_e, 1, sel)
+    out_ids = list_ids[win_list, win_off]
+    if kk < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kk), value=float("inf"))
+        out_ids = torch.nn.functional.pad(out_ids, (0, k - kk), value=-1)
+    out_ids = torch.where(torch.isfinite(vals), out_ids,
+                          torch.full_like(out_ids, -1))
+    return vals, out_ids
+
+
+def strip_search_traced(queries_mat, probes, list_data, bias, list_ids,
+                        cls_ord, classes, class_counts, k: int, kf: int,
+                        alpha: float, q_tile: int, pair_const=None,
+                        approx_ok: bool = False):
+    """Strip search on a static worst-case layout per query tile: no
+    device→host fetch between the coarse step and the result."""
+    q, p = probes.shape
+    n_lists = list_data.shape[0]
+    out_v, out_i = [], []
+    for start in range(0, q, q_tile):
+        qt = min(q_tile, q - start)
+        region_starts, s_tot, layout = static_layout(
+            classes, class_counts, qt, p)
+        qids, strip_list, pair_strip, pair_slot, _ = _plan_device(
+            probes[start:start + qt], cls_ord, n_lists, region_starts, s_tot)
+        v, i = _strip_tile_body(
+            queries_mat[start:start + qt], qids, strip_list, pair_strip,
+            pair_slot, list_data, bias, list_ids, layout, int(k), kf,
+            float(alpha),
+            None if pair_const is None else pair_const[start:start + qt],
+            approx_ok)
+        out_v.append(v)
+        out_i.append(i)
+    if len(out_v) == 1:
+        return out_v[0], out_i[0]
+    return torch.cat(out_v, 0), torch.cat(out_i, 0)
+
+
+def strip_search(queries_mat, probes, list_data, list_bias, list_ids, lens,
+                 k: int, alpha: float = -2.0,
+                 workspace_bytes: int = 1 << 30, pair_const=None,
+                 approx_ok: bool = False):
+    """Full strip scan: probes (q, p) → per-query top-k over the probed
+    lists' entries, scored ``alpha·⟨q, x⟩ + bias`` (smaller is better).
+
+    ``list_data`` (n_lists, m, dim) fp32/bf16/int8 with m a power-of-two
+    multiple of 512; ``list_bias`` (n_lists, m) fp32, +inf at padding;
+    ``list_ids`` (n_lists, m), -1 at padding; ``lens`` (n_lists,) real
+    entry counts. All tensors on one device; the scan runs there."""
+    dev = list_data.device
+    queries_mat = torch.as_tensor(queries_mat, device=dev)
+    probes = torch.as_tensor(probes, device=dev)
+    q = queries_mat.shape[0]
+    lens_np = np.asarray(lens)
+    n_lists, m = list_data.shape[0], list_data.shape[1]
+    if not strip_eligible(m):
+        raise ValueError(
+            f"list_data dim 1 must be a power-of-two multiple of {MC}, got {m}")
+    if k > MC:
+        raise ValueError(f"strip_search supports k <= {MC}, got {k}")
+    kf = min(int(k), MC)
+    classes, cls_ord_np = class_info(lens_np, dim=queries_mat.shape[1])
+    cls_ord = torch.as_tensor(cls_ord_np, device=dev)
+    q_tile = fit_q_tile(q, probes.shape[1], n_lists, len(classes), kf,
+                        workspace_bytes, dim=queries_mat.shape[1])
+    out_v, out_i = [], []
+    for start in range(0, q, q_tile):
+        qt = min(q_tile, q - start)
+        qids, strip_list, pair_strip, pair_slot, layout = plan_tile(
+            probes, start, qt, cls_ord, classes, n_lists)
+        v, i = _strip_tile_body(
+            queries_mat[start:start + qt], qids, strip_list, pair_strip,
+            pair_slot, list_data, list_bias, list_ids, layout, int(k), kf,
+            float(alpha),
+            None if pair_const is None else pair_const[start:start + qt],
+            approx_ok)
+        out_v.append(v)
+        out_i.append(i)
+    if len(out_v) == 1:
+        return out_v[0], out_i[0]
+    return torch.cat(out_v, 0), torch.cat(out_i, 0)
