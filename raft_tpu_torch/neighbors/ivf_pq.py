@@ -418,16 +418,17 @@ def _ragged_bias_pq(b_sum, centers, rotation, l2: bool):
 
 
 def _pq_probe_prep(queries, centers, rotation, n_probes: int,
-                   select_algo: str, l2: bool):
+                   select_algo: str, l2: bool, rotation_kind: str = "dense"):
     """Probe selection (exact fp32 coarse distances), the rotated queries
-    and the exact per-pair center term ``alpha·⟨q, c_l⟩``."""
+    and the exact per-pair center term ``alpha·⟨q, c_l⟩``. IVF-BQ shares
+    it; ``rotation_kind`` picks the dense gemm or the SRHT butterfly."""
     ip_c = matmul_t(queries, centers)
     if l2:
         coarse = sqnorm(queries)[:, None] + sqnorm(centers)[None, :] - 2.0 * ip_c
     else:
         coarse = -ip_c
     _, probes = select_k(coarse, n_probes, select_min=True, algo=select_algo)
-    qr = rotate_rows(queries, rotation)
+    qr = rotate_rows(queries, rotation, rotation_kind)
     alpha = -2.0 if l2 else -1.0
     pair_const = alpha * torch.gather(ip_c, 1, probes.to(torch.int64))
     return probes, qr, pair_const

@@ -1,11 +1,13 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
-The source under ``ops/csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, and loaded
-with ``ctypes``. Nothing is prebuilt: the first call on a machine with a
-card builds into ``raft_tpu_torch/_build/`` (listed in ``.gitignore``),
-keyed by a hash of the source and flags, so an edited source rebuilds and
-an unchanged one loads at once.
+Every ``*.cu`` source under ``ops/csrc/`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into its own shared library with a plain C interface,
+and loaded with ``ctypes``. Nothing is prebuilt: the first call on a
+machine with a card builds into ``raft_tpu_torch/_build/`` (listed in
+``.gitignore``), one ``nvcc`` per source, all started together. Each
+library is keyed by a hash of its source, the shared headers (``*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.
 
 Every kernel wrapper owns a :class:`KernelCounter` and adds one to it where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -23,17 +25,16 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCE = CSRC / "strip_scan.cu"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-_loaded: Optional[ctypes.CDLL] = None
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 @dataclass
@@ -45,6 +46,16 @@ class KernelCounter:
 
     def reset(self) -> None:
         self.launches = 0
+
+
+def sources() -> List[Path]:
+    """The kernel sources, one library each."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    """The headers every source may include."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -62,37 +73,54 @@ def nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path) -> Path:
+    """Where ``source``'s library is built, keyed by its content, the
+    headers' and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in headers():
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Optional[float]:
-    """Compile the kernel library if it is not built yet. Returns nvcc's
-    wall seconds (None when already built); raises with nvcc's output on
-    failure."""
-    out = library_path()
-    if out.exists():
+    """Compile every kernel library not built yet, one ``nvcc`` per source,
+    all at once. Returns the wall seconds (None when all were built);
+    raises with nvcc's output if any source fails."""
+    todo = [(src, library_path(src)) for src in sources()]
+    todo = [(src, out) for src, out in todo if not out.exists()]
+    if not todo:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exit {proc.returncode}\n"
-                           f"{proc.stdout.decode(errors='replace')}")
-    os.replace(tmp, out)
+    procs = []
+    for src, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((src, out, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name}: nvcc exit {proc.returncode}\n"
+                          f"{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
-    global _loaded
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building first if needed."""
     with _lock:
-        if _loaded is None:
-            build()
-            _loaded = ctypes.CDLL(str(library_path()))
-        return _loaded
+        if name not in _loaded:
+            source = CSRC / f"{name}.cu"
+            if not source.is_file():
+                raise FileNotFoundError(f"no kernel source {source}")
+            if not library_path(source).exists():
+                build()
+            _loaded[name] = ctypes.CDLL(str(library_path(source)))
+        return _loaded[name]

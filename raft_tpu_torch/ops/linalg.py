@@ -1,10 +1,24 @@
-"""Random rotations for the IVF-PQ quantizer front end (counterpart of the
-rotation part of ``raft_tpu/ops/linalg.py``). Only the dense kind is ported;
-the SRHT kind arrives with IVF-BQ."""
+"""Random rotations for the IVF quantizer front ends (counterpart of the
+rotation part of ``raft_tpu/ops/linalg.py``).
+
+Two representations (``ROTATION_KINDS``):
+
+* ``"dense"`` — an explicit orthogonal (rot_dim, rot_dim) matrix
+  (:func:`make_rotation_matrix`), applied as one gemm;
+* ``"hadamard"`` — the SRHT rotation ``R = H·D/√d`` stored as only its
+  (rot_dim,) ±1 sign diagonal ``D`` (:func:`make_srht_signs`), applied in
+  O(d·log d) by the fast Walsh–Hadamard butterfly (:func:`srht_rotate`).
+
+Both are exactly orthogonal, so ``‖R·x‖ = ‖x‖`` either way.
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+ROTATION_KINDS = ("dense", "hadamard")
 
 
 def pad_rot(x: torch.Tensor, rot_dim: int) -> torch.Tensor:
@@ -28,11 +42,55 @@ def make_rotation_matrix(generator: torch.Generator, rot_dim: int,
     return q.to(torch.float32).to(device)
 
 
+def hadamard_rot_dim(dim: int) -> int:
+    """Rotation width of the SRHT kind: the next power of two ≥ dim, at
+    least 8 (whole code bytes)."""
+    return max(8, 1 << max(0, math.ceil(math.log2(max(int(dim), 1)))))
+
+
+def make_srht_signs(generator: torch.Generator, rot_dim: int,
+                    device: torch.device) -> torch.Tensor:
+    """The SRHT sign diagonal: (rot_dim,) fp32 in {−1, +1}, fair coin flips
+    from ``generator``. ``rot_dim`` must be a power of two."""
+    if rot_dim & (rot_dim - 1) or rot_dim < 2:
+        raise ValueError(f"SRHT needs a power-of-two rot_dim, got {rot_dim}")
+    u = torch.rand((rot_dim,), generator=generator, device=generator.device)
+    return torch.where(u < 0.5, 1.0, -1.0).to(torch.float32).to(device)
+
+
+def hadamard_transform(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalized fast Walsh–Hadamard transform along the last axis
+    (``x @ H_d`` for the symmetric ±1 Hadamard matrix) as log2(d) butterfly
+    stages, in the JAX package's order of operations. The last axis must be
+    a power of two."""
+    d = x.shape[-1]
+    if d & (d - 1) or d < 1:
+        raise ValueError(f"hadamard_transform needs a power-of-two width, got {d}")
+    shape = x.shape
+    h = 1
+    while h < d:
+        y = x.reshape(*shape[:-1], d // (2 * h), 2, h)
+        a, b = y[..., 0, :], y[..., 1, :]
+        x = torch.stack([a + b, a - b], dim=-2).reshape(shape)
+        h *= 2
+    return x
+
+
+def srht_rotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` through ``R = H·D/√d``: ``fwht(x·D)/√d``."""
+    d = signs.shape[-1]
+    inv = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    return hadamard_transform(x * signs) * inv
+
+
 def rotate_rows(x: torch.Tensor, rotation: torch.Tensor,
                 kind: str = "dense") -> torch.Tensor:
     """Rows of ``x`` (zero-padded to the rotation width) through the
-    rotation. Only ``kind="dense"`` exists in this slice."""
-    if kind != "dense":
-        raise NotImplementedError(
-            f"rotation kind {kind!r} arrives with the IVF-BQ slice")
-    return pad_rot(x, rotation.shape[0]) @ rotation.T
+    rotation: ``rotation`` is the dense matrix for ``kind="dense"``, the
+    (rot_dim,) sign diagonal for ``kind="hadamard"``."""
+    if kind == "dense":
+        return pad_rot(x, rotation.shape[0]) @ rotation.T
+    if kind == "hadamard":
+        return srht_rotate(pad_rot(x, rotation.shape[0]), rotation)
+    raise ValueError(f"unknown rotation kind {kind!r} (expected one of "
+                     f"{ROTATION_KINDS})")

@@ -16,6 +16,9 @@ and top-kf contract. What changed: the per-class kernel is
 is tiled), launched by :func:`strip_class` for CUDA tensors. Its plain
 twin :func:`_strip_class_plain` computes exactly the same function with
 PyTorch ops; :func:`strip_class` takes it only for tensors on the CPU.
+The tile body and both search drivers take the per-class function as an
+argument, so the packed 1-bit scan (:mod:`raft_tpu_torch.ops.bq_scan`,
+kernel K2) runs through the same plan and merge.
 
 The final merge selects with a stable sort (``lax.top_k``'s lowest-index
 tie order), which is what the JAX package runs off the TPU.
@@ -296,13 +299,17 @@ def sub_block_liveness(bias: torch.Tensor, w: int, n_sub: int) -> torch.Tensor:
     return fin.any(dim=2).to(torch.int32).reshape(-1)
 
 
-def _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf):
+def _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
+                      width: Optional[int] = None):
+    """Shape checks of one class call → w. ``width`` is the query operand's
+    row width (default: the list rows' last dim)."""
     w = w_blocks * MC
     if a.ndim != 3 or list_data.ndim != 3 or bias.ndim != 2:
-        raise ValueError("strip_class wants a (S, C, dim), list_data "
-                         "(n_lists, m, dim) and bias (n_lists, m)")
-    if a.shape[2] != list_data.shape[2]:
-        raise ValueError(f"dim mismatch: {a.shape[2]} != {list_data.shape[2]}")
+        raise ValueError("a class call wants a (S, C, dim), list rows "
+                         "(n_lists, m, ·) and bias (n_lists, m)")
+    width = list_data.shape[2] if width is None else width
+    if a.shape[2] != width:
+        raise ValueError(f"dim mismatch: {a.shape[2]} != {width}")
     if tuple(bias.shape) != tuple(list_data.shape[:2]):
         raise ValueError("bias must be (n_lists, m) like list_data")
     if strip_list.shape != (a.shape[0],):
@@ -331,6 +338,17 @@ def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
     skips them); this version computes them like the others. The merge
     reads neither."""
     w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf)
+    return _class_plain(
+        strip_list, a, bias, w, n_sub, alpha, kf, approx_ok,
+        lambda li, j: list_data[li, j * w:(j + 1) * w].to(torch.bfloat16).float())
+
+
+def _class_plain(strip_list, a, bias, w: int, n_sub: int, alpha: float,
+                 kf: int, approx_ok: bool, b_block, scale=None):
+    """The per-class loop of the plain twins of K1 and K2:
+    ``b_block(lists, j)`` gives the fp32 (n, w, dim) list rows of
+    sub-block j (bf16-rounded values), and ``scale`` (n_lists, m), when
+    given, multiplies ``alpha·s`` before the bias add."""
     s_pad, c, dim = a.shape
     dev = a.device
     out_v = torch.full((s_pad, c, kf), float("inf"), dtype=torch.float32,
@@ -352,9 +370,11 @@ def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
         for s0 in range(0, idx_all.numel(), step):
             idx = idx_all[s0:s0 + step]
             li = lst[idx]
-            b = list_data[li, j * w:(j + 1) * w].to(torch.bfloat16).float()
-            s = torch.matmul(a[idx].float(), b.transpose(1, 2))
-            s = alpha * s + bias[li, j * w:(j + 1) * w][:, None, :]
+            s = alpha * torch.matmul(a[idx].float(),
+                                     b_block(li, j).transpose(1, 2))
+            if scale is not None:
+                s = s * scale[li, j * w:(j + 1) * w][:, None, :]
+            s = s + bias[li, j * w:(j + 1) * w][:, None, :]
             nv, ne = _topk_block(s, kf, w, approx_ok)
             ne = ne + j * w
             if j == 0:
@@ -366,31 +386,42 @@ def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
     return out_v, out_e
 
 
+def check_cuda_operands(a, strip_list, strip_rows, **others):
+    """What a kernel wrapper checks of every class call before a launch:
+    one device, a bf16 query operand, int32 strip tables, fp32 ``bias``
+    (and ``scale``), contiguous operands. Raises on the first violation."""
+    dev = a.device
+    if strip_rows is not None and (strip_rows.shape != strip_list.shape
+                                   or strip_rows.dtype != torch.int32):
+        raise ValueError("strip_rows must be int32 with one count per strip")
+    named = {"strip_list": strip_list, "a": a, "strip_rows": strip_rows,
+             **others}
+    for name, t in named.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"the query operand must be bf16, got {a.dtype}")
+    if strip_list.dtype != torch.int32:
+        raise TypeError("strip_list must be int32")
+    for name in ("bias", "scale"):
+        if name in others and others[name].dtype != torch.float32:
+            raise TypeError(f"{name} must be fp32")
+    for name, t in named.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
                       n_sub: int, alpha: float, kf: int, approx_ok: bool,
                       strip_rows=None):
     """Launch K1 (``csrc/strip_scan.cu``) on the current stream."""
     w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf)
-    dev = a.device
-    if strip_rows is not None and (strip_rows.shape != strip_list.shape
-                                   or strip_rows.dtype != torch.int32):
-        raise ValueError("strip_rows must be int32 with one count per strip")
-    for name, t in (("strip_list", strip_list), ("list_data", list_data),
-                    ("bias", bias), ("strip_rows", strip_rows)):
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-    if a.dtype != torch.bfloat16:
-        raise TypeError(f"the query operand must be bf16, got {a.dtype}")
+    check_cuda_operands(a, strip_list, strip_rows, list_data=list_data,
+                        bias=bias)
     if list_data.dtype not in _B_DTYPES:
         raise TypeError(f"list_data must be int8, bf16 or fp32, got "
                         f"{list_data.dtype}")
-    if bias.dtype != torch.float32 or strip_list.dtype != torch.int32:
-        raise TypeError("bias must be fp32 and strip_list int32")
-    for name, t in (("strip_list", strip_list), ("a", a),
-                    ("list_data", list_data), ("bias", bias),
-                    ("strip_rows", strip_rows)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = a.device
     s_pad, c, dim = a.shape
     sub_live = sub_block_liveness(bias, w, n_sub).contiguous()
     out_v = torch.empty((s_pad, c, kf), dtype=torch.float32, device=dev)
@@ -413,7 +444,7 @@ def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
 
 
 def _kernel_fn():
-    fn = _native.load().raft_strip_scan
+    fn = _native.load("strip_scan").raft_strip_scan
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -446,20 +477,20 @@ def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
 
 
 def _strip_tile_body(queries_mat, qids, strip_list, pair_strip, pair_slot,
-                     list_data, bias, list_ids, class_layout, k: int,
-                     kf: int, alpha: float, pair_const=None,
-                     approx_ok: bool = False):
+                     list_ids, class_layout, k: int, kf: int, class_fn,
+                     pair_const=None):
     """One query tile: group the queries per strip, run every length
-    class, then the candidate merge. A list's pairs fill its strips' slots
-    in order, so each strip's real rows are a prefix of its C slots."""
+    class through ``class_fn(strip_list, a, w_blocks, n_sub, strip_rows)``
+    (K1's or K2's wrapper), then the candidate merge. A list's pairs fill
+    its strips' slots in order, so each strip's real rows are a prefix of
+    its C slots."""
     a_grouped = group_queries(queries_mat, qids)
     strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
     outs_v, outs_e = [], []
     for (w_blocks, n_sub, start, count) in class_layout:
-        ov, oe = strip_class(strip_list[start:start + count],
-                             a_grouped[start:start + count], list_data, bias,
-                             w_blocks, n_sub, alpha, kf, approx_ok,
-                             strip_rows[start:start + count])
+        ov, oe = class_fn(strip_list[start:start + count],
+                          a_grouped[start:start + count], w_blocks, n_sub,
+                          strip_rows[start:start + count])
         outs_v.append(ov)
         outs_e.append(oe)
     out_v = torch.cat(outs_v, 0) if len(outs_v) > 1 else outs_v[0]
@@ -515,32 +546,85 @@ def merge_strip_candidates(out_v, out_e, strip_list, pair_strip, pair_slot,
     return vals, out_ids
 
 
+def _scan_tiles(queries_mat, probes, list_ids, k: int, kf: int,
+                q_tile: int, plan, class_fn, pair_const=None):
+    """Query tiles of ``q_tile`` rows, each planned by ``plan(start, qt)``
+    → (qids, strip_list, pair_strip, pair_slot, layout) and scanned by
+    :func:`_strip_tile_body`."""
+    q = probes.shape[0]
+    out_v, out_i = [], []
+    for start in range(0, q, q_tile):
+        qt = min(q_tile, q - start)
+        qids, strip_list, pair_strip, pair_slot, layout = plan(start, qt)
+        v, i = _strip_tile_body(
+            queries_mat[start:start + qt], qids, strip_list, pair_strip,
+            pair_slot, list_ids, layout, int(k), kf, class_fn,
+            None if pair_const is None else pair_const[start:start + qt])
+        out_v.append(v)
+        out_i.append(i)
+    if len(out_v) == 1:
+        return out_v[0], out_i[0]
+    return torch.cat(out_v, 0), torch.cat(out_i, 0)
+
+
+def static_plan(probes, cls_ord, classes, class_counts, n_lists: int):
+    """``plan`` of :func:`_scan_tiles` on the worst-case layout per tile:
+    no device→host fetch between the coarse step and the result."""
+    p = probes.shape[1]
+
+    def plan(start, qt):
+        region_starts, s_tot, layout = static_layout(
+            classes, class_counts, qt, p)
+        qids, strip_list, pair_strip, pair_slot, _ = _plan_device(
+            probes[start:start + qt], cls_ord, n_lists, region_starts, s_tot)
+        return qids, strip_list, pair_strip, pair_slot, layout
+
+    return plan
+
+
+def _k1_class_fn(list_data, bias, alpha: float, kf: int, approx_ok: bool):
+    return lambda sl, a, w_blocks, n_sub, rows: strip_class(
+        sl, a, list_data, bias, w_blocks, n_sub, alpha, kf, approx_ok, rows)
+
+
 def strip_search_traced(queries_mat, probes, list_data, bias, list_ids,
                         cls_ord, classes, class_counts, k: int, kf: int,
                         alpha: float, q_tile: int, pair_const=None,
                         approx_ok: bool = False):
     """Strip search on a static worst-case layout per query tile: no
     device→host fetch between the coarse step and the result."""
-    q, p = probes.shape
-    n_lists = list_data.shape[0]
-    out_v, out_i = [], []
-    for start in range(0, q, q_tile):
-        qt = min(q_tile, q - start)
-        region_starts, s_tot, layout = static_layout(
-            classes, class_counts, qt, p)
-        qids, strip_list, pair_strip, pair_slot, _ = _plan_device(
-            probes[start:start + qt], cls_ord, n_lists, region_starts, s_tot)
-        v, i = _strip_tile_body(
-            queries_mat[start:start + qt], qids, strip_list, pair_strip,
-            pair_slot, list_data, bias, list_ids, layout, int(k), kf,
-            float(alpha),
-            None if pair_const is None else pair_const[start:start + qt],
-            approx_ok)
-        out_v.append(v)
-        out_i.append(i)
-    if len(out_v) == 1:
-        return out_v[0], out_i[0]
-    return torch.cat(out_v, 0), torch.cat(out_i, 0)
+    plan = static_plan(probes, cls_ord, classes, class_counts,
+                       list_data.shape[0])
+    return _scan_tiles(queries_mat, probes, list_ids, k, kf, q_tile, plan,
+                       _k1_class_fn(list_data, bias, float(alpha), kf,
+                                    approx_ok), pair_const)
+
+
+def search_planned(queries_mat, probes, list_ids, lens, k: int, dim: int,
+                   workspace_bytes: int, class_fn_for, pair_const=None):
+    """Plan each query tile from its real per-class strip counts and scan
+    it: ``class_fn_for(kf)`` gives the per-class function. ``dim`` is the
+    width the classes are planned at. Shared by :func:`strip_search` and
+    the packed scan's entry point."""
+    dev = list_ids.device
+    probes = torch.as_tensor(probes, device=dev)
+    m = list_ids.shape[1]
+    if not strip_eligible(m):
+        raise ValueError(
+            f"list_data dim 1 must be a power-of-two multiple of {MC}, got {m}")
+    if k > MC:
+        raise ValueError(f"strip_search supports k <= {MC}, got {k}")
+    kf = min(int(k), MC)
+    n_lists = list_ids.shape[0]
+    classes, cls_ord_np = class_info(np.asarray(lens), dim=dim)
+    cls_ord = torch.as_tensor(cls_ord_np, device=dev)
+    q_tile = fit_q_tile(probes.shape[0], probes.shape[1], n_lists,
+                        len(classes), kf, workspace_bytes, dim=dim)
+    return _scan_tiles(
+        queries_mat, probes, list_ids, k, kf, q_tile,
+        lambda start, qt: plan_tile(probes, start, qt, cls_ord, classes,
+                                    n_lists),
+        class_fn_for(kf), pair_const)
 
 
 def strip_search(queries_mat, probes, list_data, list_bias, list_ids, lens,
@@ -554,35 +638,10 @@ def strip_search(queries_mat, probes, list_data, list_bias, list_ids, lens,
     multiple of 512; ``list_bias`` (n_lists, m) fp32, +inf at padding;
     ``list_ids`` (n_lists, m), -1 at padding; ``lens`` (n_lists,) real
     entry counts. All tensors on one device; the scan runs there."""
-    dev = list_data.device
-    queries_mat = torch.as_tensor(queries_mat, device=dev)
-    probes = torch.as_tensor(probes, device=dev)
-    q = queries_mat.shape[0]
-    lens_np = np.asarray(lens)
-    n_lists, m = list_data.shape[0], list_data.shape[1]
-    if not strip_eligible(m):
-        raise ValueError(
-            f"list_data dim 1 must be a power-of-two multiple of {MC}, got {m}")
-    if k > MC:
-        raise ValueError(f"strip_search supports k <= {MC}, got {k}")
-    kf = min(int(k), MC)
-    classes, cls_ord_np = class_info(lens_np, dim=queries_mat.shape[1])
-    cls_ord = torch.as_tensor(cls_ord_np, device=dev)
-    q_tile = fit_q_tile(q, probes.shape[1], n_lists, len(classes), kf,
-                        workspace_bytes, dim=queries_mat.shape[1])
-    out_v, out_i = [], []
-    for start in range(0, q, q_tile):
-        qt = min(q_tile, q - start)
-        qids, strip_list, pair_strip, pair_slot, layout = plan_tile(
-            probes, start, qt, cls_ord, classes, n_lists)
-        v, i = _strip_tile_body(
-            queries_mat[start:start + qt], qids, strip_list, pair_strip,
-            pair_slot, list_data, list_bias, list_ids, layout, int(k), kf,
-            float(alpha),
-            None if pair_const is None else pair_const[start:start + qt],
-            approx_ok)
-        out_v.append(v)
-        out_i.append(i)
-    if len(out_v) == 1:
-        return out_v[0], out_i[0]
-    return torch.cat(out_v, 0), torch.cat(out_i, 0)
+    queries_mat = torch.as_tensor(queries_mat, device=list_data.device)
+    return search_planned(
+        queries_mat, probes, list_ids, lens, k, queries_mat.shape[1],
+        workspace_bytes,
+        lambda kf: _k1_class_fn(list_data, list_bias, float(alpha), kf,
+                                approx_ok),
+        pair_const)

@@ -12,8 +12,9 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import Resources, resolve_device
-from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_pq, refine
 from raft_tpu_torch.ops import _native
+from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import strip_scan as ss
 
 torch.set_num_threads(2)
@@ -49,9 +50,54 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_are_in_the_package():
-    assert _native.SOURCE.is_file()
-    assert _native.SOURCE.parent == _native.CSRC
+    names = [src.name for src in _native.sources()]
+    assert names == ["bq_scan.cu", "strip_scan.cu"]
+    for src in _native.sources():
+        assert src.is_file() and src.parent == _native.CSRC
+        assert '#include "strip_common.cuh"' in src.read_text()
+    assert [h.name for h in _native.headers()] == ["strip_common.cuh"]
     assert "_build" in (REPO / ".gitignore").read_text()
+
+
+def test_library_paths_follow_sources_and_the_shared_header(tmp_path,
+                                                            monkeypatch):
+    """Each source builds its own library, keyed by its own text and the
+    shared header's: editing the header rebuilds every kernel."""
+    for f in _native.sources() + _native.headers():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_native, "CSRC", tmp_path)
+    k1, k2 = tmp_path / "strip_scan.cu", tmp_path / "bq_scan.cu"
+    before = {s: _native.library_path(s) for s in (k1, k2)}
+    assert before[k1] != before[k2]
+    assert before[k1].name.startswith("libstrip_scan-")
+    assert before[k2].name.startswith("libbq_scan-")
+    assert _native.library_path(k1) == before[k1]      # deterministic
+    header = tmp_path / "strip_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for src in (k1, k2):
+        assert _native.library_path(src) != before[src]
+    edited_k2 = _native.library_path(k2)
+    k1.write_text(k1.read_text() + "\n// edited\n")
+    assert _native.library_path(k2) == edited_k2        # K1's text only moves K1
+
+
+def test_build_reports_what_nvcc_refuses(tmp_path, monkeypatch):
+    """One nvcc per source, started together; a failure names its source."""
+    (tmp_path / "good.cu").write_text("// fine\n")
+    (tmp_path / "bad.cu").write_text("// refused\n")
+    monkeypatch.setattr(_native, "CSRC", tmp_path)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "_build")
+    script = tmp_path / "fake_nvcc"
+    script.write_text("#!/bin/sh\n"
+                      "for a in \"$@\"; do last=$a; out=$prev; prev=$a; done\n"
+                      "case $last in *bad.cu) echo refused; exit 2;; esac\n"
+                      "touch \"$out\"\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(_native, "nvcc", lambda: str(script))
+    with pytest.raises(RuntimeError, match="bad.cu: nvcc exit 2"):
+        _native.build()
+    assert _native.library_path(tmp_path / "good.cu").exists()
+    assert not _native.library_path(tmp_path / "bad.cu").exists()
 
 
 @pytest.fixture
@@ -70,6 +116,8 @@ def _entry_points(x, q, **dev):
     idx_cpu = ivf_pq.build(x, ivf_pq.IvfPqParams(
         n_lists=4, pq_dim=4, group_size=512, kmeans_n_iters=2,
         codebook_n_iters=2), device="cpu")
+    bq_params = ivf_bq.IvfBqParams(n_lists=4, kmeans_n_iters=2)
+    bq_cpu = ivf_bq.build(x, bq_params, device="cpu")
     bf_cpu = brute_force.build(x, device="cpu")
     return {
         "kmeans_balanced.fit": lambda: kmeans_balanced.fit(
@@ -79,6 +127,11 @@ def _entry_points(x, q, **dev):
             codebook_n_iters=2), **dev),
         "ivf_pq.search": lambda: ivf_pq.search(idx_cpu, q, 5, n_probes=2,
                                                **dev),
+        "ivf_bq.build": lambda: ivf_bq.build(x, bq_params, **dev),
+        "ivf_bq.search": lambda: ivf_bq.search(bq_cpu, q, 5, n_probes=2,
+                                               **dev),
+        "ivf_bq.search_refined": lambda: ivf_bq.search_refined(
+            bq_cpu, x, q, 5, n_probes=2, **dev),
         "refine": lambda: refine.refine(x, q, np.zeros((16, 8), np.int32), 5,
                                         **dev),
         "brute_force.build": lambda: brute_force.build(x, **dev),
@@ -87,8 +140,10 @@ def _entry_points(x, q, **dev):
 
 
 @pytest.mark.parametrize("name", ["kmeans_balanced.fit", "ivf_pq.build",
-                                  "ivf_pq.search", "refine",
-                                  "brute_force.build", "brute_force.search"])
+                                  "ivf_pq.search", "ivf_bq.build",
+                                  "ivf_bq.search", "ivf_bq.search_refined",
+                                  "refine", "brute_force.build",
+                                  "brute_force.search"])
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -138,3 +193,49 @@ def test_k1_wrapper_rejects_what_the_kernel_cannot_take():
         ss.strip_class(sl, a, b, bias, 1, 1, -2.0, ss.MAX_KF + 1)
     with pytest.raises(ValueError, match="spans"):
         ss.strip_class(sl, a, b, bias, 1, 2, -2.0, 10)
+
+
+def _k2_operands(rng, nb=16):
+    sl = torch.tensor([0, -1, 1], dtype=torch.int32)
+    a = torch.from_numpy(rng.standard_normal((3, ss.C, 8 * nb)).astype(
+        np.float32)).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, 256, (2, 512, nb)).astype(np.uint8))
+    scale = torch.from_numpy(rng.uniform(0.5, 2, (2, 512)).astype(np.float32))
+    bias = torch.from_numpy(rng.random((2, 512)).astype(np.float32))
+    return sl, a, codes, scale, bias
+
+
+def test_k2_wrapper_takes_plain_path_on_cpu_without_counting():
+    sl, a, codes, scale, bias = _k2_operands(np.random.default_rng(2))
+    before = (bq.BQ_KERNEL.launches, ss.STRIP_KERNEL.launches)
+    got = bq.bq_class(sl, a, codes, scale, bias, 1, 1, -2.0, 40)
+    want = bq._bq_class_plain(sl, a, codes, scale, bias, 1, 1, -2.0, 40)
+    assert (bq.BQ_KERNEL.launches, ss.STRIP_KERNEL.launches) == before
+    for g, w in zip(got, want):
+        assert torch.equal(g[sl >= 0], w[sl >= 0])
+
+
+def test_k2_wrapper_rejects_what_the_kernel_cannot_take():
+    sl, a, codes, scale, bias = _k2_operands(np.random.default_rng(3))
+    with pytest.raises(ValueError, match="kf"):
+        bq.bq_class(sl, a, codes, scale, bias, 1, 1, -2.0, ss.MAX_KF + 1)
+    with pytest.raises(ValueError, match="spans"):
+        bq.bq_class(sl, a, codes, scale, bias, 1, 2, -2.0, 10)
+    with pytest.raises(ValueError, match="dim mismatch"):
+        bq.bq_class(sl, a[:, :, :64], codes, scale, bias, 1, 1, -2.0, 10)
+    with pytest.raises(ValueError, match="scale"):
+        bq.bq_class(sl, a, codes, scale[:, :256], bias, 1, 1, -2.0, 10)
+    # the checks a CUDA call makes before it launches (run here on CPU
+    # tensors: they reject before any card is touched)
+    with pytest.raises(TypeError, match="bf16"):
+        ss.check_cuda_operands(a.float(), sl, None, list_codes=codes,
+                               scale=scale, bias=bias)
+    with pytest.raises(TypeError, match="scale must be fp32"):
+        ss.check_cuda_operands(a, sl, None, list_codes=codes,
+                               scale=scale.double(), bias=bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.check_cuda_operands(a, sl, None, list_codes=codes[:, ::2],
+                               scale=scale, bias=bias)
+    with pytest.raises(ValueError, match="strip_rows"):
+        ss.check_cuda_operands(a, sl, sl.long(), list_codes=codes,
+                               scale=scale, bias=bias)
