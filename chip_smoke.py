@@ -4,22 +4,28 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py               # everything, as the chip check runs it
     python3 chip_smoke.py --skip-main   # device, build and kernel parity only
+    python3 chip_smoke.py --ab OLD_TREE # K1, K2 of an older checkout vs this one
 
 Phases, one JSON line each:
 
 1. device — the card's name and power limit as nvidia-smi prints them;
 2. build — every kernel source under ``raft_tpu_torch/ops/csrc`` compiled
-   with nvcc, one process per source, all at once;
-3. parity — kernel K1 (strip scan) against its plain twin on the card:
-   main-path shapes (dim 128, int8 lists, w ∈ {1024, 2048, 4096},
-   kf ∈ {10, 20, 40}), a multi-sub-block class, padding strips and dead
-   sub-blocks, ±inf/NaN bias lanes, fp32 and bf16 lists, kf = 512; then
-   kernel K2 (packed 1-bit scan) against its twin: main-path shapes
-   (rot_dim 128, 1 bit, w ∈ {1024, 2048, 4096}, kf ∈ {40, 80, 320}),
-   2- and 4-bit codes, dead sub-blocks, ±inf/NaN bias with scale 0 at
-   padding, the tournament at kf 20, kf 512, rot_dim 40;
+   with nvcc, one process per source, all at once; then (``ptxas``) each
+   kernel's registers, stack frame and spill bytes from the build log;
+3. parity — each kernel against its plain twin on the card: K1 (strip
+   scan; main-path shapes at dim 128, int8 lists, w ∈ {1024, 2048, 4096},
+   kf ∈ {10, 20, 40}, a multi-sub-block class, padding strips and dead
+   sub-blocks, ±inf/NaN bias lanes, fp32, bf16 and uint8 lists, kf = 512);
+   K2 (packed 1-bit scan; rot_dim 128 at w 1024–4096 × kf 40/80/320, 2-
+   and 4-bit codes, dead sub-blocks, ±inf/NaN bias, the tournament at kf
+   20, kf 512, rot_dim 40); K3 (paged scan; the serving plan w = 4096 with
+   128-row pages, 32-row pages with tiles spanning pages, w = 64, 24-row
+   pages, chains of 0, 1, partial and full length, a dead second
+   sub-block, a filtered first sub-block, tombstones, NaN in every page no
+   chain holds, kf 10…320, uint8/int8/bf16/fp32 pages); K4 (paged packed
+   scan; bits 1/2/4, kf 10…320, rot_dim 40);
 4. main — ``sift_like(1_000_000, 128, 10_000)`` and its tiled brute-force
-   ground truth, made once for both paths. IVF-PQ: ``ivf_pq.build`` at the
+   ground truth, made once for every path. IVF-PQ: ``ivf_pq.build`` at the
    bench's parameters (n_lists 1024, pq_dim 64, 8 bits, train fraction
    0.2), the bench's n_probes / k_fetch escalation with exact refine to
    k = 10, recall@10 ≥ 0.95 asserted, QPS over three 10k-query batches
@@ -30,7 +36,25 @@ Phases, one JSON line each:
    (n_lists 1024, 1 bit, dense rotation, train fraction 0.2), the bench's
    escalation (n_probes 16…256 at k_fetch 40, then k_fetch 80, 160, 320 at
    the best n_probes), refine to k = 10, recall@10 ≥ 0.95 and K2 launches
-   asserted, QPS; then K2 at the path's own class inputs.
+   asserted, QPS; then K2 at the path's own class inputs;
+6. flat — IVF-Flat at the bench's parameters (n_lists 1024, train
+   fraction 0.2, uint8 lists): n_probes 16…256 at k = 10 until recall@10
+   ≥ 0.95, no refine; QPS, K1's launches on uint8 lists, K1 at the path's
+   inputs;
+7. serve — the bench serving section's data plane on that index: a
+   ``PagedListStore`` of 128-row pages, reserved for the window (plan and
+   ``stats()`` printed); paged search through K3 (recall ≥ 0.95, ids
+   agreeing with the packed search, QPS, batch-1 and batch-64 latency);
+   a 64-round window (upsert 32 query vectors under ids 1,000,000 + i,
+   search the 64 newest, delete the batch of 8 rounds earlier): 100%
+   read-back, no deleted id returned, no growth; compact → packed search
+   through K1 agrees, compact_swap keeps capacity, width and results; K3
+   at the path's own class inputs;
+8. serve.pq / serve.bq — stores made from the IVF-PQ and IVF-BQ indexes,
+   paged search at each path's chosen (n_probes, k_fetch) with exact
+   refine (K3 over the int8 cache, K4 over the codes), recall ≥ 0.95, one
+   upsert/delete round (≥ 99% read-back before refine, no deleted id);
+   K3 (on the int8 cache) and K4 at their paths' own class inputs.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
@@ -48,6 +72,8 @@ import time
 
 K1_SOURCE = "raft_tpu_torch/ops/csrc/strip_scan.cu"
 K2_SOURCE = "raft_tpu_torch/ops/csrc/bq_scan.cu"
+K3_SOURCE = "raft_tpu_torch/ops/csrc/paged_scan.cu"
+K4_SOURCE = "raft_tpu_torch/ops/csrc/paged_bq_scan.cu"
 # the main paths' size: the JAX bench's IVF-PQ and IVF-BQ sections
 N_ROWS = 1_000_000
 N_QUERIES = 10_000
@@ -55,6 +81,8 @@ N_LISTS = 1024
 K = 10
 K1_REPLACES = "raft_tpu/ops/strip_scan.py:340"
 K2_REPLACES = "raft_tpu/ops/bq_scan.py:174"
+K3_REPLACES = "raft_tpu/ops/strip_scan.py:955"
+K4_REPLACES = "raft_tpu/ops/bq_scan.py:438"
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -109,7 +137,7 @@ def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
     """One length class with random lists, bias and query blocks on
     ``dev``: padding strips scattered among the real ones, and strips
     whose real query rows are a prefix of their slots. ``b_dtype`` "int8",
-    "bf16" or "fp32" makes K1's list rows; "packed" makes K2's: ``dim/8``
+    "uint8", "bf16" or "fp32" makes K1's list rows; "packed" makes K2's: ``dim/8``
     random code bytes per row, with a scale drawn per row (0 at padding).
     Returns the keyword arguments of the class call and the per-strip row
     counts."""
@@ -123,6 +151,9 @@ def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
     if b_dtype == "int8":
         b = torch.randint(-127, 128, (n_lists, m, dim), generator=g, device=dev,
                           dtype=torch.int8)
+    elif b_dtype == "uint8":
+        b = torch.randint(0, 256, (n_lists, m, dim), generator=g, device=dev,
+                          dtype=torch.uint8)
     elif b_dtype == "packed":
         b = torch.randint(0, 256, (n_lists, m, dim // 8), generator=g,
                           device=dev, dtype=torch.uint8)
@@ -177,6 +208,10 @@ PARITY_CASES = (
         True),
        ("bf16_lists_kf10", dict(w_blocks=1, n_sub=1, kf=10, b_dtype="bf16"),
         False),
+       ("uint8_lists_kf10", dict(w_blocks=2, n_sub=1, kf=10, b_dtype="uint8"),
+        False),
+       ("uint8_n_sub2_dead_kf40",
+        dict(w_blocks=1, n_sub=2, kf=40, b_dtype="uint8", dead=True), False),
        ("kf512_n_sub2", dict(w_blocks=1, n_sub=2, kf=512, dim=64), False),
        ("dim40_scalar_staging_kf20", dict(w_blocks=2, n_sub=1, kf=20, dim=40),
         True)]
@@ -209,7 +244,10 @@ def _kernel_pair(kernel):
     from raft_tpu_torch.ops import strip_scan as ss
 
     return {"strip_scan": (ss.strip_class, ss._strip_class_plain),
-            "bq_scan": (bq.bq_class, bq._bq_class_plain)}[kernel]
+            "bq_scan": (bq.bq_class, bq._bq_class_plain),
+            "paged_scan": (ss.paged_class, ss._paged_class_plain),
+            "paged_bq_scan": (bq.paged_bq_class,
+                              bq._paged_bq_class_plain)}[kernel]
 
 
 def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
@@ -232,6 +270,153 @@ def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
                                                   approx_ok),
               **verdict})
         if not verdict["ok"]:
+            raise AssertionError(f"{kernel} kernel disagrees with its plain "
+                                 f"version on case {name}: {verdict}")
+        worst = max(worst, verdict["max_abs_err"])
+    return worst
+
+
+def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
+                    payload="uint8", n_lists=16, s_real=24, s_pad=32,
+                    dev="cuda"):
+    """One paged class on ``dev``: a page pool with chains of 0, 1,
+    partial and full length (one ending on a sub-block boundary, so the
+    next sub-block is dead), a list whose first sub-block is all +inf
+    (filtered out), tombstones and never-filled tail slots at +inf bias,
+    NaN payload and bias in every page no chain holds (page 0 among them),
+    padding strips and strips with a prefix of real rows. ``payload``
+    "uint8", "int8", "bf16" or "fp32" makes K3's pages; "bits1", "bits2",
+    "bits4" make K4's codes (``dim`` is rot_dim) with a scale pool.
+    Returns the keyword arguments of the class call and the per-strip row
+    counts."""
+    import torch
+
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    R, W = page_rows, table_width
+    n_sub = max(1, W // ppf)
+    cap = n_lists * W + 8
+    chains = torch.randint(0, W + 1, (n_lists,), generator=g, device=dev)
+    chains[0], chains[1], chains[2] = 0, 1, max(1, ppf // 2)
+    chains[3] = min(ppf, W)
+    chains[4] = W
+    perm = 1 + torch.randperm(cap - 1, generator=g, device=dev)
+    slot = torch.arange(W, device=dev)
+    first = torch.cumsum(chains, 0) - chains
+    table = torch.where(slot[None, :] < chains[:, None],
+                        perm[(first[:, None] + slot[None, :]).clamp(
+                            max=cap - 2)], -1)
+    chained = torch.zeros(cap, dtype=torch.bool, device=dev)
+    chained[table[table >= 0]] = True
+    if payload.startswith("bits"):
+        nb = int(payload[4:]) * dim // 8
+        pages = torch.randint(0, 256, (cap, R, nb), generator=g, device=dev,
+                              dtype=torch.uint8)
+        a_width = 8 * nb
+    elif payload in ("uint8", "int8"):
+        lo = 0 if payload == "uint8" else -127
+        pages = torch.randint(lo, lo + 255, (cap, R, dim), generator=g,
+                              device=dev).to(getattr(torch, payload))
+        a_width = dim
+    else:
+        pages = torch.randn((cap, R, dim), generator=g, device=dev) * 16
+        pages[~chained] = float("nan")
+        pages = pages.to(torch.bfloat16 if payload == "bf16" else torch.float32)
+        a_width = dim
+    bias = torch.rand((cap, R), generator=g, device=dev) * 1000.0
+    tomb = torch.rand((cap, R), generator=g, device=dev) < 0.03
+    bias = torch.where(tomb, float("inf"), bias)
+    fill = torch.randint(1, R + 1, (n_lists,), generator=g, device=dev)
+    for l in range(n_lists):                          # tail pages
+        if int(chains[l]):
+            bias[table[l, int(chains[l]) - 1], int(fill[l]):] = float("inf")
+    if n_sub > 1:
+        bias[table[4, :ppf]] = float("inf")           # filtered first block
+    bias[~chained] = float("nan")
+    strip_list = torch.randint(0, n_lists, (s_pad,), generator=g, device=dev)
+    strip_list[:n_lists] = torch.arange(n_lists, device=dev)
+    pad = n_lists + torch.randperm(s_pad - n_lists, generator=g,
+                                   device=dev)[:s_pad - s_real]
+    strip_list[pad] = -1
+    rows = torch.randint(1, 193, (s_pad,), generator=g, device=dev)
+    rows[: s_pad // 2] = 192
+    slots = torch.arange(192, device=dev)[None, :, None]
+    a = torch.randn((s_pad, 192, a_width), generator=g, device=dev) * 4
+    a = torch.where(slots < rows[:, None, None], a, 0.0)
+    table = table.to(torch.int32)
+    chains = chains.to(torch.int32)
+    call = dict(strip_list=strip_list.to(torch.int32).contiguous(),
+                table_flat=table.reshape(-1).contiguous(),
+                chain_pages=chains.contiguous(),
+                sub_live=ss.paged_sub_live(bias, table, chains, ppf,
+                                           n_sub).contiguous(),
+                a=a.to(torch.bfloat16).contiguous(),
+                bias_pool=bias.contiguous(), ppf=ppf, n_sub=n_sub,
+                page_rows=R, table_width=W, alpha=-2.0, kf=kf)
+    if payload.startswith("bits"):
+        scale = 0.5 + 1.5 * torch.rand((cap, R), generator=g, device=dev)
+        call.update(codes=pages.contiguous(), scale_pool=torch.where(
+            torch.isfinite(bias), scale, 0.0).contiguous())
+    else:
+        call.update(pages=pages.contiguous())
+    return call, rows.to(torch.int32).contiguous()
+
+
+# (name, synthetic_paged keywords): K3's pages, then K4's codes
+K3_PARITY_CASES = (
+    [(f"serve_r128_w4096_kf{kf}", dict(page_rows=128, table_width=64, ppf=32,
+                                       kf=kf)) for kf in (10, 20, 40)]
+    + [("r32_w64_kf20", dict(page_rows=32, table_width=2, ppf=2, kf=20)),
+       ("r32_nsub2_spanning_tiles_kf40",
+        dict(page_rows=32, table_width=16, ppf=8, kf=40, payload="int8")),
+       ("r128_nsub2_kf80", dict(page_rows=128, table_width=8, ppf=4, kf=80)),
+       ("r128_kf320_fp32", dict(page_rows=128, table_width=8, ppf=4, kf=320,
+                                payload="fp32")),
+       ("r24_w384_bf16_kf40", dict(page_rows=24, table_width=32, ppf=16,
+                                   kf=40, payload="bf16", dim=64)),
+       ("pq_cache_r128_kf40", dict(page_rows=128, table_width=64, ppf=32,
+                                   kf=40, payload="int8"))])
+K4_PARITY_CASES = (
+    [(f"serve_bits1_r128_kf{kf}",
+      dict(page_rows=128, table_width=64, ppf=32, kf=kf, payload="bits1"))
+     for kf in (40, 80, 320)]
+    + [("bits2_r32_nsub2_kf20", dict(page_rows=32, table_width=16, ppf=8,
+                                     kf=20, payload="bits2")),
+       ("bits4_r128_kf40", dict(page_rows=128, table_width=8, ppf=4, kf=40,
+                                payload="bits4")),
+       ("bits1_r32_w64_kf10", dict(page_rows=32, table_width=2, ppf=2, kf=10,
+                                   payload="bits1")),
+       ("bits1_rot40_scalar_kf20", dict(page_rows=64, table_width=8, ppf=4,
+                                        kf=20, payload="bits1", dim=40))])
+
+
+def paged_parity_phase(kernel, cases, seed0, dev="cuda"):
+    """K3 or K4 against its plain twin on synthetic paged classes. Besides
+    the finite candidates, the +inf slots must carry the twin's offsets
+    (the positions the all-+inf remainder of a block gives)."""
+    import torch
+
+    wrapper, plain = _kernel_pair(kernel)
+    worst = 0.0
+    for i, (name, kw) in enumerate(cases):
+        call, rows = synthetic_paged(seed0 + i, dev=dev, **kw)
+        got = wrapper(**call, strip_rows=rows)
+        want = plain(**call)
+        if call["a"].is_cuda:
+            torch.cuda.synchronize()
+        verdict = compare(got, want, call["strip_list"], rows)
+        slots = torch.arange(192, device=rows.device)[None, :]
+        live = (call["strip_list"] >= 0)[:, None] & (slots < rows[:, None])
+        inf = torch.isinf(want[0][live])
+        verdict["inf_offsets_equal"] = bool(torch.equal(got[1][live][inf],
+                                                        want[1][live][inf]))
+        emit({"phase": "parity", "kernel": kernel, "case": name,
+              "n_sub": call["n_sub"], "w": call["ppf"] * call["page_rows"],
+              **verdict})
+        if not (verdict["ok"] and verdict["inf_offsets_equal"]):
             raise AssertionError(f"{kernel} kernel disagrees with its plain "
                                  f"version on case {name}: {verdict}")
         worst = max(worst, verdict["max_abs_err"])
@@ -387,6 +572,8 @@ def reset_counts():
 
     ss.STRIP_KERNEL.reset()
     bq.BQ_KERNEL.reset()
+    ss.PAGED_KERNEL.reset()
+    bq.PAGED_BQ_KERNEL.reset()
 
 
 def shared_data(n=N_ROWS, q=N_QUERIES, dev="cuda"):
@@ -412,6 +599,12 @@ def shared_data(n=N_ROWS, q=N_QUERIES, dev="cuda"):
             "data_gen_s": gen_s, "ground_truth_s": time.perf_counter() - t}
 
 
+def class_width(c) -> int:
+    """Columns per sub-block of a class call: w_blocks·512, or ppf·R for
+    the paged kernels."""
+    return c["ppf"] * c["page_rows"] if "ppf" in c else c["w_blocks"] * 512
+
+
 def kernel_parity_at(calls, kernel, case):
     """The kernel against its twin on a search's own class inputs."""
     wrapper, plain = _kernel_pair(kernel)
@@ -420,7 +613,7 @@ def kernel_parity_at(calls, kernel, case):
         verdict = compare(wrapper(**c), plain(**c), c["strip_list"],
                           c["strip_rows"])
         emit({"phase": "parity", "kernel": kernel,
-              "case": f"{case}_w{512 * c['w_blocks']}",
+              "case": f"{case}_w{class_width(c)}",
               "strips": int((c["strip_list"] >= 0).sum()), **verdict})
         if not verdict["ok"]:
             raise AssertionError(f"{kernel} disagrees with its plain "
@@ -429,18 +622,20 @@ def kernel_parity_at(calls, kernel, case):
     return worst
 
 
-def kernel_timing(calls, kernel, yardstick, bytes_per_col):
-    """One search's worth of a kernel's launches: its time, by class, its
-    twin's, the yardstick's, and the bound."""
+def kernel_timing(calls, kernel, yardstick, bytes_per_col, bound=None):
+    """One search's worth of a kernel's launches: its time, by class (w,
+    n_sub), its twin's, the yardstick's, and the bound (``scan_bound`` for
+    the packed kernels, ``paged_scan_bound`` for the paged ones)."""
     wrapper, plain = _kernel_pair(kernel)
     k_ms = cuda_ms(lambda: [wrapper(**c) for c in calls])
     by_class = {}
     for c in calls:       # classes of all query tiles, summed per class
-        key = (c["w_blocks"] * 512, c["n_sub"])
+        key = (class_width(c), c["n_sub"])
         by_class[key] = by_class.get(key, 0.0) + cuda_ms(lambda c=c: wrapper(**c))
     p_ms = cuda_ms(lambda: [plain(**c) for c in calls], reps=3)
     l_ms = cuda_ms(lambda: [yardstick(c) for c in calls], reps=3)
-    bound_ms, bound_by, nbytes, flops = scan_bound(calls, bytes_per_col)
+    bound_ms, bound_by, nbytes, flops = (bound or scan_bound)(calls,
+                                                              bytes_per_col)
     return {"ms": k_ms, "ms_by_class": [[w, ns, ms] for (w, ns), ms
                                         in sorted(by_class.items())],
             "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms,
@@ -540,7 +735,7 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
           **timing})
     return {"launches": launches, "max_abs_err": max_err,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}}
+                                      "library_ms")}}, (index, pick)
 
 
 def bq_gate_escalate(run_pair, recall_of, k: int, probe_ladder) -> dict:
@@ -656,13 +851,563 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
           **timing})
     return {"launches": launches, "max_abs_err": max_err,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}, (index, pick)
+
+
+SERVE_PLAN_PAGE_ROWS = 128   # the bench serving section's page height
+WINDOW_ROUNDS = 64           # mutation window: rounds of
+UPSERT_ROWS = 32             # upsert 32 rows, search 64 queries, delete
+DELETE_LAG = 8               # the batch upserted 8 rounds earlier (FIFO)
+UPSERT_ID0 = 1_000_000
+
+
+def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
+    """IVF-Flat at the bench's parameters on uint8 lists: the escalation
+    n_probes 16…256 at k = 10 until recall@10 ≥ 0.95 (no refine: uint8
+    distances are exact in bf16 × bf16 → fp32), QPS over three batches,
+    K1's launches, then K1 at the path's own class inputs."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    dataset, qs = shared["dataset"], shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    q = qs.shape[0]
+    t = time.perf_counter()
+    index = ivf_flat.build(dataset, ivf_flat.IvfFlatParams(
+        n_lists=n_lists, kmeans_trainset_fraction=0.2), res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    emit({"phase": "flat.setup", "rows": dataset.shape[0], "n_lists": n_lists,
+          "list_dtype": str(index.list_data.dtype).replace("torch.", ""),
+          "max_list_size": index.max_list_size, "build_s": build_s})
+    reset_counts()
+    pick = None
+    for n_probes in (16, 32, 64, 128, 256):
+        v, i = ivf_flat.search(index, qs, K, n_probes=n_probes, res=res)
+        rec = neighborhood_recall(i, gt_i, v, gt_v)
+        emit({"phase": "flat.escalate", "n_probes": n_probes, "recall": rec})
+        pick = {"n_probes": n_probes, "recall": rec}
+        if rec >= 0.95:
+            break
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, i = ivf_flat.search(index, qs, K, n_probes=pick["n_probes"],
+                               res=res)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = ss.STRIP_KERNEL.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    if not bool(torch.isfinite(v).all()) or tuple(i.shape) != (q, K):
+        raise AssertionError("IVF-Flat returned non-finite or misshapen results")
+    if rec < 0.95:
+        raise AssertionError(f"IVF-Flat recall@10 {rec} < 0.95 at {pick}")
+    if launches <= 0:
+        raise AssertionError("the IVF-Flat path never launched K1")
+    emit({"phase": "flat.search", **pick, "recall_final": rec,
+          "qps": len(times) * q / sum(times), "batch_s": times,
+          "k1_launches_uint8": launches})
+    calls, qt = flat_path_class_inputs(index, qs, pick["n_probes"], K, res)
+    kernel_parity_at(calls, "strip_scan",
+                     f"flat_path_nprobe{pick['n_probes']}_kf{K}")
+    timing = kernel_timing(calls, "strip_scan", library_yardstick,
+                           index.dim + 4)
+    emit({"phase": "flat.k1", "n_probes": pick["n_probes"], "kf": K,
+          "query_tile": qt, "list_dtype": "uint8",
+          "classes": [[c["w_blocks"] * 512, c["n_sub"],
+                       int((c["strip_list"] >= 0).sum())] for c in calls],
+          **timing})
+    return index, pick, (v, i)
+
+
+def flat_path_class_inputs(index, queries, n_probes, kf, res):
+    """The per-class arguments an IVF-Flat search hands K1 (uint8 rows)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    queries = queries.to(torch.float32)
+    probes = ivf_flat._coarse_probes(queries, index.centers, n_probes,
+                                     index.metric)
+    bias = ivf_flat._ragged_bias(index.list_ids, index.list_norms, "l2")
+    classes, class_counts, cls_ord, q_tile = ivf_flat._ragged_plan_static(
+        index, n_probes, kf, res, index.dim)
+    qt = min(q_tile, queries.shape[0])
+    return class_calls(probes, queries, index.n_lists, cls_ord, classes,
+                       class_counts, qt, kf,
+                       dict(list_data=index.list_data, bias=bias,
+                            alpha=-2.0)), qt
+
+
+def paged_class_inputs(snapshot, probes, a_rows, kf, row_bytes, q_tile,
+                       alpha, codes=False):
+    """The per-class arguments a paged search hands K3 (or, ``codes``,
+    K4): every query tile planned on the capacity layout as the search
+    plans it. ``snapshot`` is the store's ``paged_scan_state()``."""
+    import torch
+
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    payload, bias_pool, scale_pool, _, table, chain = snapshot
+    plan, table_flat, chain, sub_live = ss.paged_scan_setup(
+        payload, bias_pool, table, chain, probes, kf, row_bytes)
+    calls = []
+    for start in range(0, probes.shape[0], q_tile):
+        qt = min(q_tile, probes.shape[0] - start)
+        qids, strip_list, _, _, layout = plan(start, qt)
+        a_grouped = ss.group_queries(a_rows[start:start + qt], qids)
+        strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+        for (ppf, n_sub, st, count) in layout:
+            c = dict(strip_list=strip_list[st:st + count].contiguous(),
+                     table_flat=table_flat, chain_pages=chain,
+                     sub_live=sub_live, a=a_grouped[st:st + count].contiguous(),
+                     bias_pool=bias_pool, ppf=ppf, n_sub=n_sub,
+                     page_rows=payload.shape[1], table_width=table.shape[1],
+                     alpha=alpha, kf=kf,
+                     strip_rows=strip_rows[st:st + count])
+            if codes:
+                c.update(codes=payload, scale_pool=scale_pool)
+            else:
+                c.update(pages=payload)
+            calls.append(c)
+    return calls
+
+
+def paged_scan_bound(calls, bytes_per_col):
+    """``scan_bound`` for the paged kernels: each probed list's live
+    columns (finite-bias rows of its chained pages) read once at
+    ``bytes_per_col``, the query blocks of live strips and the outputs
+    once, and 2·rows·live_cols·dim flops for the real query rows."""
+    import torch
+
+    nbytes = 0
+    flops = 0
+    seen = torch.zeros(0, dtype=torch.int64)
+    for c in calls:
+        sl = c["strip_list"]
+        live = sl >= 0
+        table = c["table_flat"].reshape(-1, c["table_width"]).long()
+        chain = c["chain_pages"].long()
+        R = c["page_rows"]
+        slot = torch.arange(table.shape[1], device=table.device)[None, :]
+        fin = torch.isfinite(c["bias_pool"][table.clamp(min=0)]).sum(2)
+        live_cols = torch.where((slot < chain[:, None]) & (table >= 0), fin,
+                                0).sum(1)
+        assert int(live_cols.max()) <= table.shape[1] * R
+        dim = c["a"].shape[2]
+        lists = sl[live].long()
+        rows = c["strip_rows"][live].to(torch.int64)
+        flops += 2 * int((rows * live_cols[lists]).sum()) * dim
+        probed = lists.unique().cpu()
+        new = probed[~torch.isin(probed, seen)]
+        seen = torch.cat([seen, new])
+        nbytes += int(live_cols[new.to(lists.device)].sum()) * bytes_per_col
+        nbytes += int(rows.sum()) * (dim * 2 + c["kf"] * 8)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / BF16_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        nbytes, flops
+
+
+def paged_library_yardstick(c):
+    """K3's (and, with codes, K4's) PyTorch yardstick over the class's live
+    strips: gather each list's chained pages (up to the longest chain in
+    the call), one batched bf16 matmul, the bias (+inf past the chain),
+    torch.topk. The port never calls it."""
+    import torch
+
+    live = c["strip_list"] >= 0
+    lists = c["strip_list"][live].long()
+    table = c["table_flat"].reshape(-1, c["table_width"]).long()
+    chain = c["chain_pages"].long()
+    R = c["page_rows"]
+    cmax = max(1, int(chain[lists].max())) if lists.numel() else 1
+    a = c["a"][live]
+    slot = torch.arange(cmax, device=table.device)
+    step = max(1, (4 << 30) // max(1, a.shape[1] * cmax * R * 10))
+    for s in range(0, lists.numel(), step):
+        li = lists[s:s + step]
+        pidx = table[li, :cmax].clamp(min=0)
+        if "codes" in c:
+            packed = c["codes"][pidx].reshape(li.numel(), cmax * R, -1).to(
+                torch.int32)
+            bits = torch.cat([(packed >> j) & 1 for j in range(8)], dim=-1)
+            b = (2 * bits - 1).to(torch.bfloat16)
+        else:
+            b = c["pages"][pidx].reshape(li.numel(), cmax * R, -1).to(
+                torch.bfloat16)
+        sc = c["alpha"] * torch.matmul(a[s:s + step], b.transpose(1, 2)).float()
+        if "codes" in c:
+            sc = sc * c["scale_pool"][pidx].reshape(li.numel(), 1, cmax * R)
+        bias = c["bias_pool"][pidx]
+        bias = torch.where((slot[None, :] < chain[li][:, None])[:, :, None],
+                           bias, float("inf")).reshape(li.numel(), 1, cmax * R)
+        torch.topk(sc + bias, min(c["kf"], cmax * R), dim=2, largest=False)
+
+
+def latency_ms(fn, n):
+    """``n`` sequential calls, each timed on the host clock to its
+    synchronize → (p50, p99) ms."""
+    import torch
+
+    lat = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    lat.sort()
+    return lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+
+
+def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
+    """The serving data plane on the IVF-Flat index: a PagedListStore with
+    128-row pages reserved for the mutation window; paged search through
+    K3 (recall, agreement with the packed search, QPS, batch-1 and
+    batch-64 latency); a 64-round window of upserts, searches and FIFO
+    deletes; read-back, no deleted id, no growth; compact and
+    compact_swap."""
+    import torch
+
+    from raft_tpu_torch import Resources, serving
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall, topk_agreement
+
+    res = Resources(device=dev)
+    qs = shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    q = qs.shape[0]
+    n_probes = flat_pick["n_probes"]
+    t = time.perf_counter()
+    store = serving.PagedListStore.from_index(
+        flat_index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+    store.reserve(WINDOW_ROUNDS * UPSERT_ROWS)
+    torch.cuda.synchronize()
+    ppf, n_sub, w = ss.paged_plan(store.table_width, store.page_rows,
+                                  store.dim, K)
+    chains = store._list_pages
+    emit({"phase": "serve.setup", "store_s": time.perf_counter() - t,
+          "plan": {"table_width": store.table_width, "ppf": ppf,
+                   "n_sub": n_sub, "w": w},
+          "chain_pages_mean": float(chains.mean()),
+          "chain_pages_max": int(chains.max()), "stats": store.stats()})
+
+    reset_counts()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, i = serving.search(store, qs, K, n_probes=n_probes, res=res)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    batch_launches = ss.PAGED_KERNEL.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    agreement = topk_agreement(packed_out[0], packed_out[1], v, i)
+    if rec < 0.95 or not agreement["ok"]:
+        raise AssertionError(f"paged search: recall {rec}, agreement with "
+                             f"the packed search {agreement}")
+    if batch_launches <= 0 or ss.STRIP_KERNEL.launches:
+        raise AssertionError("the paged search did not run on K3 alone")
+    one = qs[:1]
+    p50_1, p99_1 = latency_ms(lambda: serving.search(store, one, K,
+                                                     n_probes=n_probes,
+                                                     res=res), 64)
+    b64 = qs[:64]
+    p50_64, p99_64 = latency_ms(lambda: serving.search(store, b64, K,
+                                                       n_probes=n_probes,
+                                                       res=res), 32)
+    emit({"phase": "serve.search", "n_probes": n_probes, "recall": rec,
+          "agreement_with_packed": agreement, "qps": len(times) * q / sum(times),
+          "batch_s": times, "batch1_ms_p50": p50_1, "batch1_ms_p99": p99_1,
+          "batch64_ms_p50": p50_64, "batch64_ms_p99": p99_64,
+          "k3_launches_3_batches": batch_launches})
+
+    # the mutation window: upsert 32 query vectors under ids 1,000,000 + i,
+    # search the 64 newest of them, delete the batch of 8 rounds earlier
+    growth0 = store.growth_events
+    rows = qs[:WINDOW_ROUNDS * UPSERT_ROWS]
+    up_ms, del_ms, fifo, deleted = [], [], [], []
+    leaked = 0
+    for r in range(WINDOW_ROUNDS):
+        lo = r * UPSERT_ROWS
+        ids = torch.arange(UPSERT_ID0 + lo, UPSERT_ID0 + lo + UPSERT_ROWS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        store.upsert(rows[lo:lo + UPSERT_ROWS], ids=ids)
+        torch.cuda.synchronize()
+        up_ms.append((time.perf_counter() - t) * 1e3)
+        fifo.append(ids)
+        hi = lo + UPSERT_ROWS
+        _, got = serving.search(store, rows[max(0, hi - 64):hi], K,
+                                n_probes=n_probes, res=res)
+        if deleted:
+            leaked += int(torch.isin(got.cpu().long(),
+                                     torch.cat(deleted)).sum())
+        if len(fifo) > DELETE_LAG:
+            gone = fifo.pop(0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            store.delete(gone)
+            torch.cuda.synchronize()
+            del_ms.append((time.perf_counter() - t) * 1e3)
+            deleted.append(gone)
+    live = torch.cat(fifo)
+    live_rows = rows[(live - UPSERT_ID0).to(rows.device)]
+    _, got = serving.search(store, live_rows, K, n_probes=n_probes, res=res)
+    got = got.cpu().long()
+    readback = float((got == live[:, None]).any(1).float().mean())
+    gone = torch.cat(deleted)
+    leaked += int(torch.isin(got, gone).sum())
+    _, got_all = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    leaked += int(torch.isin(got_all.cpu().long(), gone).sum())
+    growth = store.growth_events - growth0
+    # the serving path's run: batches, latency runs and the window
+    launches = ss.PAGED_KERNEL.launches
+    if ss.STRIP_KERNEL.launches:
+        raise AssertionError("the paged search launched K1")
+    emit({"phase": "serve.window", "k3_launches_serving_run": launches, "rounds": WINDOW_ROUNDS,
+          "upsert_rows": UPSERT_ROWS, "search_queries": 64,
+          "delete_lag": DELETE_LAG, "readback": readback,
+          "deleted_ids_returned": leaked, "growth_events_in_window": growth,
+          "upsert_ms_p50": sorted(up_ms)[len(up_ms) // 2],
+          "upsert_ms_mean": sum(up_ms) / len(up_ms),
+          "delete_ms_p50": sorted(del_ms)[len(del_ms) // 2],
+          "delete_ms_mean": sum(del_ms) / len(del_ms),
+          "stats": store.stats()})
+    if readback < 1.0 or leaked or growth:
+        raise AssertionError(f"mutation window: read-back {readback}, "
+                             f"{leaked} deleted ids returned, {growth} growths")
+
+    # compact → the packed search through K1 agrees with the paged one;
+    # compact_swap keeps capacity and width and the results
+    version = store.mutation_version
+    pv, pi = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    t = time.perf_counter()
+    compacted = store.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t
+    k1_before = ss.STRIP_KERNEL.launches
+    cv, ci = ivf_flat.search(compacted, qs, K, n_probes=n_probes, res=res)
+    compact_agree = topk_agreement(pv, pi, cv, ci)
+    cap, width = store.capacity_pages, store.table_width
+    t = time.perf_counter()
+    swapped = store.compact_swap(compacted, version)
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t
+    sv, si = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    same = bool(torch.equal(si, pi))
+    emit({"phase": "serve.compact", "compact_s": compact_s, "swap_s": swap_s,
+          "rows": compacted.size, "agreement_packed_vs_paged": compact_agree,
+          "k1_launches": ss.STRIP_KERNEL.launches - k1_before,
+          "swapped": swapped, "capacity_pages": store.capacity_pages,
+          "table_width": store.table_width, "same_after_swap": same})
+    if not (compact_agree["ok"] and swapped and same
+            and (store.capacity_pages, store.table_width) == (cap, width)):
+        raise AssertionError("compact / compact_swap changed the results or "
+                             "the store's shape")
+
+    # K3 at this path's own class inputs (the reserved store, k = 10)
+    snap = store.paged_scan_state()
+    probes = ivf_flat._coarse_probes(qs.float(), store.centers, n_probes,
+                                     store.metric)
+    q_tile = min(ivf_flat._paged_plan_static(store, n_probes, K, res,
+                                             store.dim), q)
+    calls = paged_class_inputs(snap, probes, qs.float(), K, store.dim, q_tile,
+                               -2.0)
+    max_err = kernel_parity_at(calls, "paged_scan",
+                               f"serve_path_nprobe{n_probes}_kf{K}")
+    timing = kernel_timing(calls, "paged_scan", paged_library_yardstick,
+                           store.dim + 4, bound=paged_scan_bound)
+    emit({"phase": "serve.k3", "n_probes": n_probes, "kf": K,
+          "query_tile": q_tile, "strips": sum(
+              int((c["strip_list"] >= 0).sum()) for c in calls), **timing})
+    return {"launches": launches, "max_abs_err": max_err,
+            **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
+
+
+def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
+    """Paged IVF-PQ (K3 over the int8 cache) or IVF-BQ (K4 over the codes)
+    on a store made from the path's packed index, at the path's chosen
+    (n_probes, k_fetch) with exact refine; then one upsert/delete round;
+    then the path's kernel at its own class inputs."""
+    import torch
+
+    from raft_tpu_torch import Resources, serving
+    from raft_tpu_torch.neighbors import ivf_bq, refine
+    from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    dataset, qs = shared["dataset"], shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    q = qs.shape[0]
+    n_probes = min(pick["n_probes"], int(index.centers.shape[0]))
+    kf = pick["k_fetch"]
+    counter = ss.PAGED_KERNEL if kind == "pq" else bq.PAGED_BQ_KERNEL
+    t = time.perf_counter()
+    store = serving.PagedListStore.from_index(
+        index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+    store.reserve(4 * UPSERT_ROWS)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t
+
+    def run(queries):
+        _, cand = serving.search(store, queries, kf, n_probes=n_probes,
+                                 res=res)
+        return cand
+
+    reset_counts()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cand = run(qs)
+        v, i = refine.refine(dataset, qs, cand, K, res=res)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = counter.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    if rec < 0.95 or launches <= 0:
+        raise AssertionError(f"paged {kind}: recall {rec}, {launches} launches")
+
+    # one round: upsert 2·32 query vectors, delete half of them and 32
+    # original rows, search the upserted rows' queries
+    lo = WINDOW_ROUNDS * UPSERT_ROWS
+    rows = qs[lo:lo + 2 * UPSERT_ROWS]
+    ids = torch.arange(UPSERT_ID0 + lo, UPSERT_ID0 + lo + 2 * UPSERT_ROWS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    store.upsert(rows, ids=ids)
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t) * 1e3
+    gone = torch.cat([ids[UPSERT_ROWS:], torch.arange(UPSERT_ROWS) * 997])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    store.delete(gone)
+    torch.cuda.synchronize()
+    del_ms = (time.perf_counter() - t) * 1e3
+    cand = run(rows).cpu().long()
+    found = float((cand[:UPSERT_ROWS] == ids[:UPSERT_ROWS, None]).any(1)
+                  .float().mean())
+    leaked = int(torch.isin(cand, gone).sum()) + int(
+        torch.isin(run(qs).cpu().long(), gone).sum())
+    out = {"phase": f"serve.{kind}", "n_probes": n_probes, "k_fetch": kf,
+           "store_s": store_s, "recall": rec,
+           "qps": len(times) * q / sum(times), "batch_s": times,
+           "launches": launches, "readback_pre_refine": found,
+           "deleted_ids_returned": leaked, "upsert_ms": up_ms,
+           "delete_ms": del_ms, "stats": store.stats()}
+    emit(out)
+    if found < 0.99 or leaked:
+        raise AssertionError(f"paged {kind}: read-back {found}, {leaked} "
+                             "deleted ids returned")
+    # the path's kernel at its own class inputs
+    snap = store.paged_scan_state()
+    l2 = store.metric in ("sqeuclidean", "euclidean")
+    if kind == "pq":
+        from raft_tpu_torch.neighbors import ivf_pq
+
+        probes, qr, _ = ivf_pq._pq_probe_prep(
+            qs.float(), store.centers, store.rotation, n_probes, "exact", l2)
+        a_rows, width, kernel = qr * store.decoded_scale, store._cache_dim, \
+            "paged_scan"
+    else:
+        probes, a_rows, _ = ivf_bq._bq_search_prep(
+            qs.float(), store.centers, store.rotation, n_probes, "exact", l2,
+            store.bq_bits, store.rotation_kind)
+        width, kernel = store.rotation.shape[0] * store.bq_bits, "paged_bq_scan"
+    q_tile = min(ivf_bq._paged_plan_static(store, n_probes, kf, res, width), q)
+    row_bytes = int(snap[0].shape[-1])
+    calls = paged_class_inputs(snap, probes, a_rows, kf, row_bytes, q_tile,
+                               -2.0 if l2 else -1.0, codes=kind == "bq")
+    max_err = kernel_parity_at(calls, kernel,
+                               f"serve_{kind}_nprobe{n_probes}_kf{kf}")
+    timing = kernel_timing(calls, kernel, paged_library_yardstick,
+                           row_bytes + (8 if kind == "bq" else 4),
+                           bound=paged_scan_bound)
+    emit({"phase": f"serve.{kind}.{'k4' if kind == 'bq' else 'k3'}",
+          "n_probes": n_probes, "kf": kf,
+          "query_tile": q_tile, "strips": sum(
+              int((c["strip_list"] >= 0).sum()) for c in calls), **timing})
+    return {"launches": launches, "max_abs_err": max_err,
+            **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+
+
+def ab_phase(old_tree, paths, shared, dev="cuda"):
+    """K1 and K2 of an older checkout (``old_tree``, e.g. a ``git archive``
+    of the parent commit) against this tree's, in one process on one card,
+    at the IVF-PQ and IVF-BQ paths' own class inputs, in the order old,
+    new, new, old. The older sources are built by nvcc beside that tree
+    (both builds' ptxas resources are printed); the wrappers, plan and
+    inputs are this tree's (the two kernels' C interfaces are the same)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.ops import _native
+    from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    res = Resources(device=dev)
+    qs = shared["queries"]
+    out = Path(old_tree) / "raft_tpu_torch" / "_build"
+    out.mkdir(parents=True, exist_ok=True)
+    cases = []
+    for name, mod, path, inputs in (
+            ("strip_scan", ss, "main", main_path_class_inputs),
+            ("bq_scan", bq, "bq", bq_path_class_inputs)):
+        src = Path(old_tree) / "raft_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
+        lib = out / f"lib{name}-ab.so"
+        built = subprocess.run(
+            [_native.nvcc(), *_native.NVCC_FLAGS, *_native.PTXAS_FLAGS, "-o",
+             str(lib), str(src)], check=True, capture_output=True, text=True)
+        emit({"phase": "ab.ptxas", "kernel": name,
+              "old": _native.parse_ptxas(built.stdout + built.stderr),
+              "new": _native.resource_usage(_native.CSRC / f"{name}.cu")})
+        new_fn = mod._kernel_fn()
+        old_fn = getattr(ctypes.CDLL(str(lib)), new_fn.__name__)
+        old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
+        index, pick = paths[path]
+        calls, _ = inputs(index, qs, pick["n_probes"], pick["k_fetch"], res)
+        wrapper = _kernel_pair(name)[0]
+        times = []
+        for which in ("old", "new", "new", "old"):
+            fn = old_fn if which == "old" else new_fn
+            mod._kernel_fn = lambda fn=fn: fn
+            ms = cuda_ms(lambda: [wrapper(**c) for c in calls])
+            times.append([which, ms])
+        mod._kernel_fn = lambda fn=new_fn: fn
+        torch.cuda.synchronize()
+        old_ms = [t for w, t in times if w == "old"]
+        new_ms = [t for w, t in times if w == "new"]
+        cases.append({"kernel": name, "path": path, "order": times,
+                      "old_ms_mean": sum(old_ms) / 2,
+                      "new_ms_mean": sum(new_ms) / 2,
+                      "new_over_old": sum(new_ms) / sum(old_ms)})
+        emit({"phase": "ab", **cases[-1]})
+    return cases
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true",
                     help="stop after the kernel parity phases")
+    ap.add_argument("--ab", metavar="OLD_TREE",
+                    help="after the IVF-PQ and IVF-BQ paths, time K1 and K2 "
+                         "of an older checkout against this tree's, then stop")
     args = ap.parse_args()
 
     import torch
@@ -687,6 +1432,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "nvcc_s": built,
           "sources": [src.name for src in _native.sources()]})
+    emit({"phase": "ptxas", "usage": {
+        src.name: _native.resource_usage(src) for src in _native.sources()}})
 
     empty = {"launches": 0, "ms": None, "plain_ms": None, "bound_ms": None,
              "bound_by": None, "library_ms": None}
@@ -696,13 +1443,48 @@ def main() -> int:
     k2 = {"name": "bq_scan", "route": "cuda", "source": K2_SOURCE,
           "replaces": K2_REPLACES, "parity": "ok", **empty,
           "max_abs_err": parity_phase("bq_scan", K2_PARITY_CASES, 2000)}
+    k3 = {"name": "paged_scan", "route": "cuda", "source": K3_SOURCE,
+          "replaces": K3_REPLACES, "parity": "ok", **empty,
+          "max_abs_err": paged_parity_phase("paged_scan", K3_PARITY_CASES,
+                                            3000)}
+    k4 = {"name": "paged_bq_scan", "route": "cuda", "source": K4_SOURCE,
+          "replaces": K4_REPLACES, "parity": "ok", **empty,
+          "max_abs_err": paged_parity_phase("paged_bq_scan", K4_PARITY_CASES,
+                                            4000)}
     if not args.skip_main:
+        t = time.perf_counter()
         shared = shared_data()
-        for entry, phase in ((k1, main_phase), (k2, bq_phase)):
+        emit({"phase": "data", "seconds": time.perf_counter() - t})
+        paths = {}
+        for entry, name, phase in ((k1, "main", main_phase),
+                                   (k2, "bq", bq_phase)):
+            t = time.perf_counter()
             worst = entry["max_abs_err"]
-            entry.update(phase(shared))
+            result, paths[name] = phase(shared)
+            entry.update(result)
             entry["max_abs_err"] = max(worst, entry["max_abs_err"])
-    emit({"kernels": [k1, k2]})
+            emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})
+        if args.ab:
+            ab_phase(args.ab, paths, shared)
+            return 0
+        t = time.perf_counter()
+        flat_index, flat_pick, flat_out = flat_phase(shared)
+        emit({"phase": "flat.done", "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        worst = k3["max_abs_err"]
+        k3.update(serve_phase(shared, flat_index, flat_pick, flat_out))
+        k3["max_abs_err"] = max(worst, k3["max_abs_err"])
+        del flat_index, flat_out
+        emit({"phase": "serve.done", "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        serve_codes_phase(shared, "pq", *paths.pop("main"))
+        emit({"phase": "serve.pq.done", "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        worst = k4["max_abs_err"]
+        k4.update(serve_codes_phase(shared, "bq", *paths.pop("bq")))
+        k4["max_abs_err"] = max(worst, k4["max_abs_err"])
+        emit({"phase": "serve.bq.done", "seconds": time.perf_counter() - t})
+    emit({"kernels": [k1, k2, k3, k4]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -20,9 +20,10 @@ index is strip-eligible. Random numbers come from ``torch.Generator``s
 seeded from ``params.seed``: a port-built index is not the JAX package's
 bit for bit (``from_jax_arrays`` carries one across).
 
-This slice ports build, search and search_refined for all four metrics,
-bits 1–4 and both rotation kinds. Filtered search, ``extend``, the
-streamed build, paged search and ``reconstruct_rows`` come with later
+This port has build, search and search_refined for all four metrics,
+bits 1–4 and both rotation kinds, and the paged search over a
+``PagedListStore`` (kernel K4, :func:`search_paged`). Filtered search,
+``extend``, the streamed build and ``reconstruct_rows`` come with later
 slices and raise ``NotImplementedError`` here.
 """
 
@@ -38,7 +39,10 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
 from raft_tpu_torch.neighbors import _packing, refine
-from raft_tpu_torch.neighbors.ivf_flat import _finalize_ragged, _ragged_plan_static
+from raft_tpu_torch.neighbors.ivf_flat import (_finalize_ragged,
+                                               _paged_plan_static,
+                                               _paged_search_args,
+                                               _ragged_plan_static)
 from raft_tpu_torch.neighbors.ivf_pq import _pq_probe_prep
 from raft_tpu_torch.ops import bq_scan, linalg
 from raft_tpu_torch.ops.distance import canonical_metric, sqnorm
@@ -236,6 +240,14 @@ def _encode_math(rows, labels, centers, rotation, rc, c2, l2: bool,
     return packed, scale, bias
 
 
+def _encode_chunk(rows, labels, centers, rotation, rc, c2, l2: bool,
+                  bits: int = 1, rotation_kind: str = "dense"):
+    """One chunk of rows encoded as the packed build encodes them (the
+    paged store's upsert path): :func:`_encode_math`."""
+    return _encode_math(rows, labels, centers, rotation, rc, c2, l2, bits,
+                        rotation_kind)
+
+
 def _encode_rows(work, labels, centers, rotation, metric: str, bits: int = 1,
                  rotation_kind: str = "dense", chunk: int = 262_144):
     """:func:`_encode_math` over all rows in chunks, so no (n, rot_dim)
@@ -398,6 +410,47 @@ def search_refined(index: IvfBqIndex, dataset, queries, k: int,
                          res=res)
 
 
-def search_paged(store, queries, k, n_probes=20, filter=None,
-                 select_algo="exact", res=None, device=None):
-    raise NotImplementedError(f"ivf_bq.search_paged {_LATER}")
+# ---------------------------------------------------------------------------
+# Paged search (serving): K4 over a PagedListStore's code pools
+# ---------------------------------------------------------------------------
+
+
+def _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
+                    page_ids, table, chain_pages, k: int, n_probes: int,
+                    select_algo: str, q_tile: int):
+    """The packed path's prep (probes, plane-extended rotated queries, the
+    exact pair term), K4 over the store's code, scale and bias pools in
+    place, merge and finalize. No tournament: the paged scan runs the
+    exact carry."""
+    l2 = store.metric in ("sqeuclidean", "euclidean")
+    probes, qr, pair_const = _bq_search_prep(
+        queries, store.centers, store.rotation, n_probes, select_algo, l2,
+        store.bq_bits, store.rotation_kind)
+    vals, ids = bq_scan.paged_bq_search_traced(
+        qr, probes, codes_pool, scale_pool, bias_pool, page_ids, table,
+        chain_pages, int(k), int(k), -2.0 if l2 else -1.0, q_tile,
+        pair_const=pair_const)
+    return _finalize_ragged(vals, ids, queries, store.metric)
+
+
+def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
+                 select_algo: str = "exact", backend: str = "auto",
+                 res: Optional[Resources] = None,
+                 device: Optional[DeviceLike] = None):
+    """Approximate k-NN over a mutable paged code store (``PagedListStore``
+    of kind ``"ivf_bq"``): :func:`search`'s estimator contract while rows
+    stream in and out, k ≤ min(n_probes·table_width·page_rows, 512).
+    ``backend``: "paged" (K4 over the store's pools) or "auto" (the
+    same). Re-rank with :func:`raft_tpu_torch.neighbors.refine.refine`."""
+    res, n_probes, queries = _paged_search_args(
+        store, "ivf_bq", queries, k, n_probes, filter, backend, res, device,
+        k_cap=512)
+    codes_pool, bias_pool, scale_pool, page_ids, table, chain_pages = \
+        store.paged_scan_state()
+    rot_dim = int(store.rotation.shape[0])
+    q_tile = min(_paged_plan_static(store, n_probes, k, res,
+                                    rot_dim * store.bq_bits),
+                 queries.shape[0])
+    return _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
+                           page_ids, table, chain_pages, int(k), n_probes,
+                           select_algo, q_tile)

@@ -1,14 +1,255 @@
-"""IVF-Flat helpers the IVF-PQ strip path shares (counterpart of the
-matching functions in ``raft_tpu/neighbors/ivf_flat.py``). IVF-Flat's own
-index, build and search arrive with the next slice of the port."""
+"""IVF-Flat: inverted lists of uncompressed vectors (counterpart of
+``raft_tpu/neighbors/ivf_flat.py``).
+
+Lists are padded dense blocks: one (n_lists, max_list_size, dim) array
+with ``list_ids == -1`` at padding, balanced k-means bounding the skew.
+Integer datasets (uint8 / int8, the on-disk formats of the big ANN sets)
+are stored in their own dtype; the scan rounds both operands to bf16, which
+is exact for integers up to 256 in magnitude.
+
+Search is the strip scan of :mod:`raft_tpu_torch.ops.strip_scan`: one
+coarse gemm picks each query's ``n_probes`` lists, kernel K1 scores
+``−2⟨q, x⟩ + ‖x‖²`` (L2) or ``−⟨q, x⟩`` (inner product, cosine on
+normalized rows) over the probed lists and keeps each pair's top-k, and the
+merge picks the query's top-k. :func:`search_paged` runs the same search
+over a :class:`raft_tpu_torch.serving.PagedListStore`, whose pages kernel
+K3 scans in place.
+
+This slice ports build, the ``"ragged"`` strip backend, save/load and the
+paged search. The ``"gather"`` backend, filters and ``extend`` come with
+later slices and raise ``NotImplementedError`` here.
+"""
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
+from raft_tpu_torch.core.serialize import load_arrays, save_arrays
+from raft_tpu_torch.neighbors import _packing
 from raft_tpu_torch.ops import strip_scan as ss
-from raft_tpu_torch.ops.distance import sqnorm
+from raft_tpu_torch.ops.distance import canonical_metric, matmul_t, sqnorm
+from raft_tpu_torch.ops.select_k import select_k
+
+SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
+_LATER = "arrives with a later slice of the PyTorch port"
+
+
+@dataclass(frozen=True)
+class IvfFlatParams:
+    """Build params. ``list_size_cap``: per-list occupancy cap, -1 auto (4×
+    the mean, group-aligned), 0 off; overflow rows spill to their next
+    nearest lists. ``group_size``: list padding granule, 0 auto (512, the
+    strip granule, when the mean list is large enough, else 64)."""
+
+    n_lists: int = 1024
+    metric: str = "sqeuclidean"
+    kmeans_n_iters: int = 20
+    kmeans_trainset_fraction: float = 0.5
+    list_size_cap: int = -1
+    group_size: int = 0
+    seed: int = 0
+
+    def __post_init__(self):
+        m = canonical_metric(self.metric)
+        if m not in SUPPORTED_METRICS:
+            raise ValueError(f"ivf_flat supports {SUPPORTED_METRICS}, got {self.metric!r}")
+        object.__setattr__(self, "metric", m)
+
+
+@dataclass
+class IvfFlatIndex:
+    """Cluster centers and padded per-list vector blocks. ``list_norms``
+    caches each entry's squared L2 norm for the L2 metrics. For cosine,
+    vectors and centers are stored L2-normalized and the scan runs as inner
+    product."""
+
+    centers: torch.Tensor              # (n_lists, dim) fp32
+    list_data: torch.Tensor            # (n_lists, m, dim) dataset dtype
+    list_ids: torch.Tensor             # (n_lists, m) int32, -1 = padding
+    list_norms: Optional[torch.Tensor]  # (n_lists, m) fp32, L2 only
+    metric: str = "sqeuclidean"
+    group_size: int = 0
+    _lens_np_cache: Optional[np.ndarray] = field(default=None, repr=False)
+    _ragged_static_cache: Any = field(default=None, repr=False)
+    _bias_cache: Optional[torch.Tensor] = field(default=None, repr=False)
+
+    @property
+    def n_lists(self) -> int:
+        return self.centers.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.centers.shape[1]
+
+    @property
+    def max_list_size(self) -> int:
+        return self.list_data.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.centers.device
+
+    @property
+    def size(self) -> int:
+        return int((self.list_ids >= 0).sum())
+
+    def list_sizes(self) -> torch.Tensor:
+        return (self.list_ids >= 0).sum(dim=1).to(torch.int32)
+
+    def to(self, device: DeviceLike) -> "IvfFlatIndex":
+        """A copy of the index with its tensors on ``device``."""
+        dev = torch.device(device)
+        return IvfFlatIndex(
+            self.centers.to(dev), self.list_data.to(dev),
+            self.list_ids.to(dev),
+            None if self.list_norms is None else self.list_norms.to(dev),
+            self.metric, self.group_size)
+
+    def arrays(self) -> Dict[str, torch.Tensor]:
+        out = {"centers": self.centers, "list_data": self.list_data,
+               "list_ids": self.list_ids}
+        if self.list_norms is not None:
+            out["list_norms"] = self.list_norms
+        return out
+
+    def meta(self) -> Dict[str, Any]:
+        return {"kind": "ivf_flat", "metric": self.metric,
+                "group_size": self.group_size}
+
+    def save(self, path) -> None:
+        """Write the v2 container both packages read."""
+        save_arrays(path, self.meta(), self.arrays())
+
+    @classmethod
+    def load(cls, path, device: Optional[DeviceLike] = None,
+             res: Optional[Resources] = None) -> "IvfFlatIndex":
+        """Read an ``ivf_flat`` container written by either package."""
+        meta, arrays = load_arrays(path)
+        return from_jax_arrays(meta, arrays, device=device, res=res)
+
+
+def from_jax_arrays(meta: Mapping[str, Any], arrays: Mapping[str, Any],
+                    device: Optional[DeviceLike] = None,
+                    res: Optional[Resources] = None) -> IvfFlatIndex:
+    """An index from the JAX package's arrays (``centers``, ``list_data``,
+    ``list_ids`` and, for L2, ``list_norms``, as numpy or anything
+    ``np.asarray`` takes) and its container meta."""
+    if meta.get("kind", "ivf_flat") != "ivf_flat":
+        raise ValueError(f"not an ivf_flat index: {meta.get('kind')}")
+    dev = resources_for(device, res).device
+
+    def t(name):
+        return torch.from_numpy(np.array(arrays[name])).to(dev)
+
+    return IvfFlatIndex(
+        t("centers"), t("list_data"), t("list_ids"),
+        t("list_norms") if arrays.get("list_norms") is not None else None,
+        meta.get("metric", "sqeuclidean"), int(meta.get("group_size", 0)))
+
+
+# ---------------------------------------------------------------------------
+# Build
+# ---------------------------------------------------------------------------
+
+
+def _pack_lists(dataset, row_ids, labels, n_lists: int, group: int = 0):
+    """Padded per-list blocks, rows in arrival order; power-of-two chunk
+    counts at the strip granule (512)."""
+    if group <= 0:
+        group = _packing.auto_group_size(dataset.shape[0], n_lists)
+    return _packing.pack_lists(dataset, row_ids, labels, n_lists, group,
+                               pow2_chunks=group == 512)
+
+
+def build(dataset, params: IvfFlatParams = IvfFlatParams(),
+          res: Optional[Resources] = None,
+          device: Optional[DeviceLike] = None) -> IvfFlatIndex:
+    """Train the coarse quantizer (balanced k-means on a
+    ``kmeans_trainset_fraction`` sample) and fill the lists. Integer
+    datasets keep their dtype (except under cosine, which stores the
+    normalized rows)."""
+    res = resources_for(device, res)
+    dev = res.device
+    data = torch.as_tensor(dataset).to(dev)
+    n, dim = data.shape
+    if params.n_lists > n:
+        raise ValueError(f"n_lists={params.n_lists} > n_rows={n}")
+    work = data.to(torch.float32)
+    if params.metric == "cosine":
+        work = work / torch.clamp(torch.linalg.vector_norm(work, dim=1,
+                                                           keepdim=True),
+                                  min=1e-30)
+    km_metric = ("inner_product" if params.metric in ("cosine", "inner_product")
+                 else "sqeuclidean")
+    km = kmeans_balanced.KMeansBalancedParams(
+        n_iters=params.kmeans_n_iters, metric=km_metric, seed=params.seed)
+    (g_train,) = kmeans_balanced.seeded_generators(params.seed, 1, dev)
+    n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
+    if n_train < n:
+        rows = torch.randint(0, n, (n_train,), generator=g_train, device=dev)
+        centers = kmeans_balanced.fit(work[rows], params.n_lists, km, res=res)
+        labels = kmeans_balanced.predict(work, centers, km, res=res)
+    else:
+        centers, labels = kmeans_balanced.fit_predict(work, params.n_lists, km,
+                                                      res=res)
+    group = params.group_size or _packing.auto_group_size(n, params.n_lists)
+    cap = params.list_size_cap
+    if cap < 0:
+        cap = _packing.auto_list_cap(n, params.n_lists, group)
+    if cap:
+        labels = _packing.spill_to_cap(work, centers, labels, km_metric, cap)
+    integer = not data.is_floating_point() and params.metric != "cosine"
+    store = data if integer else work
+    row_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    list_data, list_ids = _pack_lists(store, row_ids, labels, params.n_lists,
+                                      group)
+    list_norms = None
+    if params.metric in ("sqeuclidean", "euclidean"):
+        list_norms = sqnorm(list_data, dim=2)
+    return IvfFlatIndex(centers, list_data, list_ids, list_norms,
+                        params.metric, group)
+
+
+def extend(index, new_vectors, new_ids=None, res=None, device=None):
+    raise NotImplementedError(f"ivf_flat.extend {_LATER}")
+
+
+def split_list_rows(rows, n_iter: int = 8):
+    """Deterministic 2-means split of one overfull list's rows: seeds are
+    the two extreme rows along the max-variance coordinate, then a few
+    Lloyd rounds on the host (one list is small, and no RNG keeps the
+    split reproducible). Returns ``(centers (2, dim) float32, assign (n,)
+    int32)``; identical rows collapse onto one side."""
+    rows = np.asarray(rows, np.float32)
+    if rows.ndim != 2 or rows.shape[0] < 2:
+        raise ValueError("split_list_rows needs a (n >= 2, dim) row matrix")
+    mu = rows.mean(axis=0)
+    coord = rows[:, int(((rows - mu) ** 2).mean(axis=0).argmax())]
+    centers = np.stack([rows[int(coord.argmin())], rows[int(coord.argmax())]])
+    assign = np.zeros(rows.shape[0], np.int32)
+    for it in range(max(1, int(n_iter))):
+        d0 = ((rows - centers[0]) ** 2).sum(axis=1)
+        d1 = ((rows - centers[1]) ** 2).sum(axis=1)
+        new = (d1 < d0).astype(np.int32)
+        if it > 0 and np.array_equal(new, assign):
+            break
+        assign = new
+        for side in (0, 1):
+            sel = rows[assign == side]
+            if sel.shape[0]:
+                centers[side] = sel.mean(axis=0)
+    return centers, assign
+
+
+# ---------------------------------------------------------------------------
+# Search (the "ragged" strip backend)
+# ---------------------------------------------------------------------------
 
 
 def _lens_np(index) -> np.ndarray:
@@ -19,6 +260,31 @@ def _lens_np(index) -> np.ndarray:
         cached = index.list_sizes().cpu().numpy()
         index._lens_np_cache = cached
     return cached
+
+
+def _coarse_probes(queries, centers, n_probes: int, metric: str,
+                   select_algo: str = "exact",
+                   compute_dtype: Optional[torch.dtype] = None):
+    """Each query's ``n_probes`` nearest lists (q, p) int32: expanded L2
+    (clamped at 0) or the negated inner product, from one fp32 gemm."""
+    ip = matmul_t(queries, centers, compute_dtype)
+    if metric in ("sqeuclidean", "euclidean"):
+        coarse = torch.clamp(sqnorm(queries)[:, None] + sqnorm(centers)[None, :]
+                             - 2.0 * ip, min=0.0)
+    else:
+        coarse = -ip
+    _, probes = select_k(coarse, n_probes, select_min=True, algo=select_algo)
+    return probes
+
+
+def _ragged_bias(list_ids, list_norms, mode: str):
+    """Per-entry additive term of the scan: ‖x‖² for L2, 0 for ip/cosine;
+    +inf at padding."""
+    base = (list_norms if mode == "l2"
+            else torch.zeros(list_ids.shape, dtype=torch.float32,
+                             device=list_ids.device))
+    return torch.where(list_ids >= 0, base.to(torch.float32),
+                       float("inf")).contiguous()
 
 
 def _finalize_ragged(vals: torch.Tensor, ids: torch.Tensor,
@@ -53,3 +319,180 @@ def _ragged_plan_static(index, n_probes: int, k: int, res, dim: int):
                            int(k), res.workspace_bytes, dim=dim,
                            class_counts=class_counts)
     return classes, class_counts, cls_ord, q_tile
+
+
+def _ragged_fused(queries, index: IvfFlatIndex, bias, k: int, n_probes: int,
+                  select_algo: str, res: Resources, classes, class_counts,
+                  cls_ord, q_tile: int):
+    """Coarse gemm, device strip plan, K1 over the probed lists, merge and
+    finalize."""
+    probes = _coarse_probes(queries, index.centers, n_probes, index.metric,
+                            select_algo, res.compute_dtype)
+    l2 = index.metric in ("sqeuclidean", "euclidean")
+    vals, ids = ss.strip_search_traced(
+        queries, probes, index.list_data, bias, index.list_ids, cls_ord,
+        classes, class_counts, int(k), int(k), -2.0 if l2 else -1.0, q_tile)
+    return _finalize_ragged(vals, ids, queries, index.metric)
+
+
+def _search_ragged(index: IvfFlatIndex, queries, k: int, n_probes: int,
+                   select_algo: str, res: Resources):
+    """The strip path: work follows the probed lists' real entries, each
+    pair's top-k kept inside K1. The bias depends only on the index, so it
+    is cached on it."""
+    l2 = index.metric in ("sqeuclidean", "euclidean")
+    if index._bias_cache is None:
+        index._bias_cache = _ragged_bias(index.list_ids, index.list_norms,
+                                         "l2" if l2 else "ip")
+    classes, class_counts, cls_ord, q_tile = _ragged_plan_static(
+        index, n_probes, k, res, index.dim)
+    return _ragged_fused(queries, index, index._bias_cache, int(k), n_probes,
+                         select_algo, res, classes, class_counts, cls_ord,
+                         min(q_tile, queries.shape[0]))
+
+
+def _prep_queries(queries, dim: int, metric: str, dev: torch.device):
+    queries = torch.as_tensor(queries).to(device=dev, dtype=torch.float32)
+    if queries.ndim != 2 or queries.shape[1] != dim:
+        raise ValueError(f"queries must be (q, {dim}), got {tuple(queries.shape)}")
+    if metric == "cosine":
+        queries = queries / torch.clamp(
+            torch.linalg.vector_norm(queries, dim=1, keepdim=True), min=1e-30)
+    return queries
+
+
+def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
+           filter=None, select_algo: str = "exact", backend: str = "auto",
+           res: Optional[Resources] = None,
+           device: Optional[DeviceLike] = None):
+    """Probe ``n_probes`` lists per query and return the top-k →
+    (distances (q, k) fp32, ids (q, k) int32, -1 where fewer than k valid
+    candidates were found). ``backend``: "ragged" (the strip scan through
+    K1) or "auto" (the same)."""
+    if backend == "gather":
+        raise NotImplementedError(f"ivf_flat backend 'gather' {_LATER}")
+    if backend not in ("auto", "ragged"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if filter is not None:
+        raise NotImplementedError(f"filtered ivf_flat search {_LATER}")
+    res = resources_for(device, res)
+    if index.device != res.device:
+        raise ValueError(f"index lives on {index.device}, search runs on "
+                         f"{res.device}; move it with index.to(device)")
+    n_probes = int(min(n_probes, index.n_lists))
+    if not 0 < k <= n_probes * index.max_list_size:
+        raise ValueError(
+            f"k={k} out of range for n_probes={n_probes} x "
+            f"max_list_size={index.max_list_size}")
+    if not (ss.strip_eligible(index.max_list_size) and k <= 512):
+        raise ValueError(
+            f"ragged backend needs max_list_size = a power-of-two multiple of "
+            f"512 and k <= 512, got {index.max_list_size} / k={k}; rebuild "
+            "with group_size=512")
+    queries = _prep_queries(queries, index.dim, index.metric, res.device)
+    return _search_ragged(index, queries, int(k), n_probes, select_algo, res)
+
+
+# ---------------------------------------------------------------------------
+# Paged search (serving): scan a PagedListStore's vector pages through K3
+# ---------------------------------------------------------------------------
+
+
+def _paged_row_bytes(store) -> int:
+    """Bytes of one scanned pool row: the int8 decoded cache for IVF-PQ,
+    the payload page otherwise."""
+    payload = store.page_cache if store.kind == "ivf_pq" else store.pages
+    return int(payload.shape[-1]) * payload.element_size()
+
+
+def paged_backend_auto(store, k: int) -> str:
+    """The engine ``backend="auto"`` takes: the paged strip scan. It runs
+    kernel K3 (K4 for IVF-BQ) on a CUDA store and the kernels' plain twins
+    on a CPU store. A CUDA store whose plan cannot feed the kernel is an
+    error, never a detour (:func:`check_paged_eligible`)."""
+    return "paged"
+
+
+def check_paged_eligible(store, k: int) -> None:
+    """Raise ``ValueError`` with the reason when the paged plan of this
+    store cannot serve ``k``: pages under 8 rows, k over 512, or a fetch
+    block narrower than k."""
+    width, rows = store.table_width, store.page_rows
+    if not ss.paged_eligible(width, rows, _paged_row_bytes(store), int(k)):
+        _, _, w = ss.paged_plan(width, rows, _paged_row_bytes(store), int(k))
+        raise ValueError(
+            f"the paged scan cannot serve k={k} on this store (page_rows "
+            f"{rows}, table_width {width}, fetch block {w} rows): it needs "
+            "page_rows >= 8, k <= 512 and k <= the fetch block; the gather "
+            f"backend {_LATER}")
+
+
+def _paged_plan_static(store, n_probes: int, k: int, res, dim: int) -> int:
+    """Query tile of a paged search: ``_ragged_plan_static``'s rule over
+    the capacity layout (one length class, ``class_counts = (n_lists,)``)."""
+    return ss.fit_q_tile(1 << 30, n_probes, store.n_lists, 1, int(k),
+                         res.workspace_bytes, dim=dim,
+                         class_counts=(store.n_lists,))
+
+
+def _paged_fused(queries, centers, pages, bias_pool, page_ids, table,
+                 chain_pages, k: int, n_probes: int, metric: str,
+                 select_algo: str, res: Resources, q_tile: int):
+    """Coarse gemm, device strip plan over the capacity layout, K3 over the
+    page pool in place, merge and finalize. The bias pool is already +inf
+    at dead slots."""
+    probes = _coarse_probes(queries, centers, n_probes, metric, select_algo,
+                            res.compute_dtype)
+    l2 = metric in ("sqeuclidean", "euclidean")
+    vals, ids = ss.paged_strip_search_traced(
+        queries, probes, pages, bias_pool, page_ids, table, chain_pages,
+        int(k), int(k), -2.0 if l2 else -1.0, q_tile)
+    return _finalize_ragged(vals, ids, queries, metric)
+
+
+def _paged_search_args(store, kind: str, queries, k: int, n_probes: int,
+                       filter, backend: str, res, device, k_cap=None):
+    """What every family's ``search_paged`` checks first → (resources,
+    n_probes, queries). ``k_cap`` bounds k further (IVF-BQ: 512)."""
+    if store.kind != kind:
+        raise ValueError(f"expected an {kind} store, got {store.kind!r}")
+    if backend == "gather":
+        raise NotImplementedError(f"{kind} paged backend 'gather' {_LATER}")
+    if backend == "auto":
+        backend = paged_backend_auto(store, k)
+    if backend != "paged":
+        raise ValueError(f"unknown backend {backend!r}")
+    if filter is not None:
+        raise NotImplementedError(f"filtered {kind} paged search {_LATER}")
+    res = resources_for(device, res)
+    if store.device != res.device:
+        raise ValueError(f"store lives on {store.device}, search runs on "
+                         f"{res.device}")
+    n_probes = int(min(n_probes, store.n_lists))
+    limit = n_probes * store.table_width * store.page_rows
+    if k_cap is not None:
+        limit = min(limit, k_cap)
+    if not 0 < k <= limit:
+        raise ValueError(f"k={k} out of range")
+    check_paged_eligible(store, k)
+    queries = _prep_queries(queries, store.dim, store.metric, res.device)
+    return res, n_probes, queries
+
+
+def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
+                 select_algo: str = "exact", backend: str = "auto",
+                 res: Optional[Resources] = None,
+                 device: Optional[DeviceLike] = None):
+    """k-NN over a mutable paged vector store (``PagedListStore`` of kind
+    ``"ivf_flat"``): :func:`search`'s contract, while rows stream in and
+    out. ``backend``: "paged" (K3 over the store's pools, in place) or
+    "auto" (the same)."""
+    res, n_probes, queries = _paged_search_args(
+        store, "ivf_flat", queries, k, n_probes, filter, backend, res, device)
+    pages, bias_pool, _, page_ids, table, chain_pages = \
+        store.paged_scan_state()
+    q_tile = min(_paged_plan_static(store, n_probes, k, res, store.dim),
+                 queries.shape[0])
+    return _paged_fused(queries, store.centers, pages, bias_pool, page_ids,
+                        table, chain_pages, int(k), n_probes, store.metric,
+                        select_algo, res, q_tile)

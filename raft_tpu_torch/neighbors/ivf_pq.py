@@ -12,10 +12,11 @@ query operand ``Rq·scale``; ``‖R·c_l + r̂‖²`` is the per-entry bias
 merge, and ``‖q‖²`` at the end. Candidates are meant for exact re-ranking
 (:mod:`raft_tpu_torch.neighbors.refine`).
 
-This slice ports the per-subspace codebooks and the ``"ragged"`` strip
-backend. The LUT and gather backends, per-cluster codebooks, filters,
-streamed builds and cache-only indexes come with later slices and raise
-``NotImplementedError`` here.
+This port has the per-subspace codebooks, the ``"ragged"`` strip backend
+and the paged search over a ``PagedListStore`` (kernel K3 over the store's
+int8 cache pool, :func:`search_paged`). The LUT and gather backends,
+per-cluster codebooks, filters, streamed builds and cache-only indexes
+come with later slices and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -30,7 +31,10 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
 from raft_tpu_torch.neighbors import _packing
-from raft_tpu_torch.neighbors.ivf_flat import _finalize_ragged, _ragged_plan_static
+from raft_tpu_torch.neighbors.ivf_flat import (_finalize_ragged,
+                                               _paged_plan_static,
+                                               _paged_search_args,
+                                               _ragged_plan_static)
 from raft_tpu_torch.ops import strip_scan
 from raft_tpu_torch.ops.distance import canonical_metric, matmul_t, sqnorm
 from raft_tpu_torch.ops.linalg import make_rotation_matrix, rotate_rows
@@ -306,6 +310,16 @@ def _decode_lists_scaled(codebooks, list_codes, scale, pq_dim: int,
     return out
 
 
+def _b_table(centers, rotation, codebooks, pq_dim: int) -> torch.Tensor:
+    """(n_lists, pq_dim·n_codes) list-side LUT half: entry (l, s·n_codes +
+    c) is 2·(R·c_l)_s·cb[s, c] + ‖cb[s, c]‖²."""
+    n_lists = centers.shape[0]
+    dsub = codebooks.shape[2]
+    rc = rotate_rows(centers, rotation).reshape(n_lists, pq_dim, dsub)
+    B = 2.0 * torch.einsum("lsd,scd->lsc", rc, codebooks)
+    return (B + (codebooks * codebooks).sum(-1)[None]).reshape(n_lists, -1)
+
+
 def _compute_b_sum(centers, rotation, codebooks, list_codes, list_ids,
                    metric: str, pq_dim: int, pq_bits: int = 8):
     """Per entry Σ_s (2·(R·c_l)_s·cb[s, code] + ‖cb[s, code]‖²) for L2,
@@ -314,10 +328,8 @@ def _compute_b_sum(centers, rotation, codebooks, list_codes, list_ids,
     pad_inf = torch.where(list_ids >= 0, 0.0, float("inf")).to(torch.float32)
     if metric in ("inner_product", "cosine"):
         return pad_inf
-    _, n_codes, dsub = codebooks.shape
-    rc = rotate_rows(centers, rotation).reshape(n_lists, pq_dim, dsub)
-    B = 2.0 * torch.einsum("lsd,scd->lsc", rc, codebooks)
-    B = (B + (codebooks * codebooks).sum(-1)[None]).reshape(n_lists, -1)
+    n_codes = codebooks.shape[1]
+    B = _b_table(centers, rotation, codebooks, pq_dim)
     s_off = torch.arange(pq_dim, device=centers.device) * n_codes
     out = torch.empty((n_lists, m), dtype=torch.float32, device=centers.device)
     for a, b in _list_chunks(n_lists, m * pq_dim * 12):
@@ -408,13 +420,42 @@ def build(dataset, params: IvfPqParams = IvfPqParams(),
 # ---------------------------------------------------------------------------
 
 
+def _row_b_sum(centers, rotation, codebooks, codes, labels, pq_dim: int,
+               pq_bits: int):
+    """The list-side LUT half of freshly encoded rows (n,): the table and
+    Σ_s reduction of :func:`_compute_b_sum`, gathered by each row's label,
+    so a paged store's aux equals the packed build's bit for bit."""
+    n_codes = codebooks.shape[1]
+    B = _b_table(centers, rotation, codebooks, pq_dim)
+    s_off = torch.arange(pq_dim, device=centers.device) * n_codes
+    idx = _codes_view(codes, pq_dim, pq_bits).to(torch.int64) + s_off
+    return torch.gather(B[labels.to(torch.int64)], 1, idx).sum(-1)
+
+
+def _center_rot_sqnorm(centers, rotation) -> torch.Tensor:
+    """‖R·c̃_l‖² per list: the per-list constant of the decoded-cache scan
+    bias, shared by the packed scan and the paged store."""
+    return sqnorm(rotate_rows(centers, rotation))
+
+
+def _decode_code_rows(codebooks, codes, scale, pq_dim: int, pq_bits: int):
+    """int8 decoded residual rows (n, rot_dim) of freshly encoded codes: the
+    quantized codebook and flat gather of :func:`_decode_lists_scaled`, row
+    by row, so a paged store's cache rows equal the packed decode's."""
+    n_codes, dsub = codebooks.shape[1], codebooks.shape[2]
+    cb_q = torch.clamp(torch.round(codebooks / scale), -127, 127).to(torch.int8)
+    cb_flat = cb_q.reshape(pq_dim * n_codes, dsub)
+    s_off = torch.arange(pq_dim, device=codebooks.device) * n_codes
+    cv = _codes_view(codes, pq_dim, pq_bits).to(torch.int64)
+    return cb_flat[cv + s_off].reshape(codes.shape[0], pq_dim * dsub)
+
+
 def _ragged_bias_pq(b_sum, centers, rotation, l2: bool):
     """Per-entry scan bias: ‖R·c_l‖² + b_sum for L2, b_sum (0/+inf) for
     inner-product metrics."""
     if not l2:
         return b_sum
-    rc2 = sqnorm(rotate_rows(centers, rotation))
-    return rc2[:, None] + b_sum
+    return _center_rot_sqnorm(centers, rotation)[:, None] + b_sum
 
 
 def _pq_probe_prep(queries, centers, rotation, n_probes: int,
@@ -504,3 +545,44 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
         queries = queries / torch.clamp(
             torch.linalg.vector_norm(queries, dim=1, keepdim=True), min=1e-30)
     return _search_ragged_pq(index, queries, int(k), n_probes, select_algo, res)
+
+
+# ---------------------------------------------------------------------------
+# Paged search (serving): K3 over a PagedListStore's int8 cache pool
+# ---------------------------------------------------------------------------
+
+
+def _paged_fused_pq(queries, store, cache_pool, bias_pool, page_ids, table,
+                    chain_pages, k: int, n_probes: int, select_algo: str,
+                    q_tile: int):
+    """The packed path's probe prep (probes, rotated queries, the exact
+    −2⟨q, c_l⟩ pair term), K3 over the cache pool in place with the
+    store's bias pool (already ‖R·c_l‖² + b_sum per row), merge and
+    finalize. No tournament: the paged scan runs the exact carry."""
+    l2 = store.metric in ("sqeuclidean", "euclidean")
+    probes, qr, pair_const = _pq_probe_prep(
+        queries, store.centers, store.rotation, n_probes, select_algo, l2)
+    vals, ids = strip_scan.paged_strip_search_traced(
+        qr * store.decoded_scale, probes, cache_pool, bias_pool, page_ids,
+        table, chain_pages, int(k), int(k), -2.0 if l2 else -1.0, q_tile,
+        pair_const=pair_const)
+    return _finalize_ragged(vals, ids, queries, store.metric)
+
+
+def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
+                 select_algo: str = "exact", backend: str = "auto",
+                 res: Optional[Resources] = None,
+                 device: Optional[DeviceLike] = None):
+    """Approximate k-NN over a mutable paged code store (``PagedListStore``
+    of kind ``"ivf_pq"``): :func:`search`'s contract while rows stream in
+    and out. ``backend``: "paged" (K3 over the int8 cache pool) or "auto"
+    (the same). Re-rank with :func:`raft_tpu_torch.neighbors.refine.refine`."""
+    res, n_probes, queries = _paged_search_args(
+        store, "ivf_pq", queries, k, n_probes, filter, backend, res, device)
+    cache_pool, bias_pool, _, page_ids, table, chain_pages = \
+        store.paged_scan_state()
+    q_tile = min(_paged_plan_static(store, n_probes, k, res,
+                                    store._cache_dim), queries.shape[0])
+    return _paged_fused_pq(queries, store, cache_pool, bias_pool, page_ids,
+                           table, chain_pages, int(k), n_probes, select_algo,
+                           q_tile)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# ptxas reports each kernel's registers, stack frame and spills into the
+# build log: a kernel that falls off a register cliff shows there
+PTXAS_FLAGS = ("-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -86,8 +90,9 @@ def library_path(source: Path) -> Path:
 
 def build() -> Optional[float]:
     """Compile every kernel library not built yet, one ``nvcc`` per source,
-    all at once. Returns the wall seconds (None when all were built);
-    raises with nvcc's output if any source fails."""
+    all at once, keeping each one's nvcc log (ptxas's resource report)
+    beside its library. Returns the wall seconds (None when all were
+    built); raises with nvcc's output if any source fails."""
     todo = [(src, library_path(src)) for src in sources()]
     todo = [(src, out) for src, out in todo if not out.exists()]
     if not todo:
@@ -98,7 +103,7 @@ def build() -> Optional[float]:
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs.append((src, out, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [nvcc(), *NVCC_FLAGS, *PTXAS_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
     for src, out, tmp, proc in procs:
@@ -107,10 +112,50 @@ def build() -> Optional[float]:
             failed.append(f"{src.name}: nvcc exit {proc.returncode}\n"
                           f"{log.decode(errors='replace')}")
         else:
+            out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def parse_ptxas(log: str) -> List[dict]:
+    """Each kernel's resources from an ``nvcc -Xptxas -v`` log:
+    ``{"kernel", "registers", "stack_bytes", "spill_store_bytes"}``, names
+    demangled by the toolkit's ``cu++filt`` where it sits beside nvcc."""
+    usage, name, frame = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            frame = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage.append({"kernel": name, "registers": int(m.group(1)),
+                          "stack_bytes": frame[0],
+                          "spill_store_bytes": frame[1]})
+            name = None
+    filt = Path(nvcc()).with_name("cu++filt")
+    if usage and filt.is_file():
+        names = subprocess.run(
+            [str(filt)], input="\n".join(u["kernel"] for u in usage),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        for u, n in zip(usage, names):
+            u["kernel"] = n
+    return usage
+
+
+def resource_usage(source: Path) -> List[dict]:
+    """:func:`parse_ptxas` of the build log of ``source``'s library (empty
+    when that library was not built by :func:`build` here)."""
+    log = library_path(source).with_suffix(".log")
+    return parse_ptxas(log.read_text(errors="replace")) if log.is_file() \
+        else []
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -10,6 +10,11 @@ runs for CPU tensors. Everything around the per-class call (plan, query
 grouping, tournament rule, sub-block merge, candidate merge) is
 :mod:`raft_tpu_torch.ops.strip_scan`'s.
 
+The paged half (serving) scans a ``PagedListStore``'s code, scale and
+bias pools in place through kernel K4 (``csrc/paged_bq_scan.cu``),
+launched by :func:`paged_bq_class`, on strip_scan's paged plan and merge;
+its plain twin is :func:`_paged_bq_class_plain`.
+
 Bit layout: rotated dimension ``d`` lives at bit ``d // nb`` of byte
 ``d % nb`` (``nb = rot_dim // 8``), bit-plane-major. Multi-bit codes
 (2–4 bits) stack one such packed group per bit-plane, so an unpacked row
@@ -29,6 +34,8 @@ from raft_tpu_torch.ops import strip_scan as ss
 
 #: launches of the hand-written K2 kernel (``csrc/bq_scan.cu``)
 BQ_KERNEL = _native.KernelCounter("bq_scan")
+#: launches of the hand-written K4 kernel (``csrc/paged_bq_scan.cu``)
+PAGED_BQ_KERNEL = _native.KernelCounter("paged_bq_scan")
 
 
 def packed_width(rot_dim: int) -> int:
@@ -270,3 +277,125 @@ def bq_strip_search(queries_rot, probes, list_codes, scale, bias, list_ids,
         lambda kf: _bq_class_fn(list_codes, scale, bias, float(alpha), kf,
                                 approx_ok),
         pair_const)
+
+
+# ---------------------------------------------------------------------------
+# Paged packed scan (serving): kernel K4 on CUDA tensors, its twin on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _check_paged_bq_args(strip_list, table_flat, chain_pages, sub_live, a,
+                         codes, scale_pool, bias_pool, ppf, n_sub, page_rows,
+                         table_width, kf):
+    w = ss._check_paged_args(strip_list, table_flat, chain_pages, sub_live,
+                             a, codes, bias_pool, ppf, n_sub, page_rows,
+                             table_width, kf, width=8 * codes.shape[-1])
+    if tuple(scale_pool.shape) != tuple(bias_pool.shape):
+        raise ValueError("scale_pool must be (cap_pages, page_rows) like "
+                         "bias_pool")
+    return w
+
+
+def _paged_bq_class_plain(strip_list, table_flat, chain_pages, sub_live, a,
+                          codes, scale_pool, bias_pool, ppf: int, n_sub: int,
+                          page_rows: int, table_width: int, alpha: float,
+                          kf: int, strip_rows=None):
+    """The per-class function of K4, in PyTorch ops: the paged twin of K3
+    (:func:`strip_scan._paged_class_plain`) with the codes unpacked to ±1
+    and ``(alpha·s)·scale + bias`` per live row."""
+    _check_paged_bq_args(strip_list, table_flat, chain_pages, sub_live, a,
+                         codes, scale_pool, bias_pool, ppf, n_sub, page_rows,
+                         table_width, kf)
+    return ss._paged_plain(
+        strip_list, table_flat, chain_pages, sub_live, a, bias_pool, ppf,
+        n_sub, page_rows, table_width, alpha, kf,
+        lambda pidx: _unpack_pm1(codes[pidx]).float(), scale_pool=scale_pool)
+
+
+def _paged_bq_class_cuda(strip_list, table_flat, chain_pages, sub_live, a,
+                         codes, scale_pool, bias_pool, ppf: int, n_sub: int,
+                         page_rows: int, table_width: int, alpha: float,
+                         kf: int, strip_rows=None):
+    """Launch K4 (``csrc/paged_bq_scan.cu``) on the current stream."""
+    _check_paged_bq_args(strip_list, table_flat, chain_pages, sub_live, a,
+                         codes, scale_pool, bias_pool, ppf, n_sub, page_rows,
+                         table_width, kf)
+    ss.check_cuda_operands(a, strip_list, strip_rows, codes=codes,
+                           scale=scale_pool, bias=bias_pool,
+                           table_flat=table_flat, chain_pages=chain_pages,
+                           sub_live=sub_live)
+    ss.check_paged_operands(table_flat, chain_pages, sub_live)
+    if codes.dtype != torch.uint8:
+        raise TypeError(f"codes must be uint8, got {codes.dtype}")
+    dev = a.device
+    s_pad, c, _ = a.shape
+    out_v = torch.empty((s_pad, c, kf), dtype=torch.float32, device=dev)
+    out_e = torch.empty((s_pad, c, kf), dtype=torch.int32, device=dev)
+    if s_pad == 0:
+        return out_v, out_e
+    fn = _paged_kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(strip_list.data_ptr(),
+            None if strip_rows is None else strip_rows.data_ptr(),
+            table_flat.data_ptr(), chain_pages.data_ptr(),
+            sub_live.data_ptr(), a.data_ptr(), codes.data_ptr(),
+            scale_pool.data_ptr(), bias_pool.data_ptr(), out_v.data_ptr(),
+            out_e.data_ptr(), s_pad, c, codes.shape[2], page_rows,
+            table_width, ppf, n_sub, kf, float(alpha), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_bq_scan kernel launch failed: CUDA error {rc}")
+    PAGED_BQ_KERNEL.launches += 1
+    return out_v, out_e
+
+
+def _paged_kernel_fn():
+    fn = _native.load("paged_bq_scan").raft_paged_bq_scan
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_bq_class(strip_list, table_flat, chain_pages, sub_live, a, codes,
+                   scale_pool, bias_pool, ppf: int, n_sub: int,
+                   page_rows: int, table_width: int, alpha: float, kf: int,
+                   strip_rows=None):
+    """Scan the paged class of packed codes: per strip and query row, the
+    top-kf of ``(alpha·(A[s]·(±1)ᵀ))·scale + bias`` over the live pages of
+    the strip's list → ((S, C, kf) fp32, (S, C, kf) int32 offsets).
+    ``codes`` (cap_pages, page_rows, nb) uint8, ``a`` (S, C, 8·nb) bf16,
+    the page-walk operands as :func:`strip_scan.paged_class`'s.
+
+    CUDA tensors launch kernel K4; CPU tensors take the plain twin."""
+    if a.device.type == "cuda":
+        return _paged_bq_class_cuda(strip_list, table_flat, chain_pages,
+                                    sub_live, a, codes, scale_pool,
+                                    bias_pool, ppf, n_sub, page_rows,
+                                    table_width, alpha, kf, strip_rows)
+    return _paged_bq_class_plain(strip_list, table_flat, chain_pages,
+                                 sub_live, a, codes, scale_pool, bias_pool,
+                                 ppf, n_sub, page_rows, table_width, alpha,
+                                 kf, strip_rows)
+
+
+def paged_bq_search_traced(queries_rot, probes, codes, scale_pool,
+                           bias_pool, page_ids, table, chain_pages, k: int,
+                           kf: int, alpha: float, q_tile: int,
+                           pair_const=None):
+    """Paged packed strip search on the static capacity layout: strip_scan's
+    paged plan and merge with K4 as the per-class function. ``queries_rot``
+    (q, bits·rot_dim) rotated, plane-extended queries; ``codes``
+    (cap_pages, page_rows, bits·rot_dim/8); ``scale_pool`` / ``bias_pool``
+    (cap_pages, page_rows) fp32."""
+    page_rows, table_width = codes.shape[1], table.shape[1]
+    plan, table_flat, chain, sub_live = ss.paged_scan_setup(
+        codes, bias_pool, table, chain_pages, probes, kf,
+        int(codes.shape[-1]))
+    class_fn = lambda sl, a, ppf, n_sub, rows: paged_bq_class(  # noqa: E731
+        sl, table_flat, chain, sub_live, a, codes, scale_pool, bias_pool,
+        ppf, n_sub, page_rows, table_width, float(alpha), kf, rows)
+    return ss._scan_tiles(queries_rot, probes,
+                          ss.PagedIds(page_ids, table, page_rows), k, kf,
+                          q_tile, plan, class_fn, pair_const)

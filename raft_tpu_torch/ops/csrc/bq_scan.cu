@@ -37,64 +37,10 @@
 // the contraction width. Next steps (later PRs): K1's, plus a popcount
 // formulation for bits = 1.
 
-#include "strip_common.cuh"
+// The list side (PackedSrc) lives in packed_src.cuh, shared with K4; this
+// file holds K2's entry point over the packed lists (ListAddr).
 
-namespace {
-
-// bf16 bit patterns of +1 and -1
-constexpr uint16_t kPlusOne = 0x3F80;
-constexpr uint16_t kMinusOne = 0xBF80;
-
-__device__ __forceinline__ uint16_t pm1(uint32_t byte, int bit) {
-  return ((byte >> bit) & 1u) ? kPlusOne : kMinusOne;
-}
-
-// K2's list side for strip_kernel: rows of nb packed code bytes, expanded
-// to 8 * nb columns of +-1.
-struct PackedSrc {
-  static constexpr bool kScaled = true;
-  struct Vec {  // nb % 8 == 0: 8 groups of 8 columns per chunk row
-    static constexpr int kN = kTC * (kDKC / 8) / kThreads;
-    uint2 r[kN];
-    __device__ void load(const Params& p, size_t row0, int dk, int tid) {
-      const uint8_t* codes = static_cast<const uint8_t*>(p.b) + row0 * p.nb;
-#pragma unroll
-      for (int i = 0; i < kN; ++i) {
-        const int idx = tid + i * kThreads, row = idx >> 3, part = idx & 7;
-        const int byte0 = (dk + part * 8) % p.nb;
-        r[i] = *reinterpret_cast<const uint2*>(codes + (size_t)row * p.nb +
-                                               byte0);
-      }
-    }
-    __device__ void store(const Params& p, __nv_bfloat16* bs, int dk,
-                          int tid) const {
-#pragma unroll
-      for (int i = 0; i < kN; ++i) {
-        const int idx = tid + i * kThreads, row = idx >> 3, part = idx & 7;
-        const int bit = (dk + part * 8) / p.nb;
-        const uint8_t* v = reinterpret_cast<const uint8_t*>(&r[i]);
-        __align__(16) uint16_t o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = pm1(v[e], bit);
-        *reinterpret_cast<uint4*>(bs + row * kST + part * 8) =
-            *reinterpret_cast<const uint4*>(o);
-      }
-    }
-  };
-  static __device__ void stage_scalar(__nv_bfloat16* bs, const Params& p,
-                                      size_t row0, int dk, int tid) {
-    const uint8_t* codes = static_cast<const uint8_t*>(p.b) + row0 * p.nb;
-    uint16_t* out = reinterpret_cast<uint16_t*>(bs);
-    for (int i = tid; i < kTC * kDKC; i += kThreads) {
-      const int row = i / kDKC, d = dk + i % kDKC;
-      out[row * kST + i % kDKC] =
-          d < p.dim ? pm1(codes[(size_t)row * p.nb + d % p.nb], d / p.nb)
-                    : (uint16_t)0;
-    }
-  }
-};
-
-}  // namespace
+#include "packed_src.cuh"
 
 // Launch K2 for one length class on `stream`: `codes` (n_lists, m, nb)
 // uint8, `a` (s_pad, c, 8 * nb) bf16, `scale` and `bias` (n_lists, m) fp32.
@@ -130,12 +76,9 @@ extern "C" int raft_bq_scan(const void* strip_list, const void* strip_rows,
   p.tournament = tournament;
   p.nb = nb;
   p.alpha = alpha;
+  p.paged = 0;
   const size_t smem = plan_launch(p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 8-byte staging needs whole 8-column groups in one plane and an aligned
-  // code block
-  if (nb % 8 == 0 && reinterpret_cast<uintptr_t>(codes) % 8 == 0)
-    return (int)launch<PackedSrc, true>(p, s_pad, smem, st);
-  return (int)launch<PackedSrc, false>(p, s_pad, smem, st);
+  return (int)launch_packed<ListAddr>(p, s_pad, smem,
+                                      static_cast<cudaStream_t>(stream));
 }

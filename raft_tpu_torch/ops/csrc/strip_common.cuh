@@ -1,24 +1,28 @@
-// Shared body of the strip-scan kernels K1 (strip_scan.cu) and K2
-// (bq_scan.cu), written for Hopper (sm_90a).
+// Shared body of the strip-scan kernels K1 (strip_scan.cu), K2 (bq_scan.cu),
+// K3 (paged_scan.cu) and K4 (paged_bq_scan.cu), written for Hopper (sm_90a).
 //
-// Both kernels score, for every strip s of one length class (one probed list
-// x up to C query rows) and every query row r,
+// All four score, for every strip s of one length class (one probed list x up
+// to C query rows) and every query row r,
 //
-//   K1: score[c] = alpha * (A[s, r, :] . B[list, c, :]) + bias[list, c]
-//   K2: score[c] = (alpha * (A[s, r, :] . B[list, c, :])) * scale[list, c]
-//                  + bias[list, c]
+//   K1, K3: score[c] = alpha * (A[s, r, :] . B[row(c), :]) + bias[row(c)]
+//   K2, K4: score[c] = (alpha * (A[s, r, :] . B[row(c), :])) * scale[row(c)]
+//                      + bias[row(c)]
 //
 // with both operands in bf16 and the products summed in fp32, and keep each
 // row's kf smallest packed scores (column in the low 12 mantissa bits). They
-// differ only in where B comes from: K1 reads list rows of int8/bf16/fp32
-// values, K2 expands packed sign bits to +-1. So this header holds everything
-// else once: the packed-key selection (order keys, the bitwise k-th key
-// search, the ballot compaction, the per-row carry fold, the bitonic sort,
-// the sub-block merge), the tensor-core product loop and the launch plan.
-// A kernel source supplies a list-side policy `Src` (see strip_kernel) and
-// its extern "C" entry point.
+// differ in where B comes from (a list-side policy `Src`: dense rows of
+// int8/uint8/bf16/fp32 values, dense_src.cuh, or packed sign bits expanded to
+// +-1, packed_src.cuh) and in how column c of a sub-block maps to a row of
+// the list arrays (an address policy `Addr`, below: the identity for the
+// packed lists of K1/K2, a page-table walk for the paged pools of K3/K4). This
+// header holds everything else once: the packed-key selection (order keys,
+// the bitwise k-th key search, the ballot compaction, the per-row carry fold,
+// the bitonic sort, the sub-block merge), the tensor-core product loop and
+// the launch plan. A kernel source picks its policies and supplies its
+// extern "C" entry point.
 //
-// The design, and what bounds it, is described in strip_scan.cu.
+// The design, and what bounds it, is described in strip_scan.cu (K1) and
+// paged_scan.cu (the paged walk).
 
 #pragma once
 
@@ -56,8 +60,13 @@ struct Params {
   int32_t* out_e;             // (S, c, kf)
   int c, dim, m, w, n_sub, kf, kf_pad, rows, groups, tournament;
   int cw, carry_w;  // key-chunk columns; per-row carry (512 | kf_pad)
-  int nb;           // K2: packed bytes per list row (dim == 8 * nb)
+  int nb;           // K2, K4: packed bytes per list row (dim == 8 * nb)
   float alpha;
+  // paged pools (K3, K4): b, scale and bias are (cap_pages * page_rows, .)
+  // and sub-block j of list l is the pages table[l, j*ppf .. j*ppf + nv)
+  const int32_t* table;  // (n_lists * table_width,), -1 at absent slots
+  const int32_t* chain;  // (n_lists,) live pages per list
+  int paged, page_rows, table_width, ppf;
 };
 
 // unsigned key whose integer order is the float order of the packed score
@@ -81,6 +90,18 @@ __device__ __forceinline__ void decode_key(uint32_t key, float* v, int* e) {
   if (x >= __uint_as_float(kClampBits)) x = INFINITY;
   *v = x;
   *e = (int)(bits & kPackMask);
+}
+
+// slot i of a row's sorted top-kf: a real key decodes; an empty slot (the
+// sub-block walked fewer than kf columns) reads +inf at column i
+__device__ __forceinline__ void decode_slot(uint32_t key, int i, float* v,
+                                            int* e) {
+  if (key == kNoKey) {
+    *v = INFINITY;
+    *e = i;
+  } else {
+    decode_key(key, v, e);
+  }
 }
 
 __device__ __forceinline__ float warp_min(float x) {
@@ -173,24 +194,85 @@ __device__ void fold_chunk(const uint32_t* kr, int cw, uint32_t* cr,
       cr[3 * kNB + bin] = m3;
     }
   } else {
+    // x is the kf-th smallest key, or kNoKey when carry and chunk hold fewer
+    // than kf real keys: then every real key is kept and the rest of the
+    // carry stays empty (the carry's own kNoKey slots must not crowd out
+    // the chunk's keys)
     const uint32_t x = kth_key(cr, kf, kr, cw, kf, lane);
-    const int n = compact_le(cr, kf, x, sel, 0, kf_pad, lane);
-    compact_le(kr, cw, x, sel, n, kf_pad, lane);
+    const uint32_t xs = x == kNoKey ? kNoKey - 1u : x;
+    const int n = compact_le(cr, kf, xs, sel, 0, kf_pad, lane);
+    const int n2 = compact_le(kr, cw, xs, sel, n, kf_pad, lane);
     __syncwarp();
-    for (int i = lane; i < kf; i += 32) cr[i] = sel[i];
+    for (int i = lane; i < kf; i += 32) cr[i] = i < n2 ? sel[i] : kNoKey;
   }
   __syncwarp();
 }
 
+// ---- row addressing of one (strip, sub-block) -----------------------------
+// An address policy maps column c of the sub-block to a row of the list-side
+// arrays (b, scale, bias) and says how many columns score (`live`) and how
+// many the product loop walks (`cols`, whole 128-column tiles).
+//
+// ListAddr (K1, K2): packed lists, sub-block j of list l is the rows
+// l*m + j*w .. + w; every column is walked; a dead sub-block (sub_live 0)
+// has live = 0.
+struct ListAddr {
+  static constexpr bool kPaged = false;
+  size_t base;
+  int live, cols;
+  __device__ void init(const Params& p, int lst, int j, int*, int) {
+    base = (size_t)lst * p.m + (size_t)j * p.w;
+    live = p.sub_live[(size_t)lst * p.n_sub + j] ? p.w : 0;
+    cols = p.w;
+  }
+  __device__ __forceinline__ bool has(int) const { return true; }
+  __device__ __forceinline__ size_t row(int c) const { return base + c; }
+};
+
+// PagedAddr (K3, K4): the sub-block's nv = clamp(chain[l] - j*ppf, 0, ppf) *
+// sub_live[l*n_sub + j] live pages; their ids are staged in shared memory
+// (pg), and column c reads pool row pg[c / R] * R + c % R. Only the first
+// nv*R columns score; the walk stops at the tile that holds the last of
+// them, so the work follows the live rows, not the capacity. Page slots at
+// or past the chain (-1 in the table) are never read, nor are pool rows past
+// nv*R.
+struct PagedAddr {
+  static constexpr bool kPaged = true;
+  const int* pg;
+  int R, live, cols;
+  __device__ void init(const Params& p, int lst, int j, int* pg_s, int tid) {
+    const int first = j * p.ppf;
+    int nv = min(max(p.chain[lst] - first, 0), p.ppf);
+    if (p.sub_live[(size_t)lst * p.n_sub + j] == 0) nv = 0;
+    const int32_t* t = p.table + (size_t)lst * p.table_width + first;
+    for (int i = tid; i < nv; i += kThreads) pg_s[i] = t[i];
+    pg = pg_s;
+    R = p.page_rows;
+    live = nv * R;
+    cols = (live + kTC - 1) / kTC * kTC;
+  }
+  __device__ __forceinline__ bool has(int c) const { return c < live; }
+  __device__ __forceinline__ size_t row(int c) const {
+    return (size_t)pg[c / R] * R + c % R;
+  }
+};
+
 // The kernel body. `Src` supplies the list side of the product:
-//   Src::kScaled                      multiply by scale[col] before the bias;
+//   Src::kScaled                      multiply by scale[row] before the bias;
 //   Src::Vec                          register-staged fast path:
-//     load(p, row0, dk, tid)          fetch the (kTC x kDKC) chunk of list
-//                                     rows row0.. at dims dk..;
+//     load(p, ad, ct, dk, tid)        fetch the (kTC x kDKC) chunk of the
+//                                     columns ct.. at dims dk.. (rows the
+//                                     address policy `ad` lacks read as 0);
 //     store(p, b_s, dk, tid)          write it to shared memory as bf16;
-//   Src::stage_scalar(b_s, p, row0, dk, tid)   the same, any width.
+//   Src::stage_scalar(b_s, p, ad, ct, dk, tid)   the same, any width.
 // kVec picks the fast path; its launcher checks that the shapes allow it.
-template <class Src, bool kVec>
+//
+// Columns past `live` (paged: past the chain) score +inf with their own
+// column, as the TPU kernels' lane mask leaves them; columns past w produce
+// no key. A row whose sub-block walks fewer than kf columns ends with keys
+// missing from its top-kf: those slots read +inf at their own position,
+// which is the column the all-+inf remainder of the block would have given.
+template <class Src, class Addr, bool kVec>
 __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x / p.groups;  // the groups of a strip are adjacent
@@ -216,6 +298,8 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   uint32_t* sel_all = reinterpret_cast<uint32_t*>(b_s + kTC * kST);
   float* mv_all = reinterpret_cast<float*>(sel_all + (size_t)kWarps * p.kf_pad);
   int* me_all = reinterpret_cast<int*>(mv_all + (size_t)kWarps * 2 * p.kf);
+  int* pg_s = reinterpret_cast<int*>(mv_all) +  // after the merge buffers
+              (p.n_sub > 1 ? (size_t)kWarps * 4 * p.kf : 0);
   uint32_t* sel = sel_all + (size_t)warp * p.kf_pad;      // per-warp winners
   float* mv = mv_all + (size_t)warp * 2 * p.kf;           // per-warp merge
   int* me = me_all + (size_t)warp * 2 * p.kf;             // (n_sub > 1 only)
@@ -224,11 +308,14 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   float* out_v = p.out_v + ((size_t)s * p.c + r0) * p.kf;
   int32_t* out_e = p.out_e + ((size_t)s * p.c + r0) * p.kf;
   const int kf = p.kf;
-  const int n_steps = (p.w / kTC) * n_chunks;
   stage_a(a_s, A, rows_p, nr, p.dim, a_st - 8, tid);  // read after a sync
 
+  Addr ad;
   for (int j = 0; j < p.n_sub; ++j) {
-    if (p.sub_live[(size_t)lst * p.n_sub + j] == 0) {
+    __syncthreads();  // the previous sub-block's rows and page ids are read
+    ad.init(p, lst, j, pg_s, tid);
+    if (Addr::kPaged) __syncthreads();  // the page ids are staged
+    if (ad.live == 0) {
       // dead sub-block: first visit writes the all-dead extraction result,
       // revisits leave the running top-kf as it is
       if (j == 0) {
@@ -239,11 +326,12 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
       }
       continue;
     }
-    const size_t col0 = (size_t)lst * p.m + (size_t)j * p.w;
-    const float* bias = p.bias + col0;
-    const float* scale = Src::kScaled ? p.scale + col0 : nullptr;
-    __syncthreads();  // the previous sub-block's rows are read
     for (int i = tid; i < nr * p.carry_w; i += kThreads) carry[i] = kNoKey;
+    const int n_steps = (ad.cols / kTC) * n_chunks;
+    // packed lists: the sub-block's bias and scale rows, hoisted
+    const float* bias_l = Addr::kPaged ? nullptr : p.bias + ad.row(0);
+    const float* scale_l =
+        (Addr::kPaged || !Src::kScaled) ? nullptr : p.scale + ad.row(0);
 
     // ---- scores on the tensor cores, one (kTC x kDKC) step at a time -----
     float acc[kMaxRows / 16][2][4];
@@ -254,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
     typename Src::Vec pre;
-    if (kVec) pre.load(p, col0, 0, tid);
+    if (kVec) pre.load(p, ad, 0, 0, tid);
     for (int step = 0; step < n_steps; ++step) {
       const int ct = (step / n_chunks) * kTC;
       const int dk = (step % n_chunks) * kDKC;
@@ -262,13 +350,13 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
       if (kVec) {
         pre.store(p, b_s, dk, tid);
       } else {
-        Src::stage_scalar(b_s, p, col0 + ct, dk, tid);
+        Src::stage_scalar(b_s, p, ad, ct, dk, tid);
       }
       __syncthreads();
       if (kVec && step + 1 < n_steps) {
         const int nct = ((step + 1) / n_chunks) * kTC;
         const int ndk = ((step + 1) % n_chunks) * kDKC;
-        pre.load(p, col0 + nct, ndk, tid);
+        pre.load(p, ad, nct, ndk, tid);
       }
       const int n0 = warp * 16;
 #pragma unroll
@@ -301,11 +389,22 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
         for (int nt = 0; nt < 2; ++nt) {
           const int col = ct + n0 + nt * 8 + 2 * t4;
           const int cc = col & (p.cw - 1);
-          const float bv0 = bias[col], bv1 = bias[col + 1];
-          float sv0 = 1.f, sv1 = 1.f;
-          if (Src::kScaled) {
-            sv0 = scale[col];
-            sv1 = scale[col + 1];
+          const bool h0 = ad.has(col), h1 = ad.has(col + 1);
+          float bv0, bv1, sv0 = 1.f, sv1 = 1.f;
+          if constexpr (Addr::kPaged) {
+            bv0 = h0 ? p.bias[ad.row(col)] : INFINITY;
+            bv1 = h1 ? p.bias[ad.row(col + 1)] : INFINITY;
+            if (Src::kScaled) {
+              if (h0) sv0 = p.scale[ad.row(col)];
+              if (h1) sv1 = p.scale[ad.row(col + 1)];
+            }
+          } else {
+            bv0 = bias_l[col];
+            bv1 = bias_l[col + 1];
+            if (Src::kScaled) {
+              sv0 = scale_l[col];
+              sv1 = scale_l[col + 1];
+            }
           }
 #pragma unroll
           for (int mt = 0; mt < kMaxRows / 16; ++mt) {
@@ -320,19 +419,31 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
                   x1 = __fmul_rn(x1, sv1);
                 }
                 uint32_t* kr = keys + (size_t)r * p.cw + cc;
-                kr[0] = pack_key(__fadd_rn(x0, bv0), col);
-                kr[1] = pack_key(__fadd_rn(x1, bv1), col + 1);
+                if (Addr::kPaged) {
+                  // past the chain: +inf lanes up to w, no key beyond it
+                  kr[0] = col >= p.w ? kNoKey
+                          : pack_key(h0 ? __fadd_rn(x0, bv0) : INFINITY, col);
+                  kr[1] = col + 1 >= p.w ? kNoKey
+                          : pack_key(h1 ? __fadd_rn(x1, bv1) : INFINITY,
+                                     col + 1);
+                } else {
+                  kr[0] = pack_key(__fadd_rn(x0, bv0), col);
+                  kr[1] = pack_key(__fadd_rn(x1, bv1), col + 1);
+                }
               }
               acc[mt][nt][2 * h] = 0.f;
               acc[mt][nt][2 * h + 1] = 0.f;
             }
           }
         }
-        if (((ct + kTC) & (p.cw - 1)) == 0) {
-          // a chunk is complete: fold it into each row's carry
+        const int end = ct + kTC;
+        if ((end & (p.cw - 1)) == 0 || end == ad.cols) {
+          // a chunk is complete, or the walk ends inside one (paged: a
+          // short chain): fold its columns into each row's carry
           __syncthreads();
+          const int n = ((end - 1) & (p.cw - 1)) + 1;
           for (int r = warp; r < nr; r += kWarps)
-            fold_chunk(keys + (size_t)r * p.cw, p.cw,
+            fold_chunk(keys + (size_t)r * p.cw, n,
                        carry + (size_t)r * p.carry_w, sel, kf, p.kf_pad, tour,
                        lane);
         }
@@ -369,7 +480,7 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
       if (j == 0) {
         for (int i = lane; i < kf; i += 32) {
           float v; int e;
-          decode_key(sel[i], &v, &e);
+          decode_slot(sel[i], i, &v, &e);
           ov[i] = v;
           oe[i] = e;
         }
@@ -380,7 +491,7 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
           mv[i] = ov[i];
           me[i] = oe[i];
           float v; int e;
-          decode_key(sel[i], &v, &e);
+          decode_slot(sel[i], i, &v, &e);
           mv[kf + i] = v;
           me[kf + i] = e + j * p.w;
         }
@@ -408,51 +519,63 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
 }
 
 size_t smem_bytes(int rows, int cw, int carry_w, int dim, int kf, int kf_pad,
-                  int n_sub) {
+                  int n_sub, int ppf) {
   const int rows_p = rows < 16 ? 16 : rows;
   const int a_st = (dim + kDKC - 1) / kDKC * kDKC + 8;
   size_t b = (size_t)rows * (cw + carry_w) * 4 + (size_t)rows_p * a_st * 2 +
              (size_t)kTC * kST * 2 + (size_t)kWarps * kf_pad * 4;
   if (n_sub > 1) b += (size_t)kWarps * 2 * kf * 8;
-  return b;
+  return b + (size_t)ppf * 4;  // the paged walk's page ids
 }
 
 // Checks the class shape and fills the launch plan of `p` (kf_pad, rows per
-// block, key chunk, carry, groups) from c, dim, w, n_sub, kf, tournament.
-// Returns the dynamic shared memory the kernel needs, or 0 when the shape is
-// one the kernel does not take.
+// block, key chunk, carry, groups) from c, dim, w, n_sub, kf, tournament
+// (and, paged, page_rows, table_width, ppf). Returns the dynamic shared
+// memory the kernel needs, or 0 when the shape is one the kernel does not
+// take.
 size_t plan_launch(Params& p) {
-  if (p.kf < 1 || p.kf > kMaxKf || p.kf > p.w || p.w % 512 != 0 ||
-      p.w > (1 << kPackBits) || p.c < 1 || p.dim < 1 || p.n_sub < 1 ||
-      (size_t)p.n_sub * p.w > (size_t)p.m)
+  if (p.kf < 1 || p.kf > kMaxKf || p.kf > p.w || p.w > (1 << kPackBits) ||
+      p.c < 1 || p.dim < 1 || p.n_sub < 1)
     return 0;
+  if (p.paged) {
+    if (p.page_rows < 1 || p.ppf < 1 || p.w != p.ppf * p.page_rows ||
+        p.table_width < 1 || p.tournament)
+      return 0;
+  } else if (p.w % 512 != 0 || (size_t)p.n_sub * p.w > (size_t)p.m) {
+    return 0;
+  }
+  const int ppf = p.paged ? p.ppf : 0;
   p.kf_pad = 1;
   while (p.kf_pad < p.kf) p.kf_pad <<= 1;
   // 32 query rows per block when they fit; the keys of a row live in
-  // chunks of cw columns that fold into a small per-row carry
+  // chunks of cw columns (a power of two, whole tiles) that fold into a
+  // small per-row carry
   p.carry_w = p.tournament ? 4 * kNB : (p.kf_pad < 4 ? 4 : p.kf_pad);
   p.rows = kMaxRows;
-  p.cw = p.w < kMaxChunk ? p.w : kMaxChunk;
-  while (smem_bytes(p.rows, p.cw, p.carry_w, p.dim, p.kf, p.kf_pad, p.n_sub) >
-         kSmemLimit) {
+  const int w_tiles = (p.w + kTC - 1) / kTC * kTC;
+  p.cw = kTC;
+  while (p.cw < w_tiles && p.cw < kMaxChunk) p.cw <<= 1;
+  while (smem_bytes(p.rows, p.cw, p.carry_w, p.dim, p.kf, p.kf_pad, p.n_sub,
+                    ppf) > kSmemLimit) {
     if (p.cw > 512) p.cw >>= 1;
     else if (p.rows > 1) p.rows >>= 1;
     else break;
   }
-  const size_t smem =
-      smem_bytes(p.rows, p.cw, p.carry_w, p.dim, p.kf, p.kf_pad, p.n_sub);
+  const size_t smem = smem_bytes(p.rows, p.cw, p.carry_w, p.dim, p.kf,
+                                 p.kf_pad, p.n_sub, ppf);
   if (smem > kSmemLimit) return 0;
   p.groups = (p.c + p.rows - 1) / p.rows;
   return smem;
 }
 
-template <class Src, bool kVec>
+template <class Src, class Addr, bool kVec>
 cudaError_t launch(const Params& p, int s_pad, size_t smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      strip_kernel<Src, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      strip_kernel<Src, Addr, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  strip_kernel<Src, kVec><<<(unsigned)s_pad * p.groups, kThreads, smem, st>>>(p);
+  strip_kernel<Src, Addr, kVec>
+      <<<(unsigned)s_pad * p.groups, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 

@@ -45,143 +45,17 @@
 // PERF.md holds the measured gap to the bound.
 //
 // The kernel body and the selection live in strip_common.cuh, shared with
-// K2 (bq_scan.cu); this file holds K1's list side: staging int8, bf16 or
-// fp32 list rows as bf16.
+// K2-K4; the list side (staging int8, uint8, bf16 or fp32 list rows as bf16)
+// in dense_src.cuh, shared with K3. This file holds K1's entry point: the
+// packed lists, addressed as they lie (ListAddr).
 
-#include "strip_common.cuh"
-
-namespace {
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t x) {
-  return __float2bfloat16_rn((float)x);
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 x) { return x; }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// ---- staging of one (kTC x kDKC) B chunk into bf16 shared memory ----------
-// Vector path (dim % 64 == 0): 16-byte loads, held in registers between
-// load() and store() so the next chunk's loads fly during the mma.
-template <typename TB>
-struct BVec;
-
-template <>
-struct BVec<int8_t> {  // a chunk row is 64 bytes: 4 x 16
-  static constexpr int kN = kTC * 4 / kThreads;
-  uint4 r[kN];
-  __device__ void load(const int8_t* bl, int dim, int tid) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 2, part = idx & 3;
-      r[i] = *reinterpret_cast<const uint4*>(bl + (size_t)row * dim + part * 16);
-    }
-  }
-  __device__ void store(__nv_bfloat16* bs, int tid) const {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 2, part = idx & 3;
-      const int8_t* v = reinterpret_cast<const int8_t*>(&r[i]);
-      __align__(16) __nv_bfloat16 o[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) o[e] = to_bf16(v[e]);
-      uint4* dst = reinterpret_cast<uint4*>(bs + row * kST + part * 16);
-      dst[0] = reinterpret_cast<const uint4*>(o)[0];
-      dst[1] = reinterpret_cast<const uint4*>(o)[1];
-    }
-  }
-};
-
-template <>
-struct BVec<__nv_bfloat16> {  // a chunk row is 128 bytes: 8 x 16
-  static constexpr int kN = kTC * 8 / kThreads;
-  uint4 r[kN];
-  __device__ void load(const __nv_bfloat16* bl, int dim, int tid) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 3, part = idx & 7;
-      r[i] = *reinterpret_cast<const uint4*>(bl + (size_t)row * dim + part * 8);
-    }
-  }
-  __device__ void store(__nv_bfloat16* bs, int tid) const {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 3, part = idx & 7;
-      *reinterpret_cast<uint4*>(bs + row * kST + part * 8) = r[i];
-    }
-  }
-};
-
-template <>
-struct BVec<float> {  // a chunk row is 256 bytes: 16 x 16
-  static constexpr int kN = kTC * 16 / kThreads;
-  float4 r[kN];
-  __device__ void load(const float* bl, int dim, int tid) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 4, part = idx & 15;
-      r[i] = *reinterpret_cast<const float4*>(bl + (size_t)row * dim + part * 4);
-    }
-  }
-  __device__ void store(__nv_bfloat16* bs, int tid) const {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int idx = tid + i * kThreads, row = idx >> 4, part = idx & 15;
-      __align__(8) __nv_bfloat16 o[4] = {to_bf16(r[i].x), to_bf16(r[i].y),
-                                         to_bf16(r[i].z), to_bf16(r[i].w)};
-      *reinterpret_cast<uint2*>(bs + row * kST + part * 4) =
-          *reinterpret_cast<const uint2*>(o);
-    }
-  }
-};
-
-// Scalar path (any dim): element loads, zero past dim.
-template <typename TB>
-__device__ void stage_b_scalar(__nv_bfloat16* bs, const TB* bl, int dim,
-                               int dk, int tid) {
-  for (int i = tid; i < kTC * kDKC; i += kThreads) {
-    const int row = i / kDKC, d = i % kDKC;
-    bs[row * kST + d] = dk + d < dim ? to_bf16(bl[(size_t)row * dim + dk + d])
-                                     : __float2bfloat16_rn(0.f);
-  }
-}
-
-// K1's list side for strip_kernel: rows of dim values of type TB.
-template <typename TB>
-struct DenseSrc {
-  static constexpr bool kScaled = false;
-  struct Vec {
-    BVec<TB> v;
-    __device__ void load(const Params& p, size_t row0, int dk, int tid) {
-      v.load(static_cast<const TB*>(p.b) + row0 * p.dim + dk, p.dim, tid);
-    }
-    __device__ void store(const Params&, __nv_bfloat16* bs, int,
-                          int tid) const {
-      v.store(bs, tid);
-    }
-  };
-  static __device__ void stage_scalar(__nv_bfloat16* bs, const Params& p,
-                                      size_t row0, int dk, int tid) {
-    stage_b_scalar(bs, static_cast<const TB*>(p.b) + row0 * p.dim, p.dim, dk,
-                   tid);
-  }
-};
-
-template <typename TB>
-cudaError_t launch_dtype(const Params& p, int s_pad, size_t smem,
-                         cudaStream_t st) {
-  // 16-byte staging needs whole 64-dim chunks and an aligned list block
-  if (p.dim % kDKC == 0 && reinterpret_cast<uintptr_t>(p.b) % 16 == 0)
-    return launch<DenseSrc<TB>, true>(p, s_pad, smem, st);
-  return launch<DenseSrc<TB>, false>(p, s_pad, smem, st);
-}
-
-}  // namespace
+#include "dense_src.cuh"
 
 // Launch K1 for one length class on `stream`. `strip_rows` may be null (all
 // c rows are real). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for shapes the kernel does not take). Allocates
 // nothing; outputs of padding strips and empty rows are left unwritten.
+// b_dtype: 0 int8, 1 bf16, 2 fp32, 3 uint8.
 extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
                                const void* sub_live, const void* a,
                                const void* b, const void* bias, void* out_v,
@@ -189,7 +63,6 @@ extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
                                int w, int n_sub, int kf, float alpha,
                                int tournament, int b_dtype, void* stream) {
   if (s_pad <= 0) return (int)cudaSuccess;
-  if (b_dtype < 0 || b_dtype > 2) return (int)cudaErrorInvalidValue;
   Params p{};
   p.strip_list = static_cast<const int32_t*>(strip_list);
   p.strip_rows = static_cast<const int32_t*>(strip_rows);
@@ -209,10 +82,9 @@ extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
   p.tournament = tournament;
   p.nb = 0;
   p.alpha = alpha;
+  p.paged = 0;
   const size_t smem = plan_launch(p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b_dtype == 0) return (int)launch_dtype<int8_t>(p, s_pad, smem, st);
-  if (b_dtype == 1) return (int)launch_dtype<__nv_bfloat16>(p, s_pad, smem, st);
-  return (int)launch_dtype<float>(p, s_pad, smem, st);
+  return (int)launch_dense_dtype<ListAddr>(
+      p, b_dtype, s_pad, smem, static_cast<cudaStream_t>(stream));
 }

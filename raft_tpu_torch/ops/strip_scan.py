@@ -20,6 +20,14 @@ The tile body and both search drivers take the per-class function as an
 argument, so the packed 1-bit scan (:mod:`raft_tpu_torch.ops.bq_scan`,
 kernel K2) runs through the same plan and merge.
 
+The paged half (serving) runs the same plan and merge over a
+``PagedListStore``'s page chains: one capacity length class of ``n_sub``
+sub-blocks of ``ppf`` pages (:func:`paged_plan`), scanned in place by
+kernel K3 (``csrc/paged_scan.cu``) through :func:`paged_class`, whose plain
+twin :func:`_paged_class_plain` is the PyTorch form of the JAX package's
+``_paged_class_jnp``; :class:`PagedIds` translates (list, offset) back to
+source ids through the page table.
+
 The final merge selects with a stable sort (``lax.top_k``'s lowest-index
 tie order), which is what the JAX package runs off the TPU.
 """
@@ -50,8 +58,12 @@ _PLAIN_CHUNK_BYTES = 256 << 20  # score block per step of the plain twin
 
 #: launches of the hand-written K1 kernel (``csrc/strip_scan.cu``)
 STRIP_KERNEL = _native.KernelCounter("strip_scan")
+#: launches of the hand-written K3 kernel (``csrc/paged_scan.cu``)
+PAGED_KERNEL = _native.KernelCounter("paged_scan")
 
-_B_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# list-row types of K1 and K3 → the kernels' b_dtype codes
+_B_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2,
+             torch.uint8: 3}
 
 
 def _ceil_div(a, b):
@@ -419,7 +431,7 @@ def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
     check_cuda_operands(a, strip_list, strip_rows, list_data=list_data,
                         bias=bias)
     if list_data.dtype not in _B_DTYPES:
-        raise TypeError(f"list_data must be int8, bf16 or fp32, got "
+        raise TypeError(f"list_data must be int8, uint8, bf16 or fp32, got "
                         f"{list_data.dtype}")
     dev = a.device
     s_pad, c, dim = a.shape
@@ -481,9 +493,10 @@ def _strip_tile_body(queries_mat, qids, strip_list, pair_strip, pair_slot,
                      pair_const=None):
     """One query tile: group the queries per strip, run every length
     class through ``class_fn(strip_list, a, w_blocks, n_sub, strip_rows)``
-    (K1's or K2's wrapper), then the candidate merge. A list's pairs fill
-    its strips' slots in order, so each strip's real rows are a prefix of
-    its C slots."""
+    (K1's or K2's wrapper; for the paged scans, K3's or K4's, the layout's
+    first field is the pages per fetch ``ppf``, not ``w_blocks``), then
+    the candidate merge. A list's pairs fill its strips' slots in order, so
+    each strip's real rows are a prefix of its C slots."""
     a_grouped = group_queries(queries_mat, qids)
     strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
     outs_v, outs_e = [], []
@@ -634,7 +647,7 @@ def strip_search(queries_mat, probes, list_data, list_bias, list_ids, lens,
     """Full strip scan: probes (q, p) → per-query top-k over the probed
     lists' entries, scored ``alpha·⟨q, x⟩ + bias`` (smaller is better).
 
-    ``list_data`` (n_lists, m, dim) fp32/bf16/int8 with m a power-of-two
+    ``list_data`` (n_lists, m, dim) fp32/bf16/int8/uint8 with m a power-of-two
     multiple of 512; ``list_bias`` (n_lists, m) fp32, +inf at padding;
     ``list_ids`` (n_lists, m), -1 at padding; ``lens`` (n_lists,) real
     entry counts. All tensors on one device; the scan runs there."""
@@ -645,3 +658,323 @@ def strip_search(queries_mat, probes, list_data, list_bias, list_ids, lens,
         lambda kf: _k1_class_fn(list_data, list_bias, float(alpha), kf,
                                 approx_ok),
         pair_const)
+
+
+# ---------------------------------------------------------------------------
+# Paged strip scan (serving): the same engine over a PagedListStore's pools
+# ---------------------------------------------------------------------------
+#
+# Every list is planned at its capacity (table_width × page_rows rows, one
+# length class), but the kernel walks only a chain's live pages. Tombstones
+# and never-filled slots self-mask through the store's bias pool (+inf);
+# lanes past a sub-block's live pages are masked to +inf after the bias add,
+# so stale pool rows never score.
+
+
+def paged_plan(table_width: int, page_rows: int, row_bytes: int,
+               kf: int) -> Tuple[int, int, int]:
+    """Fetch plan of one paged scan: ``(pages_per_fetch, n_sub, w)`` with
+    ``w = pages_per_fetch · page_rows`` columns per sub-block. The block
+    covers ``kf`` rows, aims for the packed granule ``MC``, and stays
+    inside the packing bound (w ≤ 4096) and the JAX package's 4 MB payload
+    budget, so both packages plan the same blocks."""
+    W, R = int(table_width), int(page_rows)
+
+    def _ok(p_):
+        w_ = p_ * R
+        return w_ <= (1 << _PACK_BITS) and w_ * max(1, row_bytes) <= (4 << 20)
+
+    ppf = 1
+    while ppf < W and ppf * R < min(max(kf, MC), 1 << _PACK_BITS):
+        ppf *= 2
+    while ppf < W and _ok(ppf * 2):
+        ppf *= 2
+    while ppf > 1 and not _ok(ppf):
+        ppf //= 2
+    return ppf, max(1, W // ppf), ppf * R
+
+
+def paged_eligible(table_width: int, page_rows: int, row_bytes: int,
+                   k: int) -> bool:
+    """True when the paged engine can serve this store and k: the plan's
+    block covers k within the packing bound and pages are at least 8 rows."""
+    if page_rows < 8 or k > 512:
+        return False
+    _, _, w = paged_plan(table_width, page_rows, row_bytes, int(k))
+    return int(k) <= min(w, table_width * page_rows, 1 << _PACK_BITS)
+
+
+class PagedIds:
+    """(list, in-list offset) → source id through the page table, with the
+    2-D indexing :func:`merge_strip_candidates` applies to ``list_ids``:
+    offset ``o`` of list ``l`` is ``page_ids[table[l, o // R], o % R]``;
+    absent pages give -1."""
+
+    __slots__ = ("page_ids", "table", "page_rows")
+
+    def __init__(self, page_ids, table, page_rows: int):
+        self.page_ids = page_ids
+        self.table = table
+        self.page_rows = int(page_rows)
+
+    def __getitem__(self, idx):
+        win_list, win_off = idx
+        pg = self.table[win_list, win_off // self.page_rows]
+        ids = self.page_ids[pg.clamp(min=0).long(), win_off % self.page_rows]
+        return torch.where(pg >= 0, ids, torch.full_like(ids, -1))
+
+
+def paged_sub_live(bias_pool, table, chain_pages, ppf: int,
+                   n_sub: int) -> torch.Tensor:
+    """(n_lists·n_sub,) int32: 1 where a (list, sub-block) holds a chained
+    page with at least one finite bias row. A 0 sub-block is skipped by
+    the kernel (sub-block 0 still writes its all-+inf result)."""
+    n_lists, table_width = table.shape
+    span = n_sub * ppf
+    page_live = torch.isfinite(bias_pool).any(dim=1)            # (cap_pages,)
+    slot_live = page_live[table.clamp(min=0).long()] & (table >= 0)
+    if span > table_width:
+        slot_live = torch.nn.functional.pad(slot_live,
+                                            (0, span - table_width))
+    elif span < table_width:
+        slot_live = slot_live[:, :span]
+    pos = torch.arange(span, device=table.device)[None, :]
+    slot_live = slot_live & (pos < chain_pages.to(torch.int64)[:, None])
+    return slot_live.reshape(n_lists, n_sub, ppf).any(dim=2).to(
+        torch.int32).reshape(-1)
+
+
+def _check_paged_args(strip_list, table_flat, chain_pages, sub_live, a,
+                      pages, bias_pool, ppf: int, n_sub: int, page_rows: int,
+                      table_width: int, kf: int, width: Optional[int] = None):
+    """Shape checks of one paged class call → w. ``width`` is the query
+    operand's row width (default: the pages' last dim)."""
+    w = ppf * page_rows
+    if a.ndim != 3 or pages.ndim != 3 or bias_pool.ndim != 2:
+        raise ValueError("a paged class call wants a (S, C, dim), pages "
+                         "(cap_pages, page_rows, ·) and bias_pool "
+                         "(cap_pages, page_rows)")
+    width = pages.shape[2] if width is None else width
+    if a.shape[2] != width:
+        raise ValueError(f"dim mismatch: {a.shape[2]} != {width}")
+    if tuple(bias_pool.shape) != tuple(pages.shape[:2]):
+        raise ValueError("bias_pool must be (cap_pages, page_rows) like pages")
+    if pages.shape[1] != page_rows:
+        raise ValueError(f"pages hold {pages.shape[1]} rows, plan says "
+                         f"{page_rows}")
+    if table_width < 1 or table_flat.ndim != 1 \
+            or table_flat.shape[0] % table_width:
+        raise ValueError("table_flat must be (n_lists·table_width,)")
+    n_lists = table_flat.shape[0] // table_width
+    if chain_pages.shape != (n_lists,):
+        raise ValueError("chain_pages must hold one count per list")
+    if sub_live.shape != (n_lists * n_sub,):
+        raise ValueError("sub_live must hold one word per (list, sub-block)")
+    if strip_list.shape != (a.shape[0],):
+        raise ValueError("strip_list must hold one list id per strip")
+    if not 0 < kf <= min(MAX_KF, w):
+        raise ValueError(f"kf must be in [1, {min(MAX_KF, w)}], got {kf}")
+    if w > (1 << _PACK_BITS):
+        raise ValueError(f"fetch block {w} exceeds the packed-column range")
+    return w
+
+
+def _paged_plain(strip_list, table_flat, chain_pages, sub_live, a,
+                 bias_pool, ppf: int, n_sub: int, page_rows: int,
+                 table_width: int, alpha: float, kf: int, rows_of,
+                 scale_pool=None):
+    """The per-class loop of the paged twins (K3's and K4's), the PyTorch
+    form of the JAX package's ``_paged_class_jnp``: per strip and
+    sub-block j, ``nv = clamp(chain − j·ppf, 0, ppf)·sub_live`` live
+    pages, scores over the block's ``w`` lanes with lanes ≥ ``nv·R``
+    masked to +inf after the bias add, exact top-kf, merge into the running
+    top-kf. Sub-block 0 always computes; a later one with ``nv = 0`` keeps
+    the running top-kf. ``rows_of(pidx)`` gives the fp32 (…, dim) rows of
+    pages ``pidx`` (bf16-rounded values); ``scale_pool``, when given,
+    multiplies ``alpha·s`` before the bias add."""
+    s_pad, c, dim = a.shape
+    dev = a.device
+    w = ppf * page_rows
+    out_v = torch.full((s_pad, c, kf), float("inf"), dtype=torch.float32,
+                       device=dev)
+    out_e = torch.zeros((s_pad, c, kf), dtype=torch.int32, device=dev)
+    table = table_flat.reshape(-1, table_width).to(torch.int64)
+    live2 = sub_live.reshape(-1, n_sub).to(torch.int64)
+    lst = strip_list.to(torch.int64).clamp(min=0)
+    real = strip_list >= 0
+    chain = torch.where(real, chain_pages.to(torch.int64)[lst], 0)
+    t_idx = torch.arange(ppf, device=dev)
+    lanes = torch.arange(w, device=dev)
+    per_strip = max(1, c * w * 4 + w * dim * 4)
+    step = max(1, _PLAIN_CHUNK_BYTES // per_strip)
+    for j in range(n_sub):
+        nv = (chain - j * ppf).clamp(0, ppf) * live2[lst, j]
+        run = real if j == 0 else real & (nv > 0)
+        idx_all = run.nonzero()[:, 0]
+        for s0 in range(0, idx_all.numel(), step):
+            idx = idx_all[s0:s0 + step]
+            n = idx.numel()
+            slot = (j * ppf + t_idx).clamp(max=table_width - 1)
+            pidx = torch.where(t_idx[None, :] < nv[idx, None],
+                               table[lst[idx]][:, slot], 0).clamp(min=0)
+            blk = rows_of(pidx).reshape(n, w, dim)
+            sc = alpha * torch.matmul(a[idx].float(), blk.transpose(1, 2))
+            if scale_pool is not None:
+                sc = sc * scale_pool[pidx].reshape(n, 1, w)
+            sc = sc + bias_pool[pidx].reshape(n, 1, w)
+            sc = torch.where(lanes[None, None, :]
+                             < (nv[idx] * page_rows)[:, None, None],
+                             sc, float("inf"))
+            bv, be = _topk_block(sc, kf, w, False)
+            be = be + j * w
+            if j == 0:
+                out_v[idx], out_e[idx] = bv, be
+            else:
+                mv, me = _extract_topk(torch.cat([out_v[idx], bv], -1),
+                                       torch.cat([out_e[idx], be], -1), kf)
+                out_v[idx], out_e[idx] = mv, me
+    return out_v, out_e
+
+
+def _paged_class_plain(strip_list, table_flat, chain_pages, sub_live, a,
+                       pages, bias_pool, ppf: int, n_sub: int,
+                       page_rows: int, table_width: int, alpha: float,
+                       kf: int, strip_rows=None):
+    """The per-class function of K3, in PyTorch ops → ((S, C, kf) fp32
+    values, (S, C, kf) int32 offsets ``(j·ppf + t)·R + r`` in the list).
+    Scores are ``alpha·(A·Bᵀ) + bias`` with both operands rounded to bf16
+    and the products summed in fp32. Rows of padding strips are left at
+    +inf / 0; rows at or past ``strip_rows`` are unspecified (the kernel
+    skips them) and computed here like the others."""
+    _check_paged_args(strip_list, table_flat, chain_pages, sub_live, a,
+                      pages, bias_pool, ppf, n_sub, page_rows, table_width,
+                      kf)
+    return _paged_plain(
+        strip_list, table_flat, chain_pages, sub_live, a, bias_pool, ppf,
+        n_sub, page_rows, table_width, alpha, kf,
+        lambda pidx: pages[pidx].to(torch.bfloat16).float())
+
+
+def check_paged_operands(table_flat, chain_pages, sub_live):
+    """The page-walk operands a paged kernel wrapper checks before a
+    launch: int32 and contiguous."""
+    for name, t in (("table_flat", table_flat), ("chain_pages", chain_pages),
+                    ("sub_live", sub_live)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _paged_class_cuda(strip_list, table_flat, chain_pages, sub_live, a,
+                      pages, bias_pool, ppf: int, n_sub: int,
+                      page_rows: int, table_width: int, alpha: float,
+                      kf: int, strip_rows=None):
+    """Launch K3 (``csrc/paged_scan.cu``) on the current stream."""
+    _check_paged_args(strip_list, table_flat, chain_pages, sub_live, a,
+                      pages, bias_pool, ppf, n_sub, page_rows, table_width,
+                      kf)
+    check_cuda_operands(a, strip_list, strip_rows, pages=pages,
+                        bias=bias_pool, table_flat=table_flat,
+                        chain_pages=chain_pages, sub_live=sub_live)
+    check_paged_operands(table_flat, chain_pages, sub_live)
+    if pages.dtype not in _B_DTYPES:
+        raise TypeError(f"pages must be int8, uint8, bf16 or fp32, got "
+                        f"{pages.dtype}")
+    dev = a.device
+    s_pad, c, dim = a.shape
+    out_v = torch.empty((s_pad, c, kf), dtype=torch.float32, device=dev)
+    out_e = torch.empty((s_pad, c, kf), dtype=torch.int32, device=dev)
+    if s_pad == 0:
+        return out_v, out_e
+    fn = _paged_kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(strip_list.data_ptr(),
+            None if strip_rows is None else strip_rows.data_ptr(),
+            table_flat.data_ptr(), chain_pages.data_ptr(),
+            sub_live.data_ptr(), a.data_ptr(), pages.data_ptr(),
+            bias_pool.data_ptr(), out_v.data_ptr(), out_e.data_ptr(),
+            s_pad, c, dim, page_rows, table_width, ppf, n_sub, kf,
+            float(alpha), _B_DTYPES[pages.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_scan kernel launch failed: CUDA error {rc}")
+    PAGED_KERNEL.launches += 1
+    return out_v, out_e
+
+
+def _paged_kernel_fn():
+    fn = _native.load("paged_scan").raft_paged_scan
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_class(strip_list, table_flat, chain_pages, sub_live, a, pages,
+                bias_pool, ppf: int, n_sub: int, page_rows: int,
+                table_width: int, alpha: float, kf: int, strip_rows=None):
+    """Scan the paged class: per strip ``s`` (list ``l = strip_list[s]``)
+    and query row, the top-kf of ``alpha·(A[s]·Bᵀ) + bias`` over the live
+    pages of ``table[l]``, ``ppf`` pages per sub-block, merged over
+    ``n_sub`` sub-blocks → ((S, C, kf) fp32, (S, C, kf) int32 offsets in
+    the list). ``pages`` (cap_pages, page_rows, dim) int8/uint8/bf16/fp32,
+    ``bias_pool`` (cap_pages, page_rows) fp32, ``table_flat``
+    (n_lists·table_width,), ``chain_pages`` (n_lists,) and ``sub_live``
+    (n_lists·n_sub,) int32.
+
+    CUDA tensors launch kernel K3; CPU tensors take the plain twin."""
+    if a.device.type == "cuda":
+        return _paged_class_cuda(strip_list, table_flat, chain_pages,
+                                 sub_live, a, pages, bias_pool, ppf, n_sub,
+                                 page_rows, table_width, alpha, kf,
+                                 strip_rows)
+    return _paged_class_plain(strip_list, table_flat, chain_pages, sub_live,
+                              a, pages, bias_pool, ppf, n_sub, page_rows,
+                              table_width, alpha, kf, strip_rows)
+
+
+def paged_scan_setup(pages, bias_pool, table, chain_pages, probes, kf: int,
+                     row_bytes: int):
+    """What every paged search plans from the store's snapshot →
+    ``(plan, table_flat, chain, sub_live)``: ``plan`` for
+    :func:`_scan_tiles` on the one capacity class ``((ppf, n_sub),)``
+    (:func:`paged_plan`; the layout's first field is ``ppf``, not
+    ``w_blocks``), the flat table, the int32 chain lengths and the
+    per-(list, sub-block) liveness. Raises when ``kf`` exceeds the fetch
+    block (the running top-kf cannot recover rows a narrower block
+    dropped)."""
+    n_lists, table_width = table.shape
+    ppf, n_sub, w = paged_plan(table_width, pages.shape[1], row_bytes, kf)
+    if kf > w:
+        raise ValueError(
+            f"paged strip scan needs kf <= fetch block ({w} rows), got {kf}")
+    sub_live = paged_sub_live(bias_pool, table, chain_pages, ppf,
+                              n_sub).contiguous()
+    cls_ord = torch.zeros((n_lists,), dtype=torch.int32, device=table.device)
+    plan = static_plan(probes, cls_ord, ((ppf, n_sub),), (n_lists,), n_lists)
+    return (plan, table.reshape(-1).contiguous(),
+            chain_pages.to(torch.int32).contiguous(), sub_live)
+
+
+def paged_strip_search_traced(queries_mat, probes, pages, bias_pool,
+                              page_ids, table, chain_pages, k: int, kf: int,
+                              alpha: float, q_tile: int, pair_const=None):
+    """Paged strip search on the static capacity layout: no device→host
+    fetch between the coarse step and the result.
+
+    ``pages`` (cap_pages, page_rows, width) payload pool; ``bias_pool``
+    (cap_pages, page_rows) fp32, +inf at tombstones and empty slots;
+    ``page_ids`` (cap_pages, page_rows) int32; ``table`` (n_lists,
+    table_width) int32, -1 at absent slots; ``chain_pages`` (n_lists,)
+    int32 live pages per list."""
+    page_rows, table_width = pages.shape[1], table.shape[1]
+    plan, table_flat, chain, sub_live = paged_scan_setup(
+        pages, bias_pool, table, chain_pages, probes, kf,
+        int(pages.shape[-1]) * pages.element_size())
+    class_fn = lambda sl, a, ppf, n_sub, rows: paged_class(  # noqa: E731
+        sl, table_flat, chain, sub_live, a, pages, bias_pool, ppf, n_sub,
+        page_rows, table_width, float(alpha), kf, rows)
+    return _scan_tiles(queries_mat, probes,
+                       PagedIds(page_ids, table, page_rows), k, kf, q_tile,
+                       plan, class_fn, pair_const)

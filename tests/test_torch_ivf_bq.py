@@ -31,6 +31,7 @@ from raft_tpu_torch.bench.datasets import sift_like
 from raft_tpu_torch.neighbors import ivf_bq as tbq
 from raft_tpu_torch.ops import distance as tdist
 from raft_tpu_torch.ops import linalg as tlin
+from raft_tpu_torch.serving import PagedListStore
 from raft_tpu_torch.stats import metrics as tmet
 
 torch.set_num_threads(2)
@@ -220,12 +221,16 @@ def test_later_slice_features_raise(port_index, data):
     ds, qs = data
     with pytest.raises(NotImplementedError, match="later slice"):
         tbq.search(port_index, qs, 10, filter=object(), device=CPU)
-    for fn, args in ((tbq.extend, (port_index, ds[:10])),
-                     (tbq.build_streaming, (None, 10, 32)),
-                     (tbq.search_paged, (None, qs, 10)),
-                     (tbq.reconstruct_rows, (None, None, None, None, None))):
+    store = PagedListStore.from_index(port_index, page_rows=64, device=CPU)
+    for fn, args, kw in ((tbq.extend, (port_index, ds[:10]), {}),
+                         (tbq.build_streaming, (None, 10, 32), {}),
+                         (tbq.search_paged, (store, qs, 10),
+                          {"backend": "gather", "device": CPU}),
+                         (tbq.search_paged, (store, qs, 10),
+                          {"filter": object(), "device": CPU}),
+                         (tbq.reconstruct_rows, (None,) * 5, {})):
         with pytest.raises(NotImplementedError, match="later slice"):
-            fn(*args)
+            fn(*args, **kw)
 
 
 def test_params_validation():

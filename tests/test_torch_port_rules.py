@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch import serving
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import Resources, resolve_device
-from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_pq, refine
+from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_flat, ivf_pq, refine
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import strip_scan as ss
@@ -51,11 +52,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_kernel_sources_are_in_the_package():
     names = [src.name for src in _native.sources()]
-    assert names == ["bq_scan.cu", "strip_scan.cu"]
+    assert names == ["bq_scan.cu", "paged_bq_scan.cu", "paged_scan.cu",
+                     "strip_scan.cu"]
+    policy = {"strip_scan.cu": "dense_src.cuh", "paged_scan.cu": "dense_src.cuh",
+              "bq_scan.cu": "packed_src.cuh",
+              "paged_bq_scan.cu": "packed_src.cuh"}
     for src in _native.sources():
         assert src.is_file() and src.parent == _native.CSRC
-        assert '#include "strip_common.cuh"' in src.read_text()
-    assert [h.name for h in _native.headers()] == ["strip_common.cuh"]
+        assert f'#include "{policy[src.name]}"' in src.read_text()
+        assert "raft_tpu/ops/" in src.read_text()     # names what it replaces
+    assert [h.name for h in _native.headers()] == [
+        "dense_src.cuh", "packed_src.cuh", "strip_common.cuh"]
+    for h in ("dense_src.cuh", "packed_src.cuh"):
+        assert '#include "strip_common.cuh"' in (_native.CSRC / h).read_text()
     assert "_build" in (REPO / ".gitignore").read_text()
 
 
@@ -100,6 +109,39 @@ def test_build_reports_what_nvcc_refuses(tmp_path, monkeypatch):
     assert not _native.library_path(tmp_path / "bad.cu").exists()
 
 
+def test_build_keeps_each_kernels_ptxas_report(tmp_path, monkeypatch):
+    """The build asks ptxas for its resource report and keeps the log, so
+    a run can print every kernel's registers, stack frame and spills."""
+    (tmp_path / "k.cu").write_text("// two kernels\n")
+    monkeypatch.setattr(_native, "CSRC", tmp_path)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "_build")
+    script = tmp_path / "fake_nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        "for a in \"$@\"; do out=$prev; prev=$a; done\n"
+        "case \" $* \" in *' -Xptxas -v '*) ;; *) exit 3;; esac\n"
+        "echo \"ptxas info    : Compiling entry function '_Z1av' for "
+        "'sm_90a'\"\n"
+        "echo \"ptxas info    : Function properties for _Z1av\"\n"
+        "echo \"    40 bytes stack frame, 36 bytes spill stores, 36 bytes "
+        "spill loads\"\n"
+        "echo \"ptxas info    : Used 80 registers, used 1 barriers, 40 bytes "
+        "cumulative stack size\"\n"
+        "echo \"ptxas info    : Compiling entry function '_Z1bv' for "
+        "'sm_90a'\"\n"
+        "echo \"ptxas info    : Used 126 registers, used 1 barriers\"\n"
+        "touch \"$out\"\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(_native, "nvcc", lambda: str(script))
+    assert _native.resource_usage(tmp_path / "k.cu") == []    # not built
+    _native.build()
+    assert _native.resource_usage(tmp_path / "k.cu") == [
+        {"kernel": "_Z1av", "registers": 80, "stack_bytes": 40,
+         "spill_store_bytes": 36},
+        {"kernel": "_Z1bv", "registers": 126, "stack_bytes": 0,
+         "spill_store_bytes": 0}]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -119,7 +161,19 @@ def _entry_points(x, q, **dev):
     bq_params = ivf_bq.IvfBqParams(n_lists=4, kmeans_n_iters=2)
     bq_cpu = ivf_bq.build(x, bq_params, device="cpu")
     bf_cpu = brute_force.build(x, device="cpu")
+    flat_params = ivf_flat.IvfFlatParams(n_lists=4, kmeans_n_iters=2,
+                                         group_size=512)
+    flat_cpu = ivf_flat.build(x, flat_params, device="cpu")
+    store_cpu = serving.PagedListStore.from_index(flat_cpu, page_rows=64,
+                                                  device="cpu")
     return {
+        "ivf_flat.build": lambda: ivf_flat.build(x, flat_params, **dev),
+        "ivf_flat.search": lambda: ivf_flat.search(flat_cpu, q, 5,
+                                                   n_probes=2, **dev),
+        "PagedListStore.from_index": lambda: serving.PagedListStore.from_index(
+            flat_cpu, page_rows=64, **dev),
+        "serving.search": lambda: serving.search(store_cpu, q, 5, n_probes=2,
+                                                 **dev),
         "kmeans_balanced.fit": lambda: kmeans_balanced.fit(
             x, 4, kmeans_balanced.KMeansBalancedParams(n_iters=2), **dev),
         "ivf_pq.build": lambda: ivf_pq.build(x, ivf_pq.IvfPqParams(
@@ -139,7 +193,10 @@ def _entry_points(x, q, **dev):
     }
 
 
-@pytest.mark.parametrize("name", ["kmeans_balanced.fit", "ivf_pq.build",
+@pytest.mark.parametrize("name", ["ivf_flat.build", "ivf_flat.search",
+                                  "PagedListStore.from_index",
+                                  "serving.search",
+                                  "kmeans_balanced.fit", "ivf_pq.build",
                                   "ivf_pq.search", "ivf_bq.build",
                                   "ivf_bq.search", "ivf_bq.search_refined",
                                   "refine", "brute_force.build",
@@ -239,3 +296,83 @@ def test_k2_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="strip_rows"):
         ss.check_cuda_operands(a, sl, sl.long(), list_codes=codes,
                                scale=scale, bias=bias)
+
+
+def _paged_operands(rng, nb=None, dtype=np.uint8):
+    """A two-list paged class: 2 pages of 64 rows per list, one strip per
+    list and a padding strip."""
+    sl = torch.tensor([0, -1, 1], dtype=torch.int32)
+    width = 8 * nb if nb else 16
+    a = torch.from_numpy(rng.standard_normal((3, ss.C, width)).astype(
+        np.float32)).to(torch.bfloat16)
+    last = nb if nb else 16
+    pages = torch.from_numpy(rng.integers(0, 128, (5, 64, last)).astype(dtype))
+    bias = torch.from_numpy(rng.random((5, 64)).astype(np.float32))
+    table = torch.tensor([3, 1, 0, 4], dtype=torch.int32)
+    chain = torch.tensor([2, 1], dtype=torch.int32)
+    sub_live = torch.ones(2, dtype=torch.int32)
+    return sl, table, chain, sub_live, a, pages, bias
+
+
+def test_k3_wrapper_takes_plain_path_on_cpu_without_counting():
+    sl, table, chain, live, a, pages, bias = _paged_operands(
+        np.random.default_rng(4))
+    before = (ss.PAGED_KERNEL.launches, ss.STRIP_KERNEL.launches)
+    got = ss.paged_class(sl, table, chain, live, a, pages, bias, 2, 1, 64, 2,
+                         -2.0, 20)
+    want = ss._paged_class_plain(sl, table, chain, live, a, pages, bias, 2, 1,
+                                 64, 2, -2.0, 20)
+    assert (ss.PAGED_KERNEL.launches, ss.STRIP_KERNEL.launches) == before
+    for g, w in zip(got, want):
+        assert torch.equal(g[sl >= 0], w[sl >= 0])
+
+
+def test_k3_wrapper_rejects_what_the_kernel_cannot_take():
+    sl, table, chain, live, a, pages, bias = _paged_operands(
+        np.random.default_rng(5))
+    args = (sl, table, chain, live, a, pages, bias)
+    with pytest.raises(ValueError, match="kf"):
+        ss.paged_class(*args, 2, 1, 64, 2, -2.0, 129)
+    with pytest.raises(ValueError, match="pages hold 64 rows"):
+        ss.paged_class(*args, 4, 1, 32, 2, -2.0, 10)
+    with pytest.raises(ValueError, match="sub_live"):
+        ss.paged_class(*args, 1, 2, 64, 2, -2.0, 10)
+    with pytest.raises(ValueError, match="chain_pages"):
+        ss.paged_class(sl, table, chain[:1], live, a, pages, bias, 2, 1, 64, 2,
+                       -2.0, 10)
+    with pytest.raises(ValueError, match="dim mismatch"):
+        ss.paged_class(sl, table, chain, live, a[:, :, :8], pages, bias, 2, 1,
+                       64, 2, -2.0, 10)
+    with pytest.raises(TypeError, match="table_flat must be int32"):
+        ss.check_paged_operands(table.long(), chain, live)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.check_paged_operands(table, chain, torch.ones(4, dtype=torch.int32)[::2])
+
+
+def test_k4_wrapper_takes_plain_path_on_cpu_without_counting():
+    rng = np.random.default_rng(6)
+    sl, table, chain, live, a, codes, bias = _paged_operands(rng, nb=16)
+    scale = torch.from_numpy(rng.uniform(0.5, 2, (5, 64)).astype(np.float32))
+    before = (bq.PAGED_BQ_KERNEL.launches, bq.BQ_KERNEL.launches)
+    got = bq.paged_bq_class(sl, table, chain, live, a, codes, scale, bias, 2,
+                            1, 64, 2, -2.0, 40)
+    want = bq._paged_bq_class_plain(sl, table, chain, live, a, codes, scale,
+                                    bias, 2, 1, 64, 2, -2.0, 40)
+    assert (bq.PAGED_BQ_KERNEL.launches, bq.BQ_KERNEL.launches) == before
+    for g, w in zip(got, want):
+        assert torch.equal(g[sl >= 0], w[sl >= 0])
+
+
+def test_k4_wrapper_rejects_what_the_kernel_cannot_take():
+    rng = np.random.default_rng(7)
+    sl, table, chain, live, a, codes, bias = _paged_operands(rng, nb=16)
+    scale = torch.ones((5, 64))
+    with pytest.raises(ValueError, match="scale_pool"):
+        bq.paged_bq_class(sl, table, chain, live, a, codes, scale[:, :32],
+                          bias, 2, 1, 64, 2, -2.0, 10)
+    with pytest.raises(ValueError, match="dim mismatch"):
+        bq.paged_bq_class(sl, table, chain, live, a[:, :, :64], codes, scale,
+                          bias, 2, 1, 64, 2, -2.0, 10)
+    with pytest.raises(ValueError, match="kf"):
+        bq.paged_bq_class(sl, table, chain, live, a, codes, scale, bias, 2, 1,
+                          64, 2, -2.0, 200)
