@@ -23,7 +23,11 @@ Phases, one JSON line each:
    pages, chains of 0, 1, partial and full length, a dead second
    sub-block, a filtered first sub-block, tombstones, NaN in every page no
    chain holds, kf 10…320, uint8/int8/bf16/fp32 pages); K4 (paged packed
-   scan; bits 1/2/4, kf 10…320, rot_dim 40);
+   scan; bits 1/2/4, kf 10…320, rot_dim 40); K6 (fused CAGRA hop; deg 64,
+   p 64, w 1/4/8 × itopk 32/64/96, duplicate-heavy graphs, -1 edges,
+   invalid and all-invalid parents, +inf buffer holes, a scalar-staging
+   shape, parents whose code records start past byte 2^31; bitwise on
+   integer-valued qp, within tolerance on real-valued qp);
 4. main — ``sift_like(1_000_000, 128, 10_000)`` and its tiled brute-force
    ground truth, made once for every path. IVF-PQ: ``ivf_pq.build`` at the
    bench's parameters (n_lists 1024, pq_dim 64, 8 bits, train fraction
@@ -54,7 +58,16 @@ Phases, one JSON line each:
    paged search at each path's chosen (n_probes, k_fetch) with exact
    refine (K3 over the int8 cache, K4 over the codes), recall ≥ 0.95, one
    upsert/delete round (≥ 99% read-back before refine, no deleted id);
-   K3 (on the int8 cache) and K4 at their paths' own class inputs.
+   K3 (on the int8 cache) and K4 at their paths' own class inputs;
+9. cagra — CAGRA at the bench's shape (``bench.py``'s CAGRA section):
+   build from the uint8 dataset with degrees 128 → 64 and the compression
+   payload (build seconds by phase, K1's launches in the IVF-Flat
+   candidate scan, graph and payload invariants), K1 at kf 129 on the
+   build's first candidate batch, the fused rungs (64, 4) and (96, 8) with
+   K6 launches equal to the hops run, recall@10 ≥ 0.95 asserted, QPS over
+   three batches beside the compressed traversal's, K6 parity on the
+   path's state after hop 3, then K6 at the path's inputs (time, twin,
+   bound) and the rest of a search (seeding, pickups, exit re-rank).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
@@ -74,6 +87,7 @@ K1_SOURCE = "raft_tpu_torch/ops/csrc/strip_scan.cu"
 K2_SOURCE = "raft_tpu_torch/ops/csrc/bq_scan.cu"
 K3_SOURCE = "raft_tpu_torch/ops/csrc/paged_scan.cu"
 K4_SOURCE = "raft_tpu_torch/ops/csrc/paged_bq_scan.cu"
+K6_SOURCE = "raft_tpu_torch/ops/csrc/cagra_hop.cu"
 # the main paths' size: the JAX bench's IVF-PQ and IVF-BQ sections
 N_ROWS = 1_000_000
 N_QUERIES = 10_000
@@ -83,9 +97,11 @@ K1_REPLACES = "raft_tpu/ops/strip_scan.py:340"
 K2_REPLACES = "raft_tpu/ops/bq_scan.py:174"
 K3_REPLACES = "raft_tpu/ops/strip_scan.py:955"
 K4_REPLACES = "raft_tpu/ops/bq_scan.py:438"
+K6_REPLACES = "raft_tpu/ops/cagra_hop.py:64"
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
+FP32_FLOP_S = 67e12          # fp32 outside the tensor cores (K6's sums)
 
 # values: summation-order noise plus one 12-bit packing quantum (2^-11
 # relative); the absolute floor covers scores that cancel toward zero
@@ -241,11 +257,13 @@ K2_PARITY_CASES = tuple(
 def _kernel_pair(kernel):
     """(wrapper, plain twin) of a kernel by name."""
     from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import cagra_hop as ch
     from raft_tpu_torch.ops import strip_scan as ss
 
     return {"strip_scan": (ss.strip_class, ss._strip_class_plain),
             "bq_scan": (bq.bq_class, bq._bq_class_plain),
             "paged_scan": (ss.paged_class, ss._paged_class_plain),
+            "cagra_hop": (ch.fused_hop, ch.fused_hop_reference),
             "paged_bq_scan": (bq.paged_bq_class,
                               bq._paged_bq_class_plain)}[kernel]
 
@@ -568,8 +586,10 @@ def bq_library_yardstick(c):
 def reset_counts():
     """Every kernel's launch count to 0 (just before a path is driven)."""
     from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import cagra_hop as ch
     from raft_tpu_torch.ops import strip_scan as ss
 
+    ch.HOP_KERNEL.reset()
     ss.STRIP_KERNEL.reset()
     bq.BQ_KERNEL.reset()
     ss.PAGED_KERNEL.reset()
@@ -1344,6 +1364,380 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
                                       "library_ms")}}
 
 
+# ---------------------------------------------------------------------------
+# K6 (the fused CAGRA hop) and the CAGRA path
+# ---------------------------------------------------------------------------
+
+
+def synthetic_hop(seed, *, w, itopk, deg=64, p=64, n=20_000, q=512,
+                  frac_invalid=0.0, dup_heavy=False, all_invalid=False,
+                  integer=True, far=False, dev="cuda"):
+    """A random mid-traversal state on ``dev``: a graph with 10% -1 edges
+    (ids from n/8 rows when ``dup_heavy``), int8 code records, a buffer
+    with 15% +inf holes and random visited flags, parents with a
+    ``frac_invalid`` share of -1 (all with ``all_invalid``). ``integer``
+    makes qp integer-valued, so every fp32 sum is exact and the kernel must
+    equal its twin bit for bit. ``far`` draws every parent from rows whose
+    code records start past byte 2**31. Returns the hop's keyword
+    arguments."""
+    import torch
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    hi = max(2, n // 8) if dup_heavy else n
+    graph = torch.randint(0, hi, (n, deg), generator=g, device=dev,
+                          dtype=torch.int32)
+    graph[torch.rand((n, deg), generator=g, device=dev) < 0.1] = -1
+    codes = torch.randint(-127, 128, (n, deg, p), generator=g, device=dev,
+                          dtype=torch.int8)
+    if integer:
+        qp = torch.randint(-20, 21, (q, p), generator=g, device=dev).float()
+    else:
+        qp = torch.randn((q, p), generator=g, device=dev) * 8
+    # code-unit scores here are ‖c‖² − 2⟨qp, c⟩ ≈ 3.5e5 ± 2e4: the buffer
+    # is drawn around them so candidates and buffer interleave
+    buf_d = torch.sort(3.5e5 + 2e4 * torch.randn((q, itopk), generator=g,
+                                                  device=dev), dim=1).values
+    buf_ids = torch.randint(0, n, (q, itopk), generator=g, device=dev,
+                            dtype=torch.int32)
+    holes = torch.rand((q, itopk), generator=g, device=dev) < 0.15
+    buf_ids[holes] = -1
+    buf_d[holes] = float("inf")
+    buf_vis = (torch.rand((q, itopk), generator=g, device=dev) < 0.5).float()
+    lo = (1 << 31) // (deg * p) + 1 if far else 0
+    parents = torch.randint(lo, n, (q, w), generator=g, device=dev,
+                            dtype=torch.int32)
+    if frac_invalid:
+        parents[torch.rand((q, w), generator=g, device=dev)
+                < frac_invalid] = -1
+    if all_invalid:
+        parents.fill_(-1)
+    return dict(buf_ids=buf_ids, buf_d=buf_d.contiguous(), buf_vis=buf_vis,
+                parents=parents, qp=qp, graph=graph, nbr_codes=codes)
+
+
+HOP_PARITY_CASES = (
+    [(f"deg64_p64_w{w}_itopk{it}", dict(w=w, itopk=it, frac_invalid=0.1))
+     for w in (1, 4, 8) for it in (32, 64, 96)]
+    + [("dup_heavy_w4_itopk64",
+        dict(w=4, itopk=64, dup_heavy=True, frac_invalid=0.25)),
+       ("dup_heavy_w8_itopk96", dict(w=8, itopk=96, dup_heavy=True)),
+       ("all_parents_invalid_w4_itopk64",
+        dict(w=4, itopk=64, all_invalid=True)),
+       ("real_qp_w4_itopk64", dict(w=4, itopk=64, integer=False)),
+       ("real_qp_w8_itopk96", dict(w=8, itopk=96, integer=False)),
+       ("deg12_p18_scalar_staging",
+        dict(deg=12, p=18, w=3, itopk=24, frac_invalid=0.25)),
+       ("codes_past_2GiB_w8_itopk96",
+        dict(w=8, itopk=96, n=600_000, far=True)),
+       ("codes_past_2GiB_w4_itopk64",
+        dict(w=4, itopk=64, n=600_000, far=True, frac_invalid=0.1))])
+
+
+def compare_hop(kernel_out, plain_out, exact: bool) -> dict:
+    """K6 against its twin: with ``exact`` (integer-valued qp, every sum
+    exact) ids, values and vis must be equal; otherwise values within
+    PARITY_RTOL plus the floor, ids equal except at near-ties
+    (``topk_agreement``), vis equal wherever the ids are."""
+    import torch
+
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    (ki, kd, kv), (pi, pd, pv) = kernel_out, plain_out
+    fin = torch.isfinite(pd)
+    err = (kd[fin].double() - pd[fin].double()).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    if exact:
+        ok = (torch.equal(ki, pi) and torch.equal(kd, pd)
+              and torch.equal(kv, pv))
+        return {"ok": bool(ok), "exact": True, "max_abs_err": worst,
+                "id_mismatches": int((ki != pi).sum()),
+                "vis_mismatches": int((kv != pv).sum()),
+                "compared": int(fin.sum())}
+    top = float(pd[fin].abs().max()) if bool(fin.any()) else 0.0
+    verdict = topk_agreement(pd, pi, kd, ki, rtol=PARITY_RTOL,
+                             atol=PARITY_ATOL_FRAC * top)
+    same = ki == pi
+    vis_ok = bool((kv[same] == pv[same]).all())
+    verdict.update(exact=False, vis_ok=vis_ok, ok=verdict["ok"] and vis_ok)
+    return verdict
+
+
+def hop_parity_phase(cases=HOP_PARITY_CASES, seed0=6000, dev="cuda"):
+    """K6 against its plain twin on every synthetic case; one line each."""
+    import torch
+
+    from raft_tpu_torch.ops import cagra_hop as ch
+
+    worst = 0.0
+    for i, (name, kw) in enumerate(cases):
+        call = synthetic_hop(seed0 + i, dev=dev, **kw)
+        got = ch.fused_hop(**call)
+        torch.cuda.synchronize()
+        verdict = compare_hop(got, ch.fused_hop_reference(**call),
+                              kw.get("integer", True))
+        n = call["graph"].shape[0]
+        emit({"phase": "parity", "kernel": "cagra_hop", "case": name,
+              "rows": n, "code_bytes": n * call["nbr_codes"][0].numel(),
+              **verdict})
+        if not verdict["ok"]:
+            raise AssertionError(f"cagra_hop disagrees with its plain "
+                                 f"version on {name}: {verdict}")
+        worst = max(worst, verdict["max_abs_err"])
+        del call, got
+    return worst
+
+
+def hop_bound(calls):
+    """Least time for one search's K6 launches: the graph rows and code
+    records of the valid parents (deg·(4 + p) bytes each), the buffer read
+    and written (12 bytes a slot each way), parents and qp, against the two
+    fp32 multiply-adds per code byte of ``ip`` and ``nrm``."""
+    nbytes = 0
+    flops = 0
+    for c in calls:
+        q, itopk = c["buf_ids"].shape
+        w = c["parents"].shape[1]
+        deg = c["graph"].shape[1]
+        p = c["qp"].shape[1]
+        valid = int((c["parents"] >= 0).sum())
+        nbytes += valid * deg * (4 + p) + 2 * q * itopk * 12 + q * (w + p) * 4
+        flops += valid * deg * p * 4
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        nbytes, flops
+
+
+def fused_init_args(index, queries, sp, q_tile):
+    """The arguments ``cagra.search`` gives ``_fused_init`` for one tile of
+    ``q_tile`` rows under search params ``sp``: the padded queries, the
+    generator seeded from ``sp.seed``, itopk and the random seed count."""
+    import torch
+
+    from raft_tpu_torch.cluster import kmeans_balanced
+
+    qs = torch.nn.functional.pad(queries.float(),
+                                 (0, 0, 0, q_tile - queries.shape[0]))
+    (gen,) = kmeans_balanced.seeded_generators(sp.seed, 1, queries.device)
+    return (index, qs, gen, int(min(sp.itopk_size, index.size)),
+            int(max(1, sp.num_random_samplings)))
+
+
+def fused_hop_inputs(index, queries, sp, q_tile, hops):
+    """Every K6 launch of one fused search of ``queries`` under search
+    params ``sp`` (one tile of ``q_tile`` rows, as the search ran it): the
+    hop's keyword arguments, hop by hop, from the same seeding, pickup and
+    hops."""
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import cagra_hop as ch
+
+    width = int(sp.search_width)
+    buf_ids, buf_d, buf_vis, qp = cagra._fused_init(
+        *fused_init_args(index, queries, sp, q_tile))
+    state = (buf_ids, buf_d, buf_vis)
+    calls = []
+    for _ in range(hops):
+        ids_b, d_b, vis, parents = cagra._fused_pickup(state, width)
+        calls.append(dict(buf_ids=ids_b, buf_d=d_b, buf_vis=vis,
+                          parents=parents, qp=qp, graph=index.graph,
+                          nbr_codes=index.nbr_codes))
+        state = ch.fused_hop(**calls[-1])
+    return calls
+
+
+CAGRA_LADDER = (("fused", 64, 4), ("fused", 96, 8))   # the bench's fused rungs
+
+
+def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
+    """CAGRA at the bench's shape: build from the uint8 dataset (degrees
+    128 → 64, the IVF-Flat candidate scan through K1 at kf 129, the
+    compression payload), K1 at the build's own first candidate batch,
+    the fused rungs with K6's launches, QPS at the chosen rung beside the
+    compressed traversal's, K6 parity on the path's state after hop 3 and
+    K6 at the path's inputs. ``params`` and ``recall_gate`` are the
+    bench's unless a CPU rehearsal at a tiny size sets them."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_flat
+    from raft_tpu_torch.ops import cagra_hop as ch
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    dataset, qs = shared["dataset"], shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    n, dim = dataset.shape
+    q = qs.shape[0]
+    params = params or cagra.CagraParams(
+        intermediate_graph_degree=128, graph_degree=64, build_algo="auto",
+        compress="auto")
+    reset_counts()
+    t = time.perf_counter()
+    index = cagra.build(dataset, params, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    k1_build = ss.STRIP_KERNEL.launches
+    g = index.graph
+    deg = index.graph_degree
+    p = index.nbr_codes.shape[2]
+    self_edges = int((g == torch.arange(n, device=g.device)[:, None]).sum())
+    degree = (g >= 0).sum(dim=1)
+    proj = index.proj
+    orth = float((proj.T @ proj - torch.eye(p, device=proj.device)).abs().max())
+    payload = {"nbr_codes": deg * p, "graph": deg * 4,
+               "dataset": dim * dataset.element_size(), "norms": 4}
+    setup = {"phase": "cagra.setup", "rows": n, "queries": q,
+             "dataset_dtype": str(index.dataset.dtype).replace("torch.", ""),
+             "graph_degree": deg, "compress_dim": p, "build_s": build_s,
+             "build_phases_s": index.build_timings_s,
+             "k1_launches_build": k1_build,
+             "mean_degree": float(degree.float().mean()),
+             "min_degree": int(degree.min()), "self_edges": self_edges,
+             "proj_orthonormal_err": orth,
+             "proj_energy": float(index.proj_energy),
+             "code_scale": float(index.code_scale),
+             "centroids": int(index.centroids.shape[0]),
+             "payload_bytes_per_row": payload,
+             "bytes_per_row": sum(payload.values())}
+    emit(setup)
+    if self_edges or int(degree.min()) < deg or orth > 1e-4 \
+            or not 0 < setup["proj_energy"] <= 1.0001:
+        raise AssertionError(f"CAGRA build invariants fail: {setup}")
+    if k1_build <= 0:
+        raise AssertionError("the CAGRA build never launched K1")
+
+    # K1 on the build's candidate scan: the same IVF-Flat index (same
+    # params and seed), its first batch of dataset rows at kf = ideg + 1
+    ideg = min(params.intermediate_graph_degree, n - 1)
+    kf = ideg + 1
+    n_lists = int(max(16, min(65536, round((n / 976) ** 0.5) ** 2, n // 64)))
+    n_probes = max(8, n_lists // 16)
+    X = dataset.to(torch.float32)
+    flat = ivf_flat.build(X, ivf_flat.IvfFlatParams(
+        n_lists=n_lists, kmeans_trainset_fraction=float(min(1.0, max(
+            0.1, 200_000 / n))), group_size=512, seed=params.seed), res=res)
+    batch = int(max(4096, min(n, res.workspace_bytes // (kf * (dim + 8) * 4))))
+    calls, qt = flat_path_class_inputs(flat, X[:batch], n_probes, kf, res)
+    k1_err = kernel_parity_at(calls, "strip_scan",
+                              f"cagra_build_fp32_nprobe{n_probes}_kf{kf}")
+    timing = kernel_timing(calls, "strip_scan", library_yardstick, dim * 4 + 4)
+    batches = -(-n // batch)
+    emit({"phase": "cagra.k1", "kf": kf, "n_probes": n_probes,
+          "list_dtype": "float32", "batch_rows": batch, "batches": batches,
+          "query_tile": qt, "ms_per_build_est": timing["ms"] * batches,
+          "classes": [[c["w_blocks"] * 512, c["n_sub"],
+                       int((c["strip_list"] >= 0).sum())] for c in calls],
+          **timing})
+    del flat, X, calls
+
+    def run(sp, stats=None):
+        return cagra.search(index, qs, K, sp, res=res, stats=stats)
+
+    pick = None
+    for trav, itopk, w in CAGRA_LADDER:
+        sp = cagra.CagraSearchParams(itopk_size=itopk, search_width=w,
+                                     traversal=trav)
+        reset_counts()
+        st = {}
+        v, i = run(sp, st)
+        torch.cuda.synchronize()
+        launches = ch.HOP_KERNEL.launches
+        rec = neighborhood_recall(i, gt_i, v, gt_v)
+        emit({"phase": "cagra.rung", "traversal": trav, "itopk": itopk,
+              "width": w, "recall": rec, "k6_launches": launches, **st})
+        if st["mode"] != "fused" or launches <= 0 \
+                or launches != sum(st["hops"]):
+            raise AssertionError(f"the fused rung did not run through K6 "
+                                 f"once a hop: {st}, {launches} launches")
+        if pick is None and rec >= recall_gate:
+            pick = {"itopk": itopk, "width": w, "sp": sp}
+    if pick is None:
+        raise AssertionError(f"no fused CAGRA rung reaches recall@10 "
+                             f"{recall_gate}")
+
+    reset_counts()
+    times, hops = [], []
+    for _ in range(3):
+        st = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, i = run(pick["sp"], st)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        hops.append(st["hops"])
+    launches = ch.HOP_KERNEL.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    if not bool(torch.isfinite(v).all()) or tuple(i.shape) != (q, K):
+        raise AssertionError("CAGRA returned non-finite or misshapen results")
+    if rec < recall_gate:
+        raise AssertionError(f"CAGRA recall@10 {rec} < {recall_gate}")
+    if launches != sum(sum(h) for h in hops):
+        raise AssertionError(f"K6 launches {launches} != hops {hops}")
+    comp = cagra.CagraSearchParams(itopk_size=pick["itopk"],
+                                   search_width=pick["width"],
+                                   traversal="compressed")
+    ctimes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cv, ci = run(comp)
+        torch.cuda.synchronize()
+        ctimes.append(time.perf_counter() - t)
+    crec = neighborhood_recall(ci, gt_i, cv, gt_v)
+    emit({"phase": "cagra.search", "traversal": "fused",
+          "itopk": pick["itopk"], "width": pick["width"], "recall": rec,
+          "qps": len(times) * q / sum(times), "batch_s": times,
+          "hops": hops, "k6_launches": launches,
+          "compressed_qps": len(ctimes) * q / sum(ctimes),
+          "compressed_batch_s": ctimes, "compressed_recall": crec})
+
+    # K6 at the path's own inputs: every hop of one search, parity on the
+    # state after hop 3, time, twin time and bound
+    st = {}
+    run(pick["sp"], st)
+    if st["tiles"] != 1:
+        raise AssertionError(f"expected one fused tile, got {st}")
+    calls = fused_hop_inputs(index, qs, pick["sp"], st["q_tile"],
+                             st["hops"][0])
+    mid = calls[3]
+    verdict = compare_hop(ch.fused_hop(**mid), ch.fused_hop_reference(**mid),
+                          exact=False)
+    emit({"phase": "parity", "kernel": "cagra_hop",
+          "case": f"cagra_path_after_hop3_itopk{pick['itopk']}"
+                  f"_w{pick['width']}", **verdict})
+    if not verdict["ok"]:
+        raise AssertionError(f"cagra_hop disagrees with its plain version on "
+                             f"the CAGRA path: {verdict}")
+    k6_ms = cuda_ms(lambda: [ch.fused_hop(**c) for c in calls], reps=5)
+    plain_ms = cuda_ms(lambda: [ch.fused_hop_reference(**c) for c in calls],
+                       reps=1, warmup=1)
+    bound_ms, bound_by, nbytes, flops = hop_bound(calls)
+    # the rest of a fused search: seeding, the 16 parent pickups, the exit
+    init_args = fused_init_args(index, qs, pick["sp"], st["q_tile"])
+    glue = {
+        "init_ms": cuda_ms(lambda: cagra._fused_init(*init_args), reps=3),
+        "pickup_ms": cuda_ms(lambda: [cagra._fused_pickup(
+            (c["buf_ids"], c["buf_d"], c["buf_vis"]), pick["width"])
+            for c in calls], reps=3),
+        "finish_ms": cuda_ms(lambda: cagra._fused_finish(
+            index, init_args[1], calls[-1]["buf_ids"], K, st["refine_topk"]),
+            reps=3)}
+    emit({"phase": "cagra.k6", "itopk": pick["itopk"], "width": pick["width"],
+          "hops": len(calls), "query_tile": st["q_tile"],
+          "launches_per_search": len(calls), "ms": k6_ms,
+          "ms_per_hop": k6_ms / len(calls), "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+          "flops": flops, "library_ms": None, **glue})
+    del calls, mid, index
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": verdict["max_abs_err"],
+            "ms": k6_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, k1_err
+
+
 def ab_phase(old_tree, paths, shared, dev="cuda"):
     """K1 and K2 of an older checkout (``old_tree``, e.g. a ``git archive``
     of the parent commit) against this tree's, in one process on one card,
@@ -1451,40 +1845,56 @@ def main() -> int:
           "replaces": K4_REPLACES, "parity": "ok", **empty,
           "max_abs_err": paged_parity_phase("paged_bq_scan", K4_PARITY_CASES,
                                             4000)}
+    k6 = {"name": "cagra_hop", "route": "cuda", "source": K6_SOURCE,
+          "replaces": K6_REPLACES, "parity": "ok", **empty,
+          "max_abs_err": hop_parity_phase()}
     if not args.skip_main:
         t = time.perf_counter()
         shared = shared_data()
         emit({"phase": "data", "seconds": time.perf_counter() - t})
-        paths = {}
-        for entry, name, phase in ((k1, "main", main_phase),
-                                   (k2, "bq", bq_phase)):
-            t = time.perf_counter()
+        held = {}
+
+        def fold(entry, result):
             worst = entry["max_abs_err"]
-            result, paths[name] = phase(shared)
             entry.update(result)
             entry["max_abs_err"] = max(worst, entry["max_abs_err"])
+
+        def ivf_pq():
+            result, held["main"] = main_phase(shared)
+            fold(k1, result)
+
+        def ivf_bq():
+            result, held["bq"] = bq_phase(shared)
+            fold(k2, result)
+
+        def ivf_flat():
+            held["flat"] = flat_phase(shared)
+
+        def serve():
+            fold(k3, serve_phase(shared, *held.pop("flat")))
+
+        def serve_pq():
+            serve_codes_phase(shared, "pq", *held.pop("main"))
+
+        def serve_bq():
+            fold(k4, serve_codes_phase(shared, "bq", *held.pop("bq")))
+
+        def cagra():       # last: its index holds 4.2 GB of codes
+            result, k1_err = cagra_phase(shared)
+            fold(k6, result)
+            k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
+
+        for name, path in (("main", ivf_pq), ("bq", ivf_bq),
+                           ("flat", ivf_flat), ("serve", serve),
+                           ("serve.pq", serve_pq), ("serve.bq", serve_bq),
+                           ("cagra", cagra)):
+            t = time.perf_counter()
+            path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})
-        if args.ab:
-            ab_phase(args.ab, paths, shared)
-            return 0
-        t = time.perf_counter()
-        flat_index, flat_pick, flat_out = flat_phase(shared)
-        emit({"phase": "flat.done", "seconds": time.perf_counter() - t})
-        t = time.perf_counter()
-        worst = k3["max_abs_err"]
-        k3.update(serve_phase(shared, flat_index, flat_pick, flat_out))
-        k3["max_abs_err"] = max(worst, k3["max_abs_err"])
-        del flat_index, flat_out
-        emit({"phase": "serve.done", "seconds": time.perf_counter() - t})
-        t = time.perf_counter()
-        serve_codes_phase(shared, "pq", *paths.pop("main"))
-        emit({"phase": "serve.pq.done", "seconds": time.perf_counter() - t})
-        t = time.perf_counter()
-        worst = k4["max_abs_err"]
-        k4.update(serve_codes_phase(shared, "bq", *paths.pop("bq")))
-        k4["max_abs_err"] = max(worst, k4["max_abs_err"])
-        emit({"phase": "serve.bq.done", "seconds": time.perf_counter() - t})
-    emit({"kernels": [k1, k2, k3, k4]})
+            if args.ab and name == "bq":
+                ab_phase(args.ab, held, shared)
+                return 0
+    emit({"kernels": [k1, k2, k3, k4, k6]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -85,3 +85,12 @@ def search(index: BruteForceIndex, queries, k: int,
             v, i = v[:, :k], i[:, :k]
         best_v, best_i = v, i
     return best_v, best_i.to(torch.int32)
+
+
+def knn(queries, dataset, k: int, metric: str = "sqeuclidean",
+        res: Optional[Resources] = None,
+        device: Optional[DeviceLike] = None):
+    """One-shot exact k-NN of ``queries`` in ``dataset`` → (distances,
+    indices), as :func:`search` over :func:`build`."""
+    return search(build(dataset, metric, res=res, device=device), queries, k,
+                  res=res, device=device)

@@ -9,7 +9,9 @@ Two representations (``ROTATION_KINDS``):
   (rot_dim,) ±1 sign diagonal ``D`` (:func:`make_srht_signs`), applied in
   O(d·log d) by the fast Walsh–Hadamard butterfly (:func:`srht_rotate`).
 
-Both are exactly orthogonal, so ``‖R·x‖ = ‖x‖`` either way.
+Both are exactly orthogonal, so ``‖R·x‖ = ‖x‖`` either way. The
+decompositions CAGRA's PCA projection needs (``sign_flip``, ``eig_dc``)
+close the module.
 """
 
 from __future__ import annotations
@@ -94,3 +96,22 @@ def rotate_rows(x: torch.Tensor, rotation: torch.Tensor,
         return srht_rotate(pad_rot(x, rotation.shape[0]), rotation)
     raise ValueError(f"unknown rotation kind {kind!r} (expected one of "
                      f"{ROTATION_KINDS})")
+
+
+# -- decompositions ----------------------------------------------------------
+
+
+def sign_flip(u: torch.Tensor) -> torch.Tensor:
+    """Deterministic sign convention: flip each column so its largest-|.|
+    element (the first, on ties) is positive."""
+    idx = torch.argmax(torch.abs(u), dim=0)
+    signs = torch.sign(u[idx, torch.arange(u.shape[1], device=u.device)])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return u * signs[None, :]
+
+
+def eig_dc(a: torch.Tensor):
+    """Symmetric eigendecomposition → (ascending eigenvalues, eigenvectors
+    as columns under :func:`sign_flip`)."""
+    w, v = torch.linalg.eigh(a)
+    return w, sign_flip(v)

@@ -13,9 +13,11 @@ import torch
 from raft_tpu_torch import serving
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import Resources, resolve_device
-from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_flat, ivf_pq, refine
+from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq, ivf_flat,
+                                      ivf_pq, refine)
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import bq_scan as bq
+from raft_tpu_torch.ops import cagra_hop as ch
 from raft_tpu_torch.ops import strip_scan as ss
 
 torch.set_num_threads(2)
@@ -52,20 +54,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_kernel_sources_are_in_the_package():
     names = [src.name for src in _native.sources()]
-    assert names == ["bq_scan.cu", "paged_bq_scan.cu", "paged_scan.cu",
-                     "strip_scan.cu"]
+    assert names == ["bq_scan.cu", "cagra_hop.cu", "paged_bq_scan.cu",
+                     "paged_scan.cu", "strip_scan.cu"]
+    # the strip kernels pick a list-side policy; K6 stands alone
     policy = {"strip_scan.cu": "dense_src.cuh", "paged_scan.cu": "dense_src.cuh",
               "bq_scan.cu": "packed_src.cuh",
               "paged_bq_scan.cu": "packed_src.cuh"}
     for src in _native.sources():
         assert src.is_file() and src.parent == _native.CSRC
-        assert f'#include "{policy[src.name]}"' in src.read_text()
-        assert "raft_tpu/ops/" in src.read_text()     # names what it replaces
+        text = src.read_text()
+        if src.name in policy:
+            assert f'#include "{policy[src.name]}"' in text
+        else:
+            assert '#include "' not in text
+        assert "raft_tpu/ops/" in text     # names what it replaces
+    k6 = (_native.CSRC / "cagra_hop.cu").read_text()
+    assert "raft_tpu/ops/cagra_hop.py:_hop_kernel" in k6
+    assert 'extern "C" int raft_cagra_hop(' in k6
+    assert "int64_t" in k6                  # 64-bit code-record addresses
     assert [h.name for h in _native.headers()] == [
         "dense_src.cuh", "packed_src.cuh", "strip_common.cuh"]
     for h in ("dense_src.cuh", "packed_src.cuh"):
         assert '#include "strip_common.cuh"' in (_native.CSRC / h).read_text()
     assert "_build" in (REPO / ".gitignore").read_text()
+    # built without fast math or flushed denormals: packed scores near
+    # zero are denormals
+    flags = " ".join(_native.NVCC_FLAGS)
+    assert "fast-math" not in flags and "ftz" not in flags
 
 
 def test_library_paths_follow_sources_and_the_shared_header(tmp_path,
@@ -166,7 +181,13 @@ def _entry_points(x, q, **dev):
     flat_cpu = ivf_flat.build(x, flat_params, device="cpu")
     store_cpu = serving.PagedListStore.from_index(flat_cpu, page_rows=64,
                                                   device="cpu")
+    cagra_params = cagra.CagraParams(intermediate_graph_degree=16,
+                                     graph_degree=8, compress="on")
+    cagra_cpu = cagra.build(x[:512], cagra_params, device="cpu")
     return {
+        "cagra.build": lambda: cagra.build(x[:512], cagra_params, **dev),
+        "cagra.search": lambda: cagra.search(cagra_cpu, q, 5, **dev),
+        "CagraIndex.load": lambda: _cagra_file_load(cagra_cpu, **dev),
         "ivf_flat.build": lambda: ivf_flat.build(x, flat_params, **dev),
         "ivf_flat.search": lambda: ivf_flat.search(flat_cpu, q, 5,
                                                    n_probes=2, **dev),
@@ -193,7 +214,17 @@ def _entry_points(x, q, **dev):
     }
 
 
-@pytest.mark.parametrize("name", ["ivf_flat.build", "ivf_flat.search",
+def _cagra_file_load(index, **dev):
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "cagra.bin"
+        index.save(path)
+        return cagra.CagraIndex.load(path, **dev).graph
+
+
+@pytest.mark.parametrize("name", ["cagra.build", "cagra.search",
+                                  "CagraIndex.load",
+                                  "ivf_flat.build", "ivf_flat.search",
                                   "PagedListStore.from_index",
                                   "serving.search",
                                   "kmeans_balanced.fit", "ivf_pq.build",
@@ -376,3 +407,38 @@ def test_k4_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="kf"):
         bq.paged_bq_class(sl, table, chain, live, a, codes, scale, bias, 2, 1,
                           64, 2, -2.0, 200)
+
+
+def test_k6_wrapper_takes_plain_path_on_cpu_without_counting():
+    rng = np.random.default_rng(8)
+    n, deg, p, q, w, itopk = 64, 4, 8, 6, 2, 8
+    args = [torch.from_numpy(a) for a in (
+        rng.integers(0, n, (q, itopk)).astype(np.int32),
+        np.sort(rng.random((q, itopk)).astype(np.float32), axis=1) + 1,
+        np.zeros((q, itopk), np.float32),
+        rng.integers(-1, n, (q, w)).astype(np.int32),
+        rng.integers(-5, 6, (q, p)).astype(np.float32),
+        rng.integers(-1, n, (n, deg)).astype(np.int32),
+        rng.integers(-127, 128, (n, deg, p)).astype(np.int8))]
+    before = (ch.HOP_KERNEL.launches, ss.STRIP_KERNEL.launches)
+    got = ch.fused_hop(*args)
+    want = ch.fused_hop_reference(*args)
+    assert (ch.HOP_KERNEL.launches, ss.STRIP_KERNEL.launches) == before
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+def test_no_path_leads_from_k6_to_a_fallback():
+    """A CUDA tensor gets K6 or an exception: the hop's module and the
+    CAGRA search hold no try/except (the JAX package reruns a failed fused
+    tile on the unfused loop; the port does not), and the wrapper raises
+    when the launch returns an error."""
+    for rel in ("raft_tpu_torch/ops/cagra_hop.py",
+                "raft_tpu_torch/neighbors/cagra.py"):
+        tree = ast.parse((REPO / rel).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    src = (REPO / "raft_tpu_torch/ops/cagra_hop.py").read_text()
+    body = src[src.index("def _fused_hop_cuda"):src.index("def fused_hop(")]
+    assert "_kernel_fn()(" in body and "raise RuntimeError" in body
+    assert body.index("raise RuntimeError") < body.index(
+        "HOP_KERNEL.launches += 1")
