@@ -23,7 +23,11 @@ Phases, one JSON line each:
    pages, chains of 0, 1, partial and full length, a dead second
    sub-block, a filtered first sub-block, tombstones, NaN in every page no
    chain holds, kf 10…320, uint8/int8/bf16/fp32 pages); K4 (paged packed
-   scan; bits 1/2/4, kf 10…320, rot_dim 40); K6 (fused CAGRA hop; deg 64,
+   scan; bits 1/2/4, kf 10…320, rot_dim 40); K5 (the IVF-PQ LUT scan; nc
+   16…256, s 8…64, m 128…3,968 and an odd 130, qpl 16…320 and a partial
+   slot block, +inf b_sum tails, all-zero LUT rows, an empty list, a LUT
+   past 2^31 elements; bitwise on integer-valued LUTs, within PARITY_RTOL
+   on real-valued ones); K6 (fused CAGRA hop; deg 64,
    p 64, w 1/4/8 × itopk 32/64/96, duplicate-heavy graphs, -1 edges,
    invalid and all-invalid parents, +inf buffer holes, a scalar-staging
    shape, parents whose code records start past byte 2^31; bitwise on
@@ -59,7 +63,19 @@ Phases, one JSON line each:
    refine (K3 over the int8 cache, K4 over the codes), recall ≥ 0.95, one
    upsert/delete round (≥ 99% read-back before refine, no deleted id);
    K3 (on the int8 cache) and K4 at their paths' own class inputs;
-9. cagra — CAGRA at the bench's shape (``bench.py``'s CAGRA section):
+9. lut — the streamed IVF-PQ path: ``build_streaming`` from a host copy of
+   the dataset (4 chunks of 250,000 rows, the 128-row granule, the main
+   path's parameters), what ``"auto"`` resolves to (``"pallas"``), the
+   dropped-row accounting, the escalation through ``backend="pallas"`` (K5,
+   with its drop escalation) and exact refine, recall@10 ≥ 0.95 and K5
+   launches = tiles × attempts asserted, QPS; the gather backend on 1,000
+   queries beside it; ``extend`` with the queries (read-back ≥ 0.99); K5
+   parity on the first and last query tile, then K5 on the first tile
+   beside its twin, the one-hot bf16 bmm yardstick and its bound, and K5
+   over every tile of every attempt of one search; then ``cache`` —
+   ``build_streaming(store="cache")`` searched with the default backend
+   (K1 over the int8 cache), recall@10 ≥ 0.95 and K1 launches asserted;
+10. cagra — CAGRA at the bench's shape (``bench.py``'s CAGRA section):
    build from the uint8 dataset with degrees 128 → 64 and the compression
    payload (build seconds by phase, K1's launches in the IVF-Flat
    candidate scan, graph and payload invariants), K1 at kf 129 on the
@@ -87,16 +103,19 @@ K1_SOURCE = "raft_tpu_torch/ops/csrc/strip_scan.cu"
 K2_SOURCE = "raft_tpu_torch/ops/csrc/bq_scan.cu"
 K3_SOURCE = "raft_tpu_torch/ops/csrc/paged_scan.cu"
 K4_SOURCE = "raft_tpu_torch/ops/csrc/paged_bq_scan.cu"
+K5_SOURCE = "raft_tpu_torch/ops/csrc/pq_scan.cu"
 K6_SOURCE = "raft_tpu_torch/ops/csrc/cagra_hop.cu"
 # the main paths' size: the JAX bench's IVF-PQ and IVF-BQ sections
 N_ROWS = 1_000_000
 N_QUERIES = 10_000
 N_LISTS = 1024
 K = 10
+STREAM_CHUNK_ROWS = 250_000   # the streamed builds: 4 chunks at 1M rows
 K1_REPLACES = "raft_tpu/ops/strip_scan.py:340"
 K2_REPLACES = "raft_tpu/ops/bq_scan.py:174"
 K3_REPLACES = "raft_tpu/ops/strip_scan.py:955"
 K4_REPLACES = "raft_tpu/ops/bq_scan.py:438"
+K5_REPLACES = "raft_tpu/ops/pq_scan.py:79"
 K6_REPLACES = "raft_tpu/ops/cagra_hop.py:64"
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
@@ -587,9 +606,11 @@ def reset_counts():
     """Every kernel's launch count to 0 (just before a path is driven)."""
     from raft_tpu_torch.ops import bq_scan as bq
     from raft_tpu_torch.ops import cagra_hop as ch
+    from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import strip_scan as ss
 
     ch.HOP_KERNEL.reset()
+    ps.PQ_KERNEL.reset()
     ss.STRIP_KERNEL.reset()
     bq.BQ_KERNEL.reset()
     ss.PAGED_KERNEL.reset()
@@ -616,6 +637,7 @@ def shared_data(n=N_ROWS, q=N_QUERIES, dev="cuda"):
                                     res=res)
     torch.cuda.synchronize()
     return {"dataset": dataset, "queries": qs, "gt": (gt_v, gt_i),
+            "host": data,
             "data_gen_s": gen_s, "ground_truth_s": time.perf_counter() - t}
 
 
@@ -687,31 +709,13 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "ground_truth_s": shared["ground_truth_s"], "build_s": build_s})
 
     def run(kf, n_probes):
-        _, cand = ivf_pq.search(index, qs, kf, n_probes=n_probes, res=res)
+        _, cand = ivf_pq.search(index, qs, kf, n_probes=n_probes,
+                                backend="ragged", res=res)
         return refine.refine(dataset, qs, cand, K, res=res)
 
-    # the bench's escalation: n_probes at 4× over-fetch until the recall
-    # gate holds, then the smallest over-fetch that still holds it
     reset_counts()
-    pick = None
-    for n_probes in (16, 32, 64, 128, 256):
-        v, i = run(4 * K, n_probes)
-        rec = neighborhood_recall(i, gt_i, v, gt_v)
-        emit({"phase": "main.escalate", "n_probes": n_probes, "k_fetch": 4 * K,
-              "recall": rec})
-        if pick is None or rec > pick["recall"]:
-            pick = {"n_probes": n_probes, "k_fetch": 4 * K, "recall": rec}
-        if rec >= 0.95:
-            break
-    if pick["recall"] >= 0.95:
-        for kf in (2 * K, K):
-            v, i = run(kf, pick["n_probes"])
-            rec = neighborhood_recall(i, gt_i, v, gt_v)
-            emit({"phase": "main.escalate", "n_probes": pick["n_probes"],
-                  "k_fetch": kf, "recall": rec})
-            if rec < 0.95:
-                break
-            pick.update(recall=rec, k_fetch=kf)
+    pick = pq_escalate(run, lambda v, i: neighborhood_recall(i, gt_i, v, gt_v),
+                       "main.escalate")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -728,9 +732,11 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
     if launches <= 0:
         raise AssertionError("the main path never launched the strip kernel")
     search_ms = cuda_ms(lambda: ivf_pq.search(
-        index, qs, pick["k_fetch"], n_probes=pick["n_probes"], res=res), reps=3)
+        index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
+        backend="ragged", res=res), reps=3)
     _, cand = ivf_pq.search(index, qs, pick["k_fetch"],
-                            n_probes=pick["n_probes"], res=res)
+                            n_probes=pick["n_probes"], backend="ragged",
+                            res=res)
     refine_ms = cuda_ms(lambda: refine.refine(dataset, qs, cand, K, res=res),
                         reps=3)
     emit({"phase": "main.search", **pick, "recall_final": rec,
@@ -1365,6 +1371,492 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# K5 (the IVF-PQ LUT scan), the streamed IVF-PQ path and its cache-only twin
+# ---------------------------------------------------------------------------
+
+
+def synthetic_lut_scan(seed, *, nc, s, m, qpl, n_lists=64, integer=True,
+                       dev="cuda"):
+    """One K5 launch's inputs on ``dev``: grouped bf16 LUT rows (integer-
+    valued in [-64, 64] with ``integer``, so every fp32 sum is exact;
+    normal otherwise), uint8 codes, b_sum with +inf tails, every fourth
+    slot's LUT row all zeros, and the last list empty (all +inf)."""
+    import torch
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (n_lists, qpl, s * nc)
+    if integer:
+        luts = torch.randint(-64, 65, shape, generator=g, device=dev,
+                             dtype=torch.int8).to(torch.bfloat16)
+        b_sum = torch.randint(-500, 500, (n_lists, m), generator=g,
+                              device=dev).float()
+    else:
+        luts = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        b_sum = torch.randn((n_lists, m), generator=g, device=dev) * 8
+    luts[:, ::4] = 0
+    lens = torch.randint(1, m + 1, (n_lists,), generator=g, device=dev)
+    col = torch.arange(m, device=dev)[None, :]
+    b_sum = torch.where(col < lens[:, None], b_sum, float("inf"))
+    b_sum[-1] = float("inf")
+    codes = torch.randint(0, nc, (n_lists, s, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    return dict(luts_grouped=luts, codes_t=codes, b_sum=b_sum.contiguous(),
+                nc=nc)
+
+
+K5_PARITY_CASES = (
+    [(f"main_nc256_s64_m3968_qpl16_{kind}",
+      dict(nc=256, s=64, m=3968, qpl=16, integer=kind == "int"))
+     for kind in ("int", "real")]
+    + [(f"nc{nc}_s{s}_m{m}_qpl{qpl}_{'int' if i else 'real'}",
+        dict(nc=nc, s=s, m=m, qpl=qpl, integer=i))
+       for nc, s, m, qpl, i in ((16, 8, 128, 48, True), (16, 64, 3968, 16, False),
+                                (32, 16, 384, 320, True), (32, 64, 128, 16, False),
+                                (64, 8, 3968, 48, True), (64, 64, 384, 320, False),
+                                (256, 16, 128, 320, True), (256, 8, 384, 48, False))]
+    + [("odd_m130_qpl20_int", dict(nc=16, s=8, m=130, qpl=20, integer=True)),
+       ("luts_past_2G_elements_int",
+        dict(nc=256, s=64, m=128, qpl=256, n_lists=544, integer=True))])
+
+
+def compare_scan(kernel_out, plain_out, exact: bool) -> dict:
+    """K5 against its twin: +inf where the twin has it; equal bit for bit
+    with ``exact`` (integer-valued LUTs), else within PARITY_RTOL plus the
+    floor (summation order)."""
+    import torch
+
+    fin = torch.isfinite(plain_out)
+    inf_ok = bool(torch.equal(torch.isinf(kernel_out), torch.isinf(plain_out)))
+    err = (kernel_out[fin].double() - plain_out[fin].double()).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    if exact:
+        ok = inf_ok and bool(torch.equal(kernel_out, plain_out))
+    else:
+        top = float(plain_out[fin].abs().max()) if bool(fin.any()) else 0.0
+        tol = PARITY_RTOL * plain_out[fin].double().abs() \
+            + PARITY_ATOL_FRAC * top
+        ok = inf_ok and bool((err <= tol).all())
+    return {"ok": ok, "exact": exact, "max_abs_err": worst,
+            "inf_positions_equal": inf_ok, "compared": int(fin.sum())}
+
+
+def scan_parity_phase(cases=K5_PARITY_CASES, seed0=5000, dev="cuda"):
+    """K5 against its plain twin on every synthetic case; one line each."""
+    import torch
+
+    from raft_tpu_torch.ops import pq_scan as ps
+
+    worst = 0.0
+    for i, (name, kw) in enumerate(cases):
+        call = synthetic_lut_scan(seed0 + i, dev=dev, **kw)
+        got = ps.pq_scan(**call)
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        verdict = compare_scan(got, ps.pq_scan_reference(**call),
+                               kw["integer"])
+        emit({"phase": "parity", "kernel": "pq_scan", "case": name,
+              "lut_elements": call["luts_grouped"].numel(), **verdict})
+        if not verdict["ok"]:
+            raise AssertionError(f"pq_scan disagrees with its plain version "
+                                 f"on {name}: {verdict}")
+        worst = max(worst, verdict["max_abs_err"])
+        del call, got
+    return worst
+
+
+def pq_escalate(run, recall_of, phase: str) -> dict:
+    """The bench's IVF-PQ escalation: n_probes 16…256 at a 4× over-fetch
+    until recall@10 ≥ 0.95, then the smallest over-fetch (20, 10) that
+    still holds it. Every step is emitted as ``phase``."""
+    pick = None
+    for n_probes in (16, 32, 64, 128, 256):
+        rec = recall_of(*run(4 * K, n_probes))
+        emit({"phase": phase, "n_probes": n_probes, "k_fetch": 4 * K,
+              "recall": rec})
+        if pick is None or rec > pick["recall"]:
+            pick = {"n_probes": n_probes, "k_fetch": 4 * K, "recall": rec}
+        if rec >= 0.95:
+            break
+    if pick["recall"] >= 0.95:
+        for kf in (2 * K, K):
+            rec = recall_of(*run(kf, pick["n_probes"]))
+            emit({"phase": phase, "n_probes": pick["n_probes"], "k_fetch": kf,
+                  "recall": rec})
+            if rec < 0.95:
+                break
+            pick.update(recall=rec, k_fetch=kf)
+    return pick
+
+
+def lut_tiles(index, queries, n_probes, res):
+    """The pallas search's shared prep (coarse select, bf16 LUTs, codes
+    list-minor) and a function that makes one query tile's K5 call at a
+    given per-list cap, as the search makes it; with the tile's occupancy,
+    real pairs over n_lists·qpl_cap."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    _, probes, luts, codes_t = ivf_pq._pallas_prep(
+        queries.float(), index, min(n_probes, index.n_lists), "exact",
+        res.compute_dtype)
+
+    def tile(start, q_tile, qpl_cap):
+        luts_g, qids, _ = ivf_pq._pallas_group(
+            luts[start:start + q_tile], probes[start:start + q_tile],
+            index.n_lists, qpl_cap)
+        return (dict(luts_grouped=luts_g, codes_t=codes_t, b_sum=index.b_sum,
+                     nc=index.n_codes), float((qids >= 0).float().mean()))
+
+    return probes.shape[0], tile
+
+
+def lut_scan_bound(calls):
+    """Least time for K5's launches: the grouped LUT rows, codes, b_sum
+    read once and the scores written once at the HBM rate, against
+    L·qpl·m·s fp32 adds at the fp32 rate; the larger one."""
+    nbytes = 0
+    adds = 0
+    for c in calls:
+        L, qpl, _ = c["luts_grouped"].shape
+        _, s, m = c["codes_t"].shape
+        nbytes += (c["luts_grouped"].numel() * 2 + c["codes_t"].numel()
+                   + c["b_sum"].numel() * 4 + L * qpl * m * 4)
+        adds += L * qpl * m * s
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = adds / FP32_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        nbytes, adds, t_bytes, t_ops
+
+
+def lut_library_ms(c, lists_per_chunk=32) -> float:
+    """K5's PyTorch yardstick on one launch's inputs: the TPU kernel's own
+    product, a batched bf16 ``torch.bmm`` of the LUT rows against the
+    one-hot expansion of the codes, plus b_sum. The one-hot is built
+    outside the timed region, in list chunks that fit; the chunks' times
+    are summed. The port never calls it."""
+    import torch
+
+    luts, codes, b_sum, nc = (c["luts_grouped"], c["codes_t"], c["b_sum"],
+                              c["nc"])
+    L, qpl, f = luts.shape
+    _, s, m = codes.shape
+    s_off = (torch.arange(s, device=codes.device) * nc)[None, :, None]
+    total = 0.0
+    for a in range(0, L, lists_per_chunk):
+        b = min(L, a + lists_per_chunk)
+        oh = torch.zeros((b - a, f, m), dtype=torch.bfloat16,
+                         device=codes.device)
+        oh.scatter_(1, codes[a:b].long() + s_off, 1.0)
+        total += cuda_ms(lambda: torch.bmm(luts[a:b], oh).float()
+                         + b_sum[a:b, None, :], reps=3, warmup=1)
+        del oh
+    return total
+
+
+def check_dropped(index, dataset, group):
+    """The streamed build's accounting: the rows missing from the index
+    are exactly the ``_streaming_dropped`` it counts, and no list passes
+    the auto cap. The one-pass diversion (the reference's contract) drops a
+    row whose diverted list is full by its arrival rank in the chunk, which
+    can happen while its nearest list still has room; the share of dropped
+    rows whose two nearest lists both end at the cap is printed."""
+    import torch
+
+    from raft_tpu_torch.neighbors import _packing
+
+    n = dataset.shape[0]
+    cap = _packing.auto_list_cap(n, index.n_lists, group)
+    present = torch.zeros(n, dtype=torch.bool, device=dataset.device)
+    present[index.list_ids[index.list_ids >= 0].long()] = True
+    missing = (~present).nonzero()[:, 0]
+    sizes = index.list_sizes()
+    both_full = None
+    if missing.numel():
+        l1, l2 = _packing.assign_top2(dataset[missing].float(), index.centers)
+        both_full = float(((sizes[l1.long()] >= cap)
+                           & (sizes[l2.long()] >= cap)).float().mean())
+    emit({"phase": "streaming.dropped", "rows": missing.numel(), "cap": cap,
+          "lists_at_cap": int((sizes >= cap).sum()),
+          "max_list_fill": int(sizes.max()),
+          "share_with_both_nearest_lists_full": both_full})
+    if missing.numel() != index._streaming_dropped or int(sizes.max()) > cap:
+        raise AssertionError(f"{missing.numel()} rows missing, "
+                             f"{index._streaming_dropped} counted, largest "
+                             f"list {int(sizes.max())} against cap {cap}")
+
+
+def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
+    """The streamed IVF-PQ path: ``build_streaming`` from a host copy of the
+    dataset (4 chunks of 250,000 rows, 128-row granule), the bench's
+    escalation through the pallas backend (K5) with exact refine, the
+    gather backend beside it, ``extend`` with the queries, and K5 at the
+    path's own grouped inputs."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import pq_scan as ps
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    dataset, qs, host = shared["dataset"], shared["queries"], shared["host"]
+    gt_v, gt_i = shared["gt"]
+    n, dim = host.shape
+    q = qs.shape[0]
+    t = time.perf_counter()
+    index = ivf_pq.build_streaming(
+        lambda s, e: host[s:e], n, dim, ivf_pq.IvfPqParams(
+            n_lists=n_lists, pq_dim=64, pq_bits=8,
+            kmeans_trainset_fraction=0.2, group_size=128),
+        res=res, chunk_rows=STREAM_CHUNK_ROWS, store="codes")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    auto = ivf_pq.resolve_backend("auto", "cuda", index.max_list_size, K)
+    emit({"phase": "lut.setup", "rows": n, "n_lists": n_lists,
+          "chunks": -(-n // STREAM_CHUNK_ROWS),
+          "max_list_size": index.max_list_size, "group": index.group_size,
+          "streaming_dropped": index._streaming_dropped,
+          "code_bytes_per_row": index.list_codes.shape[-1],
+          "build_s": build_s, "build_phases_s": index.build_timings_s,
+          "auto_backend": auto})
+    check_dropped(index, dataset, 128)
+    if index.max_list_size % 128:
+        raise AssertionError(f"max_list_size {index.max_list_size} is not "
+                             "128-aligned")
+    if not ss.strip_eligible(index.max_list_size) and auto != "pallas":
+        raise AssertionError(f"auto resolved to {auto!r} on a 128-granule "
+                             "CUDA index")
+    searches = []
+
+    def run(kf, n_probes, queries=qs):
+        st = {}
+        _, cand = ivf_pq.search(index, queries, kf, n_probes=n_probes,
+                                backend="pallas", res=res, stats=st)
+        searches.append(st)
+        return refine.refine(dataset, queries, cand, K, res=res)
+
+    def recall_of(v, i):
+        return neighborhood_recall(i, gt_i, v, gt_v)
+
+    reset_counts()
+    pick = pq_escalate(run, recall_of, "lut.escalate")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, i = run(pick["k_fetch"], pick["n_probes"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = ps.PQ_KERNEL.launches
+    expected = sum(st["tiles"] * len(st["attempts"]) for st in searches)
+    rec = recall_of(v, i)
+    if not bool(torch.isfinite(v).all()) or tuple(i.shape) != (q, K):
+        raise AssertionError("the LUT path returned non-finite or misshapen "
+                             "results")
+    if rec < 0.95:
+        raise AssertionError(f"LUT path recall@10 {rec} < 0.95 at {pick}")
+    if launches <= 0 or launches != expected:
+        raise AssertionError(f"K5 launches {launches}, expected {expected} "
+                             "(tiles × attempts)")
+    st = {}
+    search_ms = cuda_ms(lambda: ivf_pq.search(
+        index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
+        backend="pallas", res=res, stats=st), reps=3)
+    _, cand = ivf_pq.search(index, qs, pick["k_fetch"],
+                            n_probes=pick["n_probes"], backend="pallas",
+                            res=res)
+    refine_ms = cuda_ms(lambda: refine.refine(dataset, qs, cand, K, res=res),
+                        reps=3)
+    emit({"phase": "lut.search", **pick, "recall_final": rec,
+          "qps": len(times) * q / sum(times), "batch_s": times,
+          "search_ms": search_ms, "refine_ms": refine_ms,
+          "query_tile": st["q_tile"], "tiles": st["tiles"],
+          "qpl_cap": st["qpl_cap"],
+          "retries": sum(len(x["attempts"]) - 1 for x in searches),
+          "searches": len(searches), "k5_launches": launches})
+
+    # the gather backend on the first 1,000 queries at the pick, against
+    # the pallas one (the JAX package's own bar between the two)
+    q_g = min(1000, q)
+    vg, ig = ivf_pq.search(index, qs[:q_g], pick["k_fetch"],
+                           n_probes=pick["n_probes"], backend="gather",
+                           res=res)
+    vp, ip_ = ivf_pq.search(index, qs[:q_g], pick["k_fetch"],
+                            n_probes=pick["n_probes"], backend="pallas",
+                            res=res)
+    overlap = sum(len(set(a) & set(b)) for a, b in zip(
+        ig.tolist(), ip_.tolist())) / ig.numel()
+    vals_ok = bool(torch.allclose(vp, vg, rtol=0.05, atol=0.5))
+    gather_ms = cuda_ms(lambda: ivf_pq.search(
+        index, qs[:q_g], pick["k_fetch"], n_probes=pick["n_probes"],
+        backend="gather", res=res), reps=1, warmup=0)
+    pallas_ms = cuda_ms(lambda: ivf_pq.search(
+        index, qs[:q_g], pick["k_fetch"], n_probes=pick["n_probes"],
+        backend="pallas", res=res), reps=1, warmup=0)
+    emit({"phase": "lut.gather", "queries": q_g, "overlap": overlap,
+          "values_within_rtol_0.05": vals_ok,
+          "max_abs_diff": float((vp - vg).abs().max()),
+          "gather_ms": gather_ms, "pallas_ms": pallas_ms})
+    if overlap < 0.95 or not vals_ok:
+        raise AssertionError(f"gather and pallas disagree: overlap {overlap},"
+                             f" values within tolerance {vals_ok}")
+    del vg, ig, vp, ip_
+
+    # extend with the queries under ids n + i; each must find itself
+    t = time.perf_counter()
+    ext = ivf_pq.extend(index, qs, new_ids=torch.arange(
+        n, n + q, dtype=torch.int32, device=qs.device), res=res)
+    torch.cuda.synchronize()
+    extend_s = time.perf_counter() - t
+    _, ie = ivf_pq.search(ext, qs, K, n_probes=pick["n_probes"],
+                          backend="pallas", res=res)
+    own = torch.arange(n, n + q, device=ie.device)[:, None]
+    readback = float((ie == own).any(dim=1).float().mean())
+    emit({"phase": "lut.extend", "rows_added": q, "extend_s": extend_s,
+          "max_list_size": ext.max_list_size, "size": ext.size,
+          "readback": readback})
+    if readback < 0.99:
+        raise AssertionError(f"extend read-back {readback} < 0.99")
+    del ext, ie
+
+    # K5 at the path's own grouped inputs (the pick's query tiles at the
+    # final cap): parity on the first and last tile; K5, its twin, the
+    # yardstick and the bound on the first tile (the kernels line); then
+    # K5 over every tile of every attempt of one search, beside the search
+    qt, cap = st["q_tile"], st["qpl_cap"]
+    q_all, tile = lut_tiles(index, qs, pick["n_probes"], res)
+    starts = list(range(0, q_all, qt))
+    max_err = 0.0
+    for start in sorted({starts[0], starts[-1]}):
+        call, _ = tile(start, qt, cap)
+        verdict = compare_scan(ps.pq_scan(**call), ps.pq_scan_reference(**call),
+                               False)
+        emit({"phase": "parity", "kernel": "pq_scan",
+              "case": f"lut_path_tile{start // qt}_nprobe{pick['n_probes']}"
+                      f"_qpl{cap}", **verdict})
+        if not verdict["ok"]:
+            raise AssertionError(f"pq_scan disagrees with its plain version "
+                                 f"on the LUT path: {verdict}")
+        max_err = max(max_err, verdict["max_abs_err"])
+        del call
+    call, occ0 = tile(0, qt, cap)
+    k5_ms = cuda_ms(lambda: ps.pq_scan(**call), reps=5)
+    plain_ms = cuda_ms(lambda: ps.pq_scan_reference(**call), reps=1, warmup=1)
+    library_ms = lut_library_ms(call)
+    bound_ms, bound_by, nbytes, adds, t_bytes, t_ops = lut_scan_bound([call])
+    lut_shape = list(call["luts_grouped"].shape)
+    del call
+    per_attempt = []
+    for a in st["attempts"]:
+        t_ms, b_ms, occ = 0.0, 0.0, []
+        for start in starts:
+            c, o = tile(start, qt, a["qpl_cap"])
+            t_ms += cuda_ms(lambda: ps.pq_scan(**c), reps=3)
+            b_ms += lut_scan_bound([c])[0]
+            occ.append(o)
+            del c
+        per_attempt.append({"qpl_cap": a["qpl_cap"], "dropped": a["dropped"],
+                            "k5_ms": t_ms, "bound_ms": b_ms,
+                            "occupancy": sum(occ) / len(occ)})
+    k5_search_ms = sum(x["k5_ms"] for x in per_attempt)
+    qf = qs.float()
+    prep_ms = cuda_ms(lambda: ivf_pq._pallas_prep(
+        qf, index, pick["n_probes"], "exact", res.compute_dtype), reps=3)
+    emit({"phase": "lut.k5", "n_probes": pick["n_probes"],
+          "kf": pick["k_fetch"], "query_tile": qt, "qpl_cap": cap,
+          "tiles": len(starts), "attempts": per_attempt,
+          "launches_per_search": len(starts) * len(per_attempt),
+          "tile0": {"lut_shape": lut_shape, "ms": k5_ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": nbytes, "adds": adds, "bytes_ms": t_bytes,
+                    "adds_ms": t_ops, "occupancy": occ0},
+          "k5_ms_per_search": k5_search_ms, "search_ms": search_ms,
+          "prep_ms": prep_ms, "glue_ms": search_ms - k5_search_ms})
+    del index
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "ms": k5_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def cache_phase(shared, n_lists=N_LISTS, dev="cuda"):
+    """The streamed cache-only IVF-PQ path (the DEEP-100M route at 1M):
+    ``build_streaming(store="cache")`` at the auto granule and full
+    cache_dim, ``search`` with the default backend (ragged: K1 over the
+    int8 cache), the escalation with exact refine."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    dataset, qs, host = shared["dataset"], shared["queries"], shared["host"]
+    gt_v, gt_i = shared["gt"]
+    n, dim = host.shape
+    q = qs.shape[0]
+    t = time.perf_counter()
+    index = ivf_pq.build_streaming(
+        lambda s, e: host[s:e], n, dim, ivf_pq.IvfPqParams(
+            n_lists=n_lists, pq_dim=64, pq_bits=8,
+            kmeans_trainset_fraction=0.2),
+        res=res, chunk_rows=STREAM_CHUNK_ROWS, store="cache")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    cd = index.decoded.shape[-1]
+    auto = ivf_pq.resolve_backend("auto", "cuda", index.max_list_size, K,
+                                  cache_only=True)
+    emit({"phase": "cache.setup", "rows": n, "n_lists": n_lists,
+          "max_list_size": index.max_list_size, "group": index.group_size,
+          "cache_dim": cd, "streaming_dropped": index._streaming_dropped,
+          "bytes_per_row": cd + 8,
+          "padded_bytes_per_row": index.n_lists * index.max_list_size
+          * (cd + 8) / n,
+          "build_s": build_s, "build_phases_s": index.build_timings_s,
+          "auto_backend": auto})
+    check_dropped(index, dataset, 512)
+    if auto != "ragged":
+        raise AssertionError(f"cache-only index: auto resolved to {auto!r}")
+
+    def run(kf, n_probes):
+        _, cand = ivf_pq.search(index, qs, kf, n_probes=n_probes, res=res)
+        return refine.refine(dataset, qs, cand, K, res=res)
+
+    def recall_of(v, i):
+        return neighborhood_recall(i, gt_i, v, gt_v)
+
+    reset_counts()
+    pick = pq_escalate(run, recall_of, "cache.escalate")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, i = run(pick["k_fetch"], pick["n_probes"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = ss.STRIP_KERNEL.launches
+    rec = recall_of(v, i)
+    if not bool(torch.isfinite(v).all()) or tuple(i.shape) != (q, K):
+        raise AssertionError("the cache path returned non-finite or "
+                             "misshapen results")
+    if rec < 0.95 or launches <= 0:
+        raise AssertionError(f"cache path recall@10 {rec} at {pick}, K1 "
+                             f"launches {launches}")
+    search_ms = cuda_ms(lambda: ivf_pq.search(
+        index, qs, pick["k_fetch"], n_probes=pick["n_probes"], res=res),
+        reps=3)
+    emit({"phase": "cache.search", **pick, "recall_final": rec,
+          "qps": len(times) * q / sum(times), "batch_s": times,
+          "search_ms": search_ms, "k1_launches": launches})
+    del index
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # K6 (the fused CAGRA hop) and the CAGRA path
 # ---------------------------------------------------------------------------
 
@@ -1845,6 +2337,9 @@ def main() -> int:
           "replaces": K4_REPLACES, "parity": "ok", **empty,
           "max_abs_err": paged_parity_phase("paged_bq_scan", K4_PARITY_CASES,
                                             4000)}
+    k5 = {"name": "pq_scan", "route": "cuda", "source": K5_SOURCE,
+          "replaces": K5_REPLACES, "parity": "ok", **empty,
+          "max_abs_err": scan_parity_phase()}
     k6 = {"name": "cagra_hop", "route": "cuda", "source": K6_SOURCE,
           "replaces": K6_REPLACES, "parity": "ok", **empty,
           "max_abs_err": hop_parity_phase()}
@@ -1879,6 +2374,12 @@ def main() -> int:
         def serve_bq():
             fold(k4, serve_codes_phase(shared, "bq", *held.pop("bq")))
 
+        def lut():
+            fold(k5, lut_phase(shared))
+
+        def cache():
+            cache_phase(shared)
+
         def cagra():       # last: its index holds 4.2 GB of codes
             result, k1_err = cagra_phase(shared)
             fold(k6, result)
@@ -1887,14 +2388,14 @@ def main() -> int:
         for name, path in (("main", ivf_pq), ("bq", ivf_bq),
                            ("flat", ivf_flat), ("serve", serve),
                            ("serve.pq", serve_pq), ("serve.bq", serve_bq),
-                           ("cagra", cagra)):
+                           ("lut", lut), ("cache", cache), ("cagra", cagra)):
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})
             if args.ab and name == "bq":
                 ab_phase(args.ab, held, shared)
                 return 0
-    emit({"kernels": [k1, k2, k3, k4, k6]})
+    emit({"kernels": [k1, k2, k3, k4, k5, k6]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

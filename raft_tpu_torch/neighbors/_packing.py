@@ -5,7 +5,7 @@
 from __future__ import annotations
 
 import logging
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,24 +65,28 @@ def pack_lists(payload: torch.Tensor, row_ids: torch.Tensor,
 
 def spill_to_cap(work: torch.Tensor, centers: torch.Tensor,
                  labels: torch.Tensor, metric: str, cap: int,
+                 base_counts: Optional[torch.Tensor] = None,
                  chunk: int = 65536) -> torch.Tensor:
-    """Cap per-list occupancy: rows ranked ≥ cap in their cluster bid for
-    their nearest alternative centers with room (4 rounds), and any residue
-    is packed into free slots across all lists, emptiest first — so the cap
-    is hard whenever n_lists·cap ≥ n."""
+    """Cap per-list occupancy: rows ranked ≥ cap in their cluster (after
+    the ``base_counts`` rows each list already holds, as ``extend`` has)
+    bid for their nearest alternative centers with room (4 rounds), and any
+    residue is packed into free slots across all lists, emptiest first — so
+    the cap is hard whenever n_lists·cap ≥ n + Σ base_counts."""
     n_lists = centers.shape[0]
     labels = labels.to(torch.int64)
+    dev = labels.device
+    base = (torch.zeros(n_lists, dtype=torch.int64, device=dev)
+            if base_counts is None else base_counts.to(dev, torch.int64))
     counts = torch.bincount(labels, minlength=n_lists)
-    if int(counts.max()) <= cap:
+    if int((counts + base).max()) <= cap:
         return labels
     n = labels.shape[0]
-    dev = labels.device
     order = torch.argsort(labels, stable=True)
     offsets = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(n, device=dev) - offsets[labels[order]]
     rank = torch.zeros(n, dtype=torch.int64, device=dev)
     rank[order] = rank_sorted
-    over = rank >= cap
+    over = base[labels] + rank >= cap
 
     n_alt = min(_N_ALT, n_lists - 1)
     if n_alt <= 0:
@@ -102,7 +106,7 @@ def spill_to_cap(work: torch.Tensor, centers: torch.Tensor,
         alts.append(a.to(torch.int64))
     alt = torch.cat(alts) if len(alts) > 1 else alts[0]
 
-    free = torch.clamp(cap - counts, min=0)
+    free = torch.clamp(cap - (base + counts), min=0)
     labels_out = labels.clone()
     remaining = over
     for r in range(n_alt):
@@ -147,3 +151,73 @@ def auto_list_cap(n: int, n_lists: int, group_size: int, factor: int = 4) -> int
     """Default cap: ``factor`` × mean occupancy, group-aligned."""
     mean = -(-n // n_lists)
     return max(group_size, -(-(factor * mean) // group_size) * group_size)
+
+
+def unpack_lists(list_payload: torch.Tensor, list_ids: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_lists`: the valid rows' (payload, ids,
+    labels), list by list in slot order."""
+    n_lists, max_size = list_ids.shape
+    valid = list_ids.reshape(-1) >= 0
+    payload = list_payload.reshape((-1,) + tuple(list_payload.shape[2:]))[valid]
+    labels = torch.arange(n_lists, dtype=torch.int32,
+                          device=list_ids.device).repeat_interleave(max_size)
+    return payload, list_ids.reshape(-1)[valid], labels[valid]
+
+
+def assign_top2(rows: torch.Tensor, centers: torch.Tensor, block: int = 4096,
+                metric: str = "sqeuclidean"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best and second-best center per row (int32 each), over center blocks
+    of ``block``: the streamed builds' capacity diversion spills to the
+    runner-up. "sqeuclidean" ranks by ‖c‖² − 2⟨row, c⟩, "inner_product" by
+    −⟨row, c⟩; ties go to the lowest index, as in the JAX package."""
+    m = rows.shape[0]
+    n_c = centers.shape[0]
+    dev = rows.device
+    inf = torch.full((m,), float("inf"), device=dev)
+    zero = torch.zeros((m,), dtype=torch.int64, device=dev)
+    v1, i1, v2, i2 = inf, zero, inf, zero
+    lanes = torch.arange(4, device=dev)[None, :]
+    for b0 in range(0, n_c, block):
+        cb = centers[b0:b0 + block]
+        ip = rows @ cb.T
+        d = -ip if metric == "inner_product" else sqnorm(cb)[None, :] - 2.0 * ip
+        bv1, ba1 = torch.min(d, dim=1)
+        d2 = d.clone()
+        d2[torch.arange(m, device=dev), ba1] = float("inf")
+        bv2, ba2 = torch.min(d2, dim=1)
+        cand_v = torch.stack([v1, v2, bv1, bv2], dim=1)
+        cand_i = torch.stack([i1, i2, ba1 + b0, ba2 + b0], dim=1)
+        na1 = torch.argmin(cand_v, dim=1)
+        nv1 = torch.gather(cand_v, 1, na1[:, None])[:, 0]
+        ni1 = torch.gather(cand_i, 1, na1[:, None])[:, 0]
+        cv2 = torch.where(lanes == na1[:, None], float("inf"), cand_v)
+        na2 = torch.argmin(cv2, dim=1)
+        v1, i1 = nv1, ni1
+        v2 = torch.gather(cv2, 1, na2[:, None])[:, 0]
+        i2 = torch.gather(cand_i, 1, na2[:, None])[:, 0]
+    return i1.to(torch.int32), i2.to(torch.int32)
+
+
+def divert_to_cap(l1: torch.Tensor, l2: torch.Tensor,
+                  run_counts: torch.Tensor, cap: int,
+                  n_lists: int) -> torch.Tensor:
+    """Capacity diversion for one streamed chunk: a row whose nearest list
+    is full (the running fill ``run_counts`` plus its chunk-local arrival
+    rank) takes its second-nearest; a row whose second choice is full too
+    gets the drop sentinel ``n_lists``. int32 labels."""
+    m = l1.shape[0]
+    run = run_counts.to(torch.int64)
+
+    def rank_of(lab):
+        order, _, rank_sorted = chunk_ranks(lab, n_lists)
+        r = torch.zeros(m, dtype=torch.int64, device=lab.device)
+        r[order] = rank_sorted
+        return r
+
+    l1, l2 = l1.to(torch.int64), l2.to(torch.int64)
+    full1 = run[l1] + rank_of(l1) >= cap
+    lab = torch.where(full1, l2, l1)
+    full2 = run[lab.clamp(max=n_lists - 1)] + rank_of(lab) >= cap
+    return torch.where(full2, n_lists, lab).to(torch.int32)

@@ -98,6 +98,34 @@ def rotate_rows(x: torch.Tensor, rotation: torch.Tensor,
                      f"{ROTATION_KINDS})")
 
 
+
+def unrotate_rows(y: torch.Tensor, rotation: torch.Tensor,
+                  kind: str = "dense") -> torch.Tensor:
+    """Inverse of :func:`rotate_rows`, back onto the (padded) input space:
+    ``y @ R`` for the dense matrix, ``D·fwht(y)/√d`` for the SRHT (both
+    kinds are exactly orthogonal). Callers slice ``[..., :dim]``."""
+    if kind == "dense":
+        return y @ rotation
+    if kind == "hadamard":
+        d = rotation.shape[-1]
+        inv = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+        return hadamard_transform(y) * inv * rotation
+    raise ValueError(f"unknown rotation kind {kind!r} (expected one of "
+                     f"{ROTATION_KINDS})")
+
+
+def rotation_matrix_of(rotation: torch.Tensor,
+                       kind: str = "dense") -> torch.Tensor:
+    """The explicit (rot_dim, rot_dim) matrix of either representation."""
+    if kind == "dense":
+        return rotation
+    if kind == "hadamard":
+        d = rotation.shape[-1]
+        eye = torch.eye(d, dtype=torch.float32, device=rotation.device)
+        return srht_rotate(eye, rotation).T
+    raise ValueError(f"unknown rotation kind {kind!r} (expected one of "
+                     f"{ROTATION_KINDS})")
+
 # -- decompositions ----------------------------------------------------------
 
 

@@ -67,7 +67,8 @@ def _recall_jax(idx, data, gt, kf, p):
 
 def _recall_port(idx, data, gt, kf, p):
     ds, qs = data
-    _, cand = tpq.search(idx, qs, kf, n_probes=p, device=CPU)
+    _, cand = tpq.search(idx, qs, kf, n_probes=p, backend="ragged",
+                         device=CPU)
     v, i = trf.refine(ds, qs, cand, 10, device=CPU)
     return tmet.neighborhood_recall(i, torch.from_numpy(gt[1]), v,
                                     torch.from_numpy(gt[0]))
@@ -78,7 +79,7 @@ def test_search_on_jax_index_matches(data, jax_index, kf, n_probes):
     _, qs = data
     jv, ji = jpq.search(jax_index, qs, kf, n_probes=n_probes, backend="ragged")
     tv, ti = tpq.search(_carried(jax_index), qs, kf, n_probes=n_probes,
-                        device=CPU)
+                        backend="ragged", device=CPU)
     # the scan ranks scores of magnitude ‖q‖² (5e-4 relative, one packing
     # quantum); adding ‖q‖² back cancels most of it, so the same error is
     # absolute on the returned distances
@@ -220,8 +221,5 @@ def test_pack_codes_matches_jax(bits):
 
 def test_later_slice_features_raise(port_index, data):
     _, qs = data
-    for kw in ({"backend": "gather"}, {"filter": object()}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tpq.search(port_index, qs, 10, device=CPU, **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
-        tpq.build(data[0], tpq.IvfPqParams(codebook_kind="cluster"), device=CPU)
+        tpq.search(port_index, qs, 10, filter=object(), device=CPU)

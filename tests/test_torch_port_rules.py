@@ -18,6 +18,7 @@ from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq, ivf_flat,
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import cagra_hop as ch
+from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import strip_scan as ss
 
 torch.set_num_threads(2)
@@ -55,8 +56,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_kernel_sources_are_in_the_package():
     names = [src.name for src in _native.sources()]
     assert names == ["bq_scan.cu", "cagra_hop.cu", "paged_bq_scan.cu",
-                     "paged_scan.cu", "strip_scan.cu"]
-    # the strip kernels pick a list-side policy; K6 stands alone
+                     "paged_scan.cu", "pq_scan.cu", "strip_scan.cu"]
+    # the strip kernels pick a list-side policy; K5 and K6 stand alone
     policy = {"strip_scan.cu": "dense_src.cuh", "paged_scan.cu": "dense_src.cuh",
               "bq_scan.cu": "packed_src.cuh",
               "paged_bq_scan.cu": "packed_src.cuh"}
@@ -72,6 +73,10 @@ def test_kernel_sources_are_in_the_package():
     assert "raft_tpu/ops/cagra_hop.py:_hop_kernel" in k6
     assert 'extern "C" int raft_cagra_hop(' in k6
     assert "int64_t" in k6                  # 64-bit code-record addresses
+    k5 = (_native.CSRC / "pq_scan.cu").read_text()
+    assert "raft_tpu/ops/pq_scan.py:_pq_scan_kernel" in k5
+    assert 'extern "C" int raft_pq_scan(' in k5
+    assert "int64_t" in k5                  # 64-bit LUT, code, output offsets
     assert [h.name for h in _native.headers()] == [
         "dense_src.cuh", "packed_src.cuh", "strip_common.cuh"]
     for h in ("dense_src.cuh", "packed_src.cuh"):
@@ -201,7 +206,16 @@ def _entry_points(x, q, **dev):
             n_lists=4, pq_dim=4, group_size=512, kmeans_n_iters=2,
             codebook_n_iters=2), **dev),
         "ivf_pq.search": lambda: ivf_pq.search(idx_cpu, q, 5, n_probes=2,
-                                               **dev),
+                                               backend="ragged", **dev),
+        "ivf_pq.search.pallas": lambda: ivf_pq.search(
+            idx_cpu, q, 5, n_probes=2, backend="pallas", **dev),
+        "ivf_pq.search.gather": lambda: ivf_pq.search(
+            idx_cpu, q, 5, n_probes=2, backend="gather", **dev),
+        "ivf_pq.build_streaming": lambda: ivf_pq.build_streaming(
+            lambda s, e: x[s:e], x.shape[0], x.shape[1], ivf_pq.IvfPqParams(
+                n_lists=4, pq_dim=4, kmeans_n_iters=2, codebook_n_iters=2),
+            chunk_rows=1024, **dev),
+        "ivf_pq.extend": lambda: ivf_pq.extend(idx_cpu, q, **dev),
         "ivf_bq.build": lambda: ivf_bq.build(x, bq_params, **dev),
         "ivf_bq.search": lambda: ivf_bq.search(bq_cpu, q, 5, n_probes=2,
                                                **dev),
@@ -228,7 +242,10 @@ def _cagra_file_load(index, **dev):
                                   "PagedListStore.from_index",
                                   "serving.search",
                                   "kmeans_balanced.fit", "ivf_pq.build",
-                                  "ivf_pq.search", "ivf_bq.build",
+                                  "ivf_pq.search", "ivf_pq.search.pallas",
+                                  "ivf_pq.search.gather",
+                                  "ivf_pq.build_streaming", "ivf_pq.extend",
+                                  "ivf_bq.build",
                                   "ivf_bq.search", "ivf_bq.search_refined",
                                   "refine", "brute_force.build",
                                   "brute_force.search"])
@@ -442,3 +459,52 @@ def test_no_path_leads_from_k6_to_a_fallback():
     assert "_kernel_fn()(" in body and "raise RuntimeError" in body
     assert body.index("raise RuntimeError") < body.index(
         "HOP_KERNEL.launches += 1")
+
+
+def test_k5_wrapper_takes_plain_path_on_cpu_without_counting():
+    rng = np.random.default_rng(6)
+    args = (torch.from_numpy(rng.integers(-64, 65, (4, 16, 8 * 16)).astype(
+        np.float32)).to(torch.bfloat16),
+        torch.from_numpy(rng.integers(0, 16, (4, 8, 128)).astype(np.uint8)),
+        torch.from_numpy(rng.random((4, 128)).astype(np.float32)), 16)
+    before = ps.PQ_KERNEL.launches
+    assert torch.equal(ps.pq_scan(*args), ps.pq_scan_reference(*args))
+    assert ps.PQ_KERNEL.launches == before
+
+
+def test_k5_wrapper_rejects_what_the_kernel_cannot_take():
+    luts = torch.zeros((2, 16, 8 * 16), dtype=torch.bfloat16)
+    codes = torch.zeros((2, 8, 128), dtype=torch.uint8)
+    b_sum = torch.zeros((2, 128))
+    with pytest.raises(ValueError, match="power of two"):
+        ps.pq_scan(luts, codes, b_sum, 12)
+    with pytest.raises(ValueError, match="power of two"):
+        ps.pq_scan(torch.zeros((2, 16, 8 * 512), dtype=torch.bfloat16),
+                    codes, b_sum, 512)
+    with pytest.raises(ValueError, match="inconsistent"):
+        ps.pq_scan(luts, codes, b_sum, 32)
+    with pytest.raises(ValueError, match="inconsistent"):
+        ps.pq_scan(luts, codes, b_sum[:, :64], 16)
+    with pytest.raises(TypeError, match="luts_grouped"):
+        ps.pq_scan(luts.float(), codes, b_sum, 16)
+    with pytest.raises(TypeError, match="codes_t"):
+        ps.pq_scan(luts, codes.to(torch.int8), b_sum, 16)
+    with pytest.raises(TypeError, match="b_sum"):
+        ps.pq_scan(luts, codes, b_sum.double(), 16)
+
+
+def test_no_path_leads_from_k5_to_a_fallback():
+    """A CUDA tensor gets K5 or an exception: the scan's module and the
+    IVF-PQ search hold no try/except, and the wrapper raises when the
+    launch returns an error, before it counts a launch."""
+    for rel in ("raft_tpu_torch/ops/pq_scan.py",
+                "raft_tpu_torch/neighbors/ivf_pq.py"):
+        tree = ast.parse((REPO / rel).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    src = (REPO / "raft_tpu_torch/ops/pq_scan.py").read_text()
+    body = src[src.index("def _pq_scan_cuda"):src.index("def pq_scan(")]
+    assert "_kernel_fn()(" in body and "raise RuntimeError" in body
+    assert body.index("raise RuntimeError") < body.index(
+        "PQ_KERNEL.launches += 1")
+    wrapper = src[src.index("def pq_scan("):]
+    assert 'device.type == "cuda"' in wrapper

@@ -246,7 +246,8 @@ def test_pq_store_and_paged_search_match_jax(pq_pair, data):
     assert not np.isin(np_(i), deleted).any()
     # the paged scan of the carried rows is the packed scan
     jst2 = tsv.PagedListStore.from_index(tidx, page_rows=64, device=CPU)
-    pv, pi = tpq.search(tidx, qs, 20, n_probes=4, device=CPU)
+    pv, pi = tpq.search(tidx, qs, 20, n_probes=4, backend="ragged",
+                        device=CPU)
     sv, si = tsv.search(jst2, qs, 20, n_probes=4, device=CPU)
     assert tmet.topk_agreement(pv, pi, sv, si)["ok"]
     tc = tst.compact()
