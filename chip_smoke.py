@@ -4,7 +4,7 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py               # everything, as the chip check runs it
     python3 chip_smoke.py --skip-main   # device, build and kernel parity only
-    python3 chip_smoke.py --ab OLD_TREE # K1, K2 of an older checkout vs this one
+    python3 chip_smoke.py --ab OLD_TREE # K1-K5 of an older checkout vs this one
 
 Phases, one JSON line each:
 
@@ -15,19 +15,27 @@ Phases, one JSON line each:
 3. parity — each kernel against its plain twin on the card: K1 (strip
    scan; main-path shapes at dim 128, int8 lists, w ∈ {1024, 2048, 4096},
    kf ∈ {10, 20, 40}, a multi-sub-block class, padding strips and dead
-   sub-blocks, ±inf/NaN bias lanes, fp32, bf16 and uint8 lists, kf = 512);
+   sub-blocks, ±inf/NaN bias lanes, fp32, bf16 and uint8 lists, kf = 512,
+   and the selection's cases: scores ordered ascending, descending (every
+   key passes the threshold, the queue overflows on every tile) and tied,
+   kf 1 / 31 / 129 / 512, dead sub-blocks, bit for bit);
    K2 (packed 1-bit scan; rot_dim 128 at w 1024–4096 × kf 40/80/320, 2-
    and 4-bit codes, dead sub-blocks, ±inf/NaN bias, the tournament at kf
-   20, kf 512, rot_dim 40); K3 (paged scan; the serving plan w = 4096 with
+   20, kf 512, rot_dim 40, the selection's cases); K3 (paged scan; the
+   serving plan w = 4096 with
    128-row pages, 32-row pages with tiles spanning pages, w = 64, 24-row
    pages, chains of 0, 1, partial and full length, a dead second
    sub-block, a filtered first sub-block, tombstones, NaN in every page no
-   chain holds, kf 10…320, uint8/int8/bf16/fp32 pages); K4 (paged packed
-   scan; bits 1/2/4, kf 10…320, rot_dim 40); K5 (the IVF-PQ LUT scan; nc
-   16…256, s 8…64, m 128…3,968 and an odd 130, qpl 16…320 and a partial
-   slot block, +inf b_sum tails, all-zero LUT rows, an empty list, a LUT
-   past 2^31 elements; bitwise on integer-valued LUTs, within PARITY_RTOL
-   on real-valued ones); K6 (fused CAGRA hop; deg 64,
+   chain holds, kf 10…320, uint8/int8/bf16/fp32 pages, the selection's
+   cases over a page table); K4 (paged packed scan; bits 1/2/4, kf
+   10…320, rot_dim 40, the selection's cases); K5 (the IVF-PQ LUT scan,
+   through the grouped entry — nc 16…256, s 8…64, m 128…3,968 and an odd
+   130, qpl 16…320 and a partial slot block, +inf b_sum tails, all-zero
+   LUT rows, an empty list, a LUT past 2^31 elements — and through the
+   pair entry — the streamed path's tile shape, a hot list of many
+   16-pair blocks, blocks of ≤ 8 pairs, an odd m, lists no pair probes;
+   bitwise on integer-valued LUTs, within PARITY_RTOL on real-valued
+   ones); K6 (fused CAGRA hop; deg 64,
    p 64, w 1/4/8 × itopk 32/64/96, duplicate-heavy graphs, -1 edges,
    invalid and all-invalid parents, +inf buffer holes, a scalar-staging
    shape, parents whose code records start past byte 2^31; bitwise on
@@ -39,7 +47,9 @@ Phases, one JSON line each:
    k = 10, recall@10 ≥ 0.95 asserted, QPS over three 10k-query batches
    (all queries over all their time); K1's launch count on that run, then
    its time at the main path's own class inputs beside its plain twin, a
-   PyTorch yardstick (batched matmul + topk) and its bound;
+   PyTorch yardstick (batched matmul + topk) and its bound, and its split
+   into product and selection (``k1_split``: the product-only
+   instantiation of the same template, ``raft_strip_scan_product``);
 5. bq — the same for IVF-BQ: ``ivf_bq.build`` at the bench's parameters
    (n_lists 1024, 1 bit, dense rotation, train fraction 0.2), the bench's
    escalation (n_probes 16…256 at k_fetch 40, then k_fetch 80, 160, 320 at
@@ -48,7 +58,7 @@ Phases, one JSON line each:
 6. flat — IVF-Flat at the bench's parameters (n_lists 1024, train
    fraction 0.2, uint8 lists): n_probes 16…256 at k = 10 until recall@10
    ≥ 0.95, no refine; QPS, K1's launches on uint8 lists, K1 at the path's
-   inputs;
+   inputs and its product/selection split;
 7. serve — the bench serving section's data plane on that index: a
    ``PagedListStore`` of 128-row pages, reserved for the window (plan and
    ``stats()`` printed); paged search through K3 (recall ≥ 0.95, ids
@@ -66,24 +76,34 @@ Phases, one JSON line each:
 9. lut — the streamed IVF-PQ path: ``build_streaming`` from a host copy of
    the dataset (4 chunks of 250,000 rows, the 128-row granule, the main
    path's parameters), what ``"auto"`` resolves to (``"pallas"``), the
-   dropped-row accounting, the escalation through ``backend="pallas"`` (K5,
-   with its drop escalation) and exact refine, recall@10 ≥ 0.95 and K5
-   launches = tiles × attempts asserted, QPS; the gather backend on 1,000
-   queries beside it; ``extend`` with the queries (read-back ≥ 0.99); K5
-   parity on the first and last query tile, then K5 on the first tile
-   beside its twin, the one-hot bf16 bmm yardstick and its bound, and K5
-   over every tile of every attempt of one search; then ``cache`` —
+   dropped-row accounting, the escalation through ``backend="pallas"`` (K5
+   over each query tile's probed pairs, one attempt) and exact refine,
+   recall@10 ≥ 0.95, K5 launches = tiles and 0 dropped pairs asserted,
+   QPS; the gather backend on 1,000 queries beside it; ``extend`` with the
+   queries (read-back ≥ 0.99); K5 parity on the first and last query tile,
+   then K5 on the first tile beside its twin, the one-hot bf16 bmm
+   yardstick (on the tile's grouped layout) and its bound, and K5 and the
+   select over p·m (``select_ms``) over every tile of one search; then
+   ``cache`` —
    ``build_streaming(store="cache")`` searched with the default backend
    (K1 over the int8 cache), recall@10 ≥ 0.95 and K1 launches asserted;
 10. cagra — CAGRA at the bench's shape (``bench.py``'s CAGRA section):
    build from the uint8 dataset with degrees 128 → 64 and the compression
    payload (build seconds by phase, K1's launches in the IVF-Flat
    candidate scan, graph and payload invariants), K1 at kf 129 on the
-   build's first candidate batch, the fused rungs (64, 4) and (96, 8) with
+   build's first candidate batch and its product/selection split, the
+   fused rungs (64, 4) and (96, 8) with
    K6 launches equal to the hops run, recall@10 ≥ 0.95 asserted, QPS over
    three batches beside the compressed traversal's, K6 parity on the
    path's state after hop 3, then K6 at the path's inputs (time, twin,
    bound) and the rest of a search (seeding, pickups, exit re-rank).
+
+``--ab OLD_TREE`` drives the paths up to the LUT path, then times K1–K4 of
+the older tree against this one's at the paths' own class inputs (K1 at
+kf 20, kf 10 on uint8 and kf 129 on the CAGRA build's batch; K2; K3 and K4
+at their serving inputs) in the order old, new, new, old, and each tree's
+LUT search (K5) in a process of its own on one index and query file; it
+prints no last line.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
@@ -128,6 +148,18 @@ PARITY_RTOL = 5e-4
 PARITY_ATOL_FRAC = 1e-5      # × the case's largest |finite value|
 
 
+# with --ab: each timed kernel's class inputs from its path, by kernel and
+# shape, and the LUT path's index and queries in files under AB_FILES, beside
+# the older tree (ab_phase reads them)
+AB_INPUTS = None
+AB_FILES = None
+
+
+def keep_for_ab(key, value) -> None:
+    if AB_INPUTS is not None:
+        AB_INPUTS[key] = value
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -166,16 +198,45 @@ def compare(kernel_out, plain_out, strip_list, strip_rows):
                           atol=PARITY_ATOL_FRAC * top, mask=rows)
 
 
+def ordered_bias(order, lists, cols, span):
+    """Scores that are the bias alone, ordered along a list's columns:
+    ``"asc"`` (every new key is above the row's threshold once its carry
+    is full), ``"desc"`` (every key passes it, so the candidate queue
+    overflows on every tile) or ``"equal"`` (ties, ordered by the packed
+    column). Integers below 2^24 apart per list, exact in fp32."""
+    import torch
+
+    base = (lists * span).to(torch.float32)
+    if order == "asc":
+        return base + cols.to(torch.float32)
+    if order == "desc":
+        return base + (span - cols).to(torch.float32)
+    return torch.full_like(base + cols.to(torch.float32), 7.0)
+
+
+def same_rows(kernel_out, plain_out, strip_list, strip_rows) -> bool:
+    """Values and ids equal bit for bit over the rows a kernel defines (the
+    ordered cases, whose scores are exact: ties must resolve by column)."""
+    import torch
+
+    slots = torch.arange(plain_out[0].shape[1],
+                         device=plain_out[0].device)[None, :]
+    rows = (strip_list >= 0)[:, None] & (slots < strip_rows[:, None])
+    return all(bool(torch.equal(k[rows], p[rows]))
+               for k, p in zip(kernel_out, plain_out))
+
+
 def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
                     n_lists=8, s_real=24, s_pad=32, dead=False,
-                    nonfinite=False, dev="cuda"):
+                    nonfinite=False, order=None, dev="cuda"):
     """One length class with random lists, bias and query blocks on
     ``dev``: padding strips scattered among the real ones, and strips
     whose real query rows are a prefix of their slots. ``b_dtype`` "int8",
     "uint8", "bf16" or "fp32" makes K1's list rows; "packed" makes K2's: ``dim/8``
     random code bytes per row, with a scale drawn per row (0 at padding).
-    Returns the keyword arguments of the class call and the per-strip row
-    counts."""
+    ``order`` zeroes the list rows (K2: the scales) so that every score is
+    its bias, laid out by :func:`ordered_bias`. Returns the keyword
+    arguments of the class call and the per-strip row counts."""
     import torch
 
     dev = torch.device(dev)
@@ -199,6 +260,12 @@ def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
     col = torch.arange(m, device=dev)[None, :]
     bias = torch.rand((n_lists, m), generator=g, device=dev) * 1000.0
     bias = torch.where(col < lens[:, None], bias, float("inf"))
+    if order is not None:
+        if b_dtype != "packed":
+            b = torch.zeros_like(b)
+        bias = torch.where(col < lens[:, None], ordered_bias(
+            order, torch.arange(n_lists, device=dev)[:, None], col, m),
+            float("inf"))
     if dead:
         bias[0] = float("inf")                     # a fully dead list
         if n_sub > 1:
@@ -222,12 +289,36 @@ def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
                 w_blocks=w_blocks, n_sub=n_sub, alpha=-2.0, kf=kf)
     if b_dtype == "packed":
         scale = 0.5 + 1.5 * torch.rand((n_lists, m), generator=g, device=dev)
+        if order is not None:
+            scale = torch.zeros_like(scale)
         call.update(list_codes=b.contiguous(), scale=torch.where(
             col < lens[:, None], scale, 0.0).contiguous())
     else:
         call.update(list_data=b.contiguous())
     return call, rows.to(torch.int32).contiguous()
 
+
+# the threshold filter and candidate queue of the strip kernels' selection:
+# ordered and tied scores, the queue overflowing on every tile, kf at its
+# edges (1, 31 under both selections, 129, 512), dead sub-blocks; shared by
+# K1 and K2 (``ordered_bias``)
+SELECTION_CASES = (
+    [(f"{order}_kf{kf}", dict(w_blocks=2, n_sub=1, kf=kf, order=order), False)
+     for order in ("asc", "desc", "equal") for kf in (1, 31, 129)]
+    + [("desc_tournament_kf31", dict(w_blocks=2, n_sub=1, kf=31,
+                                     order="desc"), True),
+       ("equal_tournament_kf16", dict(w_blocks=4, n_sub=1, kf=16,
+                                      order="equal"), True),
+       ("desc_kf512_n_sub2_dead", dict(w_blocks=1, n_sub=2, kf=512,
+                                       order="desc", dead=True), False),
+       ("asc_kf129_n_sub4_dead", dict(w_blocks=1, n_sub=4, kf=129,
+                                      order="asc", dead=True), False),
+       ("kf1_random", dict(w_blocks=8, n_sub=1, kf=1), False),
+       ("kf31_random_exact", dict(w_blocks=4, n_sub=1, kf=31), False),
+       ("kf129_random_n_sub2_dead",
+        dict(w_blocks=2, n_sub=2, kf=129, dead=True), False),
+       ("kf31_nonfinite_tournament",
+        dict(w_blocks=2, n_sub=1, kf=31, nonfinite=True), True)])
 
 PARITY_CASES = (
     [(f"main_w{512 * wb}_kf{kf}", dict(w_blocks=wb, n_sub=1, kf=kf), True)
@@ -250,6 +341,7 @@ PARITY_CASES = (
        ("kf512_n_sub2", dict(w_blocks=1, n_sub=2, kf=512, dim=64), False),
        ("dim40_scalar_staging_kf20", dict(w_blocks=2, n_sub=1, kf=20, dim=40),
         True)]
+    + SELECTION_CASES
 )
 
 # K2: dim is the unpacked width bits·rot_dim (8 per code byte)
@@ -270,7 +362,8 @@ K2_PARITY_CASES = tuple(
         dict(w_blocks=2, n_sub=2, kf=20, dead=True), True),
        ("kf512_n_sub2", dict(w_blocks=1, n_sub=2, kf=512), False),
        ("rot_dim40_scalar_staging_kf40",
-        dict(w_blocks=2, n_sub=1, kf=40, dim=40), True)])
+        dict(w_blocks=2, n_sub=1, kf=40, dim=40), True)]
+    + list(SELECTION_CASES))
 
 
 def _kernel_pair(kernel):
@@ -302,6 +395,9 @@ def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
         if call["a"].is_cuda:
             torch.cuda.synchronize()
         verdict = compare(got, want, call["strip_list"], rows)
+        if "order" in kw:
+            verdict["bitwise"] = same_rows(got, want, call["strip_list"], rows)
+            verdict["ok"] = verdict["ok"] and verdict["bitwise"]
         emit({"phase": "parity", "kernel": kernel, "case": name,
               "tournament": ss.tournament_engaged(kw["kf"], 512 * kw["w_blocks"],
                                                   approx_ok),
@@ -315,7 +411,7 @@ def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
 
 def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
                     payload="uint8", n_lists=16, s_real=24, s_pad=32,
-                    dev="cuda"):
+                    order=None, dev="cuda"):
     """One paged class on ``dev``: a page pool with chains of 0, 1,
     partial and full length (one ending on a sub-block boundary, so the
     next sub-block is dead), a list whose first sub-block is all +inf
@@ -324,8 +420,10 @@ def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
     padding strips and strips with a prefix of real rows. ``payload``
     "uint8", "int8", "bf16" or "fp32" makes K3's pages; "bits1", "bits2",
     "bits4" make K4's codes (``dim`` is rot_dim) with a scale pool.
-    Returns the keyword arguments of the class call and the per-strip row
-    counts."""
+    ``order`` zeroes the pages (K4: the scales) and lays the bias of each
+    list's chained rows out by :func:`ordered_bias` along the list's
+    columns (no tombstones; tail slots stay +inf). Returns the keyword
+    arguments of the class call and the per-strip row counts."""
     import torch
 
     from raft_tpu_torch.ops import strip_scan as ss
@@ -370,6 +468,17 @@ def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
     for l in range(n_lists):                          # tail pages
         if int(chains[l]):
             bias[table[l, int(chains[l]) - 1], int(fill[l]):] = float("inf")
+    if order is not None:
+        if not payload.startswith("bits"):
+            pages = torch.zeros_like(pages)
+        r = torch.arange(R, device=dev)
+        for l in range(n_lists):
+            for t in range(int(chains[l])):
+                bias[table[l, t]] = ordered_bias(
+                    order, torch.tensor(l, device=dev), t * R + r, W * R)
+            if int(chains[l]):
+                bias[table[l, int(chains[l]) - 1], int(fill[l]):] = \
+                    float("inf")
     if n_sub > 1:
         bias[table[4, :ppf]] = float("inf")           # filtered first block
     bias[~chained] = float("nan")
@@ -395,12 +504,27 @@ def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
                 page_rows=R, table_width=W, alpha=-2.0, kf=kf)
     if payload.startswith("bits"):
         scale = 0.5 + 1.5 * torch.rand((cap, R), generator=g, device=dev)
+        if order is not None:
+            scale = torch.zeros_like(scale)
         call.update(codes=pages.contiguous(), scale_pool=torch.where(
             torch.isfinite(bias), scale, 0.0).contiguous())
     else:
         call.update(pages=pages.contiguous())
     return call, rows.to(torch.int32).contiguous()
 
+
+# the selection's cases over a page table (K3, and K4 with 1-bit codes):
+# ordered and tied scores, kf 1 / 31 / 129 / 512, a chain that ends on a
+# sub-block boundary (a dead second sub-block) and a filtered first one
+PAGED_SELECTION_CASES = (
+    [(f"{order}_r128_kf{kf}", dict(page_rows=128, table_width=8, ppf=4,
+                                   kf=kf, order=order))
+     for order in ("asc", "desc", "equal") for kf in (1, 31, 129)]
+    + [("desc_r128_nsub2_kf512", dict(page_rows=128, table_width=8, ppf=4,
+                                      kf=512, order="desc")),
+       ("random_r32_nsub2_kf129", dict(page_rows=32, table_width=16, ppf=8,
+                                       kf=129)),
+       ("random_r128_kf1", dict(page_rows=128, table_width=8, ppf=4, kf=1))])
 
 # (name, synthetic_paged keywords): K3's pages, then K4's codes
 K3_PARITY_CASES = (
@@ -415,7 +539,8 @@ K3_PARITY_CASES = (
        ("r24_w384_bf16_kf40", dict(page_rows=24, table_width=32, ppf=16,
                                    kf=40, payload="bf16", dim=64)),
        ("pq_cache_r128_kf40", dict(page_rows=128, table_width=64, ppf=32,
-                                   kf=40, payload="int8"))])
+                                   kf=40, payload="int8"))]
+    + PAGED_SELECTION_CASES)
 K4_PARITY_CASES = (
     [(f"serve_bits1_r128_kf{kf}",
       dict(page_rows=128, table_width=64, ppf=32, kf=kf, payload="bits1"))
@@ -427,7 +552,9 @@ K4_PARITY_CASES = (
        ("bits1_r32_w64_kf10", dict(page_rows=32, table_width=2, ppf=2, kf=10,
                                    payload="bits1")),
        ("bits1_rot40_scalar_kf20", dict(page_rows=64, table_width=8, ppf=4,
-                                        kf=20, payload="bits1", dim=40))])
+                                        kf=20, payload="bits1", dim=40))]
+    + [(name, dict(kw, payload="bits1")) for name, kw in
+       PAGED_SELECTION_CASES])
 
 
 def paged_parity_phase(kernel, cases, seed0, dev="cuda"):
@@ -450,6 +577,9 @@ def paged_parity_phase(kernel, cases, seed0, dev="cuda"):
         inf = torch.isinf(want[0][live])
         verdict["inf_offsets_equal"] = bool(torch.equal(got[1][live][inf],
                                                         want[1][live][inf]))
+        if "order" in kw:
+            verdict["bitwise"] = same_rows(got, want, call["strip_list"], rows)
+            verdict["ok"] = verdict["ok"] and verdict["bitwise"]
         emit({"phase": "parity", "kernel": kernel, "case": name,
               "n_sub": call["n_sub"], "w": call["ppf"] * call["page_rows"],
               **verdict})
@@ -685,6 +815,35 @@ def kernel_timing(calls, kernel, yardstick, bytes_per_col, bound=None):
             "launches_per_search": len(calls)}
 
 
+def k1_split(calls, phase, **info):
+    """K1's time at one search's class inputs split into product and
+    selection: the kernel, and the product-only instantiation of the same
+    template (``raft_strip_scan_product``: the same plan, tiles and score
+    epilogue, no selection, no output), in the order full, product,
+    product, full. The selection's share is the difference."""
+    from raft_tpu_torch.ops import _native
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    kernel_fn = ss._kernel_fn
+    full_fn = kernel_fn()
+    prod_fn = _native.load("strip_scan").raft_strip_scan_product
+    prod_fn.argtypes, prod_fn.restype = full_fn.argtypes, full_fn.restype
+    times = {"full": [], "product": []}
+    for which in ("full", "product", "product", "full"):
+        fn = full_fn if which == "full" else prod_fn
+        ss._kernel_fn = lambda fn=fn: fn
+        times[which].append(cuda_ms(lambda: [ss.strip_class(**c)
+                                             for c in calls]))
+    ss._kernel_fn = kernel_fn
+    full = sum(times["full"]) / 2
+    product = sum(times["product"]) / 2
+    out = {"full_ms": full, "product_ms": product,
+           "selection_ms": full - product,
+           "selection_share": (full - product) / full, "order": times}
+    emit({"phase": phase, **info, **out})
+    return out
+
+
 def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
     import torch
 
@@ -759,6 +918,9 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "classes": [[c["w_blocks"] * 512, c["n_sub"],
                        int((c["strip_list"] >= 0).sum())] for c in calls],
           **timing})
+    k1_split(calls, "main.k1_split", kf=pick["k_fetch"], list_dtype="int8",
+             tournament=True)
+    keep_for_ab(("strip_scan", f"main_int8_kf{pick['k_fetch']}"), calls)
     return {"launches": launches, "max_abs_err": max_err,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}, (index, pick)
@@ -869,6 +1031,7 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
         del calls
     calls, qt = bq_path_class_inputs(index, qs, pick["n_probes"],
                                      pick["k_fetch"], res)
+    keep_for_ab(("bq_scan", f"bq_kf{pick['k_fetch']}"), calls)
     timing = kernel_timing(calls, "bq_scan", bq_library_yardstick,
                            index.code_bytes_per_row + 8)
     emit({"phase": "bq.k2", "n_probes": pick["n_probes"],
@@ -949,6 +1112,9 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "classes": [[c["w_blocks"] * 512, c["n_sub"],
                        int((c["strip_list"] >= 0).sum())] for c in calls],
           **timing})
+    k1_split(calls, "flat.k1_split", kf=K, list_dtype="uint8",
+             tournament=False)
+    keep_for_ab(("strip_scan", f"flat_uint8_kf{K}"), calls)
     return index, pick, (v, i)
 
 
@@ -1250,6 +1416,7 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
                                -2.0)
     max_err = kernel_parity_at(calls, "paged_scan",
                                f"serve_path_nprobe{n_probes}_kf{K}")
+    keep_for_ab(("paged_scan", f"serve_flat_kf{K}"), calls)
     timing = kernel_timing(calls, "paged_scan", paged_library_yardstick,
                            store.dim + 4, bound=paged_scan_bound)
     emit({"phase": "serve.k3", "n_probes": n_probes, "kf": K,
@@ -1358,6 +1525,7 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
                                -2.0 if l2 else -1.0, codes=kind == "bq")
     max_err = kernel_parity_at(calls, kernel,
                                f"serve_{kind}_nprobe{n_probes}_kf{kf}")
+    keep_for_ab((kernel, f"serve_{kind}_kf{kf}"), calls)
     timing = kernel_timing(calls, kernel, paged_library_yardstick,
                            row_bytes + (8 if kind == "bq" else 4),
                            bound=paged_scan_bound)
@@ -1421,6 +1589,65 @@ K5_PARITY_CASES = (
         dict(nc=256, s=64, m=128, qpl=256, n_lists=544, integer=True))])
 
 
+def synthetic_lut_pairs(seed, *, nc, s, m, q, p, n_lists, hot=0.0,
+                        integer=True, dev="cuda"):
+    """One K5 launch through the pair entry on ``dev``: a tile of q
+    queries' LUT rows (integer-valued in [-64, 64] with ``integer``), each
+    probing p distinct lists of the first n_lists - 4 (the last 4 lists get
+    no pair), a share ``hot`` of the queries probing list 0 (a load of many
+    16-pair blocks), the pairs sorted by list as the search sorts them;
+    uint8 codes, b_sum with +inf tails and an all-+inf list."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f = s * nc
+    if integer:
+        luts = torch.randint(-64, 65, (q, f), generator=g, device=dev,
+                             dtype=torch.int8).to(torch.bfloat16)
+        b_sum = torch.randint(-500, 500, (n_lists, m), generator=g,
+                              device=dev).float()
+    else:
+        luts = torch.randn((q, f), generator=g, device=dev).to(torch.bfloat16)
+        b_sum = torch.randn((n_lists, m), generator=g, device=dev) * 8
+    luts[::5] = 0
+    probes = torch.argsort(torch.rand((q, n_lists - 4), generator=g,
+                                      device=dev), dim=1)[:, :p]
+    hot_rows = torch.rand(q, generator=g, device=dev) < hot
+    has0 = (probes == 0).any(1)
+    probes[:, 0] = torch.where(hot_rows & ~has0, 0, probes[:, 0])
+    lens = torch.randint(1, m + 1, (n_lists,), generator=g, device=dev)
+    col = torch.arange(m, device=dev)[None, :]
+    b_sum = torch.where(col < lens[:, None], b_sum, float("inf"))
+    b_sum[1] = float("inf")
+    codes = torch.randint(0, nc, (n_lists, s, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    pair_lut, pair_list, pair_out = ivf_pq._pallas_pairs(probes.to(torch.int32))
+    return dict(luts=luts, pair_lut=pair_lut, pair_list=pair_list,
+                pair_out=pair_out, codes_t=codes, b_sum=b_sum.contiguous(),
+                nc=nc)
+
+
+# (name, synthetic_lut_pairs keywords): the streamed path's shape at the
+# chosen query tile, skewed loads, blocks of ≤ 8 pairs (the half path),
+# an odd m, lists with no pair; bitwise on integer LUTs
+K5_PAIR_CASES = (
+    [(f"pairs_main_nc256_s64_m3968_q768_p16_{kind}",
+      dict(nc=256, s=64, m=3968, q=768, p=16, n_lists=1024, hot=0.05,
+           integer=kind == "int")) for kind in ("int", "real")]
+    + [("pairs_hot_list_q256_p4_int",
+        dict(nc=64, s=16, m=384, q=256, p=4, n_lists=32, hot=0.8)),
+       ("pairs_half_blocks_q20_p2_int",
+        dict(nc=16, s=8, m=128, q=20, p=2, n_lists=64)),
+       ("pairs_odd_m130_int", dict(nc=32, s=8, m=130, q=64, p=3, n_lists=16,
+                                   hot=0.5)),
+       ("pairs_nc128_s32_real", dict(nc=128, s=32, m=256, q=96, p=8,
+                                     n_lists=24, hot=0.3, integer=False))])
+
+
 def compare_scan(kernel_out, plain_out, exact: bool) -> dict:
     """K5 against its twin: +inf where the twin has it; equal bit for bit
     with ``exact`` (integer-valued LUTs), else within PARITY_RTOL plus the
@@ -1442,22 +1669,32 @@ def compare_scan(kernel_out, plain_out, exact: bool) -> dict:
             "inf_positions_equal": inf_ok, "compared": int(fin.sum())}
 
 
-def scan_parity_phase(cases=K5_PARITY_CASES, seed0=5000, dev="cuda"):
-    """K5 against its plain twin on every synthetic case; one line each."""
+def scan_parity_phase(cases=K5_PARITY_CASES, pair_cases=K5_PAIR_CASES,
+                      seed0=5000, dev="cuda"):
+    """K5 against its plain twins on every synthetic case, through the
+    grouped entry (``pq_scan``, the trivial pair list) and the pair entry
+    (``pq_scan_pairs``); one line each."""
     import torch
 
     from raft_tpu_torch.ops import pq_scan as ps
 
     worst = 0.0
-    for i, (name, kw) in enumerate(cases):
-        call = synthetic_lut_scan(seed0 + i, dev=dev, **kw)
-        got = ps.pq_scan(**call)
+    runs = ([(name, kw, synthetic_lut_scan, ps.pq_scan, ps.pq_scan_reference)
+             for name, kw in cases]
+            + [(name, kw, synthetic_lut_pairs, ps.pq_scan_pairs,
+                ps.pq_scan_pairs_reference) for name, kw in pair_cases])
+    for i, (name, kw, make, entry, twin) in enumerate(runs):
+        call = make(seed0 + i, dev=dev, **kw)
+        got = entry(**call)
         if got.is_cuda:
             torch.cuda.synchronize()
-        verdict = compare_scan(got, ps.pq_scan_reference(**call),
-                               kw["integer"])
-        emit({"phase": "parity", "kernel": "pq_scan", "case": name,
-              "lut_elements": call["luts_grouped"].numel(), **verdict})
+        verdict = compare_scan(got, twin(**call), kw.get("integer", True))
+        extra = ({"lut_elements": call["luts_grouped"].numel()}
+                 if "luts_grouped" in call else
+                 {"pairs": call["pair_lut"].numel(), "max_list_load": int(
+                     torch.bincount(call["pair_list"].long()).max())})
+        emit({"phase": "parity", "kernel": "pq_scan", "case": name, **extra,
+              **verdict})
         if not verdict["ok"]:
             raise AssertionError(f"pq_scan disagrees with its plain version "
                                  f"on {name}: {verdict}")
@@ -1492,41 +1729,72 @@ def pq_escalate(run, recall_of, phase: str) -> dict:
 
 def lut_tiles(index, queries, n_probes, res):
     """The pallas search's shared prep (coarse select, bf16 LUTs, codes
-    list-minor) and a function that makes one query tile's K5 call at a
-    given per-list cap, as the search makes it; with the tile's occupancy,
-    real pairs over n_lists·qpl_cap."""
-    from raft_tpu_torch.neighbors import ivf_pq
+    list-minor) and a function that makes one query tile's K5 call as the
+    search makes it (the tile's probed pairs sorted by list), with its
+    probes, pair constants and block occupancy (pairs over 16 slots of
+    every block K5 runs)."""
+    import torch
 
-    _, probes, luts, codes_t = ivf_pq._pallas_prep(
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import pq_scan as ps
+
+    coarse, probes, luts, codes_t = ivf_pq._pallas_prep(
         queries.float(), index, min(n_probes, index.n_lists), "exact",
         res.compute_dtype)
 
-    def tile(start, q_tile, qpl_cap):
-        luts_g, qids, _ = ivf_pq._pallas_group(
-            luts[start:start + q_tile], probes[start:start + q_tile],
-            index.n_lists, qpl_cap)
-        return (dict(luts_grouped=luts_g, codes_t=codes_t, b_sum=index.b_sum,
-                     nc=index.n_codes), float((qids >= 0).float().mean()))
+    def tile(start, q_tile):
+        pb = probes[start:start + q_tile]
+        pair_lut, pair_list, pair_out = ivf_pq._pallas_pairs(pb)
+        load = torch.bincount(pair_list.long(), minlength=index.n_lists)
+        blocks = int(((load + ps.PAIRS_PER_BLOCK - 1)
+                      // ps.PAIRS_PER_BLOCK).sum())
+        return (dict(luts=luts[start:start + q_tile], pair_lut=pair_lut,
+                     pair_list=pair_list, pair_out=pair_out, codes_t=codes_t,
+                     b_sum=index.b_sum, nc=index.n_codes),
+                {"probes": pb, "cvals": coarse[start:start + q_tile],
+                 "occupancy": pair_lut.numel() / (ps.PAIRS_PER_BLOCK * blocks),
+                 "max_list_load": int(load.max())})
 
     return probes.shape[0], tile
 
 
 def lut_scan_bound(calls):
-    """Least time for K5's launches: the grouped LUT rows, codes, b_sum
-    read once and the scores written once at the HBM rate, against
-    L·qpl·m·s fp32 adds at the fp32 rate; the larger one."""
+    """Least time for K5's launches: each input once (the tile's LUT
+    table, the codes and b_sum of the lists its pairs probe, the pair
+    arrays) and the scores written once at the HBM rate, against P·m·s
+    fp32 adds at the fp32 rate; the larger one."""
+    import torch
+
     nbytes = 0
     adds = 0
     for c in calls:
-        L, qpl, _ = c["luts_grouped"].shape
         _, s, m = c["codes_t"].shape
-        nbytes += (c["luts_grouped"].numel() * 2 + c["codes_t"].numel()
-                   + c["b_sum"].numel() * 4 + L * qpl * m * 4)
-        adds += L * qpl * m * s
+        pairs = c["pair_lut"].numel()
+        lists = int(torch.unique(c["pair_list"]).numel())
+        nbytes += (c["luts"].numel() * 2 + 3 * pairs * 4
+                   + lists * (s * m + m * 4) + pairs * m * 4)
+        adds += pairs * m * s
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = adds / FP32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
         nbytes, adds, t_bytes, t_ops
+
+
+def grouped_of(call, n_lists):
+    """The JAX package's grouped layout of a pair call at a cap no list
+    exceeds (16-aligned): (L, cap, s·nc) LUT rows, zeros at empty slots,
+    for the one-hot yardstick."""
+    from raft_tpu_torch.ops import pq_scan as ps
+
+    load = int(call["pair_list"].bincount(minlength=n_lists).max())
+    cap = -(-load // 16) * 16
+    probes = call["pair_list"][call["pair_out"].argsort()].reshape(
+        call["luts"].shape[0], -1)
+    qids, _ = ps.group_probed_pairs(probes, n_lists, cap)
+    luts_g = call["luts"][qids.clamp(min=0).long()]
+    luts_g.masked_fill_((qids < 0)[:, :, None], 0)
+    return dict(luts_grouped=luts_g, codes_t=call["codes_t"],
+                b_sum=call["b_sum"], nc=call["nc"])
 
 
 def lut_library_ms(c, lists_per_chunk=32) -> float:
@@ -1591,13 +1859,14 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
     dataset (4 chunks of 250,000 rows, 128-row granule), the bench's
     escalation through the pallas backend (K5) with exact refine, the
     gather backend beside it, ``extend`` with the queries, and K5 at the
-    path's own grouped inputs."""
+    path's own pair inputs."""
     import torch
 
     from raft_tpu_torch import Resources
     from raft_tpu_torch.neighbors import ivf_pq, refine
     from raft_tpu_torch.ops import pq_scan as ps
     from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.ops.select_k import select_k
     from raft_tpu_torch.stats.metrics import neighborhood_recall
 
     res = Resources(device=dev)
@@ -1650,16 +1919,19 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     launches = ps.PQ_KERNEL.launches
-    expected = sum(st["tiles"] * len(st["attempts"]) for st in searches)
+    expected = sum(st["tiles"] for st in searches)
+    dropped = sum(a["dropped"] for st in searches for a in st["attempts"])
+    one_attempt = all(len(st["attempts"]) == 1 for st in searches)
     rec = recall_of(v, i)
     if not bool(torch.isfinite(v).all()) or tuple(i.shape) != (q, K):
         raise AssertionError("the LUT path returned non-finite or misshapen "
                              "results")
     if rec < 0.95:
         raise AssertionError(f"LUT path recall@10 {rec} < 0.95 at {pick}")
-    if launches <= 0 or launches != expected:
+    if launches <= 0 or launches != expected or dropped or not one_attempt:
         raise AssertionError(f"K5 launches {launches}, expected {expected} "
-                             "(tiles × attempts)")
+                             f"(one per tile); {dropped} pairs dropped, one "
+                             f"attempt a search: {one_attempt}")
     st = {}
     search_ms = cuda_ms(lambda: ivf_pq.search(
         index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
@@ -1673,9 +1945,10 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "qps": len(times) * q / sum(times), "batch_s": times,
           "search_ms": search_ms, "refine_ms": refine_ms,
           "query_tile": st["q_tile"], "tiles": st["tiles"],
-          "qpl_cap": st["qpl_cap"],
-          "retries": sum(len(x["attempts"]) - 1 for x in searches),
-          "searches": len(searches), "k5_launches": launches})
+          "max_list_load": st["max_list_load"],
+          "attempts_per_search": [len(x["attempts"]) for x in searches],
+          "dropped": dropped, "searches": len(searches),
+          "k5_launches": launches})
 
     # the gather backend on the first 1,000 queries at the pick, against
     # the pallas one (the JAX package's own bar between the two)
@@ -1694,11 +1967,12 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
         backend="gather", res=res), reps=1, warmup=0)
     pallas_ms = cuda_ms(lambda: ivf_pq.search(
         index, qs[:q_g], pick["k_fetch"], n_probes=pick["n_probes"],
-        backend="pallas", res=res), reps=1, warmup=0)
+        backend="pallas", res=res), reps=3, warmup=1)
     emit({"phase": "lut.gather", "queries": q_g, "overlap": overlap,
           "values_within_rtol_0.05": vals_ok,
           "max_abs_diff": float((vp - vg).abs().max()),
-          "gather_ms": gather_ms, "pallas_ms": pallas_ms})
+          "gather_ms": gather_ms, "pallas_ms": pallas_ms,
+          "pallas_beats_gather": pallas_ms < gather_ms})
     if overlap < 0.95 or not vals_ok:
         raise AssertionError(f"gather and pallas disagree: overlap {overlap},"
                              f" values within tolerance {vals_ok}")
@@ -1721,60 +1995,74 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
         raise AssertionError(f"extend read-back {readback} < 0.99")
     del ext, ie
 
-    # K5 at the path's own grouped inputs (the pick's query tiles at the
-    # final cap): parity on the first and last tile; K5, its twin, the
-    # yardstick and the bound on the first tile (the kernels line); then
-    # K5 over every tile of every attempt of one search, beside the search
-    qt, cap = st["q_tile"], st["qpl_cap"]
+    # K5 at the path's own pair inputs (the pick's query tiles): parity on
+    # the first and last tile; K5, its twin, the yardstick and the bound on
+    # the first tile (the kernels line); then K5 and the select over p·m
+    # over every tile of one search, beside the search
+    qt = st["q_tile"]
     q_all, tile = lut_tiles(index, qs, pick["n_probes"], res)
     starts = list(range(0, q_all, qt))
     max_err = 0.0
     for start in sorted({starts[0], starts[-1]}):
-        call, _ = tile(start, qt, cap)
-        verdict = compare_scan(ps.pq_scan(**call), ps.pq_scan_reference(**call),
-                               False)
+        call, _ = tile(start, qt)
+        verdict = compare_scan(ps.pq_scan_pairs(**call),
+                               ps.pq_scan_pairs_reference(**call), False)
         emit({"phase": "parity", "kernel": "pq_scan",
-              "case": f"lut_path_tile{start // qt}_nprobe{pick['n_probes']}"
-                      f"_qpl{cap}", **verdict})
+              "case": f"lut_path_tile{start // qt}_nprobe{pick['n_probes']}",
+              **verdict})
         if not verdict["ok"]:
             raise AssertionError(f"pq_scan disagrees with its plain version "
                                  f"on the LUT path: {verdict}")
         max_err = max(max_err, verdict["max_abs_err"])
         del call
-    call, occ0 = tile(0, qt, cap)
-    k5_ms = cuda_ms(lambda: ps.pq_scan(**call), reps=5)
-    plain_ms = cuda_ms(lambda: ps.pq_scan_reference(**call), reps=1, warmup=1)
-    library_ms = lut_library_ms(call)
+    call, info0 = tile(0, qt)
+    k5_ms = cuda_ms(lambda: ps.pq_scan_pairs(**call), reps=5)
+    plain_ms = cuda_ms(lambda: ps.pq_scan_pairs_reference(**call), reps=1,
+                       warmup=1)
+    grouped = grouped_of(call, index.n_lists)
+    library_ms = lut_library_ms(grouped)
+    lut_shape = list(grouped["luts_grouped"].shape)
+    del grouped
     bound_ms, bound_by, nbytes, adds, t_bytes, t_ops = lut_scan_bound([call])
-    lut_shape = list(call["luts_grouped"].shape)
     del call
-    per_attempt = []
-    for a in st["attempts"]:
-        t_ms, b_ms, occ = 0.0, 0.0, []
-        for start in starts:
-            c, o = tile(start, qt, a["qpl_cap"])
-            t_ms += cuda_ms(lambda: ps.pq_scan(**c), reps=3)
-            b_ms += lut_scan_bound([c])[0]
-            occ.append(o)
-            del c
-        per_attempt.append({"qpl_cap": a["qpl_cap"], "dropped": a["dropped"],
-                            "k5_ms": t_ms, "bound_ms": b_ms,
-                            "occupancy": sum(occ) / len(occ)})
-    k5_search_ms = sum(x["k5_ms"] for x in per_attempt)
+    k5_search_ms, bound_search_ms, select_ms, occ, loads = 0.0, 0.0, 0.0, [], []
+    for start in starts:
+        c, info = tile(start, qt)
+        t_ms = cuda_ms(lambda: ps.pq_scan_pairs(**c), reps=3)
+        k5_search_ms += t_ms
+        bound_search_ms += lut_scan_bound([c])[0]
+        n_q = info["probes"].shape[0]
+        d = (ps.pq_scan_pairs(**c).reshape(n_q, pick["n_probes"], -1)
+             + info["cvals"][:, :, None]).reshape(n_q, -1)
+        select_ms += cuda_ms(lambda: select_k(d, pick["k_fetch"],
+                                              select_min=True), reps=3)
+        occ.append(info["occupancy"])
+        loads.append(info["max_list_load"])
+        del c, d
+    if AB_INPUTS is not None:
+        AB_FILES.mkdir(parents=True, exist_ok=True)
+        index.save(AB_FILES / "lut.index")
+        torch.save(qs.cpu(), AB_FILES / "lut_queries.pt")
+        AB_INPUTS["lut"] = (AB_FILES / "lut.index",
+                            AB_FILES / "lut_queries.pt", pick)
     qf = qs.float()
     prep_ms = cuda_ms(lambda: ivf_pq._pallas_prep(
         qf, index, pick["n_probes"], "exact", res.compute_dtype), reps=3)
     emit({"phase": "lut.k5", "n_probes": pick["n_probes"],
-          "kf": pick["k_fetch"], "query_tile": qt, "qpl_cap": cap,
-          "tiles": len(starts), "attempts": per_attempt,
-          "launches_per_search": len(starts) * len(per_attempt),
-          "tile0": {"lut_shape": lut_shape, "ms": k5_ms,
+          "kf": pick["k_fetch"], "query_tile": qt, "tiles": len(starts),
+          "launches_per_search": len(starts),
+          "tile0": {"pairs": int(info0["probes"].numel()), "ms": k5_ms,
                     "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library_lut_shape": lut_shape,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "bytes": nbytes, "adds": adds, "bytes_ms": t_bytes,
-                    "adds_ms": t_ops, "occupancy": occ0},
-          "k5_ms_per_search": k5_search_ms, "search_ms": search_ms,
-          "prep_ms": prep_ms, "glue_ms": search_ms - k5_search_ms})
+                    "adds_ms": t_ops, "occupancy": info0["occupancy"],
+                    "max_list_load": info0["max_list_load"]},
+          "k5_ms_per_search": k5_search_ms,
+          "bound_ms_per_search": bound_search_ms,
+          "select_ms": select_ms, "occupancy_mean": sum(occ) / len(occ),
+          "max_list_load": loads, "search_ms": search_ms, "prep_ms": prep_ms,
+          "other_ms": search_ms - k5_search_ms - select_ms - prep_ms})
     del index
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max_err, "ms": k5_ms,
@@ -2042,6 +2330,27 @@ def fused_hop_inputs(index, queries, sp, q_tile, hops):
 CAGRA_LADDER = (("fused", 64, 4), ("fused", 96, 8))   # the bench's fused rungs
 
 
+def cagra_k1_inputs(dataset, params, res):
+    """K1's class inputs on the CAGRA build's IVF-Flat candidate scan: the
+    build's own index (same params and seed) and its first batch of
+    dataset rows at kf = ideg + 1 → (calls, q_tile, kf, n_probes, batch)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    n, dim = dataset.shape
+    kf = min(params.intermediate_graph_degree, n - 1) + 1
+    n_lists = int(max(16, min(65536, round((n / 976) ** 0.5) ** 2, n // 64)))
+    n_probes = max(8, n_lists // 16)
+    X = dataset.to(torch.float32)
+    flat = ivf_flat.build(X, ivf_flat.IvfFlatParams(
+        n_lists=n_lists, kmeans_trainset_fraction=float(min(1.0, max(
+            0.1, 200_000 / n))), group_size=512, seed=params.seed), res=res)
+    batch = int(max(4096, min(n, res.workspace_bytes // (kf * (dim + 8) * 4))))
+    calls, qt = flat_path_class_inputs(flat, X[:batch], n_probes, kf, res)
+    return calls, qt, kf, n_probes, batch
+
+
 def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
     """CAGRA at the bench's shape: build from the uint8 dataset (degrees
     128 → 64, the IVF-Flat candidate scan through K1 at kf 129, the
@@ -2053,7 +2362,7 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
     import torch
 
     from raft_tpu_torch import Resources
-    from raft_tpu_torch.neighbors import cagra, ivf_flat
+    from raft_tpu_torch.neighbors import cagra
     from raft_tpu_torch.ops import cagra_hop as ch
     from raft_tpu_torch.ops import strip_scan as ss
     from raft_tpu_torch.stats.metrics import neighborhood_recall
@@ -2103,16 +2412,7 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
 
     # K1 on the build's candidate scan: the same IVF-Flat index (same
     # params and seed), its first batch of dataset rows at kf = ideg + 1
-    ideg = min(params.intermediate_graph_degree, n - 1)
-    kf = ideg + 1
-    n_lists = int(max(16, min(65536, round((n / 976) ** 0.5) ** 2, n // 64)))
-    n_probes = max(8, n_lists // 16)
-    X = dataset.to(torch.float32)
-    flat = ivf_flat.build(X, ivf_flat.IvfFlatParams(
-        n_lists=n_lists, kmeans_trainset_fraction=float(min(1.0, max(
-            0.1, 200_000 / n))), group_size=512, seed=params.seed), res=res)
-    batch = int(max(4096, min(n, res.workspace_bytes // (kf * (dim + 8) * 4))))
-    calls, qt = flat_path_class_inputs(flat, X[:batch], n_probes, kf, res)
+    calls, qt, kf, n_probes, batch = cagra_k1_inputs(dataset, params, res)
     k1_err = kernel_parity_at(calls, "strip_scan",
                               f"cagra_build_fp32_nprobe{n_probes}_kf{kf}")
     timing = kernel_timing(calls, "strip_scan", library_yardstick, dim * 4 + 4)
@@ -2123,7 +2423,9 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "classes": [[c["w_blocks"] * 512, c["n_sub"],
                        int((c["strip_list"] >= 0).sum())] for c in calls],
           **timing})
-    del flat, X, calls
+    k1_split(calls, "cagra.k1_split", kf=kf, list_dtype="float32",
+             tournament=False)
+    del calls
 
     def run(sp, stats=None):
         return cagra.search(index, qs, K, sp, res=res, stats=stats)
@@ -2230,31 +2532,43 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
             "bound_by": bound_by, "library_ms": None}, k1_err
 
 
-def ab_phase(old_tree, paths, shared, dev="cuda"):
-    """K1 and K2 of an older checkout (``old_tree``, e.g. a ``git archive``
-    of the parent commit) against this tree's, in one process on one card,
-    at the IVF-PQ and IVF-BQ paths' own class inputs, in the order old,
-    new, new, old. The older sources are built by nvcc beside that tree
-    (both builds' ptxas resources are printed); the wrappers, plan and
-    inputs are this tree's (the two kernels' C interfaces are the same)."""
+def ab_phase(old_tree, shared, dev="cuda"):
+    """The strip kernels K1–K4 of an older checkout (``old_tree``, e.g. a
+    ``git archive`` of the parent commit) against this tree's, in one
+    process on one card, at the paths' own class inputs, in the order old,
+    new, new, old: K1 at the IVF-PQ path (int8, kf 20, the tournament), the
+    IVF-Flat path (uint8, kf 10) and the CAGRA build's candidate scan (fp32,
+    kf 129); K2 at the IVF-BQ path; K3 at the flat serving path, K4 at the
+    bq serving path. The older sources are built by nvcc beside that tree
+    (both builds' ptxas lines are printed); the wrappers, plan and inputs
+    are this tree's (the four kernels' C interfaces are the same). Then K5
+    at path level (its C interface changed): each tree's LUT search in a
+    process of its own, on one index file and one query file, old, new,
+    new, old."""
     import ctypes
     from pathlib import Path
 
     import torch
 
     from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra
     from raft_tpu_torch.ops import _native
     from raft_tpu_torch.ops import bq_scan as bq
     from raft_tpu_torch.ops import strip_scan as ss
 
     res = Resources(device=dev)
-    qs = shared["queries"]
+    calls, *_ = cagra_k1_inputs(shared["dataset"], cagra.CagraParams(
+        intermediate_graph_degree=128, graph_degree=64), res)
+    keep_for_ab(("strip_scan", "cagra_fp32_kf129"), calls)
     out = Path(old_tree) / "raft_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
-    cases = []
-    for name, mod, path, inputs in (
-            ("strip_scan", ss, "main", main_path_class_inputs),
-            ("bq_scan", bq, "bq", bq_path_class_inputs)):
+    modules = {"strip_scan": ss, "bq_scan": bq, "paged_scan": ss,
+               "paged_bq_scan": bq}
+    getters = {"strip_scan": "_kernel_fn", "bq_scan": "_kernel_fn",
+               "paged_scan": "_paged_kernel_fn",
+               "paged_bq_scan": "_paged_kernel_fn"}
+    old_fns, cases = {}, []
+    for name in ("strip_scan", "bq_scan", "paged_scan", "paged_bq_scan"):
         src = Path(old_tree) / "raft_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
         lib = out / f"lib{name}-ab.so"
         built = subprocess.run(
@@ -2263,28 +2577,111 @@ def ab_phase(old_tree, paths, shared, dev="cuda"):
         emit({"phase": "ab.ptxas", "kernel": name,
               "old": _native.parse_ptxas(built.stdout + built.stderr),
               "new": _native.resource_usage(_native.CSRC / f"{name}.cu")})
-        new_fn = mod._kernel_fn()
+        new_fn = getattr(modules[name], getters[name])()
         old_fn = getattr(ctypes.CDLL(str(lib)), new_fn.__name__)
         old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
-        index, pick = paths[path]
-        calls, _ = inputs(index, qs, pick["n_probes"], pick["k_fetch"], res)
+        old_fns[name] = (old_fn, new_fn)
+    for key in [k for k in AB_INPUTS if isinstance(k, tuple)]:
+        name, shape = key
+        calls = AB_INPUTS[key]
+        mod, getter = modules[name], getters[name]
+        old_fn, new_fn = old_fns[name]
         wrapper = _kernel_pair(name)[0]
         times = []
         for which in ("old", "new", "new", "old"):
             fn = old_fn if which == "old" else new_fn
-            mod._kernel_fn = lambda fn=fn: fn
-            ms = cuda_ms(lambda: [wrapper(**c) for c in calls])
-            times.append([which, ms])
-        mod._kernel_fn = lambda fn=new_fn: fn
+            setattr(mod, getter, lambda fn=fn: fn)
+            times.append([which, cuda_ms(lambda: [wrapper(**c)
+                                                  for c in calls])])
+        setattr(mod, getter, lambda fn=new_fn: fn)
         torch.cuda.synchronize()
         old_ms = [t for w, t in times if w == "old"]
         new_ms = [t for w, t in times if w == "new"]
-        cases.append({"kernel": name, "path": path, "order": times,
+        cases.append({"kernel": name, "inputs": shape, "order": times,
+                      "launches_per_search": len(calls),
                       "old_ms_mean": sum(old_ms) / 2,
                       "new_ms_mean": sum(new_ms) / 2,
                       "new_over_old": sum(new_ms) / sum(old_ms)})
         emit({"phase": "ab", **cases[-1]})
+
+    # K5 at path level: each tree's LUT search in its own process
+    index_file, query_file, pick = AB_INPUTS["lut"]
+    runs = []
+    for which in ("old", "new", "new", "old"):
+        tree = Path(old_tree) if which == "old" else Path(__file__).parent
+        ids_file = AB_FILES / f"lut_ids_{which}.pt"
+        done = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--lut-child",
+             str(tree.resolve()), str(index_file), str(query_file),
+             str(pick["n_probes"]), str(pick["k_fetch"]), str(ids_file)],
+            check=True, capture_output=True, text=True)
+        line = json.loads(done.stdout.strip().splitlines()[-1])
+        runs.append({"tree": which, **line})
+        emit({"phase": "ab.lut_run", **runs[-1]})
+    same_ids = bool(torch.equal(torch.load(AB_FILES / "lut_ids_old.pt"),
+                                torch.load(AB_FILES / "lut_ids_new.pt")))
+
+    def mean(which, key):
+        vals = [r[key] for r in runs if r["tree"] == which]
+        return sum(vals) / len(vals)
+
+    lut = {"kernel": "pq_scan", "inputs": "lut_path_search",
+           "n_probes": pick["n_probes"], "k_fetch": pick["k_fetch"],
+           "old_search_ms": mean("old", "search_ms"),
+           "new_search_ms": mean("new", "search_ms"),
+           "old_k5_ms": mean("old", "k5_ms"), "new_k5_ms": mean("new", "k5_ms"),
+           "old_k5_launches": mean("old", "k5_launches"),
+           "new_k5_launches": mean("new", "k5_launches"),
+           "same_ids": same_ids}
+    emit({"phase": "ab", **lut})
+    cases.append(lut)
     return cases
+
+
+def lut_child(tree, index_file, query_file, n_probes, k_fetch, ids_file):
+    """One tree's LUT search for ``ab_phase``, in a process of its own:
+    ``tree``'s package loads the index and runs ``search(backend="pallas")``
+    on the queries (a warm-up, then 3 timed searches); K5's launches are
+    timed by CUDA events around the tree's own launcher. Prints one JSON
+    line: search ms, K5 ms and K5 launches per search."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import pq_scan as ps
+
+    res = Resources(device="cuda")
+    index = ivf_pq.IvfPqIndex.load(index_file, res=res)
+    qs = torch.load(query_file).cuda()
+    events = []
+    launch = ps._pq_scan_cuda
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    ps._pq_scan_cuda = timed
+
+    def search():
+        return ivf_pq.search(index, qs, int(k_fetch), n_probes=int(n_probes),
+                             backend="pallas", res=res)
+
+    _, ids = search()
+    torch.save(ids.cpu(), ids_file)
+    events.clear()
+    search_ms = cuda_ms(search, reps=3, warmup=0)
+    torch.cuda.synchronize()
+    k5_ms = sum(s.elapsed_time(e) for s, e in events) / 3
+    print(json.dumps({"module": ps.__file__, "search_ms": search_ms,
+                      "k5_ms": k5_ms, "k5_launches": len(events) / 3}),
+          flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2292,9 +2689,14 @@ def main() -> int:
     ap.add_argument("--skip-main", action="store_true",
                     help="stop after the kernel parity phases")
     ap.add_argument("--ab", metavar="OLD_TREE",
-                    help="after the IVF-PQ and IVF-BQ paths, time K1 and K2 "
-                         "of an older checkout against this tree's, then stop")
+                    help="after the paths up to the LUT path, time K1-K4 "
+                         "of an older checkout against this tree's at the "
+                         "paths' inputs and the two trees' LUT searches "
+                         "(K5), then stop")
+    ap.add_argument("--lut-child", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.lut_child:
+        return lut_child(*args.lut_child)
 
     import torch
 
@@ -2343,6 +2745,12 @@ def main() -> int:
     k6 = {"name": "cagra_hop", "route": "cuda", "source": K6_SOURCE,
           "replaces": K6_REPLACES, "parity": "ok", **empty,
           "max_abs_err": hop_parity_phase()}
+    if args.ab:
+        from pathlib import Path
+
+        global AB_INPUTS, AB_FILES
+        AB_INPUTS = {}
+        AB_FILES = Path(args.ab).resolve() / "ab_files"
     if not args.skip_main:
         t = time.perf_counter()
         shared = shared_data()
@@ -2392,8 +2800,8 @@ def main() -> int:
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})
-            if args.ab and name == "bq":
-                ab_phase(args.ab, held, shared)
+            if args.ab and name == "lut":
+                ab_phase(args.ab, shared)
                 return 0
     emit({"kernels": [k1, k2, k3, k4, k5, k6]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -326,7 +326,9 @@ def _build_knn_ivf_pq(X: torch.Tensor, ideg: int, params: CagraParams,
     itself → (graph (n, ideg) int32, coarse centres). While the fp32
     dataset fits 2 GB: IVF-Flat with exact in-list distances at
     ``kf = ideg + 1`` (the slot the self-match takes), every batch one
-    strip search through kernel K1; above it IVF-PQ with exact refine."""
+    strip search through kernel K1 (named, so the CPU runs K1's twin where
+    ``"auto"`` would pick the gather backend); above it IVF-PQ with exact
+    refine."""
     n, dim = X.shape
     n_lists = params.ivf_pq_n_lists or int(
         max(16, min(65536, round((n / 976) ** 0.5) ** 2, n // 64)))
@@ -342,7 +344,7 @@ def _build_knn_ivf_pq(X: torch.Tensor, ideg: int, params: CagraParams,
                               // max(kf * (dim + 8) * 4, 1))))
         for s in range(0, n, B):
             _, ids = ivf_flat.search(idx, X[s:s + B], kf, n_probes=n_probes,
-                                     res=res)
+                                     backend="ragged", res=res)
             out.append(_drop_self(ids, s, ideg))
     else:
         kf = int(min(max(ideg + 2,

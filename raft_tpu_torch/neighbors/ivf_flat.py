@@ -7,17 +7,20 @@ Integer datasets (uint8 / int8, the on-disk formats of the big ANN sets)
 are stored in their own dtype; the scan rounds both operands to bf16, which
 is exact for integers up to 256 in magnitude.
 
-Search is the strip scan of :mod:`raft_tpu_torch.ops.strip_scan`: one
-coarse gemm picks each query's ``n_probes`` lists, kernel K1 scores
-``−2⟨q, x⟩ + ‖x‖²`` (L2) or ``−⟨q, x⟩`` (inner product, cosine on
-normalized rows) over the probed lists and keeps each pair's top-k, and the
-merge picks the query's top-k. :func:`search_paged` runs the same search
-over a :class:`raft_tpu_torch.serving.PagedListStore`, whose pages kernel
-K3 scans in place.
+Search has two backends (:func:`resolve_backend` picks one for
+``"auto"``). ``"ragged"`` is the strip scan of
+:mod:`raft_tpu_torch.ops.strip_scan`: one coarse gemm picks each query's
+``n_probes`` lists, kernel K1 scores ``−2⟨q, x⟩ + ‖x‖²`` (L2) or
+``−⟨q, x⟩`` (inner product, cosine on normalized rows) over the probed
+lists and keeps each pair's top-k, and the merge picks the query's top-k.
+``"gather"`` is the reference's exact-fp32 path in plain torch: the probed
+lists gathered per query tile, one einsum, a stable select over every
+probed entry; it serves any list length and any k. :func:`search_paged`
+runs the strip search over a :class:`raft_tpu_torch.serving.PagedListStore`,
+whose pages kernel K3 scans in place.
 
-This slice ports build, the ``"ragged"`` strip backend, save/load and the
-paged search. The ``"gather"`` backend, filters and ``extend`` come with
-later slices and raise ``NotImplementedError`` here.
+Filters and ``extend`` come with later slices and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -33,10 +36,13 @@ from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
 from raft_tpu_torch.neighbors import _packing
 from raft_tpu_torch.ops import strip_scan as ss
-from raft_tpu_torch.ops.distance import canonical_metric, matmul_t, sqnorm
+from raft_tpu_torch.ops.distance import (canonical_metric,
+                                         expanded_sqeuclidean, matmul_t,
+                                         sqnorm)
 from raft_tpu_torch.ops.select_k import select_k
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
+BACKENDS = ("auto", "ragged", "gather")
 _LATER = "arrives with a later slice of the PyTorch port"
 
 
@@ -361,6 +367,71 @@ def _prep_queries(queries, dim: int, metric: str, dev: torch.device):
     return queries
 
 
+def _search_gather(index: IvfFlatIndex, queries, k: int, n_probes: int,
+                   select_algo: str, res: Resources):
+    """The gather backend (the JAX package's ``_search_impl``): the coarse
+    select at full fp32, then per query tile the probed lists gathered
+    (qt, p, m, dim), one fp32 einsum, the metric's norm terms, the -1 ids
+    masked, and a stable select over all p·m entries. The tile keeps the
+    gather under ``res.workspace_bytes``."""
+    q = queries.shape[0]
+    m, dim = index.max_list_size, index.dim
+    metric = index.metric
+    l2 = metric in ("sqeuclidean", "euclidean")
+    select_min = metric != "inner_product"
+    bad = float("inf") if select_min else float("-inf")
+    if l2:
+        coarse = expanded_sqeuclidean(queries, index.centers,
+                                      res.compute_dtype)
+    else:       # cosine (normalized) and inner product probe by max ip
+        coarse = -matmul_t(queries, index.centers, res.compute_dtype)
+    _, probes = select_k(coarse, n_probes, select_min=True, algo=select_algo)
+    per_query = max(1, n_probes * m * (dim + 2) * 4)
+    q_tile = int(max(1, min(q, res.workspace_bytes // per_query)))
+    outs = []
+    for s in range(0, q, q_tile):
+        q_blk = queries[s:s + q_tile]
+        pb = probes[s:s + q_tile].to(torch.int64)
+        ip = torch.einsum("qd,qpmd->qpm", q_blk,
+                          index.list_data[pb].to(torch.float32))
+        if l2:
+            d = torch.clamp(sqnorm(q_blk)[:, None, None]
+                            + index.list_norms[pb] - 2.0 * ip, min=0.0)
+            if metric == "euclidean":
+                d = torch.sqrt(d)
+        elif metric == "cosine":
+            d = 1.0 - ip
+        else:
+            d = ip
+        flat_ids = index.list_ids[pb].reshape(pb.shape[0], -1)
+        d = torch.where(flat_ids >= 0, d.reshape(flat_ids.shape), bad)
+        vals, sel = select_k(d, k, select_min=select_min, algo=select_algo)
+        ids = torch.gather(flat_ids, 1, sel.to(torch.int64))
+        outs.append((vals, torch.where(vals == bad, -1, ids)))
+    return torch.cat([v for v, _ in outs]), torch.cat([i for _, i in outs])
+
+
+def resolve_backend(backend: str, device_type: str, max_list_size: int,
+                    k: int) -> str:
+    """The backend :func:`search` runs for an index on ``device_type``.
+    ``"auto"`` on ``cuda``: ``"ragged"`` (K1) when ``max_list_size`` is a
+    power-of-two multiple of 512 and k ≤ 512, else ``"gather"``; on the
+    CPU, ``"gather"``, as the JAX package's ``auto`` gives off the TPU. An
+    explicit ``"ragged"`` the strip plan cannot feed raises ``ValueError``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected one of "
+                         f"{BACKENDS})")
+    aligned = ss.strip_eligible(max_list_size) and k <= 512
+    if backend == "auto":
+        return "ragged" if device_type == "cuda" and aligned else "gather"
+    if backend == "ragged" and not aligned:
+        raise ValueError(
+            f"ragged backend needs max_list_size = a power-of-two multiple of "
+            f"512 and k <= 512, got {max_list_size} / k={k}; rebuild with "
+            "group_size=512 (or use backend='gather')")
+    return backend
+
+
 def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
            filter=None, select_algo: str = "exact", backend: str = "auto",
            res: Optional[Resources] = None,
@@ -368,11 +439,8 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
     """Probe ``n_probes`` lists per query and return the top-k →
     (distances (q, k) fp32, ids (q, k) int32, -1 where fewer than k valid
     candidates were found). ``backend``: "ragged" (the strip scan through
-    K1) or "auto" (the same)."""
-    if backend == "gather":
-        raise NotImplementedError(f"ivf_flat backend 'gather' {_LATER}")
-    if backend not in ("auto", "ragged"):
-        raise ValueError(f"unknown backend {backend!r}")
+    K1), "gather" (plain torch, exact fp32) or "auto"
+    (:func:`resolve_backend`)."""
     if filter is not None:
         raise NotImplementedError(f"filtered ivf_flat search {_LATER}")
     res = resources_for(device, res)
@@ -384,12 +452,12 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
         raise ValueError(
             f"k={k} out of range for n_probes={n_probes} x "
             f"max_list_size={index.max_list_size}")
-    if not (ss.strip_eligible(index.max_list_size) and k <= 512):
-        raise ValueError(
-            f"ragged backend needs max_list_size = a power-of-two multiple of "
-            f"512 and k <= 512, got {index.max_list_size} / k={k}; rebuild "
-            "with group_size=512")
+    backend = resolve_backend(backend, res.device.type, index.max_list_size,
+                              int(k))
     queries = _prep_queries(queries, index.dim, index.metric, res.device)
+    if backend == "gather":
+        return _search_gather(index, queries, int(k), n_probes, select_algo,
+                              res)
     return _search_ragged(index, queries, int(k), n_probes, select_algo, res)
 
 

@@ -1017,108 +1017,90 @@ def _pallas_prep(queries, index: IvfPqIndex, n_probes: int,
     return coarse_vals, probes, luts, codes_t
 
 
-def _pallas_group(luts_t, probe_blk, n_lists: int, qpl_cap: int):
-    """One query tile's K5 input: the pairs grouped per list and the
-    tile's LUT rows gathered onto them, zeros at empty slots → (luts
-    (n_lists, qpl_cap, f) bf16, qids, slot)."""
-    qids, slot = pq_scan.group_probed_pairs(probe_blk, n_lists, qpl_cap)
-    luts_g = luts_t[qids.clamp(min=0).to(torch.int64)]
-    luts_g.masked_fill_((qids < 0)[:, :, None], 0)
-    return luts_g, qids, slot
+def _pallas_pairs(probe_blk):
+    """One query tile's probed pairs sorted by list, stably (the order of
+    :func:`pq_scan.group_probed_pairs`) → (pair_lut, pair_list, pair_out)
+    int32: each pair's query (its LUT row in the tile), its list, and its
+    row ``query·p + probe_rank`` of the tile's (qt·p, m) scores."""
+    p = probe_blk.shape[1]
+    flat = probe_blk.reshape(-1).to(torch.int64)
+    order = torch.argsort(flat, stable=True)
+    return (torch.div(order, p, rounding_mode="floor").to(torch.int32),
+            flat[order].to(torch.int32), order.to(torch.int32))
 
 
 def _pallas_tile(luts_t, probe_blk, cvals_blk, codes_t, index: IvfPqIndex,
-                 k: int, qpl_cap: int, select_algo: str):
-    """One query tile: grouping, K5, the scores of each pair gathered back
-    (+inf for a dropped pair), the top-k over p·m and the winners' ids →
-    (scores, ids, dropped pairs as a 0-d tensor)."""
-    qt = probe_blk.shape[0]
+                 k: int, select_algo: str):
+    """One query tile: its pairs through K5 (scores in query/probe order,
+    +inf at padding entries), the pair constant added, the top-k over p·m
+    and the winners' ids → (scores, ids, pairs sorted by list)."""
+    qt, p = probe_blk.shape
     m = index.max_list_size
-    luts_g, _, slot = _pallas_group(luts_t, probe_blk, index.n_lists, qpl_cap)
-    grouped = pq_scan.pq_scan(luts_g, codes_t, index.b_sum, index.n_codes)
-    del luts_g
-    pb = probe_blk.to(torch.int64)
-    scores = grouped[pb, slot.clamp(min=0).to(torch.int64)]     # (qt, p, m)
-    del grouped
-    d = scores + torch.where(slot >= 0, cvals_blk, float("inf"))[:, :, None]
+    pair_lut, pair_list, pair_out = _pallas_pairs(probe_blk)
+    scores = pq_scan.pq_scan_pairs(luts_t, pair_lut, pair_list, pair_out,
+                                   codes_t, index.b_sum, index.n_codes)
+    d = scores.reshape(qt, p, m) + cvals_blk[:, :, None]
+    del scores
     vals, sel = select_k(d.reshape(qt, -1), k, select_min=True,
                          algo=select_algo)
     sel = sel.to(torch.int64)
+    pb = probe_blk.to(torch.int64)
     ids = index.list_ids[torch.gather(pb, 1, sel // m), sel % m]
     ids = torch.where(torch.isinf(vals), -1, ids)
-    return vals, ids, (slot < 0).sum()
+    return vals, ids, pair_list
 
 
-def _search_impl_pallas(prep, index: IvfPqIndex, k: int, q_tile: int,
-                        qpl_cap: int, select_algo: str):
-    """Pallas-backend search at one (q_tile, qpl_cap): every query tile
-    through :func:`_pallas_tile` → (distances, ids, dropped pairs)."""
-    coarse_vals, probes, luts, codes_t = prep
-    outs = []
-    dropped = torch.zeros((), dtype=torch.int64, device=probes.device)
-    for s in range(0, probes.shape[0], q_tile):
-        v, i, d = _pallas_tile(luts[s:s + q_tile], probes[s:s + q_tile],
-                               coarse_vals[s:s + q_tile], codes_t, index, k,
-                               qpl_cap, select_algo)
-        outs.append((v, i))
-        dropped += d
-    vals = torch.cat([v for v, _ in outs])
-    ids = torch.cat([i for _, i in outs])
-    return _finish_lut(vals, ids, index.metric), ids, int(dropped)
+# the share of the 50 MB L2 a tile's LUT table may take: the pairs of one
+# query re-read its LUT row from L2 while the table fits there
+_LUT_L2_BYTES = 24 << 20
 
 
-def _align16(v) -> int:
-    return -(-max(16, int(v)) // 16) * 16
+def pallas_q_tile(q: int, n_probes: int, max_list_size: int, lut_row_bytes: int,
+                  workspace_bytes: int) -> int:
+    """Query tile of the pallas backend: the (qt·p, m) fp32 scores plus the
+    tile's LUT table within the workspace, and the table within
+    :data:`_LUT_L2_BYTES`."""
+    per_query = n_probes * max_list_size * 4 + lut_row_bytes
+    return int(max(1, min(q, workspace_bytes // per_query,
+                          _LUT_L2_BYTES // lut_row_bytes)))
 
 
 def _search_pallas(index: IvfPqIndex, queries, k: int, n_probes: int,
                    select_algo: str, res: Resources,
                    stats: Optional[dict] = None):
-    """The JAX package's sizing and drop escalation around
-    :func:`_search_impl_pallas`. The per-list query cap starts at twice the
-    mean load; the workspace bounds the (n_lists, cap, ·) score and LUT
-    blocks, and shrinking the query tile shrinks the cap a tile needs. A
-    tile that drops pairs (probe skew) reruns with the cap doubled; a cap
-    ≥ the tile cannot drop, since a query probes a list at most once."""
+    """The pallas backend: shared prep, then every query tile's probed
+    pairs through K5 (:func:`_pallas_tile`) in one pass. No pair is
+    dropped, so the result is the JAX package's final attempt at a cap no
+    list exceeds; ``stats`` gets the tiles, the largest per-list load of
+    each tile (``max_list_load``; ``qpl_cap`` is their maximum) and one
+    attempt with 0 dropped (K5 launches = tiles)."""
     if index.max_list_size % 128:
         raise ValueError(
             f"pallas backend needs max_list_size % 128 == 0, got "
             f"{index.max_list_size}; rebuild with group_size=128 "
             "(or use backend='gather')")
     q = queries.shape[0]
-    per_slot = index.max_list_size * 4 + index.pq_dim * index.n_codes * 2
-    budget = res.workspace_bytes
-    q_tile = q
-    qpl_cap = _align16(2 * q_tile * n_probes // index.n_lists)
-    while index.n_lists * qpl_cap * per_slot > budget and q_tile > 64:
-        q_tile //= 2
-        qpl_cap = _align16(2 * q_tile * n_probes // index.n_lists)
-    qpl_cap = min(qpl_cap, _align16(q_tile))
-    prep = _pallas_prep(queries, index, n_probes, select_algo,
-                        res.compute_dtype)
-    attempts = []
-    while True:
-        vals, ids, dropped = _search_impl_pallas(prep, index, k, q_tile,
-                                                 qpl_cap, select_algo)
-        attempts.append({"qpl_cap": qpl_cap, "dropped": dropped})
-        if dropped == 0:
-            break
-        if qpl_cap >= q_tile:
-            raise RuntimeError(
-                f"ivf_pq pallas scan dropped {dropped} pairs at qpl_cap="
-                f"{qpl_cap} >= q_tile={q_tile}; this cannot happen — please "
-                "report")
-        qpl_cap = min(_align16(2 * qpl_cap), _align16(q_tile))
-        if index.n_lists * qpl_cap * per_slot > budget:
-            _log.warning("ivf_pq pallas scan exceeding workspace budget to "
-                         "avoid dropping pairs (qpl_cap=%d); consider a "
-                         "larger Resources.workspace_bytes", qpl_cap)
-        _log.warning("ivf_pq pallas scan dropped %d probed pairs (skewed "
-                     "probes); retrying with qpl_cap=%d", dropped, qpl_cap)
+    q_tile = pallas_q_tile(q, n_probes, index.max_list_size,
+                           index.pq_dim * index.n_codes * 2,
+                           res.workspace_bytes)
+    coarse_vals, probes, luts, codes_t = _pallas_prep(
+        queries, index, n_probes, select_algo, res.compute_dtype)
+    outs, loads = [], []
+    for s in range(0, q, q_tile):
+        v, i, pair_list = _pallas_tile(
+            luts[s:s + q_tile], probes[s:s + q_tile],
+            coarse_vals[s:s + q_tile], codes_t, index, k, select_algo)
+        outs.append((v, i))
+        if stats is not None:
+            loads.append(torch.bincount(pair_list.to(torch.int64)).max())
+    vals = torch.cat([v for v, _ in outs])
+    ids = torch.cat([i for _, i in outs])
     if stats is not None:
-        stats.update(q_tile=q_tile, tiles=-(-q // q_tile), qpl_cap=qpl_cap,
-                     attempts=attempts)
-    return vals, ids
+        loads = torch.stack(loads).tolist()
+        stats.update(q_tile=q_tile, tiles=len(loads), max_list_load=loads,
+                     qpl_cap=max(loads),
+                     attempts=[{"qpl_cap": max(loads), "dropped": 0}])
+    return _finish_lut(vals, ids, index.metric), ids
 
 
 def _search_impl_jnp(queries, index: IvfPqIndex, k: int, n_probes: int,
@@ -1220,8 +1202,8 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
     :func:`raft_tpu_torch.neighbors.refine.refine`. ``backend``: "auto",
     "ragged", "pallas" or "gather" (:func:`resolve_backend`). ``stats``, a
     dict, receives the backend and, for "pallas", the query tile, tiles,
-    final per-list cap and each attempt's drops (K5 launches = tiles ×
-    attempts)."""
+    each tile's largest per-list load and its one attempt (K5 launches =
+    tiles)."""
     if filter is not None:
         raise NotImplementedError(f"filtered ivf_pq search {_LATER}")
     res = resources_for(device, res)

@@ -180,24 +180,25 @@ struct DenseSrc {
 };
 
 // The dense kernels' launch: 16-byte staging needs whole 64-dim chunks and
-// an aligned list block.
-template <typename TB, class Addr>
+// an aligned list block. kSelect = false is the product-only instantiation.
+template <typename TB, class Addr, bool kSelect>
 cudaError_t launch_dense(const Params& p, int s_pad, size_t smem,
                          cudaStream_t st) {
   if (p.dim % kDKC == 0 && reinterpret_cast<uintptr_t>(p.b) % 16 == 0)
-    return launch<DenseSrc<TB>, Addr, true>(p, s_pad, smem, st);
-  return launch<DenseSrc<TB>, Addr, false>(p, s_pad, smem, st);
+    return launch<DenseSrc<TB>, Addr, true, kSelect>(p, s_pad, smem, st);
+  return launch<DenseSrc<TB>, Addr, false, kSelect>(p, s_pad, smem, st);
 }
 
 // b_dtype: 0 int8, 1 bf16, 2 fp32, 3 uint8
-template <class Addr>
+template <class Addr, bool kSelect = true>
 cudaError_t launch_dense_dtype(const Params& p, int b_dtype, int s_pad,
                                size_t smem, cudaStream_t st) {
   switch (b_dtype) {
-    case 0: return launch_dense<int8_t, Addr>(p, s_pad, smem, st);
-    case 1: return launch_dense<__nv_bfloat16, Addr>(p, s_pad, smem, st);
-    case 2: return launch_dense<float, Addr>(p, s_pad, smem, st);
-    case 3: return launch_dense<uint8_t, Addr>(p, s_pad, smem, st);
+    case 0: return launch_dense<int8_t, Addr, kSelect>(p, s_pad, smem, st);
+    case 1:
+      return launch_dense<__nv_bfloat16, Addr, kSelect>(p, s_pad, smem, st);
+    case 2: return launch_dense<float, Addr, kSelect>(p, s_pad, smem, st);
+    case 3: return launch_dense<uint8_t, Addr, kSelect>(p, s_pad, smem, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -38,10 +38,11 @@
 // pages, so the work follows the live rows, not the table's capacity (the
 // serving plan at 1M x 128 has w = 4096 and chains of ~8 pages of 128). A
 // 128-column tile may span pages when R < 128 (each row of a tile is
-// addressed on its own). A walk that ends inside a key chunk folds the
-// partial chunk; a row left with fewer than kf keys reads +inf at the
-// missing positions. The tournament is not taken: the paged paths run the
-// exact carry. Next steps (later PRs): K1's.
+// addressed on its own). The selection is K1's threshold filter and
+// candidate queue; columns past w in the walk's last tile produce no key,
+// and a row left with fewer than kf keys reads +inf at the missing
+// positions. The tournament is not taken: the paged paths run the exact
+// carry. Next steps (later PRs): K1's.
 
 #include "dense_src.cuh"
 

@@ -23,7 +23,10 @@
 // 2*w*dim flops against w*dim bytes of list block that all rows of the
 // strip share; at 192 rows a strip does ~384 flops per byte of B, past the
 // bf16 ridge (~295 flops/byte), so the bound is the tensor-core product.
-// The per-row top-kf is extra work the bound does not count.
+// The per-row top-kf is extra work the bound does not count, and it was
+// where the time went: with the exact carry, folding every 1,024-column
+// chunk with a 32-pass bitwise k-th key search cost several times the
+// product (48-190x the bound at kf 10-129).
 //
 // What the design does about it. One block of 256 threads owns one strip
 // and a group of RG = 32 query rows (fewer only where shared memory forces
@@ -33,35 +36,39 @@
 // tensor cores (mma.sync m16n8k16 bf16, fp32 accumulate): 128-column x
 // 64-dim tiles of B are staged as bf16 in shared memory with 16-byte loads,
 // the next tile's loads in flight while the warps multiply the current one;
-// each warp owns 16 columns of the tile for all RG rows. The epilogue writes
-// order keys of the packed scores into a shared (RG x cw) chunk, cw <= 1024
-// columns, so the row group does not shrink as w grows. Each full chunk
-// folds into a per-row carry, one warp per row: with the tournament, the 4
-// smallest keys of every bin (exactly the TPU's pool); without it, the kf
-// smallest keys so far (a 32-step bitwise search for the kf-th smallest key
-// over carry and chunk, then a ballot compaction). At the end of the
-// sub-block the carry gives the row's kf winners, bitonic-sorted. Next steps
-// (later PRs): wgmma/TMA, all 192 rows per block, a radix selection;
-// PERF.md holds the measured gap to the bound.
+// each warp owns 16 columns of the tile for all RG rows. The selection
+// (strip_common.cuh) filters first: each row keeps a threshold, its carry's
+// kf-th key, and the epilogue keeps only the keys below it - appended to a
+// per-row candidate queue, folded into the carry by a radix select only
+// when the queue could overflow and at the end of the sub-block; with the
+// tournament each bin's 4th key is the filter and the key goes straight
+// into the bin's pool slots. Once a row's carry is full almost every key
+// fails its one compare, so the selection follows the keys that can still
+// win, not the columns. At the end of the sub-block the last fold's winners
+// are bitonic-sorted. Next steps (later PRs): the product on wgmma with all
+// 192 rows of a strip per block (the list block read once from L2 instead
+// of six times), TMA/cp.async rings; PERF.md holds the measured gap to the
+// bound and the product/selection split.
 //
 // The kernel body and the selection live in strip_common.cuh, shared with
 // K2-K4; the list side (staging int8, uint8, bf16 or fp32 list rows as bf16)
-// in dense_src.cuh, shared with K3. This file holds K1's entry point: the
-// packed lists, addressed as they lie (ListAddr).
+// in dense_src.cuh, shared with K3. This file holds K1's entry points: the
+// packed lists, addressed as they lie (ListAddr), and the product-only
+// instantiation that splits K1's time (launched by chip_smoke.py alone).
 
 #include "dense_src.cuh"
 
-// Launch K1 for one length class on `stream`. `strip_rows` may be null (all
-// c rows are real). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes the kernel does not take). Allocates
-// nothing; outputs of padding strips and empty rows are left unwritten.
-// b_dtype: 0 int8, 1 bf16, 2 fp32, 3 uint8.
-extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
-                               const void* sub_live, const void* a,
-                               const void* b, const void* bias, void* out_v,
-                               void* out_e, int s_pad, int c, int dim, int m,
-                               int w, int n_sub, int kf, float alpha,
-                               int tournament, int b_dtype, void* stream) {
+namespace {
+
+// K1's launch for one length class: the parameters, the plan, the
+// instantiation of `kSelect` for the list dtype
+template <bool kSelect>
+int strip_scan_launch(const void* strip_list, const void* strip_rows,
+                      const void* sub_live, const void* a, const void* b,
+                      const void* bias, void* out_v, void* out_e, int s_pad,
+                      int c, int dim, int m, int w, int n_sub, int kf,
+                      float alpha, int tournament, int b_dtype,
+                      void* stream) {
   if (s_pad <= 0) return (int)cudaSuccess;
   Params p{};
   p.strip_list = static_cast<const int32_t*>(strip_list);
@@ -85,6 +92,38 @@ extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
   p.paged = 0;
   const size_t smem = plan_launch(p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_dense_dtype<ListAddr>(
+  return (int)launch_dense_dtype<ListAddr, kSelect>(
       p, b_dtype, s_pad, smem, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Launch K1 for one length class on `stream`. `strip_rows` may be null (all
+// c rows are real). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for shapes the kernel does not take). Allocates
+// nothing; outputs of padding strips and empty rows are left unwritten.
+// b_dtype: 0 int8, 1 bf16, 2 fp32, 3 uint8.
+extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
+                               const void* sub_live, const void* a,
+                               const void* b, const void* bias, void* out_v,
+                               void* out_e, int s_pad, int c, int dim, int m,
+                               int w, int n_sub, int kf, float alpha,
+                               int tournament, int b_dtype, void* stream) {
+  return strip_scan_launch<true>(strip_list, strip_rows, sub_live, a, b, bias,
+                                 out_v, out_e, s_pad, c, dim, m, w, n_sub, kf,
+                                 alpha, tournament, b_dtype, stream);
+}
+
+// The same launch with the product-only instantiation: the same plan, tiles
+// and score epilogue, no selection; the outputs are left unwritten. It
+// exists to split K1's time into product and selection (chip_smoke.py).
+extern "C" int raft_strip_scan_product(
+    const void* strip_list, const void* strip_rows, const void* sub_live,
+    const void* a, const void* b, const void* bias, void* out_v, void* out_e,
+    int s_pad, int c, int dim, int m, int w, int n_sub, int kf, float alpha,
+    int tournament, int b_dtype, void* stream) {
+  return strip_scan_launch<false>(strip_list, strip_rows, sub_live, a, b,
+                                  bias, out_v, out_e, s_pad, c, dim, m, w,
+                                  n_sub, kf, alpha, tournament, b_dtype,
+                                  stream);
 }

@@ -1,12 +1,18 @@
 """Port parity: raft_tpu_torch.neighbors.ivf_flat against raft_tpu on the
 same numpy data — packed search on a JAX-built index carried across (for
-all four metrics, and through the v2 file both ways), recall, and a
-port-built index.
+all four metrics, and through the v2 file both ways), recall, a
+port-built index, and the gather backend with the ``"auto"`` rule.
 
-The JAX reference runs ``ivf_flat.search(..., backend="ragged")``, the
-strip kernel in Pallas interpret mode on the CPU. The data is uint8
-(``sift_like``), stored as uint8 lists by both builds, so K1's twin scans
-uint8 rows; uint8 distances are exact in bf16 × bf16 → fp32.
+The strip-path tests run both packages with ``backend="ragged"`` (JAX: the
+strip kernel in Pallas interpret mode on the CPU; the port: K1's twin),
+because ``"auto"`` is the gather backend on the CPU in both. The data is
+uint8 (``sift_like``), stored as uint8 lists by both builds, so K1's twin
+scans uint8 rows; uint8 distances are exact in bf16 × bf16 → fp32.
+
+The gather backend is held to JAX's default search (its gather backend on
+the CPU) on float data at the 64-row granule (max_list_size 256, which
+the strip plan cannot take): values at rtol 1e-5, ids equal except at
+near-ties (1e-5 relative), since both sum the same fp32 products.
 
 Tolerances: values allclose at rtol 5e-4 (plus, for the L2 metrics, an
 absolute 5e-4·max‖q‖²: the scan ranks scores of that magnitude and adding
@@ -80,7 +86,8 @@ def test_search_on_jax_index_matches(data, jax_indexes, metric):
                                     else torch.uint8)
     for k, n_probes in ((10, 4), (20, 2)):
         jout = jfl.search(jidx, qs, k, n_probes=n_probes, backend="ragged")
-        tout = tfl.search(port, qs, k, n_probes=n_probes, device=CPU)
+        tout = tfl.search(port, qs, k, n_probes=n_probes, backend="ragged",
+                          device=CPU)
         agree(qs, metric, jout, tout)
 
 
@@ -105,11 +112,11 @@ def test_recall_on_jax_index_within_0_005(data, gt, jax_indexes, n_probes):
     want = _recall(jfl.search(jidx, qs, 10, n_probes=n_probes,
                               backend="ragged"), gt)
     got = _recall(tfl.search(carried(jidx), qs, 10, n_probes=n_probes,
-                             device=CPU), gt)
+                             backend="ragged", device=CPU), gt)
     assert abs(got - want) <= 0.005, (got, want)
     assert float(jmet.neighborhood_recall(
         np.array(tfl.search(carried(jidx), qs, 10, n_probes=16,
-                            device=CPU)[1]), gt[1])) >= 0.99
+                            backend="ragged", device=CPU)[1]), gt[1])) >= 0.99
 
 
 def test_index_files_cross_both_ways(tmp_path, data, jax_indexes):
@@ -160,7 +167,7 @@ def test_port_built_recall_within_0_02(port_index, jax_indexes, data, gt,
     want = _recall(jfl.search(jax_indexes["sqeuclidean"], qs, 10,
                               n_probes=n_probes, backend="ragged"), gt)
     got = _recall(tfl.search(port_index, qs, 10, n_probes=n_probes,
-                             device=CPU), gt)
+                             backend="ragged", device=CPU), gt)
     assert abs(got - want) <= 0.02, (got, want)
 
 
@@ -182,10 +189,108 @@ def test_split_list_rows_matches_jax():
 
 def test_later_slice_features_raise(port_index, data):
     _, qs = data
-    for kw in ({"backend": "gather"}, {"filter": object()}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tfl.search(port_index, qs, 10, device=CPU, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tfl.search(port_index, qs, 10, device=CPU, filter=object())
     with pytest.raises(NotImplementedError, match="later slice"):
         tfl.extend(port_index, qs)
     with pytest.raises(ValueError, match="unknown backend"):
         tfl.search(port_index, qs, 10, backend="paged", device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# The gather backend and the "auto" rule
+# ---------------------------------------------------------------------------
+
+GATHER_PARAMS = dict(n_lists=64)     # both packages' default build otherwise
+
+
+@pytest.fixture(scope="module")
+def gather_data():
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((10000, 32)).astype(np.float32),
+            rng.standard_normal((50, 32)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def gather_indexes(gather_data):
+    return {m: jfl.build(gather_data[0],
+                         jfl.IvfFlatParams(metric=m, **GATHER_PARAMS))
+            for m in METRICS}
+
+
+def agree_exact(jax_out, port_out):
+    jv, ji = (torch.from_numpy(np.array(x)) for x in jax_out)
+    tv, ti = port_out
+    if ji.shape[1] and bool((jv[:, 0] > jv[:, -1]).any()):   # descending (ip)
+        jv, tv = -jv, -tv
+    verdict = tmet.topk_agreement(jv, ji, tv, ti, rtol=1e-5, atol=1e-5,
+                                  tie_rtol=1e-5)
+    assert verdict["ok"], verdict
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [10, 600])
+def test_gather_default_search_matches_jax(gather_data, gather_indexes,
+                                           metric, k):
+    """Both packages' default search on the 64-row granule index: JAX takes
+    its gather backend on the CPU, the port its own; k = 600 is past the
+    strip plan's 512."""
+    _, qs = gather_data
+    jidx = gather_indexes[metric]
+    assert jidx.max_list_size < 512     # 256 for L2: the strip plan's granule is 512
+    port = carried(jidx)
+    jout = jfl.search(jidx, qs, k, n_probes=8)
+    tout = tfl.search(port, qs, k, n_probes=8, device=CPU)
+    assert tout[0].shape == (50, k) and tout[1].dtype == torch.int32
+    agree_exact(jout, tout)
+    explicit = tfl.search(port, qs, k, n_probes=8, backend="gather",
+                          device=CPU)
+    assert all(torch.equal(a, b) for a, b in zip(tout, explicit))
+
+
+def test_gather_tiles_and_short_lists(gather_data, gather_indexes):
+    """A workspace of a few tiles gives the same answer as one tile, and
+    probes whose lists hold fewer than k rows return -1 ids at ±inf."""
+    _, qs = gather_data
+    port = carried(gather_indexes["sqeuclidean"])
+    whole = tfl.search(port, qs, 10, n_probes=8, device=CPU)
+    tiny = tfl.Resources(device=CPU, workspace_bytes=8 * 256 * 34 * 4 * 7)
+    tiled = tfl.search(port, qs, 10, n_probes=8, res=tiny)
+    assert all(torch.equal(a, b) for a, b in zip(whole, tiled))
+    v, i = tfl.search(port, qs, 2000, n_probes=8, device=CPU)
+    jv, ji = jfl.search(gather_indexes["sqeuclidean"], qs, 2000, n_probes=8)
+    np.testing.assert_array_equal(i.numpy() == -1, np.asarray(ji) == -1)
+    assert bool((i == -1).any()) and bool(torch.isinf(v[i == -1]).all())
+
+
+def test_port_default_build_serves_the_default_search(gather_data,
+                                                      gather_indexes):
+    """The port's default build picks the 64-row granule as JAX does, and
+    its default search serves it (it raised before the gather backend)."""
+    ds, qs = gather_data
+    port = tfl.build(ds, tfl.IvfFlatParams(**GATHER_PARAMS), device=CPU)
+    assert port.max_list_size == gather_indexes["sqeuclidean"].max_list_size
+    v, i = tfl.search(port, qs, 10, n_probes=8, device=CPU)
+    gv, gi = jbf.search(jbf.build(ds), qs, 10)
+    want = float(jmet.neighborhood_recall(
+        np.asarray(jfl.search(gather_indexes["sqeuclidean"], qs, 10,
+                              n_probes=8)[1]), np.asarray(gi)))
+    got = float(jmet.neighborhood_recall(i.numpy(), np.asarray(gi)))
+    assert abs(got - want) <= 0.02, (got, want)
+
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("mls", [64, 256, 512, 1024, 1536, 2048])
+@pytest.mark.parametrize("k", [1, 512, 513])
+def test_auto_backend_rule(device_type, mls, k):
+    got = tfl.resolve_backend("auto", device_type, mls, k)
+    strip = mls % 512 == 0 and (mls // 512) & (mls // 512 - 1) == 0
+    want = "ragged" if device_type == "cuda" and strip and k <= 512 \
+        else "gather"
+    assert got == want
+    assert tfl.resolve_backend("gather", device_type, mls, k) == "gather"
+    if strip and k <= 512:
+        assert tfl.resolve_backend("ragged", device_type, mls, k) == "ragged"
+    else:
+        with pytest.raises(ValueError, match="ragged backend needs"):
+            tfl.resolve_backend("ragged", device_type, mls, k)

@@ -166,15 +166,26 @@ def test_gather_search_on_jax_index_matches(data, jax_indexes, jax_cluster,
     assert verdict["ok"], verdict
 
 
-def test_probe_skew_escalates_and_matches_gather():
-    """The JAX package's adversarial case: every query probes the same hot
-    lists, the per-list load is far above twice the mean, and the pallas
-    path must escalate its cap rather than drop pairs."""
+def _skewed_data():
     rng = np.random.default_rng(11)
     hot = rng.normal(scale=0.05, size=(3000, 16)).astype(np.float32)
     cold = rng.normal(loc=30.0, scale=4.0, size=(1000, 16)).astype(np.float32)
-    ds = np.concatenate([hot, cold])
     qs = rng.normal(scale=0.05, size=(128, 16)).astype(np.float32)
+    return np.concatenate([hot, cold]), qs
+
+
+def _initial_cap(q, n_probes, n_lists):
+    """The JAX package's starting per-list cap: twice the mean load,
+    16-aligned (its pallas search escalates from there)."""
+    return -(-max(16, 2 * q * n_probes // n_lists) // 16) * 16
+
+
+def test_probe_skew_escalates_and_matches_gather():
+    """The JAX package's adversarial case: every query probes the same hot
+    lists, the per-list load is far above twice the mean. The reference
+    escalates its cap there; K5's pair-driven scan takes every pair in one
+    attempt with none dropped, and matches the gather backend."""
+    ds, qs = _skewed_data()
     idx = tpq.build(ds, tpq.IvfPqParams(n_lists=64, pq_dim=8, pq_bits=6,
                                         seed=0), device=CPU)
     assert idx.max_list_size % 128 == 0
@@ -182,13 +193,54 @@ def test_probe_skew_escalates_and_matches_gather():
     vp, ip_ = tpq.search(idx, qs, 10, n_probes=8, backend="pallas",
                          device=CPU, stats=st)
     vg, ig = tpq.search(idx, qs, 10, n_probes=8, backend="gather", device=CPU)
-    assert len(st["attempts"]) > 1 and st["attempts"][0]["dropped"] > 0
-    assert st["attempts"][-1]["dropped"] == 0
+    assert st["attempts"] == [{"qpl_cap": st["qpl_cap"], "dropped": 0}]
+    assert st["tiles"] == len(st["max_list_load"]) == 1
+    assert st["qpl_cap"] > _initial_cap(128, 8, 64)    # the skew is there
     np.testing.assert_allclose(np.sort(vp.numpy(), 1), np.sort(vg.numpy(), 1),
                                rtol=1e-3, atol=1e-3)
     overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in
                        zip(ip_.tolist(), ig.tolist())])
     assert overlap >= 0.95, overlap
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_pallas_on_skewed_jax_index_matches_its_escalation(metric):
+    """A JAX-built skewed index carried across: the reference's pallas
+    search escalates its cap (the hot lists' load is past its starting
+    cap), the port's runs one attempt over the same pairs, and the two
+    agree as the unskewed pallas searches do. Tiles of 48 queries in the
+    port change nothing."""
+    ds, qs = _skewed_data()
+    j = _as_metric(jpq.build(ds, jpq.IvfPqParams(
+        n_lists=64, pq_dim=8, pq_bits=6, group_size=128, kmeans_n_iters=10,
+        codebook_n_iters=10)), metric)
+    jv, ji = jpq.search(j, qs, 10, n_probes=8, backend="pallas")
+    port = _carried(j)
+    st = {}
+    tv, ti = tpq.search(port, qs, 10, n_probes=8, backend="pallas",
+                        device=CPU, stats=st)
+    assert st["qpl_cap"] > _initial_cap(128, 8, 64)
+    assert st["attempts"][0]["dropped"] == 0 and len(st["attempts"]) == 1
+    verdict = _agree(jv, ji, tv, ti, rtol=5e-4,
+                     atol=5e-4 * float(np.abs(np.asarray(jv)).max()))
+    assert verdict["ok"], verdict
+    row_bytes = port.pq_dim * port.n_codes * 2
+    small = tpq.Resources(device=CPU, workspace_bytes=48 * (
+        8 * port.max_list_size * 4 + row_bytes))
+    st2 = {}
+    tiled = tpq.search(port, qs, 10, n_probes=8, backend="pallas", res=small,
+                       stats=st2)
+    assert st2["q_tile"] == 48 and st2["tiles"] == 3
+    assert all(torch.equal(a, b) for a, b in zip((tv, ti), tiled))
+
+
+@pytest.mark.parametrize("q,ws,want", [
+    (10_000, 1 << 30, 768),          # the streamed path: the L2 share binds
+    (10_000, 64 << 20, 234),         # the workspace binds
+    (100, 1 << 30, 100),             # the batch is smaller than both
+    (10_000, 1, 1)])
+def test_pallas_q_tile(q, ws, want):
+    assert tpq.pallas_q_tile(q, 16, 3968, 64 * 256 * 2, ws) == want
 
 
 RESOLVER = [

@@ -195,7 +195,10 @@ def _entry_points(x, q, **dev):
         "CagraIndex.load": lambda: _cagra_file_load(cagra_cpu, **dev),
         "ivf_flat.build": lambda: ivf_flat.build(x, flat_params, **dev),
         "ivf_flat.search": lambda: ivf_flat.search(flat_cpu, q, 5,
-                                                   n_probes=2, **dev),
+                                                   n_probes=2,
+                                                   backend="ragged", **dev),
+        "ivf_flat.search.gather": lambda: ivf_flat.search(
+            flat_cpu, q, 5, n_probes=2, backend="gather", **dev),
         "PagedListStore.from_index": lambda: serving.PagedListStore.from_index(
             flat_cpu, page_rows=64, **dev),
         "serving.search": lambda: serving.search(store_cpu, q, 5, n_probes=2,
@@ -239,6 +242,7 @@ def _cagra_file_load(index, **dev):
 @pytest.mark.parametrize("name", ["cagra.build", "cagra.search",
                                   "CagraIndex.load",
                                   "ivf_flat.build", "ivf_flat.search",
+                                  "ivf_flat.search.gather",
                                   "PagedListStore.from_index",
                                   "serving.search",
                                   "kmeans_balanced.fit", "ivf_pq.build",

@@ -192,7 +192,8 @@ def test_flat_mutation_sequence_matches_jax(flat_pair, data):
     for name, t in tc.arrays().items():
         np.testing.assert_array_equal(np_(t), np.asarray(getattr(jc, name)),
                                       err_msg=name)
-    vc, ic = tfl.search(tc, rows, 10, n_probes=4, device=CPU)
+    vc, ic = tfl.search(tc, rows, 10, n_probes=4, backend="ragged",
+                        device=CPU)
     assert torch.equal(ic, i) and torch.equal(vc, v)
 
     cap, width = tst.capacity_pages, tst.table_width
