@@ -5,6 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py               # everything, as the chip check runs it
     python3 chip_smoke.py --skip-main   # device, build and kernel parity only
     python3 chip_smoke.py --ab OLD_TREE # K1-K5 of an older checkout vs this one
+    python3 chip_smoke.py --k1-variants A=CSRC_DIR B=CSRC_DIR  # K1 builds
 
 Phases, one JSON line each:
 
@@ -2063,11 +2064,46 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "select_ms": select_ms, "occupancy_mean": sum(occ) / len(occ),
           "max_list_load": loads, "search_ms": search_ms, "prep_ms": prep_ms,
           "other_ms": search_ms - k5_search_ms - select_ms - prep_ms})
+    lut_q_tile_phase(index, qs, pick, tile, q_all, res)
     del index
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max_err, "ms": k5_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def lut_q_tile_phase(index, qs, pick, tile, q_all, res):
+    """The pallas search's query tile: the tile it picks (the largest the
+    workspace allows) against the tile whose LUT table fits in half the
+    50 MB L2 (so that a query's pairs would re-read its LUT row from L2),
+    each forced through ``pallas_q_tile``, in the order L2-sized, picked,
+    picked, L2-sized; the search and K5 summed over one search's tiles at
+    each."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import pq_scan as ps
+
+    p, m = pick["n_probes"], index.max_list_size
+    lut_row = index.pq_dim * index.n_codes * 2
+    choose = ivf_pq.pallas_q_tile
+    picked = choose(q_all, p, m, lut_row, res.workspace_bytes)
+    l2_sized = min(picked, (24 << 20) // lut_row)
+    rows = []
+    for qt in (l2_sized, picked, picked, l2_sized):
+        ivf_pq.pallas_q_tile = lambda *_, qt=qt: qt
+        search_ms = cuda_ms(lambda: ivf_pq.search(
+            index, qs, pick["k_fetch"], n_probes=p, backend="pallas",
+            res=res), reps=3)
+        ivf_pq.pallas_q_tile = choose
+        k5_ms = 0.0
+        for start in range(0, q_all, qt):
+            c, _ = tile(start, qt)
+            k5_ms += cuda_ms(lambda: ps.pq_scan_pairs(**c), reps=3)
+            del c
+        rows.append({"q_tile": qt, "tiles": -(-q_all // qt),
+                     "search_ms": search_ms, "k5_ms": k5_ms})
+    emit({"phase": "lut.q_tile", "picked": picked, "l2_sized": l2_sized,
+          "lut_table_mb_at_picked": picked * lut_row / 2**20,
+          "order": rows})
 
 
 def cache_phase(shared, n_lists=N_LISTS, dev="cuda"):
@@ -2541,7 +2577,9 @@ def ab_phase(old_tree, shared, dev="cuda"):
     kf 129); K2 at the IVF-BQ path; K3 at the flat serving path, K4 at the
     bq serving path. The older sources are built by nvcc beside that tree
     (both builds' ptxas lines are printed); the wrappers, plan and inputs
-    are this tree's (the four kernels' C interfaces are the same). Then K5
+    are this tree's (the four kernels' C interfaces are the same); K1's
+    product alone as well (``ab.k1_product``) where the older tree has the
+    product-only instantiation. Then K5
     at path level (its C interface changed): each tree's LUT search in a
     process of its own, on one index file and one query file, old, new,
     new, old."""
@@ -2567,7 +2605,7 @@ def ab_phase(old_tree, shared, dev="cuda"):
     getters = {"strip_scan": "_kernel_fn", "bq_scan": "_kernel_fn",
                "paged_scan": "_paged_kernel_fn",
                "paged_bq_scan": "_paged_kernel_fn"}
-    old_fns, cases = {}, []
+    old_fns, old_libs, cases = {}, {}, []
     for name in ("strip_scan", "bq_scan", "paged_scan", "paged_bq_scan"):
         src = Path(old_tree) / "raft_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
         lib = out / f"lib{name}-ab.so"
@@ -2578,7 +2616,8 @@ def ab_phase(old_tree, shared, dev="cuda"):
               "old": _native.parse_ptxas(built.stdout + built.stderr),
               "new": _native.resource_usage(_native.CSRC / f"{name}.cu")})
         new_fn = getattr(modules[name], getters[name])()
-        old_fn = getattr(ctypes.CDLL(str(lib)), new_fn.__name__)
+        old_libs[name] = ctypes.CDLL(str(lib))
+        old_fn = getattr(old_libs[name], new_fn.__name__)
         old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
         old_fns[name] = (old_fn, new_fn)
     for key in [k for k in AB_INPUTS if isinstance(k, tuple)]:
@@ -2586,6 +2625,7 @@ def ab_phase(old_tree, shared, dev="cuda"):
         calls = AB_INPUTS[key]
         mod, getter = modules[name], getters[name]
         old_fn, new_fn = old_fns[name]
+        old_lib = old_libs[name]
         wrapper = _kernel_pair(name)[0]
         times = []
         for which in ("old", "new", "new", "old"):
@@ -2603,6 +2643,24 @@ def ab_phase(old_tree, shared, dev="cuda"):
                       "new_ms_mean": sum(new_ms) / 2,
                       "new_over_old": sum(new_ms) / sum(old_ms)})
         emit({"phase": "ab", **cases[-1]})
+        if name == "strip_scan" and hasattr(old_lib,
+                                            "raft_strip_scan_product"):
+            # the product alone (the product-only instantiations): the old
+            # tree's loop against this tree's at the same inputs
+            old_p = old_lib.raft_strip_scan_product
+            new_p = _native.load("strip_scan").raft_strip_scan_product
+            for f in (old_p, new_p):
+                f.argtypes, f.restype = new_fn.argtypes, new_fn.restype
+            prod = []
+            for which in ("old", "new", "new", "old"):
+                fn = old_p if which == "old" else new_p
+                ss._kernel_fn = lambda fn=fn: fn
+                prod.append([which, cuda_ms(lambda: [wrapper(**c)
+                                                     for c in calls])])
+            ss._kernel_fn = lambda fn=new_fn: fn
+            emit({"phase": "ab.k1_product", "inputs": shape, "order": prod,
+                  "old_ms_mean": sum(t for w, t in prod if w == "old") / 2,
+                  "new_ms_mean": sum(t for w, t in prod if w == "new") / 2})
 
     # K5 at path level: each tree's LUT search in its own process
     index_file, query_file, pick = AB_INPUTS["lut"]
@@ -2636,6 +2694,92 @@ def ab_phase(old_tree, shared, dev="cuda"):
     emit({"phase": "ab", **lut})
     cases.append(lut)
     return cases
+
+
+def k1_variants(specs):
+    """K1 built from other kernel source trees (``NAME=CSRC_DIR``, e.g. a
+    copy of ``raft_tpu_torch/ops/csrc`` with one change) against each
+    other at the three K1 shapes of the paths (IVF-PQ int8 kf 20, IVF-Flat
+    uint8 kf 10, the CAGRA build's first batch, fp32 kf 129): each tree's
+    ``strip_scan.cu`` is built by nvcc (its ptxas line printed), then the
+    kernel and its product-only instantiation are timed through this
+    tree's wrapper, in the order of the specs and back, and each tree's
+    output is compared bit for bit with the first tree's."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import _native
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    trees = dict(spec.split("=", 1) for spec in specs)
+    _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def build(item):
+        name, src = item
+        lib = _native.BUILD_DIR / f"libstrip_scan-variant-{name}.so"
+        done = subprocess.run(
+            [_native.nvcc(), *_native.NVCC_FLAGS, *_native.PTXAS_FLAGS, "-o",
+             str(lib), str(Path(src) / "strip_scan.cu")], check=True,
+            capture_output=True, text=True)
+        return name, lib, _native.parse_ptxas(done.stdout + done.stderr)
+
+    new_fn = ss._kernel_fn()
+    fns = {}
+    with ThreadPoolExecutor(len(trees)) as pool:
+        for name, lib, usage in pool.map(build, trees.items()):
+            emit({"phase": "k1_variants.ptxas", "variant": name,
+                  "usage": usage})
+            cdll = ctypes.CDLL(str(lib))
+            fns[name] = {}
+            for which, sym in (("full", "raft_strip_scan"),
+                               ("product", "raft_strip_scan_product")):
+                fn = getattr(cdll, sym)
+                fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
+                fns[name][which] = fn
+
+    res = Resources(device="cuda")
+    shared = shared_data()
+    dataset, qs = shared["dataset"], shared["queries"]
+    pq = ivf_pq.build(dataset, ivf_pq.IvfPqParams(
+        n_lists=N_LISTS, pq_dim=64, pq_bits=8, kmeans_trainset_fraction=0.2),
+        res=res)
+    ivf_pq.search(pq, qs[:100], 20, n_probes=16, backend="ragged", res=res)
+    flat = ivf_flat.build(dataset, ivf_flat.IvfFlatParams(
+        n_lists=N_LISTS, kmeans_trainset_fraction=0.2), res=res)
+    shapes = {"main_int8_kf20": main_path_class_inputs(pq, qs, 16, 20, res)[0],
+              "flat_uint8_kf10": flat_path_class_inputs(flat, qs, 16, 10,
+                                                        res)[0],
+              "cagra_fp32_kf129": cagra_k1_inputs(dataset, cagra.CagraParams(
+                  intermediate_graph_degree=128, graph_degree=64), res)[0]}
+    names = list(trees)
+    for shape, calls in shapes.items():
+        times = {n: {"full": [], "product": []} for n in names}
+        for n in names + names[::-1]:
+            for which in ("full", "product"):
+                ss._kernel_fn = lambda fn=fns[n][which]: fn
+                times[n][which].append(cuda_ms(
+                    lambda: [ss.strip_class(**c) for c in calls], reps=5))
+        outs = {}
+        for n in names:
+            ss._kernel_fn = lambda fn=fns[n]["full"]: fn
+            outs[n] = [ss.strip_class(**c) for c in calls]
+            torch.cuda.synchronize()
+            emit({"phase": "k1_variants", "inputs": shape, "variant": n,
+                  "full_ms": sum(times[n]["full"]) / 2,
+                  "product_ms": sum(times[n]["product"]) / 2,
+                  "same_as_first": all(
+                      same_rows(got, want, c["strip_list"], c["strip_rows"])
+                      for got, want, c in zip(outs[n], outs[names[0]],
+                                              calls)),
+                  "order": times[n]})
+        del outs
+        ss._kernel_fn = lambda: new_fn
+    return 0
 
 
 def lut_child(tree, index_file, query_file, n_probes, k_fetch, ids_file):
@@ -2693,10 +2837,16 @@ def main() -> int:
                          "of an older checkout against this tree's at the "
                          "paths' inputs and the two trees' LUT searches "
                          "(K5), then stop")
+    ap.add_argument("--k1-variants", nargs="+", metavar="NAME=CSRC_DIR",
+                    help="time K1 built from these kernel source trees "
+                         "against each other at the paths' K1 shapes, then "
+                         "stop")
     ap.add_argument("--lut-child", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.lut_child:
         return lut_child(*args.lut_child)
+    if args.k1_variants:
+        return k1_variants(args.k1_variants)
 
     import torch
 

@@ -1050,19 +1050,14 @@ def _pallas_tile(luts_t, probe_blk, cvals_blk, codes_t, index: IvfPqIndex,
     return vals, ids, pair_list
 
 
-# the share of the 50 MB L2 a tile's LUT table may take: the pairs of one
-# query re-read its LUT row from L2 while the table fits there
-_LUT_L2_BYTES = 24 << 20
-
-
 def pallas_q_tile(q: int, n_probes: int, max_list_size: int, lut_row_bytes: int,
                   workspace_bytes: int) -> int:
     """Query tile of the pallas backend: the (qt·p, m) fp32 scores plus the
-    tile's LUT table within the workspace, and the table within
-    :data:`_LUT_L2_BYTES`."""
+    tile's LUT table within the workspace. The largest such tile is the
+    fastest: more pairs a list a tile fill K5's 16-pair blocks, and fewer
+    tiles mean fewer launches and selects."""
     per_query = n_probes * max_list_size * 4 + lut_row_bytes
-    return int(max(1, min(q, workspace_bytes // per_query,
-                          _LUT_L2_BYTES // lut_row_bytes)))
+    return int(max(1, min(q, workspace_bytes // per_query)))
 
 
 def _search_pallas(index: IvfPqIndex, queries, k: int, n_probes: int,

@@ -31,7 +31,9 @@
 // reads. chip_smoke.py computes the bound from each search's live columns.
 //
 // What the design does about it. The product loop, tiling and selection are
-// K1's (strip_common.cuh), with the paged address policy (PagedAddr): per
+// K1's (the wgmma kernel of dense_src.cuh where its plan fits, else the
+// mma.sync loop of strip_common.cuh), with the paged address policy
+// (PagedAddr): per
 // sub-block, the block stages the nv live page ids in shared memory, reads
 // column c from pool row pg[c / R] * R + c % R for the payload and the bias
 // alike, and walks only the ceil(nv * R / 128) column tiles that hold live

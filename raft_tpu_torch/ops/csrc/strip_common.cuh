@@ -18,8 +18,10 @@
 // header holds everything else once: the packed-key selection (order keys,
 // the per-row threshold filter and candidate queue, the radix k-th key
 // search, the ballot compaction, the per-row carry fold, the rank placement,
-// the sub-block merge), the tensor-core product loop and the launch plan. A
+// the sub-block merge), the mma.sync product loop and the launch plan. A
 // kernel source picks its policies and supplies its extern "C" entry point.
+// K1 and K3 run their own product loop on wgmma wherever its plan fits
+// (strip_kernel_wg, dense_src.cuh), with this selection.
 //
 // The selection. Each row keeps a threshold tau, its carry's kf-th key
 // (kNoKey until the carry holds kf real keys). The epilogue of a column tile
@@ -453,6 +455,27 @@ __device__ void emit_row(const uint32_t* sel, int n, float* ov, int32_t* oe,
   }
 }
 
+// the fold at the end of a column tile (after a barrier): the rows whose
+// queue the next tile could overflow, and every row at the end of the walk
+// (the tournament only then), one warp a row in turn; the last fold leaves
+// the row's winners in sel, which emit_row places as its top-kf
+template <int kNW>
+__device__ __forceinline__ void fold_rows(const RowSel& rs, const Params& p,
+                                          bool last, int nr, int warp,
+                                          int lane, uint32_t* sel,
+                                          uint32_t* hist, float* mv, int* me,
+                                          float* out_v, int32_t* out_e,
+                                          int j) {
+  const bool tour = p.tournament != 0;
+  for (int r = warp; r < nr; r += kNW) {
+    if (!last && rs.qn[r] <= p.qcap - kTC) continue;
+    const int n_win = fold_row(rs, r, sel, p.kf, p.qcap, p.carry_w, tour,
+                               hist, lane);
+    if (last) emit_row(sel, n_win, out_v + (size_t)r * p.kf,
+                       out_e + (size_t)r * p.kf, mv, me, p.kf, j, p.w, lane);
+  }
+}
+
 // The kernel body. `Src` supplies the list side of the product:
 //   Src::kScaled                      multiply by scale[row] before the bias;
 //   Src::Vec                          register-staged fast path:
@@ -651,14 +674,8 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
         const bool last = ct + kTC >= ad.cols;
         if (kSelect && (last || !tour)) {
           __syncthreads();
-          for (int r = warp; r < nr; r += kWarps) {
-            if (!last && rs.qn[r] <= p.qcap - kTC) continue;
-            const int n_win = fold_row(rs, r, sel, kf, p.qcap, p.carry_w,
-                                       tour, hist, lane);
-            if (last) emit_row(sel, n_win, out_v + (size_t)r * kf,
-                               out_e + (size_t)r * kf, mv, me, kf, j, p.w,
-                               lane);
-          }
+          fold_rows<kWarps>(rs, p, last, nr, warp, lane, sel, hist, mv, me,
+                            out_v, out_e, j);
         }
       }
     }

@@ -29,14 +29,22 @@
 // product (48-190x the bound at kf 10-129).
 //
 // What the design does about it. One block of 256 threads owns one strip
-// and a group of RG = 32 query rows (fewer only where shared memory forces
-// it) and loops over the sub-blocks itself (the TPU's sequential grid
-// axis). The row groups of a strip are adjacent in the launch order, so the
-// list block comes from HBM once and from L2 after. The product runs on the
-// tensor cores (mma.sync m16n8k16 bf16, fp32 accumulate): 128-column x
-// 64-dim tiles of B are staged as bf16 in shared memory with 16-byte loads,
-// the next tile's loads in flight while the warps multiply the current one;
-// each warp owns 16 columns of the tile for all RG rows. The selection
+// and a group of RG = 32 query rows and loops over the sub-blocks itself
+// (the TPU's sequential grid axis); the row groups of a strip are adjacent
+// in the launch order, so the list block comes from HBM once and from L2
+// after. The product runs on wgmma (strip_kernel_wg, dense_src.cuh), taken
+// transposed: each of the two warpgroups multiplies 64 columns of a
+// 128-column x 64-dim list tile against the 32 rows (m64n32k16, bf16, fp32
+// accumulate), both operands read by the tensor cores from shared memory
+// in the 128-byte swizzled layout, so no warp loads operand fragments. The
+// next tile's 16-byte loads are in flight in registers while the tensor
+// cores run; two blocks stay resident on a SM, so one block's folds
+// overlap the other's product. A 64-row block (one wgmma M with the rows
+// as M) was built and measured first: its selection state allows one block
+// a SM, and the folds it can no longer overlap cost more than the product
+// saved (PERF.md). Shapes the wgmma plan does not take (dims not a
+// multiple of 64, rows a block shrunk by the shared memory of a large kf)
+// keep the mma.sync loop of strip_common.cuh. The selection
 // (strip_common.cuh) filters first: each row keeps a threshold, its carry's
 // kf-th key, and the epilogue keeps only the keys below it - appended to a
 // per-row candidate queue, folded into the carry by a radix select only
@@ -44,15 +52,15 @@
 // tournament each bin's 4th key is the filter and the key goes straight
 // into the bin's pool slots. Once a row's carry is full almost every key
 // fails its one compare, so the selection follows the keys that can still
-// win, not the columns. At the end of the sub-block the last fold's winners
-// are bitonic-sorted. Next steps (later PRs): the product on wgmma with all
-// 192 rows of a strip per block (the list block read once from L2 instead
-// of six times), TMA/cp.async rings; PERF.md holds the measured gap to the
-// bound and the product/selection split.
+// win, not the columns. The last fold's winners are placed by rank
+// (emit_row). PERF.md holds the measured gap to the bound and the
+// product/selection split.
 //
-// The kernel body and the selection live in strip_common.cuh, shared with
-// K2-K4; the list side (staging int8, uint8, bf16 or fp32 list rows as bf16)
-// in dense_src.cuh, shared with K3. This file holds K1's entry points: the
+// The selection and the mma.sync kernel body live in strip_common.cuh,
+// shared with K2-K4; the list side (int8, uint8, bf16 or fp32 list rows as
+// bf16) and the wgmma kernel in dense_src.cuh, shared with K3. K2 and K4
+// keep the mma.sync loop: their packed sign-bit sources expand in the
+// staging of strip_common.cuh's layout. This file holds K1's entry points: the
 // packed lists, addressed as they lie (ListAddr), and the product-only
 // instantiation that splits K1's time (launched by chip_smoke.py alone).
 

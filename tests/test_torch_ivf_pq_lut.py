@@ -235,7 +235,7 @@ def test_pallas_on_skewed_jax_index_matches_its_escalation(metric):
 
 
 @pytest.mark.parametrize("q,ws,want", [
-    (10_000, 1 << 30, 768),          # the streamed path: the L2 share binds
+    (10_000, 1 << 30, 3744),         # the streamed path at the default
     (10_000, 64 << 20, 234),         # the workspace binds
     (100, 1 << 30, 100),             # the batch is smaller than both
     (10_000, 1, 1)])
