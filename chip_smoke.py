@@ -6,6 +6,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py --skip-main   # device, build and kernel parity only
     python3 chip_smoke.py --ab OLD_TREE # K1-K5 of an older checkout vs this one
     python3 chip_smoke.py --k1-variants A=CSRC_DIR B=CSRC_DIR  # K1 builds
+    python3 chip_smoke.py --k2-variants A=CSRC_DIR B=CSRC_DIR  # K2, K4
 
 Phases, one JSON line each:
 
@@ -49,13 +50,16 @@ Phases, one JSON line each:
    (all queries over all their time); K1's launch count on that run, then
    its time at the main path's own class inputs beside its plain twin, a
    PyTorch yardstick (batched matmul + topk) and its bound, and its split
-   into product and selection (``k1_split``: the product-only
+   into product and selection (``main.k1_split``: the product-only
    instantiation of the same template, ``raft_strip_scan_product``);
 5. bq — the same for IVF-BQ: ``ivf_bq.build`` at the bench's parameters
    (n_lists 1024, 1 bit, dense rotation, train fraction 0.2), the bench's
    escalation (n_probes 16…256 at k_fetch 40, then k_fetch 80, 160, 320 at
    the best n_probes), refine to k = 10, recall@10 ≥ 0.95 and K2 launches
-   asserted, QPS; then K2 at the path's own class inputs;
+   asserted, QPS; then K2 at the path's own class inputs, the product
+   loop its launches ran (asserted ``wgmma`` for 8-byte multiples of code
+   bytes) and its product/selection split (``bq.k2_split``, the
+   product-only ``raft_bq_scan_product``);
 6. flat — IVF-Flat at the bench's parameters (n_lists 1024, train
    fraction 0.2, uint8 lists): n_probes 16…256 at k = 10 until recall@10
    ≥ 0.95, no refine; QPS, K1's launches on uint8 lists, K1 at the path's
@@ -73,7 +77,8 @@ Phases, one JSON line each:
    paged search at each path's chosen (n_probes, k_fetch) with exact
    refine (K3 over the int8 cache, K4 over the codes), recall ≥ 0.95, one
    upsert/delete round (≥ 99% read-back before refine, no deleted id);
-   K3 (on the int8 cache) and K4 at their paths' own class inputs;
+   K3 (on the int8 cache) and K4 at their paths' own class inputs, K4's
+   product loop and split (``serve.bq.k4_split``) as K2's;
 9. lut — the streamed IVF-PQ path: ``build_streaming`` from a host copy of
    the dataset (4 chunks of 250,000 rows, the 128-row granule, the main
    path's parameters), what ``"auto"`` resolves to (``"pallas"``), the
@@ -102,9 +107,12 @@ Phases, one JSON line each:
 ``--ab OLD_TREE`` drives the paths up to the LUT path, then times K1–K4 of
 the older tree against this one's at the paths' own class inputs (K1 at
 kf 20, kf 10 on uint8 and kf 129 on the CAGRA build's batch; K2; K3 and K4
-at their serving inputs) in the order old, new, new, old, and each tree's
-LUT search (K5) in a process of its own on one index and query file; it
-prints no last line.
+at their serving inputs) in the order old, new, new, old, holds the two
+trees' results against each other as ``compare`` holds a kernel and its
+twin, and runs each tree's LUT search (K5) in a process of its own on one
+index and query file; it prints no last line. ``--k1-variants`` and
+``--k2-variants`` time K1 (or K2 and K4) built from other kernel source
+trees against each other at the paths' shapes (``strip_variants``).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
@@ -138,6 +146,8 @@ K3_REPLACES = "raft_tpu/ops/strip_scan.py:955"
 K4_REPLACES = "raft_tpu/ops/bq_scan.py:438"
 K5_REPLACES = "raft_tpu/ops/pq_scan.py:79"
 K6_REPLACES = "raft_tpu/ops/cagra_hop.py:64"
+# the (n_probes, k_fetch) the IVF-BQ escalation picks at 1M x 128 (bq.search)
+BQ_PICK = (256, 80)
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -163,6 +173,14 @@ def keep_for_ab(key, value) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -816,26 +834,68 @@ def kernel_timing(calls, kernel, yardstick, bytes_per_col, bound=None):
             "launches_per_search": len(calls)}
 
 
-def k1_split(calls, phase, **info):
-    """K1's time at one search's class inputs split into product and
-    selection: the kernel, and the product-only instantiation of the same
-    template (``raft_strip_scan_product``: the same plan, tiles and score
-    epilogue, no selection, no output), in the order full, product,
-    product, full. The selection's share is the difference."""
-    from raft_tpu_torch.ops import _native
-    from raft_tpu_torch.ops import strip_scan as ss
+# a strip kernel's wrapper module, the module's launcher getter and the
+# symbol of its product-only instantiation (None where there is none)
+STRIP_LAUNCHERS = {
+    "strip_scan": ("strip_scan", "_kernel_fn", "raft_strip_scan_product"),
+    "bq_scan": ("bq_scan", "_kernel_fn", "raft_bq_scan_product"),
+    "paged_scan": ("strip_scan", "_paged_kernel_fn", None),
+    "paged_bq_scan": ("bq_scan", "_paged_kernel_fn",
+                      "raft_paged_bq_scan_product"),
+}
 
-    kernel_fn = ss._kernel_fn
-    full_fn = kernel_fn()
-    prod_fn = _native.load("strip_scan").raft_strip_scan_product
+
+def launcher_of(kernel):
+    """(wrapper module, launcher getter name, product-only symbol) of a
+    strip kernel."""
+    import importlib
+
+    mod, getter, product = STRIP_LAUNCHERS[kernel]
+    return importlib.import_module(f"raft_tpu_torch.ops.{mod}"), getter, \
+        product
+
+
+def product_loops(calls, kernel):
+    """The product loops (``"wgmma"``, ``"mma.sync"``) a packed kernel's
+    launches run at these class inputs, as each launch reports its own."""
+    from raft_tpu_torch.ops import bq_scan as bq
+
+    counter = {"bq_scan": bq.BQ_KERNEL,
+               "paged_bq_scan": bq.PAGED_BQ_KERNEL}[kernel]
+    wrapper = _kernel_pair(kernel)[0]
+    loops = set()
+    for c in calls:
+        wrapper(**c)
+        loops.add(counter.loop)
+    return sorted(loops)
+
+
+def check_wgmma(loops, nb, what):
+    """A packed code row of a multiple of 8 bytes runs the wgmma loop."""
+    if nb % 8 == 0 and loops != ["wgmma"]:
+        raise AssertionError(f"{what}: nb {nb} ran {loops}, not wgmma")
+
+
+def kernel_split(calls, phase, kernel="strip_scan", **info):
+    """A strip kernel's time at one search's class inputs split into
+    product and selection: the kernel, and the product-only instantiation
+    of the same template (the same plan, tiles and score epilogue, no
+    selection, no output), in the order full, product, product, full. The
+    selection's share is the difference."""
+    from raft_tpu_torch.ops import _native
+
+    mod, getter, product = launcher_of(kernel)
+    wrapper = _kernel_pair(kernel)[0]
+    saved = getattr(mod, getter)
+    full_fn = saved()
+    prod_fn = getattr(_native.load(kernel), product)
     prod_fn.argtypes, prod_fn.restype = full_fn.argtypes, full_fn.restype
     times = {"full": [], "product": []}
     for which in ("full", "product", "product", "full"):
         fn = full_fn if which == "full" else prod_fn
-        ss._kernel_fn = lambda fn=fn: fn
-        times[which].append(cuda_ms(lambda: [ss.strip_class(**c)
-                                             for c in calls]))
-    ss._kernel_fn = kernel_fn
+        setattr(mod, getter, lambda fn=fn: fn)
+        times[which].append(cuda_ms(lambda: [wrapper(**c) for c in calls]))
+    setattr(mod, getter, saved)
     full = sum(times["full"]) / 2
     product = sum(times["product"]) / 2
     out = {"full_ms": full, "product_ms": product,
@@ -919,8 +979,8 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "classes": [[c["w_blocks"] * 512, c["n_sub"],
                        int((c["strip_list"] >= 0).sum())] for c in calls],
           **timing})
-    k1_split(calls, "main.k1_split", kf=pick["k_fetch"], list_dtype="int8",
-             tournament=True)
+    kernel_split(calls, "main.k1_split", kf=pick["k_fetch"],
+                 list_dtype="int8", tournament=True)
     keep_for_ab(("strip_scan", f"main_int8_kf{pick['k_fetch']}"), calls)
     return {"launches": launches, "max_abs_err": max_err,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1035,11 +1095,16 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
     keep_for_ab(("bq_scan", f"bq_kf{pick['k_fetch']}"), calls)
     timing = kernel_timing(calls, "bq_scan", bq_library_yardstick,
                            index.code_bytes_per_row + 8)
+    loops = product_loops(calls, "bq_scan")
     emit({"phase": "bq.k2", "n_probes": pick["n_probes"],
-          "kf": pick["k_fetch"], "query_tile": qt,
+          "kf": pick["k_fetch"], "query_tile": qt, "loop": "/".join(loops),
           "strips": sum(int((c["strip_list"] >= 0).sum()) for c in calls),
           **timing})
+    check_wgmma(loops, index.code_bytes_per_row, "bq.k2")
+    kernel_split(calls, "bq.k2_split", "bq_scan", kf=pick["k_fetch"],
+                 n_probes=pick["n_probes"])
     return {"launches": launches, "max_abs_err": max_err,
+            "loop": "/".join(loops),
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}, (index, pick)
 
@@ -1113,8 +1178,8 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "classes": [[c["w_blocks"] * 512, c["n_sub"],
                        int((c["strip_list"] >= 0).sum())] for c in calls],
           **timing})
-    k1_split(calls, "flat.k1_split", kf=K, list_dtype="uint8",
-             tournament=False)
+    kernel_split(calls, "flat.k1_split", kf=K, list_dtype="uint8",
+                 tournament=False)
     keep_for_ab(("strip_scan", f"flat_uint8_kf{K}"), calls)
     return index, pick, (v, i)
 
@@ -1428,6 +1493,34 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
                                       "library_ms")}}
 
 
+def serve_codes_inputs(store, kind, qs, n_probes, kf, res):
+    """The per-class arguments a paged IVF-PQ (K3 over the int8 cache) or
+    IVF-BQ (K4 over the codes) search of ``store`` hands its kernel →
+    (calls, kernel name, payload bytes a row, query tile)."""
+    from raft_tpu_torch.neighbors import ivf_bq
+
+    snap = store.paged_scan_state()
+    l2 = store.metric in ("sqeuclidean", "euclidean")
+    if kind == "pq":
+        from raft_tpu_torch.neighbors import ivf_pq
+
+        probes, qr, _ = ivf_pq._pq_probe_prep(
+            qs.float(), store.centers, store.rotation, n_probes, "exact", l2)
+        a_rows, width, kernel = qr * store.decoded_scale, store._cache_dim, \
+            "paged_scan"
+    else:
+        probes, a_rows, _ = ivf_bq._bq_search_prep(
+            qs.float(), store.centers, store.rotation, n_probes, "exact", l2,
+            store.bq_bits, store.rotation_kind)
+        width, kernel = store.rotation.shape[0] * store.bq_bits, "paged_bq_scan"
+    q_tile = min(ivf_bq._paged_plan_static(store, n_probes, kf, res, width),
+                 qs.shape[0])
+    row_bytes = int(snap[0].shape[-1])
+    calls = paged_class_inputs(snap, probes, a_rows, kf, row_bytes, q_tile,
+                               -2.0 if l2 else -1.0, codes=kind == "bq")
+    return calls, kernel, row_bytes, q_tile
+
+
 def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
     """Paged IVF-PQ (K3 over the int8 cache) or IVF-BQ (K4 over the codes)
     on a store made from the path's packed index, at the path's chosen
@@ -1436,7 +1529,7 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
     import torch
 
     from raft_tpu_torch import Resources, serving
-    from raft_tpu_torch.neighbors import ivf_bq, refine
+    from raft_tpu_torch.neighbors import refine
     from raft_tpu_torch.ops import bq_scan as bq
     from raft_tpu_torch.ops import strip_scan as ss
     from raft_tpu_torch.stats.metrics import neighborhood_recall
@@ -1506,35 +1599,27 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
         raise AssertionError(f"paged {kind}: read-back {found}, {leaked} "
                              "deleted ids returned")
     # the path's kernel at its own class inputs
-    snap = store.paged_scan_state()
-    l2 = store.metric in ("sqeuclidean", "euclidean")
-    if kind == "pq":
-        from raft_tpu_torch.neighbors import ivf_pq
-
-        probes, qr, _ = ivf_pq._pq_probe_prep(
-            qs.float(), store.centers, store.rotation, n_probes, "exact", l2)
-        a_rows, width, kernel = qr * store.decoded_scale, store._cache_dim, \
-            "paged_scan"
-    else:
-        probes, a_rows, _ = ivf_bq._bq_search_prep(
-            qs.float(), store.centers, store.rotation, n_probes, "exact", l2,
-            store.bq_bits, store.rotation_kind)
-        width, kernel = store.rotation.shape[0] * store.bq_bits, "paged_bq_scan"
-    q_tile = min(ivf_bq._paged_plan_static(store, n_probes, kf, res, width), q)
-    row_bytes = int(snap[0].shape[-1])
-    calls = paged_class_inputs(snap, probes, a_rows, kf, row_bytes, q_tile,
-                               -2.0 if l2 else -1.0, codes=kind == "bq")
+    calls, kernel, row_bytes, q_tile = serve_codes_inputs(store, kind, qs,
+                                                          n_probes, kf, res)
     max_err = kernel_parity_at(calls, kernel,
                                f"serve_{kind}_nprobe{n_probes}_kf{kf}")
     keep_for_ab((kernel, f"serve_{kind}_kf{kf}"), calls)
     timing = kernel_timing(calls, kernel, paged_library_yardstick,
                            row_bytes + (8 if kind == "bq" else 4),
                            bound=paged_scan_bound)
+    loop = {}
+    if kind == "bq":
+        loops = product_loops(calls, kernel)
+        check_wgmma(loops, row_bytes, "serve.bq.k4")
+        loop = {"loop": "/".join(loops)}
     emit({"phase": f"serve.{kind}.{'k4' if kind == 'bq' else 'k3'}",
-          "n_probes": n_probes, "kf": kf,
+          "n_probes": n_probes, "kf": kf, **loop,
           "query_tile": q_tile, "strips": sum(
               int((c["strip_list"] >= 0).sum()) for c in calls), **timing})
-    return {"launches": launches, "max_abs_err": max_err,
+    if kind == "bq":
+        kernel_split(calls, "serve.bq.k4_split", "paged_bq_scan", kf=kf,
+                     n_probes=n_probes)
+    return {"launches": launches, "max_abs_err": max_err, **loop,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
 
@@ -2459,8 +2544,8 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "classes": [[c["w_blocks"] * 512, c["n_sub"],
                        int((c["strip_list"] >= 0).sum())] for c in calls],
           **timing})
-    k1_split(calls, "cagra.k1_split", kf=kf, list_dtype="float32",
-             tournament=False)
+    kernel_split(calls, "cagra.k1_split", kf=kf, list_dtype="float32",
+                 tournament=False)
     del calls
 
     def run(sp, stats=None):
@@ -2591,7 +2676,6 @@ def ab_phase(old_tree, shared, dev="cuda"):
     from raft_tpu_torch import Resources
     from raft_tpu_torch.neighbors import cagra
     from raft_tpu_torch.ops import _native
-    from raft_tpu_torch.ops import bq_scan as bq
     from raft_tpu_torch.ops import strip_scan as ss
 
     res = Resources(device=dev)
@@ -2600,11 +2684,6 @@ def ab_phase(old_tree, shared, dev="cuda"):
     keep_for_ab(("strip_scan", "cagra_fp32_kf129"), calls)
     out = Path(old_tree) / "raft_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
-    modules = {"strip_scan": ss, "bq_scan": bq, "paged_scan": ss,
-               "paged_bq_scan": bq}
-    getters = {"strip_scan": "_kernel_fn", "bq_scan": "_kernel_fn",
-               "paged_scan": "_paged_kernel_fn",
-               "paged_bq_scan": "_paged_kernel_fn"}
     old_fns, old_libs, cases = {}, {}, []
     for name in ("strip_scan", "bq_scan", "paged_scan", "paged_bq_scan"):
         src = Path(old_tree) / "raft_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
@@ -2615,7 +2694,8 @@ def ab_phase(old_tree, shared, dev="cuda"):
         emit({"phase": "ab.ptxas", "kernel": name,
               "old": _native.parse_ptxas(built.stdout + built.stderr),
               "new": _native.resource_usage(_native.CSRC / f"{name}.cu")})
-        new_fn = getattr(modules[name], getters[name])()
+        mod, getter, _ = launcher_of(name)
+        new_fn = getattr(mod, getter)()
         old_libs[name] = ctypes.CDLL(str(lib))
         old_fn = getattr(old_libs[name], new_fn.__name__)
         old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
@@ -2623,7 +2703,7 @@ def ab_phase(old_tree, shared, dev="cuda"):
     for key in [k for k in AB_INPUTS if isinstance(k, tuple)]:
         name, shape = key
         calls = AB_INPUTS[key]
-        mod, getter = modules[name], getters[name]
+        mod, getter, _ = launcher_of(name)
         old_fn, new_fn = old_fns[name]
         old_lib = old_libs[name]
         wrapper = _kernel_pair(name)[0]
@@ -2633,15 +2713,26 @@ def ab_phase(old_tree, shared, dev="cuda"):
             setattr(mod, getter, lambda fn=fn: fn)
             times.append([which, cuda_ms(lambda: [wrapper(**c)
                                                   for c in calls])])
-        setattr(mod, getter, lambda fn=new_fn: fn)
-        torch.cuda.synchronize()
+        # the two trees' results held as the parity phases hold a kernel
+        # against its twin: ids equal except at near-ties, values in rtol
+        verdicts = []
+        for c in calls:
+            setattr(mod, getter, lambda: old_fn)
+            old_out = wrapper(**c)
+            setattr(mod, getter, lambda: new_fn)
+            verdicts.append(compare(wrapper(**c), old_out, c["strip_list"],
+                                    c["strip_rows"]))
         old_ms = [t for w, t in times if w == "old"]
         new_ms = [t for w, t in times if w == "new"]
         cases.append({"kernel": name, "inputs": shape, "order": times,
                       "launches_per_search": len(calls),
                       "old_ms_mean": sum(old_ms) / 2,
                       "new_ms_mean": sum(new_ms) / 2,
-                      "new_over_old": sum(new_ms) / sum(old_ms)})
+                      "new_over_old": sum(new_ms) / sum(old_ms),
+                      "same_ids_but_near_ties": all(v["ok"] for v in verdicts),
+                      "id_mismatch_frac": max(v["id_mismatch_frac"]
+                                              for v in verdicts),
+                      "max_abs_err": max(v["max_abs_err"] for v in verdicts)})
         emit({"phase": "ab", **cases[-1]})
         if name == "strip_scan" and hasattr(old_lib,
                                             "raft_strip_scan_product"):
@@ -2696,15 +2787,57 @@ def ab_phase(old_tree, shared, dev="cuda"):
     return cases
 
 
-def k1_variants(specs):
-    """K1 built from other kernel source trees (``NAME=CSRC_DIR``, e.g. a
-    copy of ``raft_tpu_torch/ops/csrc`` with one change) against each
-    other at the three K1 shapes of the paths (IVF-PQ int8 kf 20, IVF-Flat
-    uint8 kf 10, the CAGRA build's first batch, fp32 kf 129): each tree's
-    ``strip_scan.cu`` is built by nvcc (its ptxas line printed), then the
-    kernel and its product-only instantiation are timed through this
-    tree's wrapper, in the order of the specs and back, and each tree's
-    output is compared bit for bit with the first tree's."""
+def variant_shapes(family, res):
+    """The class inputs ``strip_variants`` times, by shape name → (kernel,
+    calls): for ``"k1"`` the three K1 shapes of the paths (IVF-PQ int8 kf
+    20, IVF-Flat uint8 kf 10, the CAGRA build's first batch at fp32 kf
+    129); for ``"k2"`` K2 at the IVF-BQ path and K4 at the bq serving path,
+    both at the (n_probes, k_fetch) the IVF-BQ escalation picks
+    (``BQ_PICK``)."""
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.neighbors import cagra, ivf_bq, ivf_flat, ivf_pq
+
+    shared = shared_data()
+    dataset, qs = shared["dataset"], shared["queries"]
+    if family == "k1":
+        pq = ivf_pq.build(dataset, ivf_pq.IvfPqParams(
+            n_lists=N_LISTS, pq_dim=64, pq_bits=8,
+            kmeans_trainset_fraction=0.2), res=res)
+        ivf_pq.search(pq, qs[:100], 20, n_probes=16, backend="ragged",
+                      res=res)
+        flat = ivf_flat.build(dataset, ivf_flat.IvfFlatParams(
+            n_lists=N_LISTS, kmeans_trainset_fraction=0.2), res=res)
+        return {
+            "main_int8_kf20": ("strip_scan", main_path_class_inputs(
+                pq, qs, 16, 20, res)[0]),
+            "flat_uint8_kf10": ("strip_scan", flat_path_class_inputs(
+                flat, qs, 16, 10, res)[0]),
+            "cagra_fp32_kf129": ("strip_scan", cagra_k1_inputs(
+                dataset, cagra.CagraParams(intermediate_graph_degree=128,
+                                           graph_degree=64), res)[0])}
+    n_probes, kf = min(BQ_PICK[0], N_LISTS), BQ_PICK[1]
+    index = ivf_bq.build(dataset, ivf_bq.IvfBqParams(
+        n_lists=N_LISTS, kmeans_trainset_fraction=0.2), res=res)
+    store = serving.PagedListStore.from_index(
+        index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+    store.reserve(4 * UPSERT_ROWS)
+    return {f"bq_kf{kf}": ("bq_scan", bq_path_class_inputs(
+                index, qs, n_probes, kf, res)[0]),
+            f"serve_bq_kf{kf}": ("paged_bq_scan", serve_codes_inputs(
+                store, "bq", qs, n_probes, kf, res)[0])}
+
+
+def strip_variants(family, specs):
+    """Strip kernels built from other kernel source trees (``NAME=CSRC_DIR``,
+    e.g. a copy of ``raft_tpu_torch/ops/csrc`` with one change) against
+    each other at the paths' shapes (``variant_shapes``): K1 for ``"k1"``,
+    K2 and K4 for ``"k2"``. Each tree's sources are built by nvcc, all at
+    once (ptxas lines printed); then each kernel and its product-only
+    instantiation are timed through this tree's wrapper, in the order of
+    the specs and back, and each tree's output is compared bit for bit
+    with the first tree's. A tree whose library exports
+    ``raft_prof_reset`` / ``raft_prof_read`` / ``raft_prof_names`` (device
+    counters a variant adds) has them read over one run of each shape."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
@@ -2712,73 +2845,87 @@ def k1_variants(specs):
     import torch
 
     from raft_tpu_torch import Resources
-    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
     from raft_tpu_torch.ops import _native
-    from raft_tpu_torch.ops import strip_scan as ss
 
+    kernels = ["strip_scan"] if family == "k1" else ["bq_scan",
+                                                      "paged_bq_scan"]
     trees = dict(spec.split("=", 1) for spec in specs)
+    emit({"phase": "device", "nvidia_smi": nvidia_smi_card(),
+          "kind": torch.cuda.get_device_name(0)})
     _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     def build(item):
-        name, src = item
-        lib = _native.BUILD_DIR / f"libstrip_scan-variant-{name}.so"
+        name, kernel = item
+        lib = _native.BUILD_DIR / f"lib{kernel}-variant-{name}.so"
         done = subprocess.run(
             [_native.nvcc(), *_native.NVCC_FLAGS, *_native.PTXAS_FLAGS, "-o",
-             str(lib), str(Path(src) / "strip_scan.cu")], check=True,
+             str(lib), str(Path(trees[name]) / f"{kernel}.cu")], check=True,
             capture_output=True, text=True)
-        return name, lib, _native.parse_ptxas(done.stdout + done.stderr)
+        return name, kernel, lib, _native.parse_ptxas(done.stdout +
+                                                      done.stderr)
 
-    new_fn = ss._kernel_fn()
     fns = {}
-    with ThreadPoolExecutor(len(trees)) as pool:
-        for name, lib, usage in pool.map(build, trees.items()):
-            emit({"phase": "k1_variants.ptxas", "variant": name,
-                  "usage": usage})
+    jobs = [(n, k) for n in trees for k in kernels]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for name, kernel, lib, usage in pool.map(build, jobs):
+            emit({"phase": f"{family}_variants.ptxas", "variant": name,
+                  "kernel": kernel, "usage": usage})
+            mod, getter, product = launcher_of(kernel)
+            new_fn = getattr(mod, getter)()
             cdll = ctypes.CDLL(str(lib))
-            fns[name] = {}
-            for which, sym in (("full", "raft_strip_scan"),
-                               ("product", "raft_strip_scan_product")):
+            entry = {}
+            for which, sym in (("full", new_fn.__name__),
+                               ("product", product)):
                 fn = getattr(cdll, sym)
                 fn.argtypes, fn.restype = new_fn.argtypes, new_fn.restype
-                fns[name][which] = fn
+                entry[which] = fn
+            if hasattr(cdll, "raft_prof_read"):
+                cdll.raft_prof_names.restype = ctypes.c_char_p
+                entry["prof"] = cdll
+            fns[name, kernel] = entry
 
     res = Resources(device="cuda")
-    shared = shared_data()
-    dataset, qs = shared["dataset"], shared["queries"]
-    pq = ivf_pq.build(dataset, ivf_pq.IvfPqParams(
-        n_lists=N_LISTS, pq_dim=64, pq_bits=8, kmeans_trainset_fraction=0.2),
-        res=res)
-    ivf_pq.search(pq, qs[:100], 20, n_probes=16, backend="ragged", res=res)
-    flat = ivf_flat.build(dataset, ivf_flat.IvfFlatParams(
-        n_lists=N_LISTS, kmeans_trainset_fraction=0.2), res=res)
-    shapes = {"main_int8_kf20": main_path_class_inputs(pq, qs, 16, 20, res)[0],
-              "flat_uint8_kf10": flat_path_class_inputs(flat, qs, 16, 10,
-                                                        res)[0],
-              "cagra_fp32_kf129": cagra_k1_inputs(dataset, cagra.CagraParams(
-                  intermediate_graph_degree=128, graph_degree=64), res)[0]}
     names = list(trees)
-    for shape, calls in shapes.items():
+    for shape, (kernel, calls) in variant_shapes(family, res).items():
+        mod, getter, _ = launcher_of(kernel)
+        saved = getattr(mod, getter)
+        wrapper = _kernel_pair(kernel)[0]
+
+        def run_with(fn):
+            setattr(mod, getter, lambda: fn)
+            return [wrapper(**c) for c in calls]
+
         times = {n: {"full": [], "product": []} for n in names}
         for n in names + names[::-1]:
             for which in ("full", "product"):
-                ss._kernel_fn = lambda fn=fns[n][which]: fn
-                times[n][which].append(cuda_ms(
-                    lambda: [ss.strip_class(**c) for c in calls], reps=5))
-        outs = {}
+                fn = fns[n, kernel][which]
+                times[n][which].append(cuda_ms(lambda: run_with(fn), reps=5))
+        first = None
         for n in names:
-            ss._kernel_fn = lambda fn=fns[n]["full"]: fn
-            outs[n] = [ss.strip_class(**c) for c in calls]
+            outs = run_with(fns[n, kernel]["full"])
             torch.cuda.synchronize()
-            emit({"phase": "k1_variants", "inputs": shape, "variant": n,
-                  "full_ms": sum(times[n]["full"]) / 2,
-                  "product_ms": sum(times[n]["product"]) / 2,
-                  "same_as_first": all(
-                      same_rows(got, want, c["strip_list"], c["strip_rows"])
-                      for got, want, c in zip(outs[n], outs[names[0]],
-                                              calls)),
-                  "order": times[n]})
-        del outs
-        ss._kernel_fn = lambda: new_fn
+            first = first or outs
+            line = {"phase": f"{family}_variants", "inputs": shape,
+                    "kernel": kernel, "variant": n,
+                    "full_ms": sum(times[n]["full"]) / 2,
+                    "product_ms": sum(times[n]["product"]) / 2,
+                    "same_as_first": all(
+                        same_rows(got, want, c["strip_list"], c["strip_rows"])
+                        for got, want, c in zip(outs, first, calls)),
+                    "order": times[n]}
+            prof = fns[n, kernel].get("prof")
+            if prof is not None:
+                names_ = prof.raft_prof_names().decode().split(",")
+                buf = (ctypes.c_ulonglong * len(names_))()
+                prof.raft_prof_reset()
+                run_with(fns[n, kernel]["full"])
+                torch.cuda.synchronize()
+                prof.raft_prof_read(buf, len(names_))
+                line["counters"] = dict(zip(names_, list(buf)))
+            emit(line)
+            del outs
+        del first
+        setattr(mod, getter, saved)
     return 0
 
 
@@ -2841,12 +2988,18 @@ def main() -> int:
                     help="time K1 built from these kernel source trees "
                          "against each other at the paths' K1 shapes, then "
                          "stop")
+    ap.add_argument("--k2-variants", nargs="+", metavar="NAME=CSRC_DIR",
+                    help="time K2 and K4 built from these kernel source "
+                         "trees against each other at the IVF-BQ and bq "
+                         "serving paths' shapes, then stop")
     ap.add_argument("--lut-child", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.lut_child:
         return lut_child(*args.lut_child)
     if args.k1_variants:
-        return k1_variants(args.k1_variants)
+        return strip_variants("k1", args.k1_variants)
+    if args.k2_variants:
+        return strip_variants("k2", args.k2_variants)
 
     import torch
 
@@ -2855,10 +3008,7 @@ def main() -> int:
         return 1
     from raft_tpu_torch.ops import _native
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = nvidia_smi_card()
     print(card, flush=True)
     emit({"phase": "device", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -43,13 +43,28 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 @dataclass
 class KernelCounter:
-    """Launch count of one hand-written kernel (a plain integer)."""
+    """Launch count of one hand-written kernel (a plain integer) and, for a
+    kernel with more than one product loop, the loop its last launch ran
+    (``"wgmma"`` or ``"mma.sync"``; empty until it launched)."""
 
     name: str
     launches: int = 0
+    loop: str = ""
 
     def reset(self) -> None:
         self.launches = 0
+        self.loop = ""
+
+
+PRODUCT_LOOPS = ("mma.sync", "wgmma")
+
+
+def last_loop(name: str) -> str:
+    """The product loop of the last launch from ``csrc/<name>.cu``'s
+    library, as its ``raft_<name>_loop`` entry reports it."""
+    fn = getattr(load(name), f"raft_{name}_loop")
+    fn.restype = ctypes.c_int
+    return PRODUCT_LOOPS[fn()]
 
 
 def sources() -> List[Path]:

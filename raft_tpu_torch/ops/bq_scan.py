@@ -185,6 +185,7 @@ def _bq_class_cuda(strip_list, a, list_codes, scale, bias, w_blocks: int,
     if rc != 0:
         raise RuntimeError(f"bq_scan kernel launch failed: CUDA error {rc}")
     BQ_KERNEL.launches += 1
+    BQ_KERNEL.loop = _native.last_loop("bq_scan")
     return out_v, out_e
 
 
@@ -346,6 +347,7 @@ def _paged_bq_class_cuda(strip_list, table_flat, chain_pages, sub_live, a,
         raise RuntimeError(
             f"paged_bq_scan kernel launch failed: CUDA error {rc}")
     PAGED_BQ_KERNEL.launches += 1
+    PAGED_BQ_KERNEL.loop = _native.last_loop("paged_bq_scan")
     return out_v, out_e
 
 

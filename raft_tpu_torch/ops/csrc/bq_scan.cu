@@ -25,36 +25,44 @@
 // (kf 40-320) the (S, C, kf) value and offset writes can outweigh the
 // products. chip_smoke.py computes the bound from each search's inputs.
 //
-// What the design does about it. The product loop, tiling and selection
-// are K1's: one block of 256 threads per strip and 32 query rows, mma.sync
-// bf16 over 128-column x 64-dim tiles. Only the staging of B differs: each
-// tile is expanded from the packed bytes straight into the bf16 shared
-// tile. When nb is a multiple of 8, every aligned 8-column group of a
-// 64-column chunk lies in one bit plane over 8 consecutive bytes, so a
-// thread fetches 8 bytes (held in registers while the current tile
-// multiplies) and writes 8 bf16 +-1 with one 16-byte store. Other widths
-// (rot_dim 40: nb 5) take a scalar path, one byte per column, zero past
-// the contraction width. Next steps (later PRs): K1's, plus a popcount
-// formulation for bits = 1.
+// What the design does about it. The block, tiling and selection are K1's
+// (one block of 256 threads per strip and 32 query rows, two blocks a SM).
+// The time went to the selection (two thirds of the kernel at kf 80: a
+// radix fold cost ~14.5k cycles, its histogram atomics serializing) and,
+// in the product, to staging the expanded +-1 tile through shared memory
+// with two barriers a chunk. So: (1) the product runs on wgmma with the
+// list operand in registers (strip_kernel_wg, register-A form): each
+// thread's fragment rows are the two list columns its accumulators hold,
+// so it reads their code bytes (8 a chunk, one chunk ahead) and turns
+// two bits into two bf16 +-1 per register, contracting over the dims in
+// byte-major order (position 8 r + j is bit j of byte r; the query rows
+// are staged once a block in that order); the product has no shared tile
+// and no barrier. (2) The selection's fold merges a row's queue into its
+// sorted carry with bitonic networks in one warp's registers
+// (strip_common.cuh). A +-1 tile expanded into wgmma's swizzled shared
+// operand was built and measured first: its product kept the staging
+// (PERF.md). Widths that are not a multiple of 8 bytes (rot_dim 40: nb 5)
+// keep strip_kernel's mma.sync loop with a scalar staging, one byte per
+// column, zero past the contraction width; raft_bq_scan_loop reports which
+// loop the last launch ran. Next steps (later PRs): the idle blocks of the
+// worst-case strip layout, and the epilogue's queue appends.
 
 // The list side (PackedSrc) lives in packed_src.cuh, shared with K4; this
 // file holds K2's entry point over the packed lists (ListAddr).
 
 #include "packed_src.cuh"
 
-// Launch K2 for one length class on `stream`: `codes` (n_lists, m, nb)
-// uint8, `a` (s_pad, c, 8 * nb) bf16, `scale` and `bias` (n_lists, m) fp32.
-// `strip_rows` may be null (all c rows are real). Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for shapes the kernel does not
-// take). Allocates nothing; outputs of padding strips and empty rows are
-// left unwritten.
-extern "C" int raft_bq_scan(const void* strip_list, const void* strip_rows,
-                            const void* sub_live, const void* a,
-                            const void* codes, const void* scale,
-                            const void* bias, void* out_v, void* out_e,
-                            int s_pad, int c, int nb, int m, int w, int n_sub,
-                            int kf, float alpha, int tournament,
-                            void* stream) {
+namespace {
+
+// K2's launch for one length class: the parameters, the plan, the
+// instantiation of `kSelect`
+template <bool kSelect>
+int bq_scan_launch(const void* strip_list, const void* strip_rows,
+                   const void* sub_live, const void* a, const void* codes,
+                   const void* scale, const void* bias, void* out_v,
+                   void* out_e, int s_pad, int c, int nb, int m, int w,
+                   int n_sub, int kf, float alpha, int tournament,
+                   void* stream) {
   if (s_pad <= 0) return (int)cudaSuccess;
   if (nb < 1) return (int)cudaErrorInvalidValue;
   Params p{};
@@ -79,6 +87,48 @@ extern "C" int raft_bq_scan(const void* strip_list, const void* strip_rows,
   p.paged = 0;
   const size_t smem = plan_launch(p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_packed<ListAddr>(p, s_pad, smem,
-                                      static_cast<cudaStream_t>(stream));
+  return (int)launch_packed<ListAddr, kSelect>(
+      p, s_pad, smem, static_cast<cudaStream_t>(stream));
 }
+
+}  // namespace
+
+// Launch K2 for one length class on `stream`: `codes` (n_lists, m, nb)
+// uint8, `a` (s_pad, c, 8 * nb) bf16, `scale` and `bias` (n_lists, m) fp32.
+// `strip_rows` may be null (all c rows are real). Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for shapes the kernel does not
+// take). Allocates nothing; outputs of padding strips and empty rows are
+// left unwritten.
+extern "C" int raft_bq_scan(const void* strip_list, const void* strip_rows,
+                            const void* sub_live, const void* a,
+                            const void* codes, const void* scale,
+                            const void* bias, void* out_v, void* out_e,
+                            int s_pad, int c, int nb, int m, int w, int n_sub,
+                            int kf, float alpha, int tournament,
+                            void* stream) {
+  return bq_scan_launch<true>(strip_list, strip_rows, sub_live, a, codes,
+                              scale, bias, out_v, out_e, s_pad, c, nb, m, w,
+                              n_sub, kf, alpha, tournament, stream);
+}
+
+// The same launch with the product-only instantiation: the same plan, tiles
+// and score epilogue, no selection; the outputs are left unwritten. It
+// exists to split K2's time into product and selection (chip_smoke.py).
+extern "C" int raft_bq_scan_product(const void* strip_list,
+                                    const void* strip_rows,
+                                    const void* sub_live, const void* a,
+                                    const void* codes, const void* scale,
+                                    const void* bias, void* out_v,
+                                    void* out_e, int s_pad, int c, int nb,
+                                    int m, int w, int n_sub, int kf,
+                                    float alpha, int tournament,
+                                    void* stream) {
+  return bq_scan_launch<false>(strip_list, strip_rows, sub_live, a, codes,
+                               scale, bias, out_v, out_e, s_pad, c, nb, m, w,
+                               n_sub, kf, alpha, tournament, stream);
+}
+
+// The product loop of this library's last launch: 1 strip_kernel_wg (wgmma),
+// 0 strip_kernel (mma.sync), -1 before the first launch. Host state, read by
+// the wrapper after each launch (K2's plan picks the loop per shape).
+extern "C" int raft_bq_scan_loop(void) { return g_loop; }

@@ -1,7 +1,9 @@
 // List side of K2 (bq_scan.cu) and K4 (paged_bq_scan.cu): rows of nb packed
-// code bytes, expanded to 8 * nb columns of +-1 (exact in bf16) straight into
-// the bf16 shared tile of strip_kernel (strip_common.cuh), in the JAX
-// package's bit-plane-major order: column j * nb + r is bit j of byte r.
+// code bytes, 8 * nb columns of +-1 (exact in bf16) in the JAX package's
+// bit-plane-major order: column j * nb + r is bit j of byte r. For
+// strip_kernel_wg (nb a multiple of 8) it supplies wgmma's A fragments from
+// registers (kRegA: chunk, frag, a_dim); for strip_kernel's mma.sync loop
+// it expands each tile into the bf16 shared tile (Vec, stage_scalar).
 
 #pragma once
 
@@ -17,12 +19,68 @@ __device__ __forceinline__ uint16_t pm1(uint32_t byte, int bit) {
   return ((byte >> bit) & 1u) ? kPlusOne : kMinusOne;
 }
 
+// bits 0 and 1 of x as two bf16 +-1 (low half from bit 0)
+__device__ __forceinline__ uint32_t pm1x2(uint32_t x) {
+  return 0xBF80BF80u ^ ((x & 1u) << 15) ^ ((x & 2u) << 30);
+}
+
+// bit `bit` of each of 8 code bytes as 8 bf16 +-1 (16 bytes): -1 is 0xBF80,
+// and a set bit clears its sign (bit 15 of each half)
+__device__ __forceinline__ uint4 expand8(uint2 v, int bit) {
+  const uint32_t lo = (v.x >> bit) & 0x01010101u;  // bits at 0, 8, 16, 24
+  const uint32_t hi = (v.y >> bit) & 0x01010101u;
+  constexpr uint32_t kM = 0xBF80BF80u;
+  return make_uint4(
+      kM ^ ((lo << 15) & 0x8000u) ^ ((lo << 23) & 0x80000000u),
+      kM ^ ((lo >> 1) & 0x8000u) ^ ((lo << 7) & 0x80000000u),
+      kM ^ ((hi << 15) & 0x8000u) ^ ((hi << 23) & 0x80000000u),
+      kM ^ ((hi >> 1) & 0x8000u) ^ ((hi << 7) & 0x80000000u));
+}
+
 // strip_kernel's list side: the packed rows, scaled per row. Row r of a
 // chunk is column ct + r of the sub-block, read from code row
 // ad.row(ct + r); a column the address policy lacks reads as zero bytes
 // (its score is masked in the epilogue).
 struct PackedSrc {
   static constexpr bool kScaled = true;
+  static constexpr int kAlign = 8;  // bytes: the Vec path's loads
+
+  // strip_kernel_wg builds the list operand in registers (kRegA) and
+  // contracts over the dims in byte-major order: position 8 * r + j of the
+  // product is bit j of code byte r, column j * nb + r of the query block
+  static constexpr bool kRegA = true;
+  static __device__ __forceinline__ int a_dim(const Params& p, int pos) {
+    return (pos & 7) * p.nb + (pos >> 3);
+  }
+  // the 8 code bytes of chunk kc (product positions 64 kc ..) of columns
+  // col and col + 8, zeros where the address policy lacks the column
+  template <class Addr>
+  static __device__ __forceinline__ void chunk(const Params& p,
+                                               const Addr& ad, int col,
+                                               int kc, uint2 (&v)[2]) {
+    const uint8_t* codes = static_cast<const uint8_t*>(p.b);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = col + 8 * h;
+      v[h] = ad.has(c) ? *reinterpret_cast<const uint2*>(
+                             codes + ad.row(c) * p.nb + kc * 8)
+                       : make_uint2(0u, 0u);
+    }
+  }
+  // the A fragment of k-step ks of a chunk (code bytes 2 ks, 2 ks + 1):
+  // rows g, g + 8 are the two columns, k 2 t4 .. + 1 bits 2 t4 .. + 1 of
+  // byte 2 ks and k 2 t4 + 8 .. + 9 the same bits of byte 2 ks + 1, each
+  // pair as two bf16 +-1
+  static __device__ __forceinline__ void frag(const uint2 (&v)[2], int ks,
+                                              int t4, uint32_t (&a)[4]) {
+    const int sh = 16 * (ks & 1) + 2 * t4;
+    const uint32_t w0 = ks < 2 ? v[0].x : v[0].y;
+    const uint32_t w1 = ks < 2 ? v[1].x : v[1].y;
+    a[0] = pm1x2(w0 >> sh);
+    a[1] = pm1x2(w1 >> sh);
+    a[2] = pm1x2(w0 >> (sh + 8));
+    a[3] = pm1x2(w1 >> (sh + 8));
+  }
   struct Vec {  // nb % 8 == 0: 8 groups of 8 columns per chunk row
     static constexpr int kN = kTC * (kDKC / 8) / kThreads;
     uint2 r[kN];
@@ -51,18 +109,14 @@ struct PackedSrc {
         }
       }
     }
+    // into strip_kernel's padded tile
     __device__ void store(const Params& p, __nv_bfloat16* bs, int dk,
                           int tid) const {
 #pragma unroll
       for (int i = 0; i < kN; ++i) {
         const int idx = tid + i * kThreads, row = idx >> 3, part = idx & 7;
-        const int bit = (dk + part * 8) / p.nb;
-        const uint8_t* v = reinterpret_cast<const uint8_t*>(&r[i]);
-        __align__(16) uint16_t o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = pm1(v[e], bit);
         *reinterpret_cast<uint4*>(bs + row * kST + part * 8) =
-            *reinterpret_cast<const uint4*>(o);
+            expand8(r[i], (dk + part * 8) / p.nb);
       }
     }
   };
@@ -83,14 +137,19 @@ struct PackedSrc {
   }
 };
 
-// The packed kernels' launch: 8-byte staging needs whole 8-column groups in
-// one plane and an aligned code block.
-template <class Addr>
+// The packed kernels' launch for a planned shape: strip_kernel_wg where its
+// plan fits (nb a multiple of 8, 32 rows a block, aligned blocks), else
+// strip_kernel, whose 8-byte staging needs the same whole 8-column groups
+// in one plane and whose scalar staging takes any width. kSelect = false is
+// the product-only instantiation.
+template <class Addr, bool kSelect = true>
 cudaError_t launch_packed(const Params& p, int s_pad, size_t smem,
                           cudaStream_t st) {
+  if (const size_t ws = plan_wg<PackedSrc>(p))
+    return launch_wg<PackedSrc, Addr, kSelect>(p, s_pad, ws, st);
   if (p.nb % 8 == 0 && reinterpret_cast<uintptr_t>(p.b) % 8 == 0)
-    return launch<PackedSrc, Addr, true>(p, s_pad, smem, st);
-  return launch<PackedSrc, Addr, false>(p, s_pad, smem, st);
+    return launch<PackedSrc, Addr, true, kSelect>(p, s_pad, smem, st);
+  return launch<PackedSrc, Addr, false, kSelect>(p, s_pad, smem, st);
 }
 
 }  // namespace

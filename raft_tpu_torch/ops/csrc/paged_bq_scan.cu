@@ -21,27 +21,26 @@
 // chip_smoke.py computes the bound from each search's live columns.
 //
 // What the design does about it: K3's paged walk (PagedAddr, only the tiles
-// that hold live pages) with K2's staging (PackedSrc, 8 code bytes per
-// thread expanded to 8 bf16 +-1 with one 16-byte store when nb % 8 == 0).
+// that hold live pages) with K2's list side (PackedSrc): the product on
+// wgmma with the +-1 fragments built in registers from each thread's own
+// columns' code bytes (read through the page table) when nb % 8 == 0, and
+// the sorted-carry selection; other widths keep the mma.sync loop.
 
 #include "packed_src.cuh"
 
-// Launch K4 for the paged class on `stream`: `a` (s_pad, c, 8 * nb) bf16,
-// `codes` (cap_pages, page_rows, nb) uint8, `scale_pool` and `bias_pool`
-// (cap_pages, page_rows) fp32, `table`, `chain`, `sub_live` as K3's.
-// `strip_rows` may be null. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes the kernel does not take). Allocates
-// nothing; outputs of padding strips and empty rows are left unwritten.
-extern "C" int raft_paged_bq_scan(const void* strip_list,
-                                  const void* strip_rows, const void* table,
-                                  const void* chain, const void* sub_live,
-                                  const void* a, const void* codes,
-                                  const void* scale_pool,
-                                  const void* bias_pool, void* out_v,
-                                  void* out_e, int s_pad, int c, int nb,
-                                  int page_rows, int table_width, int ppf,
-                                  int n_sub, int kf, float alpha,
-                                  void* stream) {
+namespace {
+
+// K4's launch for the paged class: the parameters, the plan, the
+// instantiation of `kSelect`
+template <bool kSelect>
+int paged_bq_scan_launch(const void* strip_list, const void* strip_rows,
+                         const void* table, const void* chain,
+                         const void* sub_live, const void* a,
+                         const void* codes, const void* scale_pool,
+                         const void* bias_pool, void* out_v, void* out_e,
+                         int s_pad, int c, int nb, int page_rows,
+                         int table_width, int ppf, int n_sub, int kf,
+                         float alpha, void* stream) {
   if (s_pad <= 0) return (int)cudaSuccess;
   if (nb < 1) return (int)cudaErrorInvalidValue;
   Params p{};
@@ -71,6 +70,49 @@ extern "C" int raft_paged_bq_scan(const void* strip_list,
   p.ppf = ppf;
   const size_t smem = plan_launch(p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_packed<PagedAddr>(p, s_pad, smem,
-                                       static_cast<cudaStream_t>(stream));
+  return (int)launch_packed<PagedAddr, kSelect>(
+      p, s_pad, smem, static_cast<cudaStream_t>(stream));
 }
+
+}  // namespace
+
+// Launch K4 for the paged class on `stream`: `a` (s_pad, c, 8 * nb) bf16,
+// `codes` (cap_pages, page_rows, nb) uint8, `scale_pool` and `bias_pool`
+// (cap_pages, page_rows) fp32, `table`, `chain`, `sub_live` as K3's.
+// `strip_rows` may be null. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for shapes the kernel does not take). Allocates
+// nothing; outputs of padding strips and empty rows are left unwritten.
+extern "C" int raft_paged_bq_scan(const void* strip_list,
+                                  const void* strip_rows, const void* table,
+                                  const void* chain, const void* sub_live,
+                                  const void* a, const void* codes,
+                                  const void* scale_pool,
+                                  const void* bias_pool, void* out_v,
+                                  void* out_e, int s_pad, int c, int nb,
+                                  int page_rows, int table_width, int ppf,
+                                  int n_sub, int kf, float alpha,
+                                  void* stream) {
+  return paged_bq_scan_launch<true>(
+      strip_list, strip_rows, table, chain, sub_live, a, codes, scale_pool,
+      bias_pool, out_v, out_e, s_pad, c, nb, page_rows, table_width, ppf,
+      n_sub, kf, alpha, stream);
+}
+
+// The same launch with the product-only instantiation (no selection, the
+// outputs left unwritten), to split K4's time (chip_smoke.py).
+extern "C" int raft_paged_bq_scan_product(
+    const void* strip_list, const void* strip_rows, const void* table,
+    const void* chain, const void* sub_live, const void* a,
+    const void* codes, const void* scale_pool, const void* bias_pool,
+    void* out_v, void* out_e, int s_pad, int c, int nb, int page_rows,
+    int table_width, int ppf, int n_sub, int kf, float alpha, void* stream) {
+  return paged_bq_scan_launch<false>(
+      strip_list, strip_rows, table, chain, sub_live, a, codes, scale_pool,
+      bias_pool, out_v, out_e, s_pad, c, nb, page_rows, table_width, ppf,
+      n_sub, kf, alpha, stream);
+}
+
+// The product loop of this library's last launch: 1 strip_kernel_wg (wgmma),
+// 0 strip_kernel (mma.sync), -1 before the first launch. Host state, read by
+// the wrapper after each launch (K4's plan picks the loop per shape).
+extern "C" int raft_paged_bq_scan_loop(void) { return g_loop; }

@@ -16,35 +16,47 @@
 // the list arrays (an address policy `Addr`, below: the identity for the
 // packed lists of K1/K2, a page-table walk for the paged pools of K3/K4). This
 // header holds everything else once: the packed-key selection (order keys,
-// the per-row threshold filter and candidate queue, the radix k-th key
-// search, the ballot compaction, the per-row carry fold, the rank placement,
-// the sub-block merge), the mma.sync product loop and the launch plan. A
-// kernel source picks its policies and supplies its extern "C" entry point.
-// K1 and K3 run their own product loop on wgmma wherever its plan fits
-// (strip_kernel_wg, dense_src.cuh), with this selection.
+// the per-row threshold filter and candidate queue, the sorted carry and its
+// bitonic fold, the sub-block merge), the two product loops and the launch
+// plan. A kernel source picks its policies and supplies its extern "C"
+// entry points.
+//
+// The product loops. strip_kernel_wg (below) runs the product on wgmma,
+// taken transposed (the list tile is the M side, 64 columns a warpgroup,
+// against the block's 32 query rows), wherever its plan fits (plan_wg: 32
+// rows a block, whole 64-dim chunks). Its list operand comes from the
+// list-side policy: a dense source converts each tile into a 128-byte
+// swizzled shared tile (two barriers a chunk); the packed source builds the
+// A fragments in registers straight from the code bytes each thread reads
+// for its own two columns, so its product has no shared tile and no
+// barrier. strip_kernel's mma.sync loop takes every other shape (dims not a
+// multiple of 64, rows a block shrunk by a large kf's shared memory).
 //
 // The selection. Each row keeps a threshold tau, its carry's kf-th key
 // (kNoKey until the carry holds kf real keys). The epilogue of a column tile
 // keeps only the keys below tau: without the tournament it appends them to
-// the row's shared candidate queue (positions from a quad prefix sum and one
-// shared atomic per quad); a fold - the kf smallest of carry and queue, by a
-// radix select on 8-bit digits (4 histogram passes in shared memory) and a
-// ballot compaction - runs only when the next tile could overflow the queue,
-// and at the end of the sub-block. A fold costs the block far more than a
-// tile's filtering (a warp's dependent chain while the others wait at the
-// next barrier), so the queue is long: 512 keys a row up to kf 32, 256
-// above (where the carry takes the room). Within a sub-block a row's packed
-// keys are distinct (the column rides the low 12 bits), so a key >= tau
-// could never enter the top-kf and dropping it changes nothing. With the tournament the
-// column tile holds each bin once, so the thread that owns a column owns its
-// (row, bin) slot of the pool for the whole sub-block: it inserts the key in
-// place when it is below the bin's 4th key, with no queue, no fold and no
-// barrier. A product-only instantiation (kSelect = false) runs the same
-// product and score epilogue without any of this, so that the split of the
-// kernel's time can be measured; no search launches it.
+// the row's shared candidate queue (positions from a prefix sum over the
+// lanes that share the row and one shared atomic per row and warp). The
+// carry is the row's smallest keys so far, sorted. A fold - when the next
+// tile could overflow the queue, and at the end of the sub-block - merges
+// the queue into it 128 keys at a time in one warp's registers: a bitonic
+// sort of the chunk, then against each 128-key window of the carry the
+// half-cleaner of the bitonic sequence (window, chunk) keeps the minima as
+// the window (bitonic merge) and passes the maxima on. No histogram, no
+// atomic and no rank search: tau and the row's output are read straight off
+// the sorted carry. Within a sub-block a row's packed keys are distinct
+// (the column rides the low 12 bits), so a key >= tau could never enter the
+// top-kf and dropping it changes nothing. With the tournament the column
+// tile holds each bin once, so the thread that owns a column owns its (row,
+// bin) slot of the pool for the whole sub-block: it inserts the key in place
+// when it is below the bin's 4th key, with no queue and no mid-walk fold; the
+// last fold merges the pool into a sorted top. A product-only instantiation
+// (kSelect = false) runs the same product and score epilogue without any of
+// this, so that the split of the kernel's time can be measured; no search
+// launches it.
 //
-// The design, and what bounds it, is described in strip_scan.cu (K1) and
-// paged_scan.cu (the paged walk).
+// The design, and what bounds it, is described in strip_scan.cu (K1),
+// bq_scan.cu (K2) and paged_scan.cu (the paged walk).
 
 #pragma once
 
@@ -67,7 +79,6 @@ constexpr uint32_t kNoKey = 0xFFFFFFFFu;  // above every packed key
 constexpr int kMaxKf = 512;
 constexpr int kMaxRows = 32;
 constexpr int kMaxQueue = 512;        // widest per-row candidate queue
-constexpr int kRadix = 256;           // bins of one radix-select pass
 constexpr size_t kSmemLimit = 225 * 1024;
 
 struct Params {
@@ -148,6 +159,18 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// ---- the 128-byte swizzled layout of the wgmma operands ------------------
+// Rows of 64 bf16 (128 bytes), 8-row atoms of 1024 bytes; 16-byte chunk c of
+// row r lies at r*128 + ((c ^ (r & 7)) << 4) from a 1024-aligned base.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
 // The strip's query rows, all dims, once per block: rows >= nr and dims >=
 // dim are zero; row stride dim_pad + 8 keeps the fragment loads
 // conflict-free.
@@ -162,106 +185,124 @@ __device__ void stage_a(__nv_bfloat16* as, const __nv_bfloat16* A, int rows_p,
 }
 
 // ---- per-row selection helpers (one warp per row) -------------------------
+// A warp holds 128 keys in registers, 4 a lane, lane-major (key i is k[i %
+// 4] of lane i / 4), and sorts or merges them with bitonic networks: a
+// stage whose partners lie within a lane swaps registers, one whose
+// partners lie in another lane exchanges them with a shuffle.
 
-// add the keys of a[0..n) whose bits under `mask` equal `prefix` to the
-// histogram of their digit at `shift` (shared atomics: the warp's lanes that
-// hold one digit serialize on one address, which costs less than grouping
-// them first)
-__device__ void radix_count(const uint32_t* a, int n, uint32_t prefix,
-                            uint32_t mask, int shift, uint32_t* hist,
-                            int lane) {
-  for (int i = lane; i < n; i += 32) {
-    const uint32_t k = a[i];
-    if ((k & mask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
+// one compare-exchange stage of a bitonic network over the warp's 128 keys:
+// partners i and i ^ j; the run of kk keys that holds i is sorted ascending
+// when bit kk of i is clear (descending with kDesc)
+template <int kk, int j, bool kDesc>
+__device__ __forceinline__ void bitonic_stage(uint32_t (&k)[4], int lane) {
+  if constexpr (j >= 4) {
+    const int i0 = lane * 4;  // bits j and kk of i are lane bits
+    const bool asc = ((i0 & kk) == 0) != kDesc;
+    const bool low = (i0 & j) == 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t y = __shfl_xor_sync(0xffffffffu, k[e], j >> 2);
+      k[e] = (low == asc) ? min(k[e], y) : max(k[e], y);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e & j) continue;
+      const int i = lane * 4 + e;
+      const bool asc = ((i & kk) == 0) != kDesc;
+      const uint32_t x = k[e], y = k[e | j];
+      k[e] = asc ? min(x, y) : max(x, y);
+      k[e | j] = asc ? max(x, y) : min(x, y);
+    }
   }
 }
 
-// the kf-th smallest of the keys in a[0..na) and b[0..nb) (1 <= kf <= na +
-// nb), by a radix select on 8-bit digits from the top: each pass counts the
-// digit of the keys that share the prefix found so far and descends into the
-// bin that holds the kf-th. Exact when the keys are distinct.
-__device__ uint32_t radix_kth(const uint32_t* a, int na, const uint32_t* b,
-                              int nb, int kf, uint32_t* hist, int lane) {
-  uint32_t prefix = 0u, mask = 0u;
-  uint32_t rank = (uint32_t)kf;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = lane; i < kRadix; i += 32) hist[i] = 0u;
-    __syncwarp();
-    radix_count(a, na, prefix, mask, shift, hist, lane);
-    radix_count(b, nb, prefix, mask, shift, hist, lane);
-    __syncwarp();
-    // lane l sums bins 8l .. 8l + 7; a warp scan finds the bin of rank
-    uint32_t h[8], sum = 0u;
+// the 128 keys sorted (ascending, or descending with kDesc)
+template <bool kDesc>
+__device__ __forceinline__ void bitonic_sort(uint32_t (&k)[4], int lane) {
+#define RAFT_SORT_RUN(kk)                                       \
+  if constexpr (kk >= 128) bitonic_stage<kk, 64, kDesc>(k, lane); \
+  if constexpr (kk >= 64) bitonic_stage<kk, 32, kDesc>(k, lane);  \
+  if constexpr (kk >= 32) bitonic_stage<kk, 16, kDesc>(k, lane);  \
+  if constexpr (kk >= 16) bitonic_stage<kk, 8, kDesc>(k, lane);   \
+  if constexpr (kk >= 8) bitonic_stage<kk, 4, kDesc>(k, lane);    \
+  if constexpr (kk >= 4) bitonic_stage<kk, 2, kDesc>(k, lane);    \
+  bitonic_stage<kk, 1, kDesc>(k, lane);
+  RAFT_SORT_RUN(2)
+  RAFT_SORT_RUN(4)
+  RAFT_SORT_RUN(8)
+  RAFT_SORT_RUN(16)
+  RAFT_SORT_RUN(32)
+  RAFT_SORT_RUN(64)
+  RAFT_SORT_RUN(128)
+#undef RAFT_SORT_RUN
+}
+
+// a bitonic sequence of 128 keys sorted (ascending, or descending)
+template <bool kDesc>
+__device__ __forceinline__ void bitonic_merge(uint32_t (&k)[4], int lane) {
+  bitonic_stage<256, 64, kDesc>(k, lane);
+  bitonic_stage<256, 32, kDesc>(k, lane);
+  bitonic_stage<256, 16, kDesc>(k, lane);
+  bitonic_stage<256, 8, kDesc>(k, lane);
+  bitonic_stage<256, 4, kDesc>(k, lane);
+  bitonic_stage<256, 2, kDesc>(k, lane);
+  bitonic_stage<256, 1, kDesc>(k, lane);
+}
+
+// 4 keys a lane of a[i0 ..), kNoKey at or past n (a is 16-byte aligned and
+// readable up to the next multiple of 4 past n)
+__device__ __forceinline__ void load4(const uint32_t* a, int i0, int n,
+                                      uint32_t (&k)[4]) {
+  uint4 v = make_uint4(kNoKey, kNoKey, kNoKey, kNoKey);
+  if (i0 < n) v = *reinterpret_cast<const uint4*>(a + i0);
+  k[0] = v.x;
+  k[1] = i0 + 1 < n ? v.y : kNoKey;
+  k[2] = i0 + 2 < n ? v.z : kNoKey;
+  k[3] = i0 + 3 < n ? v.w : kNoKey;
+}
+
+// Merge the keys src[0..n) (any order, distinct) into top[0..top_w), the
+// top_w smallest keys seen so far in ascending order (kNoKey where fewer):
+// 128 keys at a time, sorted descending; against each 128-key window of
+// top (ascending), the elementwise minima are the window's new keys and the
+// maxima, all above them, carry on to the next window (the half-cleaner of
+// the bitonic sequence window | chunk). top_w is a multiple of 4.
+__device__ void merge_sorted(uint32_t* top, int top_w, const uint32_t* src,
+                             int n, int lane) {
+  for (int c0 = 0; c0 < n; c0 += 128) {
+    uint32_t k[4];
+    load4(src, c0 + 4 * lane, n, k);
+    bitonic_sort<true>(k, lane);
+    for (int w0 = 0; w0 < top_w; w0 += 128) {
+      uint32_t t[4];
+      load4(top, w0 + 4 * lane, top_w, t);
+      uint32_t lo[4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      h[t] = hist[8 * lane + t];
-      sum += h[t];
-    }
-    uint32_t incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    const uint32_t excl = incl - sum;
-    const unsigned owner =
-        __ballot_sync(0xffffffffu, excl < rank && rank <= incl);
-    const int src = __ffs(owner) - 1;
-    uint32_t bin = 0u, before = excl;
-    if (lane == src) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        if (before + h[t] >= rank) {
-          bin = (uint32_t)(8 * lane + t);
-          break;
-        }
-        before += h[t];
+      for (int e = 0; e < 4; ++e) {
+        lo[e] = min(t[e], k[e]);
+        k[e] = max(t[e], k[e]);
       }
+      bitonic_merge<false>(lo, lane);
+      if (w0 + 4 * lane < top_w)
+        *reinterpret_cast<uint4*>(top + w0 + 4 * lane) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      // the rest is above the window: done when it holds no key
+      if (w0 + 128 >= top_w ||
+          !__any_sync(0xffffffffu, k[0] != kNoKey || k[1] != kNoKey ||
+                                       k[2] != kNoKey || k[3] != kNoKey))
+        break;
+      bitonic_merge<true>(k, lane);
     }
-    bin = __shfl_sync(0xffffffffu, bin, src);
-    before = __shfl_sync(0xffffffffu, before, src);
-    rank -= before;
-    prefix |= bin << shift;
-    mask |= 255u << shift;
-    __syncwarp();  // the histogram is read before the next pass clears it
   }
-  return prefix;
-}
-
-// append the keys <= x of a[0..n) to sel from position base (ballot order)
-__device__ int compact_le(const uint32_t* a, int n, uint32_t x, uint32_t* sel,
-                          int base, int cap, int lane) {
-  for (int c0 = 0; c0 < n; c0 += 32) {
-    const int i = c0 + lane;
-    const bool take = i < n && a[i] <= x;
-    const unsigned ball = __ballot_sync(0xffffffffu, take);
-    const int pos = base + __popc(ball & ((1u << lane) - 1u));
-    if (take && pos < cap) sel[pos] = a[i];
-    base += __popc(ball);
-  }
-  return base;
-}
-
-// one row's fold: the kf smallest keys of a[0..na) and b[0..nb) into
-// sel[0..), in no order; returns how many (min(kf, real keys)). kNoKey
-// entries (a tournament pool's empty slots) never count as keys.
-__device__ int select_kf(const uint32_t* a, int na, const uint32_t* b, int nb,
-                         uint32_t* sel, int kf, uint32_t* hist, int lane) {
-  uint32_t x = kNoKey - 1u;
-  if (na + nb > kf) {
-    x = radix_kth(a, na, b, nb, kf, hist, lane);
-    if (x == kNoKey) x = kNoKey - 1u;
-  }
-  const int n = compact_le(a, na, x, sel, 0, kf, lane);
-  const int n2 = compact_le(b, nb, x, sel, n, kf, lane);
   __syncwarp();
-  return min(n2, kf);
 }
 
 // A row's selection state in shared memory, for rows [0, rows):
 //   queue[r * qcap ..]   keys below tau not folded yet (qn[r] of them)
-//   carry[r * carry_w ..] the exact carry (cn[r] real keys, the rest
-//                         kNoKey) or the tournament pool (4 per bin:
+//   carry[r * carry_w ..] the exact carry, the row's carry_w smallest keys
+//                         so far in ascending order (kNoKey where fewer),
+//                         or the tournament pool (4 per bin:
 //                         carry[t * kNB + bin], ascending in t)
 //   tau[r]                the carry's kf-th key, kNoKey while it holds
 //                         fewer than kf
@@ -269,7 +310,6 @@ struct RowSel {
   uint32_t* queue;
   uint32_t* carry;
   int* qn;
-  int* cn;
   uint32_t* tau;
 };
 
@@ -332,31 +372,27 @@ __device__ __forceinline__ void offer_keys(const RowSel& rs, int r, bool row_ok,
     if (take[e]) q[base++] = k[e];
 }
 
-// fold row r (one warp): the kf smallest of carry and queue become the
-// carry, tau its kf-th key once it is full, and the queue empties; the
-// winners are left in sel as well. With the tournament the fold is the
-// pool's top-kf into sel. Returns the number of winners.
-__device__ int fold_row(const RowSel& rs, int r, uint32_t* sel, int kf,
-                        int qcap, int carry_w, bool tour, uint32_t* hist,
-                        int lane) {
+// fold row r (one warp): the queue merges into the sorted carry, tau
+// becomes its kf-th key and the queue empties; with the tournament the
+// pool's kf_pad smallest keys go to sel instead. Returns the row's sorted
+// top (the carry, or sel).
+__device__ const uint32_t* fold_row(const RowSel& rs, int r, uint32_t* sel,
+                                    int kf, int kf_pad, int qcap,
+                                    int carry_w, bool tour, int lane) {
   uint32_t* cr = rs.carry + (size_t)r * carry_w;
-  if (tour) return select_kf(cr, 4 * kNB, cr, 0, sel, kf, hist, lane);
-  const int cn = rs.cn[r];
-  const int qn = rs.qn[r];
-  const int n = select_kf(cr, cn, rs.queue + (size_t)r * qcap, qn, sel, kf,
-                          hist, lane);
-  for (int i = lane; i < n; i += 32) cr[i] = sel[i];
-  __syncwarp();
-  uint32_t mx = 0u;
-  for (int i = lane; i < n; i += 32) mx = max(mx, cr[i]);
-  mx = __reduce_max_sync(0xffffffffu, mx);
+  if (tour) {
+    for (int i = lane; i < kf_pad; i += 32) sel[i] = kNoKey;
+    __syncwarp();
+    merge_sorted(sel, kf_pad, cr, 4 * kNB, lane);
+    return sel;
+  }
+  merge_sorted(cr, carry_w, rs.queue + (size_t)r * qcap, rs.qn[r], lane);
   if (lane == 0) {
-    rs.cn[r] = n;
     rs.qn[r] = 0;
-    if (n == kf) rs.tau[r] = mx;
+    rs.tau[r] = cr[kf - 1];
   }
   __syncwarp();
-  return n;
+  return cr;
 }
 
 // ---- row addressing of one (strip, sub-block) -----------------------------
@@ -408,27 +444,21 @@ struct PagedAddr {
   }
 };
 
-// a row's output for sub-block j from its fold's n winners in sel (distinct
-// keys, any order): each key goes to its rank (the count of smaller keys),
-// decoded; slots n.. read +inf at their own position. Sub-block 0 writes the
-// row; a later one merges into the running top-kf with kf masked-min passes
-// over [running | new], earliest position on ties (offsets + j * w).
-__device__ void emit_row(const uint32_t* sel, int n, float* ov, int32_t* oe,
+// a row's output for sub-block j from its sorted top-kf (kNoKey where the
+// sub-block walked fewer than kf columns: +inf at the slot's own position).
+// Sub-block 0 writes the row; a later one merges into the running top-kf
+// with kf masked-min passes over [running | new], earliest position on ties
+// (offsets + j * w).
+__device__ void emit_row(const uint32_t* top, float* ov, int32_t* oe,
                          float* mv, int* me, int kf, int j, int w, int lane) {
   float* dv = j == 0 ? ov : mv + kf;
   int* de = j == 0 ? oe : me + kf;
-  for (int i = lane; i < n; i += 32) {
-    const uint32_t x = sel[i];
-    int rank = 0;
-    for (int t = 0; t < n; ++t) rank += sel[t] < x;
-    float v; int e;
-    decode_key(x, &v, &e);
-    dv[rank] = v;
-    de[rank] = e + j * w;
-  }
-  for (int i = n + lane; i < kf; i += 32) {
-    dv[i] = INFINITY;
-    de[i] = i + j * w;
+  for (int i = lane; i < kf; i += 32) {
+    float v;
+    int e;
+    decode_slot(top[i], i, &v, &e);
+    dv[i] = v;
+    de[i] = e + j * w;
   }
   __syncwarp();
   if (j == 0) return;
@@ -457,21 +487,20 @@ __device__ void emit_row(const uint32_t* sel, int n, float* ov, int32_t* oe,
 
 // the fold at the end of a column tile (after a barrier): the rows whose
 // queue the next tile could overflow, and every row at the end of the walk
-// (the tournament only then), one warp a row in turn; the last fold leaves
-// the row's winners in sel, which emit_row places as its top-kf
+// (the tournament only then), one warp a row in turn; the last fold's sorted
+// top becomes the row's output
 template <int kNW>
 __device__ __forceinline__ void fold_rows(const RowSel& rs, const Params& p,
                                           bool last, int nr, int warp,
-                                          int lane, uint32_t* sel,
-                                          uint32_t* hist, float* mv, int* me,
-                                          float* out_v, int32_t* out_e,
-                                          int j) {
+                                          int lane, uint32_t* sel, float* mv,
+                                          int* me, float* out_v,
+                                          int32_t* out_e, int j) {
   const bool tour = p.tournament != 0;
   for (int r = warp; r < nr; r += kNW) {
     if (!last && rs.qn[r] <= p.qcap - kTC) continue;
-    const int n_win = fold_row(rs, r, sel, p.kf, p.qcap, p.carry_w, tour,
-                               hist, lane);
-    if (last) emit_row(sel, n_win, out_v + (size_t)r * p.kf,
+    const uint32_t* top = fold_row(rs, r, sel, p.kf, p.kf_pad, p.qcap,
+                                   p.carry_w, tour, lane);
+    if (last) emit_row(top, out_v + (size_t)r * p.kf,
                        out_e + (size_t)r * p.kf, mv, me, p.kf, j, p.w, lane);
   }
 }
@@ -513,21 +542,17 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   rs.carry = rs.queue + (size_t)p.rows * p.qcap;          // (rows, carry_w)
   const int rows4 = (p.rows + 3) & ~3;  // keeps what follows 16-byte aligned
   rs.qn = reinterpret_cast<int*>(rs.carry + (size_t)p.rows * p.carry_w);
-  rs.cn = rs.qn + rows4;
-  rs.tau = reinterpret_cast<uint32_t*>(rs.cn + rows4);
-  uint32_t* hist_all = rs.tau + rows4;                     // (kWarps, kRadix)
+  rs.tau = reinterpret_cast<uint32_t*>(rs.qn + rows4);
   const int n_chunks = (p.dim + kDKC - 1) / kDKC;
   const int a_st = n_chunks * kDKC + 8;                      // a_s row stride
-  __nv_bfloat16* a_s =
-      reinterpret_cast<__nv_bfloat16*>(hist_all + kWarps * kRadix);
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(rs.tau + rows4);
   __nv_bfloat16* b_s = a_s + rows_p * a_st;
   uint32_t* sel_all = reinterpret_cast<uint32_t*>(b_s + kTC * kST);
   float* mv_all = reinterpret_cast<float*>(sel_all + (size_t)kWarps * p.kf_pad);
   int* me_all = reinterpret_cast<int*>(mv_all + (size_t)kWarps * 2 * p.kf);
   int* pg_s = reinterpret_cast<int*>(mv_all) +  // after the merge buffers
               (p.n_sub > 1 ? (size_t)kWarps * 4 * p.kf : 0);
-  uint32_t* sel = sel_all + (size_t)warp * p.kf_pad;      // per-warp winners
-  uint32_t* hist = hist_all + warp * kRadix;              // per-warp radix
+  uint32_t* sel = sel_all + (size_t)warp * p.kf_pad;  // per-warp tournament top
   float* mv = mv_all + (size_t)warp * 2 * p.kf;           // per-warp merge
   int* me = me_all + (size_t)warp * 2 * p.kf;             // (n_sub > 1 only)
 
@@ -558,7 +583,6 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
       for (int i = tid; i < nr * p.carry_w; i += kThreads) rs.carry[i] = kNoKey;
       for (int i = tid; i < nr; i += kThreads) {
         rs.qn[i] = 0;
-        rs.cn[i] = 0;
         rs.tau[i] = kNoKey;
       }
     }
@@ -674,8 +698,8 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
         const bool last = ct + kTC >= ad.cols;
         if (kSelect && (last || !tour)) {
           __syncthreads();
-          fold_rows<kWarps>(rs, p, last, nr, warp, lane, sel, hist, mv, me,
-                            out_v, out_e, j);
+          fold_rows<kWarps>(rs, p, last, nr, warp, lane, sel, mv, me, out_v,
+                            out_e, j);
         }
       }
     }
@@ -688,9 +712,9 @@ size_t smem_bytes(int rows, int qcap, int carry_w, int dim, int kf,
   const int rows_p = rows < 16 ? 16 : rows;
   const int rows4 = (rows + 3) & ~3;
   const int a_st = (dim + kDKC - 1) / kDKC * kDKC + 8;
-  size_t b = (size_t)rows * (qcap + carry_w) * 4 + (size_t)rows4 * 3 * 4 +
-             (size_t)kWarps * kRadix * 4 + (size_t)rows_p * a_st * 2 +
-             (size_t)kTC * kST * 2 + (size_t)kWarps * kf_pad * 4;
+  size_t b = (size_t)rows * (qcap + carry_w) * 4 + (size_t)rows4 * 2 * 4 +
+             (size_t)rows_p * a_st * 2 + (size_t)kTC * kST * 2 +
+             (size_t)kWarps * kf_pad * 4;
   if (n_sub > 1) b += (size_t)kWarps * 2 * kf * 8;
   return b + (size_t)ppf * 4;  // the paged walk's page ids
 }
@@ -704,6 +728,7 @@ size_t plan_launch(Params& p) {
   if (p.kf < 1 || p.kf > kMaxKf || p.kf > p.w || p.w > (1 << kPackBits) ||
       p.c < 1 || p.dim < 1 || p.n_sub < 1)
     return 0;
+  if (p.tournament && p.kf < 3) return 0;  // the pool's top: 4 keys a lane
   if (p.paged) {
     if (p.page_rows < 1 || p.ppf < 1 || p.w != p.ppf * p.page_rows ||
         p.table_width < 1 || p.tournament)
@@ -734,13 +759,446 @@ size_t plan_launch(Params& p) {
   return smem;
 }
 
+// the product loop of the library's last launch (host side), which the
+// kernel sources report through their *_loop entry points
+constexpr int kLoopMma = 0;
+constexpr int kLoopWgmma = 1;
+int g_loop = -1;
+
 template <class Src, class Addr, bool kVec, bool kSelect = true>
 cudaError_t launch(const Params& p, int s_pad, size_t smem, cudaStream_t st) {
+  g_loop = kLoopMma;
   cudaError_t err = cudaFuncSetAttribute(
       strip_kernel<Src, Addr, kVec, kSelect>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   strip_kernel<Src, Addr, kVec, kSelect>
+      <<<(unsigned)s_pad * p.groups, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// ---- the product on wgmma (K1-K4) ----------------------------------------
+// strip_kernel_wg is every strip kernel's wherever its plan fits (plan_wg):
+// the block, plan, list-side and address policies and selection of
+// strip_kernel (256 threads, 32 query rows, two blocks a SM), with the
+// product on wgmma instead of mma.sync. The product is taken transposed,
+// D = B . A^T: the list tile is the M side, so each of the two warpgroups
+// multiplies 64 columns of the 128-column tile against all 32 rows
+// (m64n32k16, bf16, fp32 accumulate) and no row is padding. The query rows
+// are staged once a block in the 128-byte swizzled K-major layout the
+// tensor cores read. The list side either converts each tile into a shared
+// operand in the same layout (Src::Vec::store_swz, register-staged one tile
+// ahead; dense values to bf16) or, with Src::kRegA, supplies the A
+// fragments from registers (wgmma's register-A form): a thread's fragment
+// rows are exactly the two columns its accumulators hold, so it reads those
+// columns' code bytes (one chunk ahead) and expands them itself, and the
+// product needs no shared tile and no barrier; the query rows are then
+// staged in the list side's order of the dims (Src::a_dim). A thread's
+// accumulators are columns 16*wi + g + 8h of its warpgroup's 64 and rows
+// 8i + 2*t4 + e, so the eight lanes that share t4 share two rows: the
+// candidate queue's positions come from prefix sums over those lanes
+// (offer_tile_t), and the tournament pool's bins are swizzled for this
+// layout.
+
+// d (+)= A (64 x 16) . B (32 x 16)^T from two shared-memory descriptors;
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same with A from registers: a[] is this thread's fragment of the
+// warp's 16 x 16 slice (rows g, g + 8; k 2*t4 .. + 1, 2*t4 + 8 .. + 9)
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// shared-memory matrix descriptor: 128-byte swizzle, K-major, 8-row atoms
+// 1024 bytes apart (SBO); the leading offset is unused in this layout
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_acc_fence(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// offer_keys for the transposed fragment, a whole tile at once: this lane's
+// keys k[i][e][h] of row 8i + 2*t4 + e at columns col[h]. The eight lanes
+// with the same t4 (g = 0..7) share those eight rows, so two prefix sums
+// over them (four rows' counts a byte) place every key; lane g = 0 reserves
+// each row's room with one atomic. The four row pairs go through each step
+// together, so their latencies overlap.
+__device__ __forceinline__ void offer_tile_t(const RowSel& rs, int nr,
+                                             const uint32_t (&k)[4][2][2],
+                                             const int (&col)[2], int qcap,
+                                             int carry_w, bool tour, int g,
+                                             int t4) {
+  if (tour) {
+    // bins XOR-swizzled by bits 3-4 from the row's t4: the 4 rows x 8
+    // columns a warp touches at once fall in 32 distinct banks
+    const int swz_bin = (t4 & 3) << 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * i + 2 * t4 + e;
+        if (r >= nr) continue;
+        uint32_t* cr = rs.carry + (size_t)r * carry_w;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int bin = (col[h] & (kNB - 1)) ^ swz_bin;
+          uint32_t x = k[i][e][h];
+          if (x < cr[3 * kNB + bin]) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const uint32_t y = cr[t * kNB + bin];
+              if (x < y) {
+                cr[t * kNB + bin] = x;
+                x = y;
+              }
+            }
+          }
+        }
+      }
+    return;
+  }
+  // byte 2*(i & 1) + e of cnt[i >> 1]: the keys this lane offers row 8i +
+  // 2*t4 + e (at most 2; a row's sum over the eight lanes at most 16)
+  bool take[4][2][2];
+  uint32_t cnt[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * i + 2 * t4 + e;
+      const uint32_t tau = r < nr ? rs.tau[r] : 0u;
+      take[i][e][0] = k[i][e][0] < tau;
+      take[i][e][1] = k[i][e][1] < tau;
+      cnt[i >> 1] += (uint32_t)((int)take[i][e][0] + (int)take[i][e][1])
+                     << (8 * (2 * (i & 1) + e));
+    }
+  if (!__any_sync(0xffffffffu, (cnt[0] | cnt[1]) != 0u)) return;
+  uint32_t inc[2] = {cnt[0], cnt[1]};
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    const uint32_t y0 = __shfl_up_sync(0xffffffffu, inc[0], 4 * o);
+    const uint32_t y1 = __shfl_up_sync(0xffffffffu, inc[1], 4 * o);
+    if (g >= o) {
+      inc[0] += y0;
+      inc[1] += y1;
+    }
+  }
+  const uint32_t tot[2] = {__shfl_sync(0xffffffffu, inc[0], 28 + t4),
+                           __shfl_sync(0xffffffffu, inc[1], 28 + t4)};
+  // each row's first queue slot, two rows a word (16 bits each)
+  uint32_t base[4] = {0u, 0u, 0u, 0u};
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t t = (tot[i >> 1] >> (8 * (2 * (i & 1) + e))) & 0xFFu;
+        if (t)
+          base[i] |= (uint32_t)atomicAdd(&rs.qn[8 * i + 2 * t4 + e], (int)t)
+                     << (16 * e);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) base[i] = __shfl_sync(0xffffffffu, base[i], t4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int sh = 8 * (2 * (i & 1) + e);
+      int pos = (int)((base[i] >> (16 * e)) & 0xFFFFu) +
+                (int)(((inc[i >> 1] - cnt[i >> 1]) >> sh) & 0xFFu);
+      uint32_t* q = rs.queue + (size_t)(8 * i + 2 * t4 + e) * qcap;
+      if (take[i][e][0]) q[pos++] = k[i][e][0];
+      if (take[i][e][1]) q[pos] = k[i][e][1];
+    }
+}
+
+template <class Src, class Addr, bool kSelect>
+__global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_in[];
+  // the swizzled operands need 1024-byte atoms: align the base
+  unsigned char* smem = smem_in + ((1024u - (smem_u32(smem_in) & 1023u)) &
+                                   1023u);
+  const int s = blockIdx.x / p.groups;
+  const int lst = p.strip_list[s];
+  if (lst < 0) return;  // padding strip: the merge never reads its rows
+  const int real = p.strip_rows ? min(p.strip_rows[s], p.c) : p.c;
+  const int r0 = (blockIdx.x % p.groups) * kMaxRows;
+  const int nr = min(kMaxRows, real - r0);
+  if (nr <= 0) return;  // empty query slots: the merge never reads them
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int c_lo = wg * 64 + (warp & 3) * 16 + g;  // columns c_lo, c_lo + 8
+  const int n_chunks = p.dim / kDKC;
+  const int kf = p.kf;
+  const bool tour = p.tournament != 0;
+
+  unsigned char* a_s = smem;  // (n_chunks, 32 rows, 64 dims) swizzled
+  unsigned char* b_s = a_s + (size_t)n_chunks * kMaxRows * 128;  // the tile
+  RowSel rs;
+  rs.queue =
+      reinterpret_cast<uint32_t*>(b_s + (Src::kRegA ? 0 : kTC * 128));
+  rs.carry = rs.queue + (size_t)kMaxRows * p.qcap;
+  rs.qn = reinterpret_cast<int*>(rs.carry + (size_t)kMaxRows * p.carry_w);
+  rs.tau = reinterpret_cast<uint32_t*>(rs.qn + kMaxRows);
+  uint32_t* sel_all = rs.tau + kMaxRows;
+  float* mv_all = reinterpret_cast<float*>(sel_all + (size_t)kWarps *
+                                                         p.kf_pad);
+  int* me_all = reinterpret_cast<int*>(mv_all + (size_t)kWarps * 2 * kf);
+  uint32_t* sel = sel_all + (size_t)warp * p.kf_pad;
+  float* mv = mv_all + (size_t)warp * 2 * kf;
+  int* me = me_all + (size_t)warp * 2 * kf;
+  int* pg_s = reinterpret_cast<int*>(mv_all) +  // after the merge buffers
+              (p.n_sub > 1 ? (size_t)kWarps * 4 * kf : 0);
+
+  const __nv_bfloat16* A = p.a + ((size_t)s * p.c + r0) * p.dim;
+  float* out_v = p.out_v + ((size_t)s * p.c + r0) * kf;
+  int32_t* out_e = p.out_e + ((size_t)s * p.c + r0) * kf;
+  // the strip's rows, all dims, once: rows >= nr are zero; a register-A
+  // list side contracts over its own order of the dims (Src::a_dim)
+  for (int i = tid; i < kMaxRows * n_chunks * 8; i += kThreads) {
+    const int c = i & 7, kc = (i >> 3) % n_chunks, r = (i >> 3) / n_chunks;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nr) {
+      const __nv_bfloat16* ar = A + (size_t)r * p.dim;
+      if constexpr (Src::kRegA) {
+        __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o[e] = ar[Src::a_dim(p, kc * kDKC + c * 8 + e)];
+        v = *reinterpret_cast<const uint4*>(o);
+      } else {
+        v = *reinterpret_cast<const uint4*>(ar + kc * kDKC + c * 8);
+      }
+    }
+    *reinterpret_cast<uint4*>(a_s + (size_t)kc * kMaxRows * 128 + swz(r, c)) =
+        v;
+  }
+  // the rows are read by the tensor cores (after the next barrier)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const uint32_t a_addr = smem_u32(a_s);
+  const uint32_t b_addr = smem_u32(b_s) + wg * 64 * 128;
+  float sink = INFINITY;  // product-only: keeps the scores live
+
+  Addr ad;
+  for (int j = 0; j < p.n_sub; ++j) {
+    __syncthreads();  // the previous sub-block's tile, rows and pages are read
+    ad.init(p, lst, j, pg_s, tid);
+    if (Addr::kPaged) __syncthreads();  // the page ids are staged
+    if (ad.live == 0) {
+      if (kSelect && j == 0) {
+        for (int i = tid; i < nr * kf; i += kThreads) {
+          out_v[i] = INFINITY;
+          out_e[i] = i % kf;
+        }
+      }
+      continue;
+    }
+    if (kSelect) {
+      for (int i = tid; i < nr * p.carry_w; i += kThreads)
+        rs.carry[i] = kNoKey;
+      for (int i = tid; i < nr; i += kThreads) {
+        rs.qn[i] = 0;
+        rs.tau[i] = kNoKey;
+      }
+    }
+    // packed lists: the sub-block's bias and scale rows, hoisted
+    const float* bias_l = Addr::kPaged ? nullptr : p.bias + ad.row(0);
+    const float* scale_l =
+        (Addr::kPaged || !Src::kScaled) ? nullptr : p.scale + ad.row(0);
+    // the bias (and scale) of this thread's columns ct + c_lo + 8h
+    auto scalars = [&](int ct, float (&bv)[2], float (&sv)[2],
+                       bool (&live)[2]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = ct + c_lo + 8 * h;
+        sv[h] = 1.f;
+        live[h] = true;
+        if constexpr (Addr::kPaged) {
+          live[h] = ad.has(col);
+          bv[h] = live[h] ? p.bias[ad.row(col)] : INFINITY;
+          if (Src::kScaled && live[h]) sv[h] = p.scale[ad.row(col)];
+        } else {
+          bv[h] = bias_l[col];
+          if (Src::kScaled) sv[h] = scale_l[col];
+        }
+      }
+    };
+    // epilogue of the column tile at ct: d[4i + 2h + e] is column ct + c_lo
+    // + 8h, row 8i + 2*t4 + e; alpha * s (* scale) + bias in the JAX order,
+    // with explicit roundings (no FMA contraction), the tile's packed keys
+    // offered at once (8-row blocks past the strip's real rows offer none);
+    // then the fold (after a barrier: every offer of the tile is in)
+    auto tile_end = [&](int ct, const float (&d)[16], const float (&bv)[2],
+                        const float (&sv)[2], const bool (&live)[2]) {
+      const int cols[2] = {ct + c_lo, ct + c_lo + 8};
+      uint32_t k[4][2][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            k[i][e][h] = kNoKey;
+            if (8 * i >= nr) continue;
+            float x = __fmul_rn(p.alpha, d[4 * i + 2 * h + e]);
+            if (Src::kScaled) x = __fmul_rn(x, sv[h]);
+            x = __fadd_rn(x, bv[h]);
+            if (!live[h]) x = INFINITY;
+            if (!kSelect) sink = fminf(sink, x);
+            // paged: past the chain +inf lanes up to w, no key beyond
+            if (!Addr::kPaged || cols[h] < p.w)
+              k[i][e][h] = pack_key(x, cols[h]);
+          }
+      if (kSelect)
+        offer_tile_t(rs, nr, k, cols, p.qcap, p.carry_w, tour, g, t4);
+      const bool last = ct + kTC >= ad.cols;
+      if (kSelect && (last || !tour)) {
+        __syncthreads();
+        fold_rows<kWarps>(rs, p, last, nr, warp, lane, sel, mv, me, out_v,
+                          out_e, j);
+      }
+      return last;
+    };
+    float d[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) d[i] = 0.f;
+    if constexpr (Src::kRegA) {
+      // the list tile from registers: each thread builds its A fragments
+      // (its two columns) from the code bytes it reads, one chunk ahead;
+      // no shared tile, no barrier in the product loop
+      __syncthreads();  // the rows' selection state is set before any offer
+      uint2 nxt[2];
+      Src::chunk(p, ad, c_lo, 0, nxt);
+      for (int ct = 0; ct < ad.cols; ct += kTC) {
+        float bv[2], sv[2];
+        bool live[2];
+        scalars(ct, bv, sv, live);  // in flight during the product
+        for (int kc = 0; kc < n_chunks; ++kc) {
+          const uint2 cur[2] = {nxt[0], nxt[1]};
+          const int nkc = kc + 1 < n_chunks ? kc + 1 : 0;
+          const int nct = kc + 1 < n_chunks ? ct : ct + kTC;
+          if (nct < ad.cols) Src::chunk(p, ad, nct + c_lo, nkc, nxt);
+          uint32_t a[4][4];
+#pragma unroll
+          for (int ks = 0; ks < kDKC / 16; ++ks)
+            Src::frag(cur, ks, t4, a[ks]);
+          wg_acc_fence(d);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int ks = 0; ks < kDKC / 16; ++ks)
+            wgmma_m64n32k16_rs(d, a[ks],
+                               wg_desc(a_addr + kc * kMaxRows * 128 + ks * 32),
+                               (kc > 0 || ks > 0) ? 1 : 0);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          wg_acc_fence(d);
+        }
+        // the fold's queue and thresholds are read again by the next
+        // tile's offers
+        if (!tile_end(ct, d, bv, sv, live) && kSelect && !tour)
+          __syncthreads();
+      }
+    } else {
+      const int n_steps = (ad.cols / kTC) * n_chunks;
+      typename Src::Vec pre;
+      pre.load(p, ad, 0, 0, tid);
+      for (int step = 0; step < n_steps; ++step) {
+        const int ct = (step / n_chunks) * kTC;
+        const int kc = step % n_chunks;
+        __syncthreads();  // the previous product and fold are done with b_s
+        pre.store_swz(p, b_s, kc * kDKC, tid);
+        // the tile and the rows are read by the tensor cores
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (step + 1 < n_steps)
+          pre.load(p, ad, ((step + 1) / n_chunks) * kTC,
+                   ((step + 1) % n_chunks) * kDKC, tid);
+        wg_acc_fence(d);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < kDKC / 16; ++ks)
+          wgmma_m64n32k16(d, wg_desc(b_addr + ks * 32),
+                          wg_desc(a_addr + kc * kMaxRows * 128 + ks * 32),
+                          (kc > 0 || ks > 0) ? 1 : 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        wg_acc_fence(d);
+        if (kc + 1 < n_chunks) continue;
+        float bv[2], sv[2];
+        bool live[2];
+        scalars(ct, bv, sv, live);
+        tile_end(ct, d, bv, sv, live);
+      }
+    }
+  }
+  if (!kSelect && sink == -1.0f) out_v[0] = sink;  // never: a data dependence
+}
+
+// dynamic shared memory of strip_kernel_wg (with the base's alignment)
+template <class Src>
+size_t wg_smem_bytes(const Params& p) {
+  size_t b = 1024 + (size_t)(p.dim / kDKC) * kMaxRows * 128 +
+             (Src::kRegA ? 0 : kTC * 128) +
+             (size_t)kMaxRows * (p.qcap + p.carry_w) * 4 +
+             (size_t)kMaxRows * 2 * 4 + (size_t)kWarps * p.kf_pad * 4;
+  if (p.n_sub > 1) b += (size_t)kWarps * 2 * p.kf * 8;
+  return b + (size_t)(p.paged ? p.ppf : 0) * 4;  // the paged walk's page ids
+}
+
+// Whether strip_kernel_wg takes a shape plan_launch planned for the list
+// side Src: 32 rows a block (the plan did not shrink them), whole 64-dim
+// chunks (packed: nb a multiple of 8 bytes), a 16-byte aligned query block
+// and a list block aligned for Src's loads. Returns its shared memory, or 0
+// (the shape then keeps strip_kernel).
+template <class Src>
+size_t plan_wg(const Params& p) {
+  if (p.rows != kMaxRows || p.dim % kDKC != 0 ||
+      reinterpret_cast<uintptr_t>(p.b) % Src::kAlign != 0 ||
+      reinterpret_cast<uintptr_t>(p.a) % 16 != 0)
+    return 0;
+  const size_t smem = wg_smem_bytes<Src>(p);
+  return smem <= kSmemLimit ? smem : 0;
+}
+
+template <class Src, class Addr, bool kSelect>
+cudaError_t launch_wg(const Params& p, int s_pad, size_t smem,
+                      cudaStream_t st) {
+  g_loop = kLoopWgmma;
+  cudaError_t err = cudaFuncSetAttribute(
+      strip_kernel_wg<Src, Addr, kSelect>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  strip_kernel_wg<Src, Addr, kSelect>
       <<<(unsigned)s_pad * p.groups, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }

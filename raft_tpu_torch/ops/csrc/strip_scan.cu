@@ -32,7 +32,7 @@
 // and a group of RG = 32 query rows and loops over the sub-blocks itself
 // (the TPU's sequential grid axis); the row groups of a strip are adjacent
 // in the launch order, so the list block comes from HBM once and from L2
-// after. The product runs on wgmma (strip_kernel_wg, dense_src.cuh), taken
+// after. The product runs on wgmma (strip_kernel_wg, strip_common.cuh), taken
 // transposed: each of the two warpgroups multiplies 64 columns of a
 // 128-column x 64-dim list tile against the 32 rows (m64n32k16, bf16, fp32
 // accumulate), both operands read by the tensor cores from shared memory
@@ -47,22 +47,21 @@
 // keep the mma.sync loop of strip_common.cuh. The selection
 // (strip_common.cuh) filters first: each row keeps a threshold, its carry's
 // kf-th key, and the epilogue keeps only the keys below it - appended to a
-// per-row candidate queue, folded into the carry by a radix select only
-// when the queue could overflow and at the end of the sub-block; with the
-// tournament each bin's 4th key is the filter and the key goes straight
-// into the bin's pool slots. Once a row's carry is full almost every key
-// fails its one compare, so the selection follows the keys that can still
-// win, not the columns. The last fold's winners are placed by rank
-// (emit_row). PERF.md holds the measured gap to the bound and the
-// product/selection split.
+// per-row candidate queue, merged into the sorted carry by a bitonic fold
+// in one warp's registers only when the queue could overflow and at the
+// end of the sub-block; with the tournament each bin's 4th key is the
+// filter and the key goes straight into the bin's pool slots. Once a row's
+// carry is full almost every key fails its one compare, so the selection
+// follows the keys that can still win, not the columns. The carry is
+// sorted, so the row's top-kf is read straight off it. PERF.md holds the
+// measured gap to the bound and the product/selection split.
 //
-// The selection and the mma.sync kernel body live in strip_common.cuh,
-// shared with K2-K4; the list side (int8, uint8, bf16 or fp32 list rows as
-// bf16) and the wgmma kernel in dense_src.cuh, shared with K3. K2 and K4
-// keep the mma.sync loop: their packed sign-bit sources expand in the
-// staging of strip_common.cuh's layout. This file holds K1's entry points: the
-// packed lists, addressed as they lie (ListAddr), and the product-only
-// instantiation that splits K1's time (launched by chip_smoke.py alone).
+// The selection and both kernel bodies (mma.sync and wgmma) live in
+// strip_common.cuh, shared with K2-K4; the list side (int8, uint8, bf16 or
+// fp32 list rows as bf16) in dense_src.cuh, shared with K3. This file holds
+// K1's entry points: the packed lists, addressed as they lie (ListAddr),
+// and the product-only instantiation that splits K1's time (launched by
+// chip_smoke.py alone).
 
 #include "dense_src.cuh"
 

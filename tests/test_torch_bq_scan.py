@@ -208,7 +208,8 @@ def test_bq_strip_search_matches_pallas_kernel_interpret():
 
 
 @pytest.mark.parametrize("w_blocks,n_sub,kf,nb", [
-    (2, 1, 20, 16), (1, 3, 40, 5), (1, 2, 64, 8), (2, 1, 10, 32)])
+    (2, 1, 20, 16), (1, 3, 40, 5), (1, 2, 64, 8), (2, 1, 10, 32),
+    (2, 1, 80, 16), (1, 2, 80, 16)])
 def test_bq_class_plain_twin_matches_jax(w_blocks, n_sub, kf, nb):
     """The per-class function itself: padding strips, dead lists and
     sub-blocks, ±inf/NaN bias lanes with scale 0 at padding, code widths
@@ -302,20 +303,40 @@ def test_port_traced_search_matches_planned_search():
         assert torch.equal(g, w)
 
 
+# K2 on the card: (code bytes a row, w_blocks, n_sub, kf, approx_ok, the
+# product loop the plan must pick) — wgmma wherever nb is a multiple of 8
+K2_CARD_CASES = {
+    "nb16_kf80": (16, 4, 1, 80, False, "wgmma"),
+    "nb16_kf40": (16, 4, 1, 40, False, "wgmma"),
+    "nb16_kf320": (16, 4, 1, 320, False, "wgmma"),
+    "nb16_tournament_kf20": (16, 4, 1, 20, True, "wgmma"),
+    "nb16_n_sub2_kf80": (16, 2, 2, 80, False, "wgmma"),
+    "bits2_nb32_kf80": (32, 4, 1, 80, False, "wgmma"),
+    "nb5_kf80": (5, 4, 1, 80, False, "mma.sync"),
+    "nb5_n_sub2_kf40": (5, 2, 2, 40, False, "mma.sync"),
+}
+
+
 @pytest.mark.cuda
-def test_k2_matches_plain_twin_on_card():
-    """K2 against its plain twin on the card (runs where there is one)."""
+@pytest.mark.parametrize("case", sorted(K2_CARD_CASES))
+def test_k2_matches_plain_twin_on_card(case):
+    """K2 against its plain twin on the card (runs where there is one), on
+    each product loop: ids equal except at near-ties, values within rtol
+    5e-4, and the launch reports the loop its plan picks."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: K2 is CUDA code with no CPU mode")
+    nb, w_blocks, n_sub, kf, approx_ok, loop = K2_CARD_CASES[case]
     rng = np.random.default_rng(31)
     lens = np.array([700, 1500, 300])
-    codes, scale, bias, _ = make_bq_lists(rng, 3, 16, lens)
+    codes, scale, bias, _ = make_bq_lists(rng, 3, nb, lens)
     sl = torch.tensor([0, -1, 1, 2, 1], dtype=torch.int32).cuda()
-    a = torch.from_numpy(rng.standard_normal((5, tss.C, 128)).astype(
+    a = torch.from_numpy(rng.standard_normal((5, tss.C, 8 * nb)).astype(
         np.float32)).to(torch.bfloat16).cuda()
     args = [t.cuda() for t in map(torch.from_numpy, (codes, scale, bias))]
-    got = tbq.bq_class(sl, a, *args, 4, 1, -2.0, 80)
-    want = tbq._bq_class_plain(sl, a, *args, 4, 1, -2.0, 80)
+    got = tbq.bq_class(sl, a, *args, w_blocks, n_sub, -2.0, kf, approx_ok)
+    assert tbq.BQ_KERNEL.loop == loop
+    want = tbq._bq_class_plain(sl, a, *args, w_blocks, n_sub, -2.0, kf,
+                               approx_ok)
     verdict = topk_agreement(want[0], want[1], got[0], got[1], rtol=5e-4,
                              atol=1e-2, mask=sl >= 0)
     assert verdict["ok"], verdict

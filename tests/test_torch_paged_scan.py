@@ -43,8 +43,9 @@ def paged_inputs(rng, layout, payload, n_lists=6, cap_pages=48, dim=24,
     tail slots at +inf, NaN payload in page 0 (never chained, but what the
     TPU kernels' gather reads for absent slots), padding strips.
     ``payload`` is a numpy dtype name or ``("bits", b)`` for packed codes
-    of b bits (rot_dim = dim)."""
-    R, W, ppf, n_sub = LAYOUTS[layout]
+    of b bits (rot_dim = dim); ``layout`` a name of LAYOUTS or its
+    ``(page_rows, table_width, ppf, n_sub)``."""
+    R, W, ppf, n_sub = LAYOUTS[layout] if isinstance(layout, str) else layout
     chains = np.array([0, 1, 2, ppf, min(W, ppf + 1), W][:n_lists], np.int32)
     table = np.full((n_lists, W), -1, np.int32)
     free = rng.permutation(np.arange(1, cap_pages))
@@ -160,7 +161,7 @@ def test_paged_class_twin_is_bitwise_the_jax_kernel(layout, payload, kf):
     assert torch.equal(got[1][empty, 0], torch.arange(kf, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("bits,kf", [(1, 10), (2, 20), (4, 40)])
+@pytest.mark.parametrize("bits,kf", [(1, 10), (2, 20), (4, 40), (1, 80)])
 def test_paged_bq_class_twin_is_bitwise_the_jax_kernel(bits, kf):
     rng = np.random.default_rng(100 + bits * 10 + kf)
     c = paged_inputs(rng, "r64_w128_nsub2", ("bits", bits), dim=16)
@@ -246,13 +247,30 @@ def test_k3_matches_plain_twin_on_card():
     assert torch.equal(got[1][live][fin], want[1][live][fin])
 
 
+# K4 on the card: (layout, bits, rot_dim, kf, the product loop the plan
+# must pick) — wgmma wherever the code row is a multiple of 8 bytes
+K4_CARD_CASES = {
+    "r64_nb4_bits2_kf40": ("r64_w128_nsub2", 2, 16, 40, "mma.sync"),
+    "nb16_kf40": ((128, 8, 4, 2), 1, 128, 40, "wgmma"),
+    "nb16_kf80": ((128, 8, 4, 2), 1, 128, 80, "wgmma"),
+    "nb16_kf320": ((128, 8, 4, 2), 1, 128, 320, "wgmma"),
+    "nb16_n_sub1_kf80": ((128, 4, 4, 1), 1, 128, 80, "wgmma"),
+    "bits2_nb32_kf80": ((128, 8, 4, 2), 2, 128, 80, "wgmma"),
+    "nb5_kf80": ("r64_w128_nsub2", 1, 40, 80, "mma.sync"),
+}
+
+
 @pytest.mark.cuda
-def test_k4_matches_plain_twin_on_card():
-    """K4 against its plain twin on the card (runs where there is one)."""
+@pytest.mark.parametrize("case", sorted(K4_CARD_CASES))
+def test_k4_matches_plain_twin_on_card(case):
+    """K4 against its plain twin on the card (runs where there is one), on
+    each product loop, bit for bit (integer queries and codes: every sum is
+    exact), and the launch reports the loop its plan picks."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: K4 is CUDA code with no CPU mode")
+    layout, bits, dim, kf, loop = K4_CARD_CASES[case]
     rng = np.random.default_rng(32)
-    c = paged_inputs(rng, "r64_w128_nsub2", ("bits", 2), dim=16)
+    c = paged_inputs(rng, layout, ("bits", bits), dim=dim)
     dev = torch.device("cuda")
     scale = torch.from_numpy(rng.uniform(0.5, 2.0, c["bias"].shape).astype(
         np.float32)).to(dev)
@@ -262,8 +280,9 @@ def test_k4_matches_plain_twin_on_card():
             torch.from_numpy(c["a"]).to(dev, torch.bfloat16),
             torch.from_numpy(c["pages"]).to(dev), scale,
             torch.from_numpy(c["bias"]).to(dev))
-    static = (c["ppf"], c["n_sub"], c["R"], c["W"], -2.0, 40)
+    static = (c["ppf"], c["n_sub"], c["R"], c["W"], -2.0, kf)
     got = tbq.paged_bq_class(*args, *static)
+    assert tbq.PAGED_BQ_KERNEL.loop == loop
     want = tbq._paged_bq_class_plain(*args, *static)
     live = args[0] >= 0
     assert torch.equal(got[0][live], want[0][live])
