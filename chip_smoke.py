@@ -4,9 +4,10 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py               # everything, as the chip check runs it
     python3 chip_smoke.py --skip-main   # device, build and kernel parity only
-    python3 chip_smoke.py --ab OLD_TREE # K1-K5 of an older checkout vs this one
+    python3 chip_smoke.py --ab OLD_TREE # K1-K6 of an older checkout vs this one
     python3 chip_smoke.py --k1-variants A=CSRC_DIR B=CSRC_DIR  # K1 builds
     python3 chip_smoke.py --k2-variants A=CSRC_DIR B=CSRC_DIR  # K2, K4
+    python3 chip_smoke.py --k6-variants A=CSRC_DIR B=CSRC_DIR  # K6
 
 Phases, one JSON line each:
 
@@ -39,9 +40,11 @@ Phases, one JSON line each:
    bitwise on integer-valued LUTs, within PARITY_RTOL on real-valued
    ones); K6 (fused CAGRA hop; deg 64,
    p 64, w 1/4/8 × itopk 32/64/96, duplicate-heavy graphs, -1 edges,
-   invalid and all-invalid parents, +inf buffer holes, a scalar-staging
-   shape, parents whose code records start past byte 2^31; bitwise on
-   integer-valued qp, within tolerance on real-valued qp);
+   invalid and all-invalid parents, an all-visited buffer, +inf buffer
+   holes, a scalar-staging shape, parents whose code records start past
+   byte 2^31; each case with its parents given and picking its own, from
+   the case's unsorted buffer and from the sorted one a hop returns;
+   bitwise on integer-valued qp, within tolerance on real-valued qp);
 4. main — ``sift_like(1_000_000, 128, 10_000)`` and its tiled brute-force
    ground truth, made once for every path. IVF-PQ: ``ivf_pq.build`` at the
    bench's parameters (n_lists 1024, pq_dim 64, 8 bits, train fraction
@@ -101,8 +104,11 @@ Phases, one JSON line each:
    fused rungs (64, 4) and (96, 8) with
    K6 launches equal to the hops run, recall@10 ≥ 0.95 asserted, QPS over
    three batches beside the compressed traversal's, K6 parity on the
-   path's state after hop 3, then K6 at the path's inputs (time, twin,
-   bound) and the rest of a search (seeding, pickups, exit re-rank).
+   path's state after hop 3 (picking its own parents, as the search
+   runs it), then K6 at the path's inputs (time, twin, bound, launch
+   layout; the parents-given entry and the torch pickup the path ran
+   before, no longer on it, beside it) and the rest of a search
+   (seeding, exit re-rank).
 
 ``--ab OLD_TREE`` drives the paths up to the LUT path, then times K1–K4 of
 the older tree against this one's at the paths' own class inputs (K1 at
@@ -110,9 +116,15 @@ kf 20, kf 10 on uint8 and kf 129 on the CAGRA build's batch; K2; K3 and K4
 at their serving inputs) in the order old, new, new, old, holds the two
 trees' results against each other as ``compare`` holds a kernel and its
 twin, and runs each tree's LUT search (K5) in a process of its own on one
-index and query file; it prints no last line. ``--k1-variants`` and
+index and query file, then K6 on a CAGRA index built there: the two
+trees' parents-given entries at one search's hops, the older tree's torch
+pickup plus K6 against this tree's picking entry, and each tree's fused
+search (QPS, recall, K6 launches) in a process of its own on one index
+file, old, new, new, old; it prints no last line. ``--k1-variants`` and
 ``--k2-variants`` time K1 (or K2 and K4) built from other kernel source
-trees against each other at the paths' shapes (``strip_variants``).
+trees against each other at the paths' shapes (``strip_variants``);
+``--k6-variants`` K6 at synthetic hops of the fused rungs
+(``hop_variants``).
 
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
@@ -2272,11 +2284,12 @@ def cache_phase(shared, n_lists=N_LISTS, dev="cuda"):
 
 def synthetic_hop(seed, *, w, itopk, deg=64, p=64, n=20_000, q=512,
                   frac_invalid=0.0, dup_heavy=False, all_invalid=False,
-                  integer=True, far=False, dev="cuda"):
+                  all_visited=False, integer=True, far=False, dev="cuda"):
     """A random mid-traversal state on ``dev``: a graph with 10% -1 edges
     (ids from n/8 rows when ``dup_heavy``), int8 code records, a buffer
     with 15% +inf holes and random visited flags, parents with a
-    ``frac_invalid`` share of -1 (all with ``all_invalid``). ``integer``
+    ``frac_invalid`` share of -1 (all with ``all_invalid``), every slot
+    visited with ``all_visited``. ``integer``
     makes qp integer-valued, so every fp32 sum is exact and the kernel must
     equal its twin bit for bit. ``far`` draws every parent from rows whose
     code records start past byte 2**31. Returns the hop's keyword
@@ -2306,6 +2319,8 @@ def synthetic_hop(seed, *, w, itopk, deg=64, p=64, n=20_000, q=512,
     buf_ids[holes] = -1
     buf_d[holes] = float("inf")
     buf_vis = (torch.rand((q, itopk), generator=g, device=dev) < 0.5).float()
+    if all_visited:
+        buf_vis.fill_(1.0)
     lo = (1 << 31) // (deg * p) + 1 if far else 0
     parents = torch.randint(lo, n, (q, w), generator=g, device=dev,
                             dtype=torch.int32)
@@ -2326,6 +2341,7 @@ HOP_PARITY_CASES = (
        ("dup_heavy_w8_itopk96", dict(w=8, itopk=96, dup_heavy=True)),
        ("all_parents_invalid_w4_itopk64",
         dict(w=4, itopk=64, all_invalid=True)),
+       ("all_visited_w4_itopk64", dict(w=4, itopk=64, all_visited=True)),
        ("real_qp_w4_itopk64", dict(w=4, itopk=64, integer=False)),
        ("real_qp_w8_itopk96", dict(w=8, itopk=96, integer=False)),
        ("deg12_p18_scalar_staging",
@@ -2366,7 +2382,11 @@ def compare_hop(kernel_out, plain_out, exact: bool) -> dict:
 
 
 def hop_parity_phase(cases=HOP_PARITY_CASES, seed0=6000, dev="cuda"):
-    """K6 against its plain twin on every synthetic case; one line each."""
+    """K6 against its plain twin on every synthetic case, in both modes:
+    with the case's parents (``raft_cagra_hop``), and picking its own
+    ``w`` parents (``raft_cagra_pick_hop``) from the case's buffer (holes
+    at random slots, so its keys are unsorted) and then from the sorted
+    buffer the twin's first hop returns. One line a case and mode."""
     import torch
 
     from raft_tpu_torch.ops import cagra_hop as ch
@@ -2374,41 +2394,73 @@ def hop_parity_phase(cases=HOP_PARITY_CASES, seed0=6000, dev="cuda"):
     worst = 0.0
     for i, (name, kw) in enumerate(cases):
         call = synthetic_hop(seed0 + i, dev=dev, **kw)
-        got = ch.fused_hop(**call)
-        torch.cuda.synchronize()
-        verdict = compare_hop(got, ch.fused_hop_reference(**call),
-                              kw.get("integer", True))
         n = call["graph"].shape[0]
-        emit({"phase": "parity", "kernel": "cagra_hop", "case": name,
-              "rows": n, "code_bytes": n * call["nbr_codes"][0].numel(),
-              **verdict})
-        if not verdict["ok"]:
-            raise AssertionError(f"cagra_hop disagrees with its plain "
-                                 f"version on {name}: {verdict}")
-        worst = max(worst, verdict["max_abs_err"])
-        del call, got
+        exact = kw.get("integer", True)
+        picking = dict(call, parents=None, width=call["parents"].shape[1])
+        after = ch.fused_hop_reference(**call)
+        resorted = dict(picking, buf_ids=after[0], buf_d=after[1],
+                        buf_vis=after[2])
+        for mode, calls in (("parents", [call]),
+                            ("picking", [picking, resorted])):
+            verdicts = []
+            for c in calls:
+                got = ch.fused_hop(**c)
+                torch.cuda.synchronize()
+                verdicts.append(compare_hop(got, ch.fused_hop_reference(**c),
+                                            exact))
+            verdict = dict(verdicts[-1], ok=all(v["ok"] for v in verdicts),
+                           max_abs_err=max(v["max_abs_err"]
+                                           for v in verdicts))
+            emit({"phase": "parity", "kernel": "cagra_hop", "case": name,
+                  "mode": mode, "rows": n,
+                  "code_bytes": n * call["nbr_codes"][0].numel(), **verdict})
+            if not verdict["ok"]:
+                raise AssertionError(f"cagra_hop ({mode}) disagrees with its "
+                                     f"plain version on {name}: {verdicts}")
+            worst = max(worst, verdict["max_abs_err"])
+        del call, picking, resorted, after
     return worst
 
 
 def hop_bound(calls):
     """Least time for one search's K6 launches: the graph rows and code
     records of the valid parents (deg·(4 + p) bytes each), the buffer read
-    and written (12 bytes a slot each way), parents and qp, against the two
-    fp32 multiply-adds per code byte of ``ip`` and ``nrm``."""
+    and written (12 bytes a slot each way), qp, and the parents where a
+    call gives them, against the two fp32 multiply-adds per code byte of
+    ``ip`` and ``nrm``. A picking call's parents are counted as K6 picks
+    them (``pick_parents``)."""
+    from raft_tpu_torch.ops import cagra_hop as ch
+
     nbytes = 0
     flops = 0
     for c in calls:
         q, itopk = c["buf_ids"].shape
-        w = c["parents"].shape[1]
         deg = c["graph"].shape[1]
         p = c["qp"].shape[1]
-        valid = int((c["parents"] >= 0).sum())
-        nbytes += valid * deg * (4 + p) + 2 * q * itopk * 12 + q * (w + p) * 4
+        parents = c["parents"]
+        given = parents is not None
+        if not given:
+            parents = ch.pick_parents(c["buf_ids"], c["buf_d"], c["buf_vis"],
+                                      c["width"])[1]
+        valid = int((parents >= 0).sum())
+        nbytes += (valid * deg * (4 + p) + 2 * q * itopk * 12 + q * p * 4
+                   + (parents.numel() * 4 if given else 0))
         flops += valid * deg * p * 4
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / FP32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
         nbytes, flops
+
+
+def with_parents(call):
+    """A picking call (``parents=None``) as the parents-given call of the
+    same hop: the torch pickup (``pick_parents``) the port ran before K6
+    picked its own parents, with the picked slots marked visited."""
+    from raft_tpu_torch.ops import cagra_hop as ch
+
+    vis, parents = ch.pick_parents(call["buf_ids"], call["buf_d"],
+                                   call["buf_vis"], call["width"])
+    return dict(call, buf_vis=vis, parents=parents, width=None)
 
 
 def fused_init_args(index, queries, sp, q_tile):
@@ -2429,21 +2481,19 @@ def fused_init_args(index, queries, sp, q_tile):
 def fused_hop_inputs(index, queries, sp, q_tile, hops):
     """Every K6 launch of one fused search of ``queries`` under search
     params ``sp`` (one tile of ``q_tile`` rows, as the search ran it): the
-    hop's keyword arguments, hop by hop, from the same seeding, pickup and
-    hops."""
+    hop's keyword arguments, hop by hop, from the same seeding and hops,
+    each a picking call (``parents=None``, the buffer before its pickup)."""
     from raft_tpu_torch.neighbors import cagra
     from raft_tpu_torch.ops import cagra_hop as ch
 
-    width = int(sp.search_width)
     buf_ids, buf_d, buf_vis, qp = cagra._fused_init(
         *fused_init_args(index, queries, sp, q_tile))
     state = (buf_ids, buf_d, buf_vis)
     calls = []
     for _ in range(hops):
-        ids_b, d_b, vis, parents = cagra._fused_pickup(state, width)
-        calls.append(dict(buf_ids=ids_b, buf_d=d_b, buf_vis=vis,
-                          parents=parents, qp=qp, graph=index.graph,
-                          nbr_codes=index.nbr_codes))
+        calls.append(dict(buf_ids=state[0], buf_d=state[1], buf_vis=state[2],
+                          parents=None, width=int(sp.search_width), qp=qp,
+                          graph=index.graph, nbr_codes=index.nbr_codes))
         state = ch.fused_hop(**calls[-1])
     return calls
 
@@ -2609,8 +2659,9 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "compressed_qps": len(ctimes) * q / sum(ctimes),
           "compressed_batch_s": ctimes, "compressed_recall": crec})
 
-    # K6 at the path's own inputs: every hop of one search, parity on the
-    # state after hop 3, time, twin time and bound
+    # K6 at the path's own inputs: every hop of one search (picking its
+    # own parents, as the search runs it), parity on the state after hop
+    # 3, time, twin time and bound
     st = {}
     run(pick["sp"], st)
     if st["tiles"] != 1:
@@ -2620,7 +2671,7 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
     mid = calls[3]
     verdict = compare_hop(ch.fused_hop(**mid), ch.fused_hop_reference(**mid),
                           exact=False)
-    emit({"phase": "parity", "kernel": "cagra_hop",
+    emit({"phase": "parity", "kernel": "cagra_hop", "mode": "picking",
           "case": f"cagra_path_after_hop3_itopk{pick['itopk']}"
                   f"_w{pick['width']}", **verdict})
     if not verdict["ok"]:
@@ -2630,13 +2681,18 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
     plain_ms = cuda_ms(lambda: [ch.fused_hop_reference(**c) for c in calls],
                        reps=1, warmup=1)
     bound_ms, bound_by, nbytes, flops = hop_bound(calls)
-    # the rest of a fused search: seeding, the 16 parent pickups, the exit
+    # the parents-given entry at the same hops, with the torch pickup the
+    # path ran before K6 picked its own parents (no longer on the path)
+    given = [with_parents(c) for c in calls]
+    given_ms = cuda_ms(lambda: [ch.fused_hop(**c) for c in given], reps=5)
+    pickup_ms = cuda_ms(lambda: [ch.pick_parents(
+        c["buf_ids"], c["buf_d"], c["buf_vis"], c["width"]) for c in calls],
+        reps=3)
+    del given
+    # the rest of a fused search: seeding and the exit re-rank
     init_args = fused_init_args(index, qs, pick["sp"], st["q_tile"])
     glue = {
         "init_ms": cuda_ms(lambda: cagra._fused_init(*init_args), reps=3),
-        "pickup_ms": cuda_ms(lambda: [cagra._fused_pickup(
-            (c["buf_ids"], c["buf_d"], c["buf_vis"]), pick["width"])
-            for c in calls], reps=3),
         "finish_ms": cuda_ms(lambda: cagra._fused_finish(
             index, init_args[1], calls[-1]["buf_ids"], K, st["refine_topk"]),
             reps=3)}
@@ -2645,7 +2701,11 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "launches_per_search": len(calls), "ms": k6_ms,
           "ms_per_hop": k6_ms / len(calls), "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-          "flops": flops, "library_ms": None, **glue})
+          "flops": flops, "library_ms": None,
+          "layout": ch.launch_layout(pick["itopk"], pick["width"],
+                                     index.graph_degree),
+          "parents_given_ms": given_ms,
+          "torch_pickup_ms_off_path": pickup_ms, **glue})
     del calls, mid, index
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": verdict["max_abs_err"],
@@ -2785,6 +2845,180 @@ def ab_phase(old_tree, shared, dev="cuda"):
     emit({"phase": "ab", **lut})
     cases.append(lut)
     return cases
+
+
+def ab_k6_phase(old_tree, shared, dev="cuda"):
+    """K6 of an older checkout against this tree's on the CAGRA path at the
+    bench's rung (itopk 64, width 4), one index built here: (1) the older
+    ``raft_cagra_hop`` against this tree's at the same parents-given calls
+    (each hop of one search, parents from the torch pickup), old, new, new,
+    old, the two results held as the parity phases hold a kernel and its
+    twin; (2) one search's hops as the older tree ran them (the torch
+    pickup, then its K6) against this tree's picking entry; (3) each
+    tree's fused search in a process of its own (``--cagra-child``) on one
+    index file, old, new, new, old: QPS, recall@10 and K6 launches."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import _native
+    from raft_tpu_torch.ops import cagra_hop as ch
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    qs = shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    index = cagra.build(shared["dataset"], cagra.CagraParams(
+        intermediate_graph_degree=128, graph_degree=64, build_algo="auto",
+        compress="auto"), res=res)
+    sp = cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                 traversal="fused")
+    st = {}
+    cagra.search(index, qs, K, sp, res=res, stats=st)
+    calls = fused_hop_inputs(index, qs, sp, st["q_tile"], st["hops"][0])
+    given = [with_parents(c) for c in calls]
+
+    src = Path(old_tree) / "raft_tpu_torch" / "ops" / "csrc" / "cagra_hop.cu"
+    out = Path(old_tree) / "raft_tpu_torch" / "_build"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libcagra_hop-ab.so"
+    built = subprocess.run(
+        [_native.nvcc(), *_native.NVCC_FLAGS, *_native.PTXAS_FLAGS, "-o",
+         str(lib), str(src)], check=True, capture_output=True, text=True)
+    emit({"phase": "ab.ptxas", "kernel": "cagra_hop",
+          "old": _native.parse_ptxas(built.stdout + built.stderr),
+          "new": _native.resource_usage(_native.CSRC / "cagra_hop.cu")})
+    new_fn = ch._kernel_fn()
+    old_fn = ctypes.CDLL(str(lib)).raft_cagra_hop
+    old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
+
+    def use(fn):
+        ch._kernel_fn = lambda: fn
+
+    def turns(run_old, run_new):
+        order = []
+        for which in ("old", "new", "new", "old"):
+            order.append([which, cuda_ms(run_old if which == "old"
+                                         else run_new, reps=5)])
+        return {"order": order,
+                "old_ms_mean": sum(t for w, t in order if w == "old") / 2,
+                "new_ms_mean": sum(t for w, t in order if w == "new") / 2}
+
+    def given_hops(fn):
+        use(fn)
+        return [ch.fused_hop(**c) for c in given]
+
+    line = turns(lambda: given_hops(old_fn), lambda: given_hops(new_fn))
+    verdicts = [compare_hop(a, b, exact=False) for a, b in
+                zip(given_hops(new_fn), given_hops(old_fn))]
+    cases = [{"kernel": "cagra_hop", "inputs": "cagra_path_parents_given",
+              "hops": len(given), **line,
+              "new_over_old": line["new_ms_mean"] / line["old_ms_mean"],
+              "same_ids_but_near_ties": all(v["ok"] for v in verdicts),
+              "id_mismatch_frac": max(v["id_mismatch_frac"]
+                                      for v in verdicts),
+              "max_abs_err": max(v["max_abs_err"] for v in verdicts)}]
+    emit({"phase": "ab", **cases[-1]})
+    del verdicts, given
+
+    def old_search_hops():
+        use(old_fn)
+        return [ch.fused_hop(**with_parents(c)) for c in calls]
+
+    def new_search_hops():
+        use(new_fn)
+        return [ch.fused_hop(**c) for c in calls]
+
+    line = turns(old_search_hops, new_search_hops)
+    use(new_fn)
+    cases.append({"kernel": "cagra_hop",
+                  "inputs": "cagra_path_hops_old_pickup_plus_k6_vs_picking",
+                  "hops": len(calls), **line,
+                  "new_over_old": line["new_ms_mean"] / line["old_ms_mean"]})
+    emit({"phase": "ab", **cases[-1]})
+    del calls
+
+    # the fused search of each tree in a process of its own, one index file
+    AB_FILES.mkdir(parents=True, exist_ok=True)
+    index_file = AB_FILES / "cagra_index.pt"
+    query_file = AB_FILES / "cagra_queries.pt"
+    torch.save({k: v.cpu() for k, v in index.arrays().items()}, index_file)
+    torch.save(qs.cpu(), query_file)
+    del index
+    torch.cuda.empty_cache()
+    runs = []
+    for which in ("old", "new", "new", "old"):
+        tree = Path(old_tree) if which == "old" else Path(__file__).parent
+        ids_file = AB_FILES / f"cagra_ids_{which}.pt"
+        done = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--cagra-child",
+             str(tree.resolve()), str(index_file), str(query_file),
+             str(sp.itopk_size), str(sp.search_width), str(ids_file)],
+            check=True, capture_output=True, text=True)
+        run = {"tree": which,
+               **json.loads(done.stdout.strip().splitlines()[-1])}
+        ids = torch.load(ids_file).to(gt_i.device)
+        dists = torch.load(str(ids_file) + ".d").to(gt_v.device)
+        run["recall"] = neighborhood_recall(ids, gt_i, dists, gt_v)
+        runs.append(run)
+        emit({"phase": "ab.cagra_run", **run})
+    same_ids = bool(torch.equal(torch.load(AB_FILES / "cagra_ids_old.pt"),
+                                torch.load(AB_FILES / "cagra_ids_new.pt")))
+
+    def mean(which, key):
+        vals = [r[key] for r in runs if r["tree"] == which]
+        return sum(vals) / len(vals)
+
+    cases.append({"kernel": "cagra_hop", "inputs": "cagra_fused_search",
+                  "itopk": sp.itopk_size, "width": sp.search_width,
+                  "old_qps": mean("old", "qps"), "new_qps": mean("new", "qps"),
+                  "new_over_old_qps": mean("new", "qps") / mean("old", "qps"),
+                  "old_recall": mean("old", "recall"),
+                  "new_recall": mean("new", "recall"),
+                  "old_k6_launches": mean("old", "k6_launches"),
+                  "new_k6_launches": mean("new", "k6_launches"),
+                  "same_ids": same_ids})
+    emit({"phase": "ab", **cases[-1]})
+    return cases
+
+
+def cagra_child(tree, index_file, query_file, itopk, width, ids_file):
+    """One tree's fused CAGRA search for ``ab_k6_phase``, in a process of
+    its own: ``tree``'s package searches the index's arrays (a warm-up,
+    then 3 timed 10k-query batches, host clock to a synchronise) and saves
+    the last batch's ids and distances. Prints one JSON line: QPS, the
+    batch seconds and K6 launches a search."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import cagra_hop as ch
+
+    res = Resources(device="cuda")
+    index = cagra.CagraIndex(**{k: v.cuda() for k, v in
+                                torch.load(index_file).items()})
+    qs = torch.load(query_file).cuda()
+    sp = cagra.CagraSearchParams(itopk_size=int(itopk),
+                                 search_width=int(width), traversal="fused")
+    cagra.search(index, qs, K, sp, res=res)
+    torch.cuda.synchronize()
+    ch.HOP_KERNEL.reset()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        d, i = cagra.search(index, qs, K, sp, res=res)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    torch.save(i.cpu(), ids_file)
+    torch.save(d.cpu(), ids_file + ".d")
+    print(json.dumps({"module": ch.__file__,
+                      "qps": 3 * qs.shape[0] / sum(times), "batch_s": times,
+                      "k6_launches": ch.HOP_KERNEL.launches / 3}), flush=True)
+    return 0
 
 
 def variant_shapes(family, res):
@@ -2929,6 +3163,95 @@ def strip_variants(family, specs):
     return 0
 
 
+def hop_variants(specs):
+    """K6 built from other kernel source trees (``NAME=CSRC_DIR``, each a
+    copy of ``raft_tpu_torch/ops/csrc`` with one change) against each
+    other through this tree's wrapper, picking entry, at synthetic
+    10,000-query hops of the bench's rungs ((64, 4) and (96, 8); deg 64,
+    p 64, 1M rows, the buffer a first hop returns), in the order of the
+    specs and back; each tree's output compared bit for bit with the
+    first's. A tree whose library exports ``raft_prof_reset`` /
+    ``raft_prof_read`` / ``raft_prof_names`` has its counters read (per
+    warp, divided by the ``warps`` counter) over one hop."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch.ops import _native
+    from raft_tpu_torch.ops import cagra_hop as ch
+
+    trees = dict(spec.split("=", 1) for spec in specs)
+    emit({"phase": "device", "nvidia_smi": nvidia_smi_card(),
+          "kind": torch.cuda.get_device_name(0)})
+    _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    saved = ch._pick_kernel_fn
+    ref = saved()
+
+    def build(name):
+        lib = _native.BUILD_DIR / f"libcagra_hop-variant-{name}.so"
+        done = subprocess.run(
+            [_native.nvcc(), *_native.NVCC_FLAGS, *_native.PTXAS_FLAGS, "-o",
+             str(lib), str(Path(trees[name]) / "cagra_hop.cu")], check=True,
+            capture_output=True, text=True)
+        return name, lib, _native.parse_ptxas(done.stdout + done.stderr)
+
+    fns = {}
+    with ThreadPoolExecutor(len(trees)) as pool:
+        for name, lib, usage in pool.map(build, trees):
+            emit({"phase": "k6_variants.ptxas", "variant": name,
+                  "usage": usage})
+            cdll = ctypes.CDLL(str(lib))
+            fn = cdll.raft_cagra_pick_hop
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+            if hasattr(cdll, "raft_prof_read"):
+                cdll.raft_prof_names.restype = ctypes.c_char_p
+            fns[name] = (fn, cdll if hasattr(cdll, "raft_prof_read")
+                         else None)
+    names = list(trees)
+    for _, itopk, w in CAGRA_LADDER:
+        call = synthetic_hop(7, w=w, itopk=itopk, n=N_ROWS, q=N_QUERIES)
+        call = dict(call, parents=None, width=w)
+        ch._pick_kernel_fn = lambda: ref
+        first = ch.fused_hop(**call)
+        call.update(buf_ids=first[0], buf_d=first[1], buf_vis=first[2])
+
+        def run_with(fn):
+            ch._pick_kernel_fn = lambda: fn
+            return ch.fused_hop(**call)
+
+        times = {n: [] for n in names}
+        for n in names + names[::-1]:
+            times[n].append(cuda_ms(lambda: run_with(fns[n][0]), reps=20))
+        base = None
+        for n in names:
+            out = run_with(fns[n][0])
+            torch.cuda.synchronize()
+            base = base or out
+            line = {"phase": "k6_variants", "width": w, "itopk": itopk,
+                    "variant": n, "ms": sum(times[n]) / 2,
+                    "order": times[n],
+                    "same_as_first": all(torch.equal(a, b)
+                                         for a, b in zip(out, base))}
+            prof = fns[n][1]
+            if prof is not None:
+                keys = prof.raft_prof_names().decode().split(",")
+                buf = (ctypes.c_ulonglong * len(keys))()
+                prof.raft_prof_reset()
+                run_with(fns[n][0])
+                torch.cuda.synchronize()
+                prof.raft_prof_read(buf, len(keys))
+                vals = dict(zip(keys, list(buf)))
+                warps = max(1, vals.pop("warps"))
+                line["per_warp"] = {k: v / warps for k, v in vals.items()}
+            emit(line)
+        del call, first, base
+        torch.cuda.empty_cache()
+    ch._pick_kernel_fn = saved
+    return 0
+
+
 def lut_child(tree, index_file, query_file, n_probes, k_fetch, ids_file):
     """One tree's LUT search for ``ab_phase``, in a process of its own:
     ``tree``'s package loads the index and runs ``search(backend="pallas")``
@@ -2981,9 +3304,9 @@ def main() -> int:
                     help="stop after the kernel parity phases")
     ap.add_argument("--ab", metavar="OLD_TREE",
                     help="after the paths up to the LUT path, time K1-K4 "
-                         "of an older checkout against this tree's at the "
-                         "paths' inputs and the two trees' LUT searches "
-                         "(K5), then stop")
+                         "and K6 of an older checkout against this tree's "
+                         "at the paths' inputs and the two trees' LUT (K5) "
+                         "and fused CAGRA searches, then stop")
     ap.add_argument("--k1-variants", nargs="+", metavar="NAME=CSRC_DIR",
                     help="time K1 built from these kernel source trees "
                          "against each other at the paths' K1 shapes, then "
@@ -2992,14 +3315,23 @@ def main() -> int:
                     help="time K2 and K4 built from these kernel source "
                          "trees against each other at the IVF-BQ and bq "
                          "serving paths' shapes, then stop")
+    ap.add_argument("--k6-variants", nargs="+", metavar="NAME=CSRC_DIR",
+                    help="time K6 built from these kernel source trees "
+                         "against each other at synthetic hops of the "
+                         "bench's fused rungs, then stop")
     ap.add_argument("--lut-child", nargs=6, help=argparse.SUPPRESS)
+    ap.add_argument("--cagra-child", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.lut_child:
         return lut_child(*args.lut_child)
+    if args.cagra_child:
+        return cagra_child(*args.cagra_child)
     if args.k1_variants:
         return strip_variants("k1", args.k1_variants)
     if args.k2_variants:
         return strip_variants("k2", args.k2_variants)
+    if args.k6_variants:
+        return hop_variants(args.k6_variants)
 
     import torch
 
@@ -3102,6 +3434,7 @@ def main() -> int:
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})
             if args.ab and name == "lut":
                 ab_phase(args.ab, shared)
+                ab_k6_phase(args.ab, shared)
                 return 0
     emit({"kernels": [k1, k2, k3, k4, k5, k6]})
     emit({"ok": True, "device": {"platform": "gpu",

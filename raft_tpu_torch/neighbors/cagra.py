@@ -18,9 +18,10 @@ score, dedup exactly and merge. Three traversals:
 * ``"exact"`` — full-precision distances to gathered dataset rows;
 * ``"compressed"`` — code-unit distances from the inlined codes (one
   record gather per parent), exact re-rank of the buffer at the end;
-* ``"fused"`` — the compressed loop with the whole hop in one launch of
-  kernel K6 (:func:`raft_tpu_torch.ops.cagra_hop.fused_hop`) on a CUDA
-  index; on a CPU index the same loop runs the hop's plain twin. ``"auto"``
+* ``"fused"`` — the compressed loop with the whole hop, its parent pickup
+  included, in one launch of kernel K6
+  (:func:`raft_tpu_torch.ops.cagra_hop.fused_hop`) on a CUDA index; on a
+  CPU index the same loop runs the hop's plain twin. ``"auto"``
   takes it when the payload is present and the index lives on a card,
   ``"compressed"`` otherwise. On a card a hop shape K6 cannot take, and a
   fused hop that fails, raise: there is no silent rerun on another loop.
@@ -69,7 +70,7 @@ _LATER = "arrives with a later slice of the PyTorch port"
 _CAGRA_DEDUP_LIMIT = 512
 # hops between two host checks of the frontier
 _CAGRA_HOP_CHUNK = 8
-# the JAX package's fused query block; K6 takes one query per block, so the
+# the JAX package's fused query block; K6 takes one query a warp, so the
 # port pads nothing to it and only reports its occupancy_stats
 _CAGRA_QBLOCK = 32
 _PAYLOAD = ("proj", "code_scale", "nbr_codes", "centroids", "centroid_reps",
@@ -801,28 +802,13 @@ def _fused_init(index: CagraIndex, queries, gen, itopk: int, n_rand: int):
     return buf_ids, buf_d, buf_vis, qp
 
 
-def _fused_pickup(state, width: int):
-    """The fused loop's parent pickup: the best ``width`` unvisited entries
-    by the packed select, marked visited → the operands of
-    :func:`fused_hop` that come from the buffer (ids, d, vis, parents)."""
-    ids_b, d_b, vis = state
-    inf = float("inf")
-    pkey = torch.where((vis > 0) | (ids_b < 0), torch.full_like(d_b, inf),
-                       d_b)
-    pv, ppos = iter_topk_min_packed(pkey, width)
-    ppos = ppos.long()
-    parent_ids = torch.gather(ids_b, 1, ppos)
-    parents = torch.where(torch.isinf(pv), torch.full_like(parent_ids, -1),
-                          parent_ids)
-    return ids_b, d_b, vis.scatter(1, ppos, 1.0), parents
-
-
 def _fused_hop_chunk(index: CagraIndex, qp, state, width: int, hops: int):
-    """``hops`` hops of the fused loop: each the packed parent pickup, then
-    everything else in one :func:`fused_hop` (K6 on a card)."""
+    """``hops`` hops of the fused loop, each one :func:`fused_hop` that
+    picks its own ``width`` parents (one launch of K6 on a card, and no
+    torch op beside it)."""
     for _ in range(hops):
-        state = fused_hop(*_fused_pickup(state, width), qp, index.graph,
-                          index.nbr_codes)
+        state = fused_hop(*state, None, qp, index.graph, index.nbr_codes,
+                          width=width)
     return state
 
 

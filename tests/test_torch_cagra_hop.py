@@ -13,7 +13,9 @@ import torch
 
 import jax.numpy as jnp
 
+from raft_tpu.neighbors import cagra as jcagra
 from raft_tpu.ops import cagra_hop as jhop
+from raft_tpu.ops.select_k import iter_topk_min_packed as jax_packed_select
 from raft_tpu_torch.ops import cagra_hop as thop
 from raft_tpu_torch.stats.metrics import topk_agreement
 
@@ -172,8 +174,12 @@ def test_max_fused_rows_is_the_int32_id_bound():
     stats = thop.occupancy_stats(10_000, 32, 8, 64, 64, 96)
     assert stats["q_pad"] == 10_016      # what a 32-row grid would pad
     assert stats["candidates_per_query"] == 512
-    assert stats["merge_width"] == 608 and stats["sort_width"] == 1024
+    # K6 sorts only the 512 candidates (16 keys a lane), not all 608 keys
+    assert stats["merge_width"] == 608 and stats["sort_width"] == 512
     assert stats["code_bytes_per_query"] == 32_768
+    # a warp a query, 4 a block: 10,000 queries take 2,500 blocks
+    assert stats["warps_per_query"] == 1
+    assert stats["queries_per_block"] == 4 and stats["blocks"] == 2500
 
 
 @pytest.mark.parametrize("shape,why", [
@@ -200,6 +206,175 @@ def test_hop_shape_error_names_each_limit(shape, why):
                            torch.zeros((2, p)),
                            torch.zeros((50, deg), dtype=torch.int32),
                            torch.zeros((50, deg, p), dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# the picking mode: the hop picks its own parents
+# ---------------------------------------------------------------------------
+
+
+def _jax_pick_hop(args, w):
+    """JAX's fused loop body for one hop (``cagra._fused_hop_chunk``): the
+    packed pickup of the best ``w`` unvisited valid slots, marked visited,
+    then ``fused_hop_reference``."""
+    buf_ids, buf_d, buf_vis, _, qp, graph, codes = [jnp.asarray(a)
+                                                    for a in args]
+    itopk = buf_ids.shape[1]
+    pkey = jnp.where((buf_vis > 0) | (buf_ids < 0), jnp.float32(jnp.inf),
+                     buf_d)
+    pv, ppos = jax_packed_select(pkey, w)
+    parents = jnp.where(jnp.isinf(pv), -1,
+                        jnp.take_along_axis(buf_ids, ppos, axis=1))
+    picked = jnp.any(jnp.arange(itopk)[None, None, :] == ppos[:, :, None],
+                     axis=1)
+    vis = jnp.where(picked, jnp.float32(1.0), buf_vis)
+    return parents, jhop.fused_hop_reference(buf_ids, buf_d, vis, parents,
+                                             qp, graph, codes)
+
+
+def _pick(args, w):
+    """The port's picking hop (the twin on these CPU tensors)."""
+    buf_ids, buf_d, buf_vis, _, qp, graph, codes = _torch(args)
+    return thop.fused_hop(buf_ids, buf_d, buf_vis, None, qp, graph, codes,
+                          width=w)
+
+
+@pytest.mark.parametrize("w", [1, 4, 8])
+@pytest.mark.parametrize("itopk", [32, 64, 96])
+def test_picking_twin_is_bitwise_jax_pickup_and_reference(w, itopk):
+    """Without parents the hop picks them as JAX's loop body does: the
+    packed select over itopk columns, -1 where the pick is +inf, the picks
+    marked visited; then the hop, bit for bit on integer-valued qp."""
+    rng = np.random.default_rng(100 + 10 * w + itopk)
+    args = _case(rng, n=500, deg=16, p=32, q=24, w=w, itopk=itopk,
+                 dup_heavy=w == 8)
+    parents, want = _jax_pick_hop(args, w)
+    _assert_bitwise(_pick(args, w), want)
+    vis, got_parents = thop.pick_parents(*_torch(args)[:3], w)
+    np.testing.assert_array_equal(got_parents.numpy(), np.asarray(parents))
+
+
+def test_picking_twin_is_jax_fused_loop_body():
+    """The same hop against JAX's own loop body, ``_fused_hop_chunk`` run
+    for one hop with its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(31)
+    w, itopk = 4, 32
+    args = _case(rng, n=300, deg=8, p=16, q=16, w=w, itopk=itopk)
+    buf_ids, buf_d, buf_vis, _, qp, graph, codes = [jnp.asarray(a)
+                                                    for a in args]
+    ids, d, vis, hops = jcagra._fused_hop_chunk(
+        graph, codes, qp, buf_ids, buf_d, buf_vis, jnp.int32(0),
+        jnp.int32(1), itopk=itopk, width=w, min_iter=1, q_block=8,
+        interpret=True)
+    assert int(hops) == 1
+    _assert_bitwise(_pick(args, w), (ids, d, vis))
+
+
+def test_picking_skips_holes_and_runs_out_of_parents():
+    """A buffer that is mostly -1 holes: holes are never picked, and a row
+    with fewer than ``w`` unvisited valid slots gets -1 parents (whose
+    picked slots are marked visited all the same)."""
+    rng = np.random.default_rng(32)
+    w, itopk = 8, 32
+    args = list(_case(rng, n=400, deg=16, p=32, q=24, w=w, itopk=itopk))
+    holes = rng.random((24, itopk)) < 0.7
+    args[0][holes] = -1
+    args[1][holes] = np.inf
+    parents, want = _jax_pick_hop(args, w)
+    parents = np.asarray(parents)
+    assert (parents == -1).any() and (parents >= 0).any()
+    _assert_bitwise(_pick(args, w), want)
+
+
+def test_picking_all_visited_is_a_noop():
+    """Every slot visited: every parent is -1 and the hop returns the
+    buffer re-packed, as JAX's; a second hop changes nothing."""
+    rng = np.random.default_rng(33)
+    args = list(_case(rng, n=200, deg=8, p=16, q=16, w=4, itopk=32))
+    args[2][:] = 1.0
+    parents, want = _jax_pick_hop(args, 4)
+    assert (np.asarray(parents) == -1).all()
+    got = _pick(args, 4)
+    _assert_bitwise(got, want)
+    again = thop.fused_hop(*got, None, *_torch(args[4:]), width=4)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
+def test_picking_tie_order():
+    """Equal distances everywhere (the buffer, and candidates whose code
+    records are one repeated row): the pickup and the merge break ties by
+    column, lowest first, as JAX's packed select does."""
+    rng = np.random.default_rng(34)
+    args = list(_case(rng, n=300, deg=8, p=16, q=16, w=4, itopk=32))
+    args[1][np.isfinite(args[1])] = 86_400.0
+    args[6][:] = args[6][0, 0]
+    parents, want = _jax_pick_hop(args, 4)
+    got = _pick(args, 4)
+    _assert_bitwise(got, want)
+    # each row holds at most two distinct values: every slot was a tie
+    for row in got[1].numpy():
+        assert len(np.unique(row[np.isfinite(row)])) <= 2
+
+
+def test_picking_real_valued_qp_within_tolerance():
+    rng = np.random.default_rng(35)
+    args = _case(rng, n=400, deg=8, p=16, q=32, w=4, itopk=64,
+                 integer=False)
+    ti, td, tv = _pick(args, 4)
+    _, want = _jax_pick_hop(args, 4)
+    ji, jd, jv = (torch.from_numpy(np.array(a)) for a in want)
+    verdict = topk_agreement(jd, ji, td, ti, rtol=5e-4, atol=1e-3)
+    assert verdict["ok"], verdict
+    same = ti == ji
+    assert torch.equal(tv[same], jv[same])
+
+
+def test_picking_width_past_itopk_takes_every_slot():
+    """The packed select returns at most itopk slots, so a width past
+    itopk expands every slot, as a width of itopk does."""
+    rng = np.random.default_rng(36)
+    args = _case(rng, n=200, deg=4, p=8, q=8, w=2, itopk=8)
+    for a, b in zip(_pick(args, 11), _pick(args, 8)):
+        assert torch.equal(a, b)
+
+
+def test_picking_wrapper_needs_a_width_and_counts_nothing_on_cpu():
+    rng = np.random.default_rng(37)
+    buf_ids, buf_d, buf_vis, _, qp, graph, codes = _torch(
+        _case(rng, n=100, deg=4, p=8, q=8, w=2, itopk=8))
+    with pytest.raises(ValueError, match="width"):
+        thop.fused_hop(buf_ids, buf_d, buf_vis, None, qp, graph, codes)
+    before = thop.HOP_KERNEL.launches
+    got = thop.fused_hop(buf_ids, buf_d, buf_vis, None, qp, graph, codes,
+                         width=2)
+    assert thop.HOP_KERNEL.launches == before
+    vis, parents = thop.pick_parents(buf_ids, buf_d, buf_vis, 2)
+    for a, b in zip(got, thop.fused_hop_reference(buf_ids, buf_d, vis,
+                                                  parents, qp, graph,
+                                                  codes)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_picking_kernel_matches_plain_twin_on_card():
+    """K6's picking entry against its twin on the card, bitwise on
+    integer-valued qp: an unsorted buffer with holes, then the sorted
+    buffer the first hop returns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K6 is CUDA code with no CPU mode")
+    rng = np.random.default_rng(22)
+    buf_ids, buf_d, buf_vis, _, qp, graph, codes = [
+        t.cuda() for t in _torch(_case(rng, n=2000, deg=64, p=64, q=64, w=4,
+                                       itopk=64, dup_heavy=True))]
+    state = (buf_ids, buf_d, buf_vis)
+    for _ in range(2):
+        got = thop.fused_hop(*state, None, qp, graph, codes, width=4)
+        want = thop.fused_hop_reference(*state, None, qp, graph, codes,
+                                        width=4)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        state = got
 
 
 @pytest.mark.cuda
