@@ -561,6 +561,30 @@ PAGED_SELECTION_CASES = (
 K3_PARITY_CASES = (
     [(f"serve_r128_w4096_kf{kf}", dict(page_rows=128, table_width=64, ppf=32,
                                        kf=kf)) for kf in (10, 20, 40)]
+    # the ring loop's edges: pages of 64, 32, 8 and 4 rows (a tile of
+    # several pages, chains ending mid-tile), 256 (a page of two tiles),
+    # one, three and four 64-dim chunks, kf 1 to 512; 2-row pages and bf16 /
+    # fp32 pools keep the staged loop
+    + [("r64_nsub2_int8_kf10", dict(page_rows=64, table_width=16, ppf=8,
+                                    kf=10, payload="int8")),
+       ("r32_nsub2_kf1", dict(page_rows=32, table_width=16, ppf=8, kf=1)),
+       ("r8_w128_kf10", dict(page_rows=8, table_width=32, ppf=16, kf=10)),
+       ("r4_w256_int8_kf20", dict(page_rows=4, table_width=64, ppf=64, kf=20,
+                                  payload="int8")),
+       ("r256_nsub2_kf20", dict(page_rows=256, table_width=8, ppf=4, kf=20)),
+       ("r128_dim64_int8_kf20", dict(page_rows=128, table_width=8, ppf=4,
+                                     kf=20, payload="int8", dim=64)),
+       ("r128_dim192_kf40", dict(page_rows=128, table_width=8, ppf=4, kf=40,
+                                 dim=192)),
+       ("r128_dim256_int8_kf129", dict(page_rows=128, table_width=8, ppf=4,
+                                       kf=129, payload="int8", dim=256)),
+       ("r128_nsub2_int8_kf512", dict(page_rows=128, table_width=8, ppf=4,
+                                      kf=512, payload="int8")),
+       ("r2_w128_kf10", dict(page_rows=2, table_width=128, ppf=64, kf=10)),
+       ("r128_bf16_kf20", dict(page_rows=128, table_width=8, ppf=4, kf=20,
+                               payload="bf16")),
+       ("r64_fp32_kf10", dict(page_rows=64, table_width=16, ppf=8, kf=10,
+                              payload="fp32"))]
     + [("r32_w64_kf20", dict(page_rows=32, table_width=2, ppf=2, kf=20)),
        ("r32_nsub2_spanning_tiles_kf40",
         dict(page_rows=32, table_width=16, ppf=8, kf=40, payload="int8")),
@@ -588,17 +612,37 @@ K4_PARITY_CASES = (
        PAGED_SELECTION_CASES])
 
 
+def k3_loop(kw) -> str:
+    """The product loop K3's plan picks for a synthetic_paged case: the
+    ring on byte pools of whole 64-dim chunks whose pages make whole tiles
+    (or tiles whole pages) of 16-byte bias rows, else the staged wgmma
+    loop at whole chunks, else mma.sync."""
+    r, dim = kw["page_rows"], kw.get("dim", 128)
+    pages_tile = (r < 128 and 128 % r == 0 and r % 4 == 0) or r % 128 == 0
+    if dim % 64:
+        return "mma.sync"
+    if kw.get("payload", "uint8") in ("uint8", "int8") and pages_tile:
+        return "ring"
+    return "wgmma"
+
+
 def paged_parity_phase(kernel, cases, seed0, dev="cuda"):
     """K3 or K4 against its plain twin on synthetic paged classes. Besides
     the finite candidates, the +inf slots must carry the twin's offsets
-    (the positions the all-+inf remainder of a block gives)."""
+    (the positions the all-+inf remainder of a block gives). K3 must run
+    the loop its plan picks for the case (``k3_loop``)."""
     import torch
+
+    from raft_tpu_torch.ops import strip_scan as ss
 
     wrapper, plain = _kernel_pair(kernel)
     worst = 0.0
     for i, (name, kw) in enumerate(cases):
         call, rows = synthetic_paged(seed0 + i, dev=dev, **kw)
         got = wrapper(**call, strip_rows=rows)
+        loop = {}
+        if kernel == "paged_scan" and call["a"].is_cuda:
+            loop = {"loop": ss.PAGED_KERNEL.loop, "want_loop": k3_loop(kw)}
         want = plain(**call)
         if call["a"].is_cuda:
             torch.cuda.synchronize()
@@ -613,11 +657,72 @@ def paged_parity_phase(kernel, cases, seed0, dev="cuda"):
             verdict["ok"] = verdict["ok"] and verdict["bitwise"]
         emit({"phase": "parity", "kernel": kernel, "case": name,
               "n_sub": call["n_sub"], "w": call["ppf"] * call["page_rows"],
-              **verdict})
+              **loop, **verdict})
         if not (verdict["ok"] and verdict["inf_offsets_equal"]):
             raise AssertionError(f"{kernel} kernel disagrees with its plain "
                                  f"version on case {name}: {verdict}")
+        if loop and loop["loop"] != loop["want_loop"]:
+            raise AssertionError(f"K3 ran {loop['loop']} on case {name}, "
+                                 f"not {loop['want_loop']}")
         worst = max(worst, verdict["max_abs_err"])
+    if kernel == "paged_scan":
+        worst = max(worst, paged_upsert_parity(seed0 + len(cases), dev))
+    return worst
+
+
+def paged_upsert_parity(seed, dev="cuda"):
+    """K3 on a serving-shaped uint8 pool (128-row pages, kf 10), then on
+    the same pool after an upsert (fresh rows written into a free page that
+    one list's chain takes up, a tombstone in another), each launch against
+    the twin on the pool as it then stands: nothing of the first launch
+    may linger in the second."""
+    import torch
+
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    wrapper, plain = _kernel_pair("paged_scan")
+    call, rows = synthetic_paged(seed, page_rows=128, table_width=16, ppf=8,
+                                 kf=10, dev=dev)
+    worst = 0.0
+    for when in ("before", "after"):
+        got = wrapper(**call, strip_rows=rows)
+        verdict = compare(got, plain(**call), call["strip_list"], rows)
+        emit({"phase": "parity", "kernel": "paged_scan",
+              "case": f"upsert_between_launches_{when}",
+              "loop": ss.PAGED_KERNEL.loop if dev != "cpu" else None,
+              **verdict})
+        if not verdict["ok"]:
+            raise AssertionError(f"K3 disagrees with its plain version "
+                                 f"{when} an upsert: {verdict}")
+        worst = max(worst, verdict["max_abs_err"])
+        if when == "after":
+            break
+        # the upsert: list 2's chain takes a free page of fresh rows (NaN
+        # before: never chained), list 5 loses a row to a tombstone
+        table = call["table_flat"].reshape(-1, call["table_width"]).clone()
+        chain = call["chain_pages"].clone()
+        used = torch.zeros(call["pages"].shape[0], dtype=torch.bool,
+                           device=table.device)
+        used[table[table >= 0].long()] = True
+        used[0] = True
+        free = int(torch.nonzero(~used)[0])
+        pages, bias = call["pages"].clone(), call["bias_pool"].clone()
+        g = torch.Generator(device=pages.device)
+        g.manual_seed(seed + 1)
+        pages[free] = torch.randint(0, 256, pages[free].shape, generator=g,
+                                    device=pages.device).to(pages.dtype)
+        bias[free] = torch.rand(bias[free].shape, generator=g,
+                                device=bias.device) * 1000.0
+        table[2, int(chain[2])] = free
+        chain[2] += 1
+        if int(chain[5]):
+            bias[table[5, 0], 0] = float("inf")
+        call.update(pages=pages.contiguous(), bias_pool=bias.contiguous(),
+                    table_flat=table.reshape(-1).contiguous(),
+                    chain_pages=chain.contiguous(),
+                    sub_live=ss.paged_sub_live(
+                        bias, table, chain, call["ppf"],
+                        call["n_sub"]).contiguous())
     return worst
 
 
@@ -851,7 +956,8 @@ def kernel_timing(calls, kernel, yardstick, bytes_per_col, bound=None):
 STRIP_LAUNCHERS = {
     "strip_scan": ("strip_scan", "_kernel_fn", "raft_strip_scan_product"),
     "bq_scan": ("bq_scan", "_kernel_fn", "raft_bq_scan_product"),
-    "paged_scan": ("strip_scan", "_paged_kernel_fn", None),
+    "paged_scan": ("strip_scan", "_paged_kernel_fn",
+                   "raft_paged_scan_product"),
     "paged_bq_scan": ("bq_scan", "_paged_kernel_fn",
                       "raft_paged_bq_scan_product"),
 }
@@ -868,11 +974,13 @@ def launcher_of(kernel):
 
 
 def product_loops(calls, kernel):
-    """The product loops (``"wgmma"``, ``"mma.sync"``) a packed kernel's
+    """The product loops (``_native.PRODUCT_LOOPS``) a strip kernel's
     launches run at these class inputs, as each launch reports its own."""
     from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import strip_scan as ss
 
     counter = {"bq_scan": bq.BQ_KERNEL,
+               "paged_scan": ss.PAGED_KERNEL,
                "paged_bq_scan": bq.PAGED_BQ_KERNEL}[kernel]
     wrapper = _kernel_pair(kernel)[0]
     loops = set()
@@ -880,6 +988,12 @@ def product_loops(calls, kernel):
         wrapper(**c)
         loops.add(counter.loop)
     return sorted(loops)
+
+
+def check_ring(loops, what):
+    """K3 at a serving input (byte pages of 128 rows) runs the ring loop."""
+    if loops != ["ring"]:
+        raise AssertionError(f"{what}: K3 ran {loops}, not the ring loop")
 
 
 def check_wgmma(loops, nb, what):
@@ -1249,6 +1363,19 @@ def paged_class_inputs(snapshot, probes, a_rows, kf, row_bytes, q_tile,
     return calls
 
 
+def serve_flat_inputs(store, qs, n_probes, kf, res):
+    """The per-class arguments a paged IVF-Flat search of ``store`` hands
+    K3 → (calls, query tile)."""
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    probes = ivf_flat._coarse_probes(qs.float(), store.centers, n_probes,
+                                     store.metric)
+    q_tile = min(ivf_flat._paged_plan_static(store, n_probes, kf, res,
+                                             store.dim), qs.shape[0])
+    return paged_class_inputs(store.paged_scan_state(), probes, qs.float(),
+                              kf, store.dim, q_tile, -2.0), q_tile
+
+
 def paged_scan_bound(calls, bytes_per_col):
     """``scan_bound`` for the paged kernels: each probed list's live
     columns (finite-bias rows of its chained pages) read once at
@@ -1485,22 +1612,21 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
                              "the store's shape")
 
     # K3 at this path's own class inputs (the reserved store, k = 10)
-    snap = store.paged_scan_state()
-    probes = ivf_flat._coarse_probes(qs.float(), store.centers, n_probes,
-                                     store.metric)
-    q_tile = min(ivf_flat._paged_plan_static(store, n_probes, K, res,
-                                             store.dim), q)
-    calls = paged_class_inputs(snap, probes, qs.float(), K, store.dim, q_tile,
-                               -2.0)
+    calls, q_tile = serve_flat_inputs(store, qs, n_probes, K, res)
     max_err = kernel_parity_at(calls, "paged_scan",
                                f"serve_path_nprobe{n_probes}_kf{K}")
     keep_for_ab(("paged_scan", f"serve_flat_kf{K}"), calls)
     timing = kernel_timing(calls, "paged_scan", paged_library_yardstick,
                            store.dim + 4, bound=paged_scan_bound)
+    loops = product_loops(calls, "paged_scan")
+    check_ring(loops, "serve.k3")
     emit({"phase": "serve.k3", "n_probes": n_probes, "kf": K,
-          "query_tile": q_tile, "strips": sum(
+          "loop": "/".join(loops), "query_tile": q_tile, "strips": sum(
               int((c["strip_list"] >= 0).sum()) for c in calls), **timing})
+    kernel_split(calls, "serve.k3_split", "paged_scan", kf=K,
+                 n_probes=n_probes, payload="uint8")
     return {"launches": launches, "max_abs_err": max_err,
+            "loop": "/".join(loops),
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
 
@@ -1619,18 +1745,19 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
     timing = kernel_timing(calls, kernel, paged_library_yardstick,
                            row_bytes + (8 if kind == "bq" else 4),
                            bound=paged_scan_bound)
-    loop = {}
+    loops = product_loops(calls, kernel)
     if kind == "bq":
-        loops = product_loops(calls, kernel)
         check_wgmma(loops, row_bytes, "serve.bq.k4")
-        loop = {"loop": "/".join(loops)}
-    emit({"phase": f"serve.{kind}.{'k4' if kind == 'bq' else 'k3'}",
+    else:
+        check_ring(loops, "serve.pq.k3")
+    loop = {"loop": "/".join(loops)}
+    short = "k4" if kind == "bq" else "k3"
+    emit({"phase": f"serve.{kind}.{short}",
           "n_probes": n_probes, "kf": kf, **loop,
           "query_tile": q_tile, "strips": sum(
               int((c["strip_list"] >= 0).sum()) for c in calls), **timing})
-    if kind == "bq":
-        kernel_split(calls, "serve.bq.k4_split", "paged_bq_scan", kf=kf,
-                     n_probes=n_probes)
+    kernel_split(calls, f"serve.{kind}.{short}_split", kernel, kf=kf,
+                 n_probes=n_probes)
     return {"launches": launches, "max_abs_err": max_err, **loop,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
@@ -2713,18 +2840,23 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
             "bound_by": bound_by, "library_ms": None}, k1_err
 
 
+AB_SHORT = {"strip_scan": "k1", "bq_scan": "k2", "paged_scan": "k3",
+            "paged_bq_scan": "k4"}
+
+
 def ab_phase(old_tree, shared, dev="cuda"):
     """The strip kernels K1–K4 of an older checkout (``old_tree``, e.g. a
     ``git archive`` of the parent commit) against this tree's, in one
     process on one card, at the paths' own class inputs, in the order old,
     new, new, old: K1 at the IVF-PQ path (int8, kf 20, the tournament), the
     IVF-Flat path (uint8, kf 10) and the CAGRA build's candidate scan (fp32,
-    kf 129); K2 at the IVF-BQ path; K3 at the flat serving path, K4 at the
-    bq serving path. The older sources are built by nvcc beside that tree
+    kf 129); K2 at the IVF-BQ path; K3 at the flat serving path (uint8, kf
+    10) and the PQ serving path (the int8 cache, kf 20), K4 at the bq
+    serving path. The older sources are built by nvcc beside that tree
     (both builds' ptxas lines are printed); the wrappers, plan and inputs
-    are this tree's (the four kernels' C interfaces are the same); K1's
-    product alone as well (``ab.k1_product``) where the older tree has the
-    product-only instantiation. Then K5
+    are this tree's (the four kernels' C interfaces are the same); each
+    kernel's product alone as well (``ab.k1_product`` .. ``ab.k4_product``)
+    where the older tree has its product-only instantiation. Then K5
     at path level (its C interface changed): each tree's LUT search in a
     process of its own, on one index file and one query file, old, new,
     new, old."""
@@ -2736,7 +2868,6 @@ def ab_phase(old_tree, shared, dev="cuda"):
     from raft_tpu_torch import Resources
     from raft_tpu_torch.neighbors import cagra
     from raft_tpu_torch.ops import _native
-    from raft_tpu_torch.ops import strip_scan as ss
 
     res = Resources(device=dev)
     calls, *_ = cagra_k1_inputs(shared["dataset"], cagra.CagraParams(
@@ -2794,24 +2925,25 @@ def ab_phase(old_tree, shared, dev="cuda"):
                                               for v in verdicts),
                       "max_abs_err": max(v["max_abs_err"] for v in verdicts)})
         emit({"phase": "ab", **cases[-1]})
-        if name == "strip_scan" and hasattr(old_lib,
-                                            "raft_strip_scan_product"):
+        product = launcher_of(name)[2]
+        if hasattr(old_lib, product):
             # the product alone (the product-only instantiations): the old
             # tree's loop against this tree's at the same inputs
-            old_p = old_lib.raft_strip_scan_product
-            new_p = _native.load("strip_scan").raft_strip_scan_product
+            old_p = getattr(old_lib, product)
+            new_p = getattr(_native.load(name), product)
             for f in (old_p, new_p):
                 f.argtypes, f.restype = new_fn.argtypes, new_fn.restype
             prod = []
             for which in ("old", "new", "new", "old"):
                 fn = old_p if which == "old" else new_p
-                ss._kernel_fn = lambda fn=fn: fn
+                setattr(mod, getter, lambda fn=fn: fn)
                 prod.append([which, cuda_ms(lambda: [wrapper(**c)
                                                      for c in calls])])
-            ss._kernel_fn = lambda fn=new_fn: fn
-            emit({"phase": "ab.k1_product", "inputs": shape, "order": prod,
+            emit({"phase": f"ab.{AB_SHORT[name]}_product", "inputs": shape,
+                  "order": prod,
                   "old_ms_mean": sum(t for w, t in prod if w == "old") / 2,
                   "new_ms_mean": sum(t for w, t in prod if w == "new") / 2})
+        setattr(mod, getter, lambda fn=new_fn: fn)
 
     # K5 at path level: each tree's LUT search in its own process
     index_file, query_file, pick = AB_INPUTS["lut"]
@@ -3027,7 +3159,9 @@ def variant_shapes(family, res):
     20, IVF-Flat uint8 kf 10, the CAGRA build's first batch at fp32 kf
     129); for ``"k2"`` K2 at the IVF-BQ path and K4 at the bq serving path,
     both at the (n_probes, k_fetch) the IVF-BQ escalation picks
-    (``BQ_PICK``)."""
+    (``BQ_PICK``); for ``"k3"`` K3 at the two serving inputs (the flat
+    store's uint8 pages at kf 10, the IVF-PQ store's int8 cache at kf 20,
+    n_probes 16, 128-row pages)."""
     from raft_tpu_torch import serving
     from raft_tpu_torch.neighbors import cagra, ivf_bq, ivf_flat, ivf_pq
 
@@ -3049,6 +3183,22 @@ def variant_shapes(family, res):
             "cagra_fp32_kf129": ("strip_scan", cagra_k1_inputs(
                 dataset, cagra.CagraParams(intermediate_graph_degree=128,
                                            graph_degree=64), res)[0])}
+    if family == "k3":
+        flat = ivf_flat.build(dataset, ivf_flat.IvfFlatParams(
+            n_lists=N_LISTS, kmeans_trainset_fraction=0.2), res=res)
+        fstore = serving.PagedListStore.from_index(
+            flat, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+        fstore.reserve(WINDOW_ROUNDS * UPSERT_ROWS)
+        pq = ivf_pq.build(dataset, ivf_pq.IvfPqParams(
+            n_lists=N_LISTS, pq_dim=64, pq_bits=8,
+            kmeans_trainset_fraction=0.2), res=res)
+        pstore = serving.PagedListStore.from_index(
+            pq, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+        pstore.reserve(4 * UPSERT_ROWS)
+        return {f"serve_flat_kf{K}": ("paged_scan", serve_flat_inputs(
+                    fstore, qs, 16, K, res)[0]),
+                "serve_pq_kf20": ("paged_scan", serve_codes_inputs(
+                    pstore, "pq", qs, 16, 20, res)[0])}
     n_probes, kf = min(BQ_PICK[0], N_LISTS), BQ_PICK[1]
     index = ivf_bq.build(dataset, ivf_bq.IvfBqParams(
         n_lists=N_LISTS, kmeans_trainset_fraction=0.2), res=res)
@@ -3065,11 +3215,11 @@ def strip_variants(family, specs):
     """Strip kernels built from other kernel source trees (``NAME=CSRC_DIR``,
     e.g. a copy of ``raft_tpu_torch/ops/csrc`` with one change) against
     each other at the paths' shapes (``variant_shapes``): K1 for ``"k1"``,
-    K2 and K4 for ``"k2"``. Each tree's sources are built by nvcc, all at
+    K2 and K4 for ``"k2"``, K3 for ``"k3"``. Each tree's sources are built by nvcc, all at
     once (ptxas lines printed); then each kernel and its product-only
     instantiation are timed through this tree's wrapper, in the order of
-    the specs and back, and each tree's output is compared bit for bit
-    with the first tree's. A tree whose library exports
+    the specs and back, and each tree's output is compared with the first
+    tree's, bit for bit and as ``compare`` holds a kernel to its twin. A tree whose library exports
     ``raft_prof_reset`` / ``raft_prof_read`` / ``raft_prof_names`` (device
     counters a variant adds) has them read over one run of each shape."""
     import ctypes
@@ -3081,8 +3231,8 @@ def strip_variants(family, specs):
     from raft_tpu_torch import Resources
     from raft_tpu_torch.ops import _native
 
-    kernels = ["strip_scan"] if family == "k1" else ["bq_scan",
-                                                      "paged_bq_scan"]
+    kernels = {"k1": ["strip_scan"], "k2": ["bq_scan", "paged_bq_scan"],
+               "k3": ["paged_scan"]}[family]
     trees = dict(spec.split("=", 1) for spec in specs)
     emit({"phase": "device", "nvidia_smi": nvidia_smi_card(),
           "kind": torch.cuda.get_device_name(0)})
@@ -3145,6 +3295,10 @@ def strip_variants(family, specs):
                     "product_ms": sum(times[n]["product"]) / 2,
                     "same_as_first": all(
                         same_rows(got, want, c["strip_list"], c["strip_rows"])
+                        for got, want, c in zip(outs, first, calls)),
+                    "agrees_with_first": all(
+                        compare(got, want, c["strip_list"],
+                                c["strip_rows"])["ok"]
                         for got, want, c in zip(outs, first, calls)),
                     "order": times[n]}
             prof = fns[n, kernel].get("prof")
@@ -3315,6 +3469,11 @@ def main() -> int:
                     help="time K2 and K4 built from these kernel source "
                          "trees against each other at the IVF-BQ and bq "
                          "serving paths' shapes, then stop")
+    ap.add_argument("--k3-variants", nargs="+", metavar="NAME=CSRC_DIR",
+                    help="time K3 built from these kernel source trees "
+                         "against each other at the two serving paths' "
+                         "shapes (flat uint8 kf 10, PQ int8 cache kf 20), "
+                         "then stop")
     ap.add_argument("--k6-variants", nargs="+", metavar="NAME=CSRC_DIR",
                     help="time K6 built from these kernel source trees "
                          "against each other at synthetic hops of the "
@@ -3330,6 +3489,8 @@ def main() -> int:
         return strip_variants("k1", args.k1_variants)
     if args.k2_variants:
         return strip_variants("k2", args.k2_variants)
+    if args.k3_variants:
+        return strip_variants("k3", args.k3_variants)
     if args.k6_variants:
         return hop_variants(args.k6_variants)
 

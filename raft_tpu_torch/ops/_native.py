@@ -45,7 +45,7 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 class KernelCounter:
     """Launch count of one hand-written kernel (a plain integer) and, for a
     kernel with more than one product loop, the loop its last launch ran
-    (``"wgmma"`` or ``"mma.sync"``; empty until it launched)."""
+    (one of :data:`PRODUCT_LOOPS`; empty until it launched)."""
 
     name: str
     launches: int = 0
@@ -56,7 +56,10 @@ class KernelCounter:
         self.loop = ""
 
 
-PRODUCT_LOOPS = ("mma.sync", "wgmma")
+#: the strip kernels' product loops, by the code their ``raft_*_loop``
+#: entries return: ``mma.sync`` (strip_kernel), ``wgmma`` (strip_kernel_wg,
+#: staged or register-A), ``ring`` (strip_kernel_wg's paged ring, K3)
+PRODUCT_LOOPS = ("mma.sync", "wgmma", "ring")
 
 
 def last_loop(name: str) -> str:

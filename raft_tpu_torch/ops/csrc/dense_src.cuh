@@ -3,9 +3,13 @@
 // tile of strip_kernel or the swizzled shared operand of strip_kernel_wg,
 // which both run where its plan fits (both in strip_common.cuh). Integers
 // up to 256 in magnitude and bf16 values are exact in bf16; fp32 rounds to
-// nearest even.
+// nearest even. K3's byte pools (RingSrc) take strip_kernel_wg's ring loop
+// where its plan fits (plan_ring): whole pages by bulk copy, the A
+// fragments built in registers.
 
 #pragma once
+
+#include <type_traits>
 
 #include "strip_common.cuh"
 
@@ -186,6 +190,7 @@ template <typename TB>
 struct DenseSrc {
   static constexpr bool kScaled = false;
   static constexpr bool kRegA = false;  // strip_kernel_wg stages the tile
+  static constexpr bool kRing = false;
   static constexpr int kAlign = 16;  // bytes: the Vec path's loads
   struct Vec {
     BVec<TB> v;
@@ -219,6 +224,89 @@ struct DenseSrc {
   }
 };
 
+// bytes 0, 1 (hi: 2, 3) of w as two bf16, the first in the low half, each
+// exact: the byte under a float's 2^23 exponent minus 2^23 (+128 for int8,
+// whose sign bit is flipped first) is its value, and a float of at most 8
+// significant bits is its own bf16, the high half
+template <bool kSigned>
+__device__ __forceinline__ uint32_t bytes_bf16x2(uint32_t w, bool hi) {
+  constexpr float kMagic = kSigned ? 8388736.0f : 8388608.0f;
+  if (kSigned) w ^= 0x80808080u;
+  const float f0 =
+      __uint_as_float(__byte_perm(w, 0x4B000000u, hi ? 0x7442 : 0x7440)) -
+      kMagic;
+  const float f1 =
+      __uint_as_float(__byte_perm(w, 0x4B000000u, hi ? 0x7443 : 0x7441)) -
+      kMagic;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// K3's list side on byte pools (int8, uint8) for strip_kernel_wg's ring
+// loop: a tile's page rows sit in a ring stage as they are in the pool, and
+// each thread reads 16 bytes of each of its two columns a 64-dim chunk,
+// dims 16*t4 .. + 15, and builds wgmma's A fragments from them. So the
+// product contracts over the dims in this order: position 16 ks + 8 hh +
+// 2 t4 + e of a chunk is dim 16 t4 + 4 ks + 2 hh + e (a_dim), and the query
+// rows are staged in it.
+template <typename TB>
+struct RingSrc {
+  static constexpr bool kScaled = false;
+  static constexpr bool kRegA = true;  // query rows staged in a_dim's order
+  static constexpr bool kRing = true;
+  static constexpr int kAlign = 16;
+  static __device__ __forceinline__ int a_dim(const Params&, int pos) {
+    return (pos & ~63) | (((pos >> 1) & 3) << 4) | (((pos >> 4) & 3) << 2) |
+           (((pos >> 3) & 1) << 1) | (pos & 1);
+  }
+  // the A fragments of a chunk's four k-steps from the two columns' 16
+  // bytes (x: column c_lo, fragment row g; y: c_lo + 8, row g + 8): k-step
+  // ks takes word ks, its bytes 0-1 at k 2 t4 .. + 1, bytes 2-3 at k 2 t4 +
+  // 8 .. + 9
+  static __device__ __forceinline__ void frag(const uint4& x, const uint4& y,
+                                              uint32_t (&a)[4][4]) {
+    constexpr bool kS = std::is_same<TB, int8_t>::value;
+    const uint32_t xw[4] = {x.x, x.y, x.z, x.w}, yw[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      a[ks][0] = bytes_bf16x2<kS>(xw[ks], false);
+      a[ks][1] = bytes_bf16x2<kS>(yw[ks], false);
+      a[ks][2] = bytes_bf16x2<kS>(xw[ks], true);
+      a[ks][3] = bytes_bf16x2<kS>(yw[ks], true);
+    }
+  }
+};
+
+// Whether strip_kernel_wg's ring loop takes a shape plan_launch planned for
+// K3's byte pools (q, a copy of the plan, gets the ring's stages and queue):
+// 32 rows a block, whole 64-dim chunks, pages of whole 128-row tiles or
+// tiles of whole pages (R divides 128, or 128 divides R) whose bias rows are
+// whole 16-byte units (R a multiple of 4), 16-byte aligned pools and query
+// block. Its queue holds two tiles' keys; it takes as many stages (up to
+// 3) as leave two blocks a SM, else 2. Returns its shared memory, or 0 (the shape
+// keeps strip_kernel_wg's staged loop or strip_kernel).
+constexpr int kRingMax = 3;
+constexpr size_t kSmemTwoBlocks = 113 * 1024;
+
+template <typename TB>
+size_t plan_ring(Params& q) {
+  const int R = q.page_rows;
+  const bool tiles_of_pages = R < kTC && kTC % R == 0 && R % 4 == 0;
+  if (!q.paged || q.rows != kMaxRows || q.dim % kDKC != 0 ||
+      !(tiles_of_pages || R % kTC == 0) ||
+      reinterpret_cast<uintptr_t>(q.b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q.bias) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q.a) % 16 != 0)
+    return 0;
+  if (q.qcap > 2 * kTC) q.qcap = 2 * kTC;
+  for (q.ring = kRingMax; q.ring >= 2; --q.ring) {
+    const size_t b = wg_smem_bytes<RingSrc<TB>>(q);
+    if (b <= kSmemTwoBlocks) return b;
+  }
+  q.ring = 2;
+  const size_t b = wg_smem_bytes<RingSrc<TB>>(q);
+  return b <= kSmemLimit ? b : 0;
+}
+
 // The dense kernels' launch: 16-byte staging needs whole 64-dim chunks and
 // an aligned list block. kSelect = false is the product-only instantiation.
 template <typename TB, class Addr, bool kSelect>
@@ -229,12 +317,24 @@ cudaError_t launch_dense(const Params& p, int s_pad, size_t smem,
   return launch<DenseSrc<TB>, Addr, false, kSelect>(p, s_pad, smem, st);
 }
 
-// The dense kernels' launch for a planned shape: strip_kernel_wg where its
-// plan fits, else strip_kernel. b_dtype: 0 int8, 1 bf16, 2 fp32, 3 uint8.
+// The dense kernels' launch for a planned shape: K3's byte pools take the
+// ring loop where its plan fits, every shape strip_kernel_wg's staged loop
+// where its plan fits, else strip_kernel. b_dtype: 0 int8, 1 bf16, 2 fp32,
+// 3 uint8.
 template <class Addr, bool kSelect = true>
 cudaError_t launch_dense_dtype(const Params& p, int b_dtype, int s_pad,
                                size_t smem, cudaStream_t st) {
   if (b_dtype < 0 || b_dtype > 3) return cudaErrorInvalidValue;
+  if constexpr (Addr::kPaged) {
+    if (b_dtype == 0 || b_dtype == 3) {  // byte pools: the ring loop
+      Params q = p;
+      if (const size_t rs = plan_ring<int8_t>(q)) {
+        if (b_dtype == 0)
+          return launch_wg<RingSrc<int8_t>, Addr, kSelect>(q, s_pad, rs, st);
+        return launch_wg<RingSrc<uint8_t>, Addr, kSelect>(q, s_pad, rs, st);
+      }
+    }
+  }
   if (const size_t ws = plan_wg<DenseSrc<int8_t>>(p)) {
     switch (b_dtype) {
       case 0:

@@ -49,6 +49,7 @@ struct PackedSrc {
   // contracts over the dims in byte-major order: position 8 * r + j of the
   // product is bit j of code byte r, column j * nb + r of the query block
   static constexpr bool kRegA = true;
+  static constexpr bool kRing = false;
   static __device__ __forceinline__ int a_dim(const Params& p, int pos) {
     return (pos & 7) * p.nb + (pos >> 3);
   }

@@ -29,8 +29,12 @@
 // swizzled shared tile (two barriers a chunk); the packed source builds the
 // A fragments in registers straight from the code bytes each thread reads
 // for its own two columns, so its product has no shared tile and no
-// barrier. strip_kernel's mma.sync loop takes every other shape (dims not a
-// multiple of 64, rows a block shrunk by a large kf's shared memory).
+// barrier; K3's byte pools take the ring loop: whole pages arrive by bulk
+// copy (cp.async.bulk, mbarrier completion) into a ring of stages a few
+// tiles ahead, and each thread builds its A fragments in registers from its
+// two columns' bytes in the stage, with one barrier a tile. strip_kernel's
+// mma.sync loop takes every other shape (dims not a multiple of 64, rows a
+// block shrunk by a large kf's shared memory).
 //
 // The selection. Each row keeps a threshold tau, its carry's kf-th key
 // (kNoKey until the carry holds kf real keys). The epilogue of a column tile
@@ -102,20 +106,24 @@ struct Params {
   const int32_t* table;  // (n_lists * table_width,), -1 at absent slots
   const int32_t* chain;  // (n_lists,) live pages per list
   int paged, page_rows, table_width, ppf;
+  int ring;  // stages of the paged ring (strip_kernel_wg's ring loop), or 0
 };
 
-// unsigned key whose integer order is the float order of the packed score
+// unsigned key whose integer order is the float order of the packed score:
+// a negative float's bits flipped, a positive one's sign bit set
 __device__ __forceinline__ uint32_t order_key(uint32_t bits) {
-  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return bits ^ ((uint32_t)((int32_t)bits >> 31) | 0x80000000u);
 }
 __device__ __forceinline__ uint32_t key_bits(uint32_t key) {
   return (key & 0x80000000u) ? (key & 0x7FFFFFFFu) : ~key;
 }
 
+// the packed order key of score v at column col: v clamped to the finite
+// range first (fminf returns the number, so NaN and +inf take the top,
+// -inf the bottom), then the column in the low bits; no branch
 __device__ __forceinline__ uint32_t pack_key(float v, int col) {
   const float clamp = __uint_as_float(kClampBits);
-  if (isnan(v)) v = INFINITY;
-  v = fminf(fmaxf(v, -clamp), clamp);
+  v = fmaxf(fminf(v, clamp), -clamp);
   return order_key((__float_as_uint(v) & ~kPackMask) | (uint32_t)col);
 }
 
@@ -488,16 +496,19 @@ __device__ void emit_row(const uint32_t* top, float* ov, int32_t* oe,
 // the fold at the end of a column tile (after a barrier): the rows whose
 // queue the next tile could overflow, and every row at the end of the walk
 // (the tournament only then), one warp a row in turn; the last fold's sorted
-// top becomes the row's output
+// top becomes the row's output. With `eager` (a round taken only when some
+// row needs it) every row with a queued key folds: its threshold tightens
+// while the warps that need no fold would wait at the next barrier anyway.
 template <int kNW>
 __device__ __forceinline__ void fold_rows(const RowSel& rs, const Params& p,
                                           bool last, int nr, int warp,
                                           int lane, uint32_t* sel, float* mv,
                                           int* me, float* out_v,
-                                          int32_t* out_e, int j) {
+                                          int32_t* out_e, int j,
+                                          bool eager = false) {
   const bool tour = p.tournament != 0;
   for (int r = warp; r < nr; r += kNW) {
-    if (!last && rs.qn[r] <= p.qcap - kTC) continue;
+    if (!last && rs.qn[r] <= (eager ? 0 : p.qcap - kTC)) continue;
     const uint32_t* top = fold_row(rs, r, sel, p.kf, p.kf_pad, p.qcap,
                                    p.carry_w, tour, lane);
     if (last) emit_row(top, out_v + (size_t)r * p.kf,
@@ -763,6 +774,7 @@ size_t plan_launch(Params& p) {
 // kernel sources report through their *_loop entry points
 constexpr int kLoopMma = 0;
 constexpr int kLoopWgmma = 1;
+constexpr int kLoopRing = 2;  // strip_kernel_wg's paged ring (K3)
 int g_loop = -1;
 
 template <class Src, class Addr, bool kVec, bool kSelect = true>
@@ -845,13 +857,92 @@ __device__ __forceinline__ void wg_acc_fence(float (&d)[16]) {
   for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// one 64-dim chunk of the product with A from registers: d (+)= the four
+// k-steps' fragments a[] against the query rows' chunk at a_chunk (shared
+// address), issued and waited for; first overwrites d
+__device__ __forceinline__ void wgmma_chunk_rs(float (&d)[16],
+                                               const uint32_t (&a)[4][4],
+                                               uint32_t a_chunk, bool first) {
+  wg_acc_fence(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < kDKC / 16; ++ks)
+    wgmma_m64n32k16_rs(d, a[ks], wg_desc(a_chunk + ks * 32),
+                       (first && ks == 0) ? 0 : 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wg_acc_fence(d);
+}
+
+// ---- the paged ring's bulk copies (cp.async.bulk, mbarrier completion) ---
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of copies to complete on `bar`
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed (a copy
+// that never lands traps after ~2^31 polls instead of hanging the card)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == 0x80000000u) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a or b by value, word by word (selects, not a reference that would put
+// both in local memory)
+__device__ __forceinline__ uint4 pick(bool take_a, const uint4& a,
+                                      const uint4& b) {
+  return make_uint4(take_a ? a.x : b.x, take_a ? a.y : b.y,
+                    take_a ? a.z : b.z, take_a ? a.w : b.w);
+}
+
+// shared-memory bytes of one ring stage: a tile's payload (kTC rows of dim
+// bytes) and its bias (kTC floats)
+__host__ __device__ __forceinline__ size_t ring_stage_bytes(int dim) {
+  return (size_t)kTC * dim + (size_t)kTC * 4;
+}
+
 // offer_keys for the transposed fragment, a whole tile at once: this lane's
 // keys k[i][e][h] of row 8i + 2*t4 + e at columns col[h]. The eight lanes
 // with the same t4 (g = 0..7) share those eight rows, so two prefix sums
-// over them (four rows' counts a byte) place every key; lane g = 0 reserves
-// each row's room with one atomic. The four row pairs go through each step
-// together, so their latencies overlap.
-__device__ __forceinline__ void offer_tile_t(const RowSel& rs, int nr,
+// over them (four rows' counts a byte) place every key; one lane a row
+// reserves its room with one atomic. The four row pairs go through each step
+// together, so their latencies overlap. A lane that reserved room returns
+// whether its row needs a fold after this tile (its queue could overflow on
+// the next one): the last reservation of a row sees its final count, so the
+// OR over the block is exact.
+__device__ __forceinline__ bool offer_tile_t(const RowSel& rs, int nr,
                                              const uint32_t (&k)[4][2][2],
                                              const int (&col)[2], int qcap,
                                              int carry_w, bool tour, int g,
@@ -883,7 +974,7 @@ __device__ __forceinline__ void offer_tile_t(const RowSel& rs, int nr,
           }
         }
       }
-    return;
+    return false;
   }
   // byte 2*(i & 1) + e of cnt[i >> 1]: the keys this lane offers row 8i +
   // 2*t4 + e (at most 2; a row's sum over the eight lanes at most 16)
@@ -900,7 +991,7 @@ __device__ __forceinline__ void offer_tile_t(const RowSel& rs, int nr,
       cnt[i >> 1] += (uint32_t)((int)take[i][e][0] + (int)take[i][e][1])
                      << (8 * (2 * (i & 1) + e));
     }
-  if (!__any_sync(0xffffffffu, (cnt[0] | cnt[1]) != 0u)) return;
+  if (!__any_sync(0xffffffffu, (cnt[0] | cnt[1]) != 0u)) return false;
   uint32_t inc[2] = {cnt[0], cnt[1]};
 #pragma unroll
   for (int o = 1; o < 8; o <<= 1) {
@@ -913,21 +1004,21 @@ __device__ __forceinline__ void offer_tile_t(const RowSel& rs, int nr,
   }
   const uint32_t tot[2] = {__shfl_sync(0xffffffffu, inc[0], 28 + t4),
                            __shfl_sync(0xffffffffu, inc[1], 28 + t4)};
-  // each row's first queue slot, two rows a word (16 bits each)
-  uint32_t base[4] = {0u, 0u, 0u, 0u};
-  if (g == 0) {
+  // each of the eight rows is reserved by one lane of the t4 group: lane g
+  // takes row 8 (g >> 1) + 2 t4 + (g & 1) with one atomic; each row's first
+  // queue slot then travels back two rows a word (16 bits each)
+  const int ri = g >> 1, re = g & 1;
+  const uint32_t t =
+      ((ri >> 1 ? tot[1] : tot[0]) >> (8 * (2 * (ri & 1) + re))) & 0xFFu;
+  int old = 0;
+  if (t) old = atomicAdd(&rs.qn[8 * ri + 2 * t4 + re], (int)t);
+  const bool need = t && old + (int)t > qcap - kTC;
+  const uint32_t pair =
+      (uint32_t)old | ((uint32_t)__shfl_down_sync(0xffffffffu, old, 4) << 16);
+  uint32_t base[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const uint32_t t = (tot[i >> 1] >> (8 * (2 * (i & 1) + e))) & 0xFFu;
-        if (t)
-          base[i] |= (uint32_t)atomicAdd(&rs.qn[8 * i + 2 * t4 + e], (int)t)
-                     << (16 * e);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) base[i] = __shfl_sync(0xffffffffu, base[i], t4);
+  for (int i = 0; i < 4; ++i)
+    base[i] = __shfl_sync(0xffffffffu, pair, 8 * i + t4);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -939,6 +1030,18 @@ __device__ __forceinline__ void offer_tile_t(const RowSel& rs, int nr,
       if (take[i][e][0]) q[pos++] = k[i][e][0];
       if (take[i][e][1]) q[pos] = k[i][e][1];
     }
+  return need;
+}
+
+// shared-memory bytes of the list side of strip_kernel_wg: the ring's
+// stages and their mbarriers, the staged swizzled tile, or nothing
+// (register-A)
+template <class Src>
+__host__ __device__ __forceinline__ size_t list_side_bytes(const Params& p) {
+  if (Src::kRing)
+    return (size_t)p.ring * ring_stage_bytes(p.dim) +
+           (((size_t)p.ring * 8 + 15) & ~(size_t)15);
+  return Src::kRegA ? 0 : (size_t)kTC * 128;
 }
 
 template <class Src, class Addr, bool kSelect>
@@ -963,10 +1066,10 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
   const bool tour = p.tournament != 0;
 
   unsigned char* a_s = smem;  // (n_chunks, 32 rows, 64 dims) swizzled
-  unsigned char* b_s = a_s + (size_t)n_chunks * kMaxRows * 128;  // the tile
+  // the list side: the staged tile, or the ring's stages and mbarriers
+  unsigned char* b_s = a_s + (size_t)n_chunks * kMaxRows * 128;
   RowSel rs;
-  rs.queue =
-      reinterpret_cast<uint32_t*>(b_s + (Src::kRegA ? 0 : kTC * 128));
+  rs.queue = reinterpret_cast<uint32_t*>(b_s + list_side_bytes<Src>(p));
   rs.carry = rs.queue + (size_t)kMaxRows * p.qcap;
   rs.qn = reinterpret_cast<int*>(rs.carry + (size_t)kMaxRows * p.carry_w);
   rs.tau = reinterpret_cast<uint32_t*>(rs.qn + kMaxRows);
@@ -1008,6 +1111,15 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
   const uint32_t a_addr = smem_u32(a_s);
   const uint32_t b_addr = smem_u32(b_s) + wg * 64 * 128;
   float sink = INFINITY;  // product-only: keeps the scores live
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      b_s + (size_t)p.ring * ring_stage_bytes(p.dim));  // ring: a stage each
+  uint32_t ring_seq = 0;  // ring: tiles loaded so far (a stage's uses)
+  if constexpr (Src::kRing) {
+    if (tid == 0) {
+      for (int i = 0; i < p.ring; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
 
   Addr ad;
   for (int j = 0; j < p.n_sub; ++j) {
@@ -1053,32 +1165,38 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
         }
       }
     };
-    // epilogue of the column tile at ct: d[4i + 2h + e] is column ct + c_lo
-    // + 8h, row 8i + 2*t4 + e; alpha * s (* scale) + bias in the JAX order,
-    // with explicit roundings (no FMA contraction), the tile's packed keys
-    // offered at once (8-row blocks past the strip's real rows offer none);
-    // then the fold (after a barrier: every offer of the tile is in)
-    auto tile_end = [&](int ct, const float (&d)[16], const float (&bv)[2],
-                        const float (&sv)[2], const bool (&live)[2]) {
+    // the packed keys of the column tile at ct: d[4i + 2h + e] is column ct
+    // + c_lo + 8h, row 8i + 2*t4 + e; alpha * s (* scale) + bias in the JAX
+    // order, with explicit roundings (no FMA contraction); all 32 rows'
+    // without a branch (rows past the strip's real rows are never offered);
+    // paged: past the chain +inf lanes up to w, no key beyond
+    auto tile_keys = [&](int ct, const float (&d)[16], const float (&bv)[2],
+                         const float (&sv)[2], const bool (&live)[2],
+                         uint32_t (&k)[4][2][2]) {
       const int cols[2] = {ct + c_lo, ct + c_lo + 8};
-      uint32_t k[4][2][2];
+      const bool in_w[2] = {!Addr::kPaged || cols[0] < p.w,
+                            !Addr::kPaged || cols[1] < p.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            k[i][e][h] = kNoKey;
-            if (8 * i >= nr) continue;
             float x = __fmul_rn(p.alpha, d[4 * i + 2 * h + e]);
             if (Src::kScaled) x = __fmul_rn(x, sv[h]);
             x = __fadd_rn(x, bv[h]);
             if (!live[h]) x = INFINITY;
             if (!kSelect) sink = fminf(sink, x);
-            // paged: past the chain +inf lanes up to w, no key beyond
-            if (!Addr::kPaged || cols[h] < p.w)
-              k[i][e][h] = pack_key(x, cols[h]);
+            k[i][e][h] = in_w[h] ? pack_key(x, cols[h]) : kNoKey;
           }
+    };
+    // epilogue of the column tile at ct: its keys offered at once, then the
+    // fold (after a barrier: every offer of the tile is in)
+    auto tile_end = [&](int ct, const float (&d)[16], const float (&bv)[2],
+                        const float (&sv)[2], const bool (&live)[2]) {
+      const int cols[2] = {ct + c_lo, ct + c_lo + 8};
+      uint32_t k[4][2][2];
+      tile_keys(ct, d, bv, sv, live, k);
       if (kSelect)
         offer_tile_t(rs, nr, k, cols, p.qcap, p.carry_w, tour, g, t4);
       const bool last = ct + kTC >= ad.cols;
@@ -1092,7 +1210,103 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
     float d[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) d[i] = 0.f;
-    if constexpr (Src::kRegA) {
+    if constexpr (Src::kRing) {
+      // K3 on byte pools: the sub-block's column tiles arrive whole, by
+      // bulk copy, into a ring of p.ring stages (the page rows of a tile and
+      // their bias, a copy a page); one thread issues them from the staged
+      // page ids and a stage's mbarrier reports their bytes. Each thread
+      // builds its A fragments in registers from its two columns' bytes in
+      // the stage (Src::frag), so the product has no shared tile and no
+      // barrier. The one barrier a tile (its offers are in, its stage is
+      // free) also tells whether a row needs a fold; only then is the second
+      // taken. Stale bytes past the chain in a stage score +inf (their +inf
+      // bias).
+      const uint8_t* pages = static_cast<const uint8_t*>(p.b);
+      const int n_tiles = ad.cols / kTC;
+      const size_t stage_b = ring_stage_bytes(p.dim);
+      const int seg = min(p.page_rows, kTC);  // rows a copy
+      auto issue = [&](int t) {
+        const uint32_t sq = ring_seq + t;
+        uint64_t* bar = &full[sq % p.ring];
+        unsigned char* dst = b_s + (sq % p.ring) * stage_b;
+        float* dbias = reinterpret_cast<float*>(dst + (size_t)kTC * p.dim);
+        const int n_seg = (min(t * kTC + kTC, ad.live) - t * kTC) / seg;
+        mbar_expect_tx(bar, (uint32_t)(n_seg * seg * (p.dim + 4)));
+        for (int i = 0; i < n_seg; ++i) {
+          const int c = t * kTC + i * seg;
+          const size_t row = (size_t)ad.pg[c / p.page_rows] * p.page_rows +
+                             c % p.page_rows;
+          bulk_g2s(dst + (size_t)i * seg * p.dim, pages + row * p.dim,
+                   (uint32_t)(seg * p.dim), bar);
+          bulk_g2s(dbias + i * seg, p.bias + row, (uint32_t)(seg * 4), bar);
+        }
+      };
+      if (tid == 0)
+        for (int t = 0; t < n_tiles && t < p.ring; ++t) issue(t);
+      __syncthreads();  // the rows' selection state is set before any offer
+      // a row of an even number of chunks spans all banks: the odd lanes
+      // read the chunks of a pair in the other order (no bank conflict)
+      const int sw = n_chunks % 2 == 0 ? (g & 1) : 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int ct = t * kTC;
+        const uint32_t sq = ring_seq + t;
+        const unsigned char* stage = b_s + (sq % p.ring) * stage_b;
+        mbar_wait(&full[sq % p.ring], (sq / p.ring) & 1);
+        const unsigned char* col0 = stage + (size_t)c_lo * p.dim + 16 * t4;
+        const unsigned char* col1 = col0 + (size_t)8 * p.dim;
+        for (int kc = 0; kc < n_chunks; kc += 2) {
+          const bool pair = kc + 1 < n_chunks;
+          uint4 v[2][2];
+          v[0][0] = *reinterpret_cast<const uint4*>(col0 + (kc + sw) * kDKC);
+          v[1][0] = *reinterpret_cast<const uint4*>(col1 + (kc + sw) * kDKC);
+          v[0][1] = v[0][0];
+          v[1][1] = v[1][0];
+          if (pair) {
+            v[0][1] = *reinterpret_cast<const uint4*>(col0 +
+                                                      (kc + (sw ^ 1)) * kDKC);
+            v[1][1] = *reinterpret_cast<const uint4*>(col1 +
+                                                      (kc + (sw ^ 1)) * kDKC);
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (q == 1 && !pair) break;
+            const bool other = (q ^ sw) != 0;
+            uint32_t a[4][4];
+            Src::frag(pick(other, v[0][1], v[0][0]),
+                      pick(other, v[1][1], v[1][0]), a);
+            wgmma_chunk_rs(d, a, a_addr + (kc + q) * kMaxRows * 128,
+                           kc + q == 0);
+          }
+        }
+        const float* bias_s =
+            reinterpret_cast<const float*>(stage + (size_t)kTC * p.dim);
+        // a column past the chain takes a +inf bias, which scores it +inf
+        // (+inf or NaN whatever the product; pack_key sends NaN to the top)
+        const int cols[2] = {ct + c_lo, ct + c_lo + 8};
+        float bv[2];
+        const float sv[2] = {1.f, 1.f};
+        const bool live[2] = {true, true};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          bv[h] = cols[h] < ad.live ? bias_s[c_lo + 8 * h] : INFINITY;
+        uint32_t k[4][2][2];
+        tile_keys(ct, d, bv, sv, live, k);
+        bool my_need = false;
+        if (kSelect)
+          my_need = offer_tile_t(rs, nr, k, cols, p.qcap, p.carry_w, false,
+                                 g, t4);
+        const bool last = t + 1 == n_tiles;
+        // every offer of the tile is in and no thread reads its stage
+        const bool need = __syncthreads_or(kSelect && (last || my_need));
+        if (tid == 0 && t + p.ring < n_tiles) issue(t + p.ring);
+        if (need) {
+          fold_rows<kWarps>(rs, p, last, nr, warp, lane, sel, mv, me, out_v,
+                            out_e, j, true);
+          if (!last) __syncthreads();  // the next offers read the folds
+        }
+      }
+      ring_seq += n_tiles;
+    } else if constexpr (Src::kRegA) {
       // the list tile from registers: each thread builds its A fragments
       // (its two columns) from the code bytes it reads, one chunk ahead;
       // no shared tile, no barrier in the product loop
@@ -1112,16 +1326,7 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
 #pragma unroll
           for (int ks = 0; ks < kDKC / 16; ++ks)
             Src::frag(cur, ks, t4, a[ks]);
-          wg_acc_fence(d);
-          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-          for (int ks = 0; ks < kDKC / 16; ++ks)
-            wgmma_m64n32k16_rs(d, a[ks],
-                               wg_desc(a_addr + kc * kMaxRows * 128 + ks * 32),
-                               (kc > 0 || ks > 0) ? 1 : 0);
-          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-          wg_acc_fence(d);
+          wgmma_chunk_rs(d, a, a_addr + kc * kMaxRows * 128, kc == 0);
         }
         // the fold's queue and thresholds are read again by the next
         // tile's offers
@@ -1168,7 +1373,7 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
 template <class Src>
 size_t wg_smem_bytes(const Params& p) {
   size_t b = 1024 + (size_t)(p.dim / kDKC) * kMaxRows * 128 +
-             (Src::kRegA ? 0 : kTC * 128) +
+             list_side_bytes<Src>(p) +
              (size_t)kMaxRows * (p.qcap + p.carry_w) * 4 +
              (size_t)kMaxRows * 2 * 4 + (size_t)kWarps * p.kf_pad * 4;
   if (p.n_sub > 1) b += (size_t)kWarps * 2 * p.kf * 8;
@@ -1193,7 +1398,7 @@ size_t plan_wg(const Params& p) {
 template <class Src, class Addr, bool kSelect>
 cudaError_t launch_wg(const Params& p, int s_pad, size_t smem,
                       cudaStream_t st) {
-  g_loop = kLoopWgmma;
+  g_loop = Src::kRing ? kLoopRing : kLoopWgmma;
   cudaError_t err = cudaFuncSetAttribute(
       strip_kernel_wg<Src, Addr, kSelect>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -899,6 +899,7 @@ def _paged_class_cuda(strip_list, table_flat, chain_pages, sub_live, a,
     if rc != 0:
         raise RuntimeError(f"paged_scan kernel launch failed: CUDA error {rc}")
     PAGED_KERNEL.launches += 1
+    PAGED_KERNEL.loop = _native.last_loop("paged_scan")
     return out_v, out_e
 
 

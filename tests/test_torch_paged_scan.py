@@ -17,76 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from paged_cases import LAYOUTS, paged_inputs, sub_live_of
 from raft_tpu.ops import bq_scan as jbq
 from raft_tpu.ops import strip_scan as jss
 from raft_tpu_torch.ops import bq_scan as tbq
 from raft_tpu_torch.ops import strip_scan as tss
 
 torch.set_num_threads(2)
-
-# name → (page_rows, table_width, ppf, n_sub)
-LAYOUTS = {
-    # 8-row pages, two sub-blocks of 8 pages (w = 64 < one 128-column tile)
-    "r8_w64_nsub2": (8, 16, 8, 2),
-    # 64-row pages, two sub-blocks of 2 pages (w = 128)
-    "r64_w128_nsub2": (64, 4, 2, 2),
-    # 32-row pages, one sub-block of 4 pages
-    "r32_w128_nsub1": (32, 4, 4, 1),
-}
-
-
-def paged_inputs(rng, layout, payload, n_lists=6, cap_pages=48, dim=24,
-                 s_real=7, s_pad=10):
-    """A synthetic paged class: chains of 0, 1, partial and full length,
-    a list whose first sub-block is all +inf (filtered or deleted), a chain
-    ending exactly on a sub-block boundary, tombstones and never-filled
-    tail slots at +inf, NaN payload in page 0 (never chained, but what the
-    TPU kernels' gather reads for absent slots), padding strips.
-    ``payload`` is a numpy dtype name or ``("bits", b)`` for packed codes
-    of b bits (rot_dim = dim); ``layout`` a name of LAYOUTS or its
-    ``(page_rows, table_width, ppf, n_sub)``."""
-    R, W, ppf, n_sub = LAYOUTS[layout] if isinstance(layout, str) else layout
-    chains = np.array([0, 1, 2, ppf, min(W, ppf + 1), W][:n_lists], np.int32)
-    table = np.full((n_lists, W), -1, np.int32)
-    free = rng.permutation(np.arange(1, cap_pages))
-    nxt = 0
-    for l in range(n_lists):
-        table[l, :chains[l]] = free[nxt:nxt + chains[l]]
-        nxt += chains[l]
-    if isinstance(payload, tuple):
-        nb = payload[1] * dim // 8
-        pages = rng.integers(0, 256, (cap_pages, R, nb)).astype(np.uint8)
-        a_width = 8 * nb
-    elif payload in ("uint8", "int8"):
-        lo, hi = (0, 256) if payload == "uint8" else (-127, 128)
-        pages = rng.integers(lo, hi, (cap_pages, R, dim)).astype(payload)
-        a_width = dim
-    else:
-        pages = (rng.integers(-32, 33, (cap_pages, R, dim)) / 4.0).astype(
-            np.float32)
-        pages[0] = np.nan
-        a_width = dim
-    bias = rng.uniform(0.1, 900.0, (cap_pages, R)).astype(np.float32)
-    bias[rng.random((cap_pages, R)) < 0.1] = np.inf          # tombstones
-    for l in range(n_lists):                                  # tail fill
-        if chains[l]:
-            bias[table[l, chains[l] - 1], R // 2 + 1:] = np.inf
-    if n_sub > 1 and chains[4] > ppf:
-        bias[table[4, :ppf]] = np.inf          # first sub-block all +inf
-    bias[0] = np.nan                           # never ranks: not chained
-    sl = rng.integers(0, n_lists, s_pad).astype(np.int32)
-    sl[:n_lists] = np.arange(n_lists)          # every list scanned once
-    sl[n_lists + rng.permutation(s_pad - n_lists)[:s_pad - s_real]] = -1
-    a = rng.integers(-3, 4, (s_pad, tss.C, a_width)).astype(np.float32)
-    return dict(sl=sl, table=table, chains=chains, pages=pages, bias=bias,
-                a=a, R=R, W=W, ppf=ppf, n_sub=n_sub)
-
-
-def sub_live_of(c):
-    return tss.paged_sub_live(torch.from_numpy(c["bias"]),
-                              torch.from_numpy(c["table"]),
-                              torch.from_numpy(c["chains"]), c["ppf"],
-                              c["n_sub"])
 
 
 def assert_bitwise(live, jax_out, torch_out):
@@ -130,7 +67,8 @@ def test_paged_sub_live_matches_jax_formula():
 @pytest.mark.parametrize("kf", [10, 40])
 @pytest.mark.parametrize("layout,payload", [
     ("r8_w64_nsub2", "uint8"), ("r64_w128_nsub2", "int8"),
-    ("r32_w128_nsub1", "bf16"), ("r64_w128_nsub2", "fp32")])
+    ("r32_w128_nsub1", "bf16"), ("r64_w128_nsub2", "fp32"),
+    ("serve_r128_w256_nsub2", "uint8"), ("serve_r128_w256_nsub2", "int8")])
 def test_paged_class_twin_is_bitwise_the_jax_kernel(layout, payload, kf):
     rng = np.random.default_rng(kf * 10 + sorted(LAYOUTS).index(layout))
     c = paged_inputs(rng, layout, payload)
@@ -217,74 +155,3 @@ def test_paged_strip_search_matches_jax():
         pair_const=torch.from_numpy(pair_const))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-
-
-def _cuda_case(layout, payload, kf):
-    rng = np.random.default_rng(31)
-    c = paged_inputs(rng, layout, payload)
-    dev = torch.device("cuda")
-    sub_live = sub_live_of(c).to(dev)
-    pages = torch.from_numpy(c["pages"]).to(dev)
-    args = (torch.from_numpy(c["sl"]).to(dev),
-            torch.from_numpy(c["table"].reshape(-1)).to(dev),
-            torch.from_numpy(c["chains"]).to(dev), sub_live,
-            torch.from_numpy(c["a"]).to(dev, torch.bfloat16), pages,
-            torch.from_numpy(c["bias"]).to(dev))
-    return c, args, (c["ppf"], c["n_sub"], c["R"], c["W"], -2.0, kf)
-
-
-@pytest.mark.cuda
-def test_k3_matches_plain_twin_on_card():
-    """K3 against its plain twin on the card (runs where there is one)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: K3 is CUDA code with no CPU mode")
-    c, args, static = _cuda_case("r8_w64_nsub2", "uint8", 20)
-    got = tss.paged_class(*args, *static)
-    want = tss._paged_class_plain(*args, *static)
-    live = args[0] >= 0
-    assert torch.equal(got[0][live], want[0][live])
-    fin = torch.isfinite(want[0][live])
-    assert torch.equal(got[1][live][fin], want[1][live][fin])
-
-
-# K4 on the card: (layout, bits, rot_dim, kf, the product loop the plan
-# must pick) — wgmma wherever the code row is a multiple of 8 bytes
-K4_CARD_CASES = {
-    "r64_nb4_bits2_kf40": ("r64_w128_nsub2", 2, 16, 40, "mma.sync"),
-    "nb16_kf40": ((128, 8, 4, 2), 1, 128, 40, "wgmma"),
-    "nb16_kf80": ((128, 8, 4, 2), 1, 128, 80, "wgmma"),
-    "nb16_kf320": ((128, 8, 4, 2), 1, 128, 320, "wgmma"),
-    "nb16_n_sub1_kf80": ((128, 4, 4, 1), 1, 128, 80, "wgmma"),
-    "bits2_nb32_kf80": ((128, 8, 4, 2), 2, 128, 80, "wgmma"),
-    "nb5_kf80": ("r64_w128_nsub2", 1, 40, 80, "mma.sync"),
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(K4_CARD_CASES))
-def test_k4_matches_plain_twin_on_card(case):
-    """K4 against its plain twin on the card (runs where there is one), on
-    each product loop, bit for bit (integer queries and codes: every sum is
-    exact), and the launch reports the loop its plan picks."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: K4 is CUDA code with no CPU mode")
-    layout, bits, dim, kf, loop = K4_CARD_CASES[case]
-    rng = np.random.default_rng(32)
-    c = paged_inputs(rng, layout, ("bits", bits), dim=dim)
-    dev = torch.device("cuda")
-    scale = torch.from_numpy(rng.uniform(0.5, 2.0, c["bias"].shape).astype(
-        np.float32)).to(dev)
-    args = (torch.from_numpy(c["sl"]).to(dev),
-            torch.from_numpy(c["table"].reshape(-1)).to(dev),
-            torch.from_numpy(c["chains"]).to(dev), sub_live_of(c).to(dev),
-            torch.from_numpy(c["a"]).to(dev, torch.bfloat16),
-            torch.from_numpy(c["pages"]).to(dev), scale,
-            torch.from_numpy(c["bias"]).to(dev))
-    static = (c["ppf"], c["n_sub"], c["R"], c["W"], -2.0, kf)
-    got = tbq.paged_bq_class(*args, *static)
-    assert tbq.PAGED_BQ_KERNEL.loop == loop
-    want = tbq._paged_bq_class_plain(*args, *static)
-    live = args[0] >= 0
-    assert torch.equal(got[0][live], want[0][live])
-    fin = torch.isfinite(want[0][live])
-    assert torch.equal(got[1][live][fin], want[1][live][fin])
