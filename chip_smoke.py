@@ -110,6 +110,30 @@ Phases, one JSON line each:
    before, no longer on it, beside it) and the rest of a search
    (seeding, exit re-rank).
 
+Filters and the family remainders ride the paths above. Each of main,
+lut, cache, flat, bq (``search_refined``), serve, serve.pq, serve.bq and
+cagra runs the bench's filtered rungs (``<path>.filtered``: masks from
+``default_rng(13)`` at 10% and 1% selectivity with ids 0..9 passing, the
+port's brute force over the survivors as ground truth, recall@10, the
+widened n_probes / k_fetch, QPS beside the path's unfiltered QPS in the
+same call, the path's kernel launches; no returned id fails its mask, an
+all-fail filter gives -1 / +inf, recall ≥ 0.90 at 10% on every IVF and
+serving path, CAGRA's printed). ``flat.k1_filtered``: K1 at the flat
+path's class inputs with the bias of a filter passing only even lists, and
+of one passing nothing, against the same inputs unfiltered.
+``serve.standing_filter``: ``set_filter`` gives the per-call ids and
+survives compact + compact_swap; a permutation of the 1% mask as the
+standing filter gives a fresh Bitset's ids. ``serve.gather``: k = 600 and
+1000 on the flat and PQ stores through the gather scan ``"auto"`` takes.
+``flat.extend`` / ``bq.extend``: the 10k queries added under ids
+1,000,000 + i and found again through K1 / K2 (after refine).
+``bq.streaming``: ``ivf_bq.build_streaming`` in 4 chunks of 250,000 rows
+(dropped rows accounted for), recall ≥ 0.95 after refine at the bq pick.
+``brute.metrics``: brute force in sqeuclidean, inner_product, cosine and
+l1 on 100,000 rows × 1,000 queries against ``pairwise_distance`` +
+``torch.topk``. K1–K4's synthetic parity sets hold filtered cases (whole
+dead lists and half the other rows dead in the bias).
+
 ``--ab OLD_TREE`` drives the paths up to the LUT path, then times K1–K4 of
 the older tree against this one's at the paths' own class inputs (K1 at
 kf 20, kf 10 on uint8 and kf 129 on the CAGRA build's batch; K2; K3 and K4
@@ -257,17 +281,40 @@ def same_rows(kernel_out, plain_out, strip_list, strip_rows) -> bool:
                for k, p in zip(kernel_out, plain_out))
 
 
+def filter_bias(bias, ids, seed, dead_lists, list_of):
+    """``bias`` under a filter built as a search builds it
+    (``_filtering.apply_filter_bias`` of a ``Bitset``): the rows of the
+    ``dead_lists`` fail (whole dead lists, so whole dead sub-blocks), half
+    the other rows fail at random. ``ids`` (one per bias lane, -1 at
+    padding) and ``list_of`` (each lane's list) shape like ``bias``."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors._filtering import apply_filter_bias
+
+    n_ids = int(ids.max()) + 1
+    mask = np.random.default_rng(seed).random(n_ids) < 0.5
+    dead = torch.isin(list_of, torch.as_tensor(dead_lists,
+                                               device=ids.device))
+    mask[ids[dead & (ids >= 0)].cpu().numpy()] = False
+    return apply_filter_bias(bias, ids,
+                             Bitset.from_mask(mask, device=ids.device))
+
+
 def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
                     n_lists=8, s_real=24, s_pad=32, dead=False,
-                    nonfinite=False, order=None, dev="cuda"):
+                    nonfinite=False, order=None, filtered=False, dev="cuda"):
     """One length class with random lists, bias and query blocks on
     ``dev``: padding strips scattered among the real ones, and strips
     whose real query rows are a prefix of their slots. ``b_dtype`` "int8",
     "uint8", "bf16" or "fp32" makes K1's list rows; "packed" makes K2's: ``dim/8``
     random code bytes per row, with a scale drawn per row (0 at padding).
     ``order`` zeroes the list rows (K2: the scales) so that every score is
-    its bias, laid out by :func:`ordered_bias`. Returns the keyword
-    arguments of the class call and the per-strip row counts."""
+    its bias, laid out by :func:`ordered_bias`. ``filtered`` puts a
+    filter's +inf lanes in the bias (:func:`filter_bias`: lists 0 and 3
+    dead, half of the rest). Returns the keyword arguments of the class
+    call and the per-strip row counts."""
     import torch
 
     dev = torch.device(dev)
@@ -302,6 +349,12 @@ def synthetic_class(seed, *, w_blocks, n_sub, kf, dim=128, b_dtype="int8",
         if n_sub > 1:
             bias[1, :w] = float("inf")             # dead first sub-block
             bias[2, w:2 * w] = float("inf")        # dead later sub-block
+    if filtered:
+        ids = torch.where(col < lens[:, None],
+                          torch.arange(n_lists * m, device=dev).reshape(
+                              n_lists, m), -1)
+        lists = torch.arange(n_lists, device=dev)[:, None].expand(n_lists, m)
+        bias = filter_bias(bias, ids, seed, [0, 3], lists)
     if nonfinite:
         u = torch.rand((n_lists, m), generator=g, device=dev)
         bias = torch.where(u < 0.01, float("nan"), bias)
@@ -371,7 +424,14 @@ PARITY_CASES = (
         dict(w_blocks=1, n_sub=2, kf=40, b_dtype="uint8", dead=True), False),
        ("kf512_n_sub2", dict(w_blocks=1, n_sub=2, kf=512, dim=64), False),
        ("dim40_scalar_staging_kf20", dict(w_blocks=2, n_sub=1, kf=20, dim=40),
-        True)]
+        True),
+       # a search filter's bias: whole dead lists (dead sub-blocks), half
+       # the other rows dead
+       ("filtered_n_sub2_tournament_kf20",
+        dict(w_blocks=2, n_sub=2, kf=20, filtered=True), True),
+       ("filtered_uint8_kf10",
+        dict(w_blocks=2, n_sub=1, kf=10, b_dtype="uint8", filtered=True),
+        False)]
     + SELECTION_CASES
 )
 
@@ -393,7 +453,9 @@ K2_PARITY_CASES = tuple(
         dict(w_blocks=2, n_sub=2, kf=20, dead=True), True),
        ("kf512_n_sub2", dict(w_blocks=1, n_sub=2, kf=512), False),
        ("rot_dim40_scalar_staging_kf40",
-        dict(w_blocks=2, n_sub=1, kf=40, dim=40), True)]
+        dict(w_blocks=2, n_sub=1, kf=40, dim=40), True),
+       ("filtered_n_sub2_kf80",
+        dict(w_blocks=2, n_sub=2, kf=80, filtered=True), True)]
     + list(SELECTION_CASES))
 
 
@@ -442,7 +504,7 @@ def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
 
 def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
                     payload="uint8", n_lists=16, s_real=24, s_pad=32,
-                    order=None, dev="cuda"):
+                    order=None, filtered=False, dev="cuda"):
     """One paged class on ``dev``: a page pool with chains of 0, 1,
     partial and full length (one ending on a sub-block boundary, so the
     next sub-block is dead), a list whose first sub-block is all +inf
@@ -453,7 +515,9 @@ def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
     "bits4" make K4's codes (``dim`` is rot_dim) with a scale pool.
     ``order`` zeroes the pages (K4: the scales) and lays the bias of each
     list's chained rows out by :func:`ordered_bias` along the list's
-    columns (no tombstones; tail slots stay +inf). Returns the keyword
+    columns (no tombstones; tail slots stay +inf). ``filtered`` puts a
+    filter's +inf lanes in the bias pool (:func:`filter_bias` over the
+    rows' ids: lists 1 and 5 dead, half of the rest). Returns the keyword
     arguments of the class call and the per-strip row counts."""
     import torch
 
@@ -512,6 +576,13 @@ def synthetic_paged(seed, *, page_rows, table_width, ppf, kf, dim=128,
                     float("inf")
     if n_sub > 1:
         bias[table[4, :ppf]] = float("inf")           # filtered first block
+    if filtered:
+        owner = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+        for l in range(n_lists):
+            owner[table[l, :int(chains[l])]] = l
+        bias = filter_bias(
+            bias, torch.arange(cap * R, device=dev).reshape(cap, R), seed,
+            [1, 5], owner[:, None].expand(cap, R))
     bias[~chained] = float("nan")
     strip_list = torch.randint(0, n_lists, (s_pad,), generator=g, device=dev)
     strip_list[:n_lists] = torch.arange(n_lists, device=dev)
@@ -594,7 +665,12 @@ K3_PARITY_CASES = (
        ("r24_w384_bf16_kf40", dict(page_rows=24, table_width=32, ppf=16,
                                    kf=40, payload="bf16", dim=64)),
        ("pq_cache_r128_kf40", dict(page_rows=128, table_width=64, ppf=32,
-                                   kf=40, payload="int8"))]
+                                   kf=40, payload="int8")),
+       ("filtered_r128_nsub2_kf10", dict(page_rows=128, table_width=16,
+                                         ppf=8, kf=10, filtered=True)),
+       ("filtered_pq_cache_r128_kf20", dict(page_rows=128, table_width=64,
+                                            ppf=32, kf=20, payload="int8",
+                                            filtered=True))]
     + PAGED_SELECTION_CASES)
 K4_PARITY_CASES = (
     [(f"serve_bits1_r128_kf{kf}",
@@ -607,7 +683,10 @@ K4_PARITY_CASES = (
        ("bits1_r32_w64_kf10", dict(page_rows=32, table_width=2, ppf=2, kf=10,
                                    payload="bits1")),
        ("bits1_rot40_scalar_kf20", dict(page_rows=64, table_width=8, ppf=4,
-                                        kf=20, payload="bits1", dim=40))]
+                                        kf=20, payload="bits1", dim=40)),
+       ("filtered_bits1_r128_nsub2_kf80",
+        dict(page_rows=128, table_width=16, ppf=8, kf=80, payload="bits1",
+             filtered=True))]
     + [(name, dict(kw, payload="bits1")) for name, kw in
        PAGED_SELECTION_CASES])
 
@@ -868,6 +947,147 @@ def bq_library_yardstick(c):
         torch.topk(sc, c["kf"], dim=2, largest=False)
 
 
+# ---------------------------------------------------------------------------
+# Filtered rungs: the bench's filtered section (bench.py:728-869) on every
+# path, through the path's own entry points
+# ---------------------------------------------------------------------------
+
+FILTER_SEED = 13             # bench.py's filtered section: default_rng(13)
+SELECTIVITIES = (0.10, 0.01)
+FILTER_RECALL_GATE = 0.90    # scripts/filter_smoke.py's gate at 10%
+
+
+def filter_ladder(shared):
+    """The bench's masks, made once for every path: one
+    ``default_rng(13)``, 10% then 1% of the rows, ids 0..9 always pass;
+    each with its Bitset on the card and its ground truth, the port's
+    brute force over the surviving rows. Also an all-fail Bitset and a
+    permutation of the 1% mask at the same popcount."""
+    if "filters" in shared:
+        return shared["filters"]
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import brute_force
+
+    dataset, qs = shared["dataset"], shared["queries"]
+    dev = dataset.device
+    n = dataset.shape[0]
+    rng = np.random.default_rng(FILTER_SEED)
+    t = time.perf_counter()
+    rungs = []
+    for sel in SELECTIVITIES:
+        mask = rng.random(n) < sel
+        mask[:K] = True
+        surv = torch.from_numpy(np.flatnonzero(mask)).to(dev)
+        _, gi = brute_force.search(brute_force.build(dataset[surv],
+                                                     device=dev), qs, K,
+                                   device=dev)
+        rungs.append({"selectivity": sel, "survivors": int(mask.sum()),
+                      "mask": torch.from_numpy(mask).to(dev),
+                      "bitset": Bitset.from_mask(mask, device=dev),
+                      "gt": surv[gi.long()]})
+    perm = rng.permutation(rungs[-1]["mask"].cpu().numpy())
+    perm[:K] = True
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    shared["filters"] = {"rungs": rungs, "perm01": perm,
+                         "none": Bitset.create(n, False, device=dev)}
+    emit({"phase": "filters.setup", "seed": FILTER_SEED, "rows": n,
+          "survivors": [r["survivors"] for r in rungs],
+          "ground_truth_s": time.perf_counter() - t})
+    return shared["filters"]
+
+
+def id_recall(ids, gt) -> float:
+    """recall@K by id (bench.py's ``_id_recall``): the share of each row's
+    ground-truth ids found."""
+    return float((ids.long()[:, :, None] == gt.long()[:, None, :]).any(2)
+                 .float().mean())
+
+
+def host_qps(fn, q, batches=3):
+    """QPS over ``batches`` calls of ``fn`` on ``q`` queries, each timed on
+    the host clock to its synchronize → (qps, batch seconds)."""
+    import torch
+
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return batches * q / sum(times), times
+
+
+def filtered_rungs(shared, path, run, counter, widened,
+                   gate=FILTER_RECALL_GATE):
+    """``run(filter) → (values, ids)``, the path's own search (+ refine),
+    unfiltered then at 10% and 1% selectivity: recall@10 against the
+    survivors, the widened plan (``widened(filter)``), QPS beside the
+    unfiltered QPS of the same call, and the path's kernel launches
+    (``counter``, reset just before the first filtered search). Asserts no
+    returned id fails its mask, the kernel ran, recall ≥ ``gate`` at 10%
+    (None: printed only), and an all-fail filter gives ids -1, values
+    +inf."""
+    import torch
+
+    ladder = filter_ladder(shared)
+    q = shared["queries"].shape[0]
+    base_qps, base_s = host_qps(lambda: run(None), q)
+    rows = []
+    for rung in ladder["rungs"]:
+        f = rung["bitset"]
+        reset_counts()
+        v, i = run(f)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        ids = i.long()
+        failed = int((~rung["mask"][ids[ids >= 0]]).sum())
+        rec = id_recall(i, rung["gt"])
+        qps, batch_s = host_qps(lambda: run(f), q)
+        row = {"phase": f"{path}.filtered",
+               "selectivity": rung["selectivity"],
+               "survivors": rung["survivors"], "recall": rec,
+               **widened(f), "qps": qps, "batch_s": batch_s,
+               "unfiltered_qps": base_qps, "unfiltered_batch_s": base_s,
+               "qps_ratio": qps / base_qps, "launches": launches,
+               "masked_ids_returned": failed,
+               "short_rows": int((i < 0).any(1).sum())}
+        emit(row)
+        rows.append(row)
+        if failed or launches <= 0:
+            raise AssertionError(f"{path}.filtered: {failed} masked ids "
+                                 f"returned, {launches} kernel launches")
+        if gate is not None and rung["selectivity"] == 0.10 and rec < gate:
+            raise AssertionError(f"{path}.filtered: recall@10 {rec} < {gate} "
+                                 "at 10% selectivity")
+    v, i = run(ladder["none"])
+    if not (bool((i == -1).all()) and bool(torch.isposinf(v).all())):
+        raise AssertionError(f"{path}.filtered: an all-fail filter returned "
+                             "ids or finite values")
+    return rows
+
+
+def probes_widened(n_probes, n_lists, k_fetch=None, refined_cap=None):
+    """``widened`` of :func:`filtered_rungs` for a path probing
+    ``n_probes`` of ``n_lists`` (and fetching ``k_fetch``; IVF-BQ's
+    refined search widens it too, up to ``refined_cap``)."""
+    from raft_tpu_torch.neighbors import _filtering
+
+    def widened(f):
+        np_eff, kf_eff, rate, widen = _filtering.widen_plan(
+            f, n_probes, n_lists, k_fetch=k_fetch if refined_cap else None,
+            k_cap=refined_cap)
+        out = {"pass_rate": rate, "widen": widen, "n_probes": np_eff}
+        if k_fetch is not None:
+            out["k_fetch"] = kf_eff if refined_cap else k_fetch
+        return out
+    return widened
+
+
 def reset_counts():
     """Every kernel's launch count to 0 (just before a path is driven)."""
     from raft_tpu_torch.ops import bq_scan as bq
@@ -1108,6 +1328,16 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
     kernel_split(calls, "main.k1_split", kf=pick["k_fetch"],
                  list_dtype="int8", tournament=True)
     keep_for_ab(("strip_scan", f"main_int8_kf{pick['k_fetch']}"), calls)
+    del calls
+
+    def frun(f):
+        _, cand = ivf_pq.search(index, qs, pick["k_fetch"],
+                                n_probes=pick["n_probes"], backend="ragged",
+                                filter=f, res=res)
+        return refine.refine(dataset, qs, cand, K, res=res)
+
+    filtered_rungs(shared, "main", frun, ss.STRIP_KERNEL, probes_widened(
+        pick["n_probes"], n_lists, pick["k_fetch"]))
     return {"launches": launches, "max_abs_err": max_err,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}, (index, pick)
@@ -1229,10 +1459,143 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
     check_wgmma(loops, index.code_bytes_per_row, "bq.k2")
     kernel_split(calls, "bq.k2_split", "bq_scan", kf=pick["k_fetch"],
                  n_probes=pick["n_probes"])
+    del calls
+    ratio = pick["k_fetch"] // K
+
+    def frun(f):
+        return ivf_bq.search_refined(index, dataset, qs, K,
+                                     n_probes=pick["n_probes"],
+                                     refine_ratio=ratio, filter=f, res=res)
+
+    filtered_rungs(shared, "bq", frun, bq.BQ_KERNEL, probes_widened(
+        pick["n_probes"], n_lists, pick["k_fetch"], refined_cap=512))
+
+    # extend with the queries under ids n + i, then find each of them
+    t = time.perf_counter()
+    ext = ivf_bq.extend(index, qs, new_ids=torch.arange(
+        n, n + q, dtype=torch.int32, device=qs.device), res=res)
+    torch.cuda.synchronize()
+    extend_s = time.perf_counter() - t
+    reset_counts()
+    _, ie = ivf_bq.search_refined(ext, torch.cat([dataset, qs]), qs, K,
+                                  n_probes=pick["n_probes"],
+                                  refine_ratio=ratio, res=res)
+    torch.cuda.synchronize()
+    ext_launches = bq.BQ_KERNEL.launches
+    own = torch.arange(n, n + q, device=ie.device)[:, None]
+    readback = float((ie == own).any(dim=1).float().mean())
+    emit({"phase": "bq.extend", "rows_added": q, "extend_s": extend_s,
+          "max_list_size": ext.max_list_size, "size": ext.size,
+          "readback_after_refine": readback, "k2_launches": ext_launches})
+    if readback < 0.99 or ext_launches <= 0 or ext.size != n + q:
+        raise AssertionError(f"bq.extend: read-back {readback}, "
+                             f"{ext_launches} K2 launches, size {ext.size}")
+    del ext, ie
     return {"launches": launches, "max_abs_err": max_err,
             "loop": "/".join(loops),
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}, (index, pick)
+
+
+def bq_streaming_phase(shared, pick, n_lists=N_LISTS, dev="cuda"):
+    """``ivf_bq.build_streaming`` from a host copy of the dataset in 4
+    chunks of 250,000 rows at the bq path's parameters: build seconds by
+    phase, the dropped-row accounting (asserted, not zero), recall@10 ≥
+    0.95 after refine at the bq path's chosen point, and K2's launches."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_bq
+    from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    dataset, qs, host = shared["dataset"], shared["queries"], shared["host"]
+    gt_v, gt_i = shared["gt"]
+    n, dim = host.shape
+    q = qs.shape[0]
+    t = time.perf_counter()
+    index = ivf_bq.build_streaming(
+        lambda s, e: host[s:e], n, dim, ivf_bq.IvfBqParams(
+            n_lists=n_lists, kmeans_trainset_fraction=0.2),
+        res=res, chunk_rows=STREAM_CHUNK_ROWS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    emit({"phase": "bq.streaming.setup", "rows": n, "n_lists": n_lists,
+          "chunks": -(-n // STREAM_CHUNK_ROWS),
+          "max_list_size": index.max_list_size,
+          "streaming_dropped": index._streaming_dropped,
+          "code_bytes_per_row": index.code_bytes_per_row,
+          "build_s": build_s, "build_phases_s": index.build_timings_s})
+    check_dropped(index, dataset, 512)
+    ratio = pick["k_fetch"] // K
+
+    def run():
+        return ivf_bq.search_refined(index, dataset, qs, K,
+                                     n_probes=pick["n_probes"],
+                                     refine_ratio=ratio, res=res)
+
+    reset_counts()
+    v, i = run()
+    torch.cuda.synchronize()
+    launches = bq.BQ_KERNEL.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    qps, batch_s = host_qps(run, q)
+    emit({"phase": "bq.streaming", "n_probes": pick["n_probes"],
+          "k_fetch": pick["k_fetch"], "recall": rec, "qps": qps,
+          "batch_s": batch_s, "k2_launches": launches})
+    if rec < 0.95 or launches <= 0:
+        raise AssertionError(f"bq.streaming: recall@10 {rec}, {launches} K2 "
+                             "launches")
+    del index
+    torch.cuda.empty_cache()
+
+
+BRUTE_METRICS = ("sqeuclidean", "inner_product", "cosine", "l1")
+BRUTE_ROWS, BRUTE_QUERIES = 100_000, 1_000
+
+
+def brute_metrics_phase(shared, dev="cuda"):
+    """Brute force in four metrics on 100,000 rows × 1,000 queries of the
+    dataset against ``pairwise_distance`` + ``torch.topk``: ids equal
+    except at near-ties."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops.distance import pairwise_distance
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    res = Resources(device=dev)
+    data = shared["dataset"][:BRUTE_ROWS].float()
+    qs = shared["queries"][:BRUTE_QUERIES].float()
+    for metric in BRUTE_METRICS:
+        index = brute_force.build(data, metric, res=res)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v, i = brute_force.search(index, qs, K, res=res)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t
+        t = time.perf_counter()
+        d = pairwise_distance(qs, data, metric, res=res)
+        largest = metric == "inner_product"
+        pv, pi = torch.topk(d, K, dim=1, largest=largest, sorted=True)
+        torch.cuda.synchronize()
+        pairwise_s = time.perf_counter() - t
+        sign = -1.0 if largest else 1.0     # topk_agreement ranks ascending
+        # uint8 rows give integer l1 distances, which tie often and which
+        # torch.topk orders arbitrarily: any share of ids may differ, each
+        # only where the two values tie
+        verdict = topk_agreement(sign * pv, pi, sign * v, i,
+                                 rtol=1e-5, atol=1e-5 * float(pv.abs().max()),
+                                 tie_rtol=1e-5, max_mismatch=1.0)
+        emit({"phase": "brute.metrics", "metric": metric, "rows": BRUTE_ROWS,
+              "queries": BRUTE_QUERIES, "search_s": search_s,
+              "pairwise_topk_s": pairwise_s, **verdict})
+        if not verdict["ok"]:
+            raise AssertionError(f"brute force {metric} disagrees with "
+                                 f"pairwise_distance + topk: {verdict}")
+        del d
 
 
 SERVE_PLAN_PAGE_ROWS = 128   # the bench serving section's page height
@@ -1307,7 +1670,86 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
     kernel_split(calls, "flat.k1_split", kf=K, list_dtype="uint8",
                  tournament=False)
     keep_for_ab(("strip_scan", f"flat_uint8_kf{K}"), calls)
+    k1_filtered(index, calls, pick)
+    del calls
+
+    def frun(f):
+        return ivf_flat.search(index, qs, K, n_probes=pick["n_probes"],
+                               filter=f, res=res)
+
+    filtered_rungs(shared, "flat", frun, ss.STRIP_KERNEL, probes_widened(
+        pick["n_probes"], n_lists))
+
+    # extend with the queries under ids n + i: each finds itself through K1
+    n = dataset.shape[0]
+    t = time.perf_counter()
+    ext = ivf_flat.extend(index, qs, new_ids=torch.arange(
+        n, n + q, dtype=torch.int32, device=qs.device), res=res)
+    torch.cuda.synchronize()
+    extend_s = time.perf_counter() - t
+    reset_counts()
+    _, ie = ivf_flat.search(ext, qs, K, n_probes=pick["n_probes"], res=res)
+    torch.cuda.synchronize()
+    ext_launches = ss.STRIP_KERNEL.launches
+    own = torch.arange(n, n + q, device=ie.device)[:, None]
+    readback = float((ie == own).any(dim=1).float().mean())
+    emit({"phase": "flat.extend", "rows_added": q, "extend_s": extend_s,
+          "list_dtype": str(ext.list_data.dtype).replace("torch.", ""),
+          "max_list_size": ext.max_list_size, "size": ext.size,
+          "readback": readback, "k1_launches": ext_launches})
+    if readback < 1.0 or ext_launches <= 0 or ext.size != n + q:
+        raise AssertionError(f"flat.extend: read-back {readback}, "
+                             f"{ext_launches} K1 launches, size {ext.size}")
+    del ext, ie
     return index, pick, (v, i)
+
+
+def k1_filtered(index, calls, pick):
+    """K1 at the flat path's own class inputs with the bias of a filter
+    that passes only the rows of even-numbered lists (every odd list's
+    sub-blocks dead), and of one that passes nothing (every sub-block
+    dead), against the same inputs unfiltered: parity with the twin, then
+    the three times in the order unfiltered, even, none, none, even,
+    unfiltered. Dead sub-blocks should cost K1 about nothing."""
+    import torch
+
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors._filtering import apply_filter_bias
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    ids = index.list_ids
+    even = (torch.arange(index.n_lists, device=ids.device)[:, None] % 2 == 0
+            ) & (ids >= 0)
+    mask = torch.zeros(index.size, dtype=torch.bool, device=ids.device)
+    mask[ids[even].long()] = True
+    variants = {"unfiltered": calls}
+    for name, f in (("even", Bitset.from_mask(mask)),
+                    ("none", Bitset.create(index.size, False,
+                                           device=ids.device))):
+        bias = apply_filter_bias(calls[0]["bias"], ids, f)
+        variants[name] = [dict(c, bias=bias) for c in calls]
+    err = kernel_parity_at(variants["even"], "strip_scan",
+                           f"flat_path_filtered_even_lists_nprobe"
+                           f"{pick['n_probes']}_kf{K}")
+    err = max(err, kernel_parity_at(variants["none"], "strip_scan",
+                                    f"flat_path_filtered_none_nprobe"
+                                    f"{pick['n_probes']}_kf{K}"))
+    wrapper = _kernel_pair("strip_scan")[0]
+    times = {name: [] for name in variants}
+    for name in ("unfiltered", "even", "none", "none", "even", "unfiltered"):
+        cs = variants[name]
+        times[name].append(cuda_ms(lambda cs=cs: [wrapper(**c) for c in cs]))
+    dead = {name: float(sum(
+        int((ss.sub_block_liveness(c["bias"], c["w_blocks"] * 512,
+                                   c["n_sub"]) == 0).sum()) for c in cs[:1]))
+        / float(cs[0]["bias"].shape[0] * cs[0]["n_sub"])
+        for name, cs in variants.items()}
+    emit({"phase": "flat.k1_filtered", "n_probes": pick["n_probes"], "kf": K,
+          "pass_rate_even": float(mask.float().mean()),
+          "dead_sub_block_share": dead,
+          "ms": {name: sum(t) / 2 for name, t in times.items()},
+          "order": times, "launches_per_search": len(calls),
+          "max_abs_err": err})
 
 
 def flat_path_class_inputs(index, queries, n_probes, kf, res):
@@ -1625,10 +2067,122 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
               int((c["strip_list"] >= 0).sum()) for c in calls), **timing})
     kernel_split(calls, "serve.k3_split", "paged_scan", kf=K,
                  n_probes=n_probes, payload="uint8")
+    del calls
+
+    # filters: per call through K3 (the rows the window upserted, ids past
+    # the masks, never pass), then a standing filter that survives
+    # compaction, and a permutation of the 1% mask at its popcount
+    def frun(f):
+        return serving.search(store, qs, K, n_probes=n_probes, filter=f,
+                              res=res)
+
+    filtered_rungs(shared, "serve", frun, ss.PAGED_KERNEL, probes_widened(
+        n_probes, store.n_lists))
+    standing_filter_checks(shared, store, n_probes, res)
+    serve_gather(shared, store, n_probes, res)
     return {"launches": launches, "max_abs_err": max_err,
             "loop": "/".join(loops),
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
+
+
+def standing_filter_checks(shared, store, n_probes, res):
+    """A standing filter (``set_filter``) gives the per-call filter's ids;
+    it survives compact + compact_swap with the same ids; a permutation of
+    the 1% mask at the same popcount, installed as the standing filter,
+    gives the ids of a fresh Bitset built from it per call."""
+    import torch
+
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.core.bitset import Bitset
+
+    ladder = filter_ladder(shared)
+    qs = shared["queries"]
+    f10 = ladder["rungs"][0]["bitset"]
+    _, per_call = serving.search(store, qs, K, n_probes=n_probes, filter=f10,
+                                 res=res)
+    store.set_filter(f10)
+    _, standing = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    version = store.mutation_version
+    t = time.perf_counter()
+    swapped = store.compact_swap(store.compact(), version)
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t
+    _, after = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    perm = ladder["perm01"]
+    store.set_filter(perm)
+    _, perm_standing = serving.search(store, qs, K, n_probes=n_probes,
+                                      res=res)
+    store.set_filter(None)
+    _, perm_fresh = serving.search(store, qs, K, n_probes=n_probes,
+                                   filter=Bitset.from_mask(perm, device=store.device),
+                                   res=res)
+    out = {"phase": "serve.standing_filter",
+           "same_as_per_call": bool(torch.equal(standing, per_call)),
+           "swapped": swapped, "compact_swap_s": swap_s,
+           "same_after_compact_swap": bool(torch.equal(after, standing)),
+           "perm01_popcount": int(perm.sum()),
+           "perm01_same_as_fresh_bitset": bool(torch.equal(perm_standing,
+                                                           perm_fresh))}
+    emit(out)
+    if not all(out[k] for k in ("same_as_per_call", "swapped",
+                                "same_after_compact_swap",
+                                "perm01_same_as_fresh_bitset")):
+        raise AssertionError(f"standing filter: {out}")
+
+
+GATHER_KS = (600, 1000)   # past K3's k ≤ 512: "auto" takes the gather scan
+GATHER_QUERIES = 500      # the gather reads each probed page per query
+
+
+def serve_gather(shared, store, n_probes, res, k_fetch=None):
+    """The paged gather backend where K3's plan cannot feed k: ``"auto"``
+    resolves to it at k = 600 and 1000 and serves. Flat store: its top 10
+    agree with K3's k = 10 result except at near-ties. PQ store (two
+    estimators: the fp32 codeword LUT and K3's int8 cache): both go
+    through the exact refine and the gather's top 10 recall no less than
+    K3's at ``k_fetch``."""
+    import torch
+
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.neighbors import refine
+    from raft_tpu_torch.stats.metrics import (neighborhood_recall,
+                                              topk_agreement)
+
+    dataset, qs = shared["dataset"], shared["queries"][:GATHER_QUERIES]
+    gt_v, gt_i = (t[:GATHER_QUERIES] for t in shared["gt"])
+    kind = "pq" if store.kind == "ivf_pq" else "flat"
+    reset_counts()
+    v3, i3 = serving.search(store, qs, k_fetch or K, n_probes=n_probes,
+                            res=res)
+    if k_fetch:
+        v3, i3 = refine.refine(dataset, qs, i3, K, res=res)
+    for k in GATHER_KS:
+        engine = serving.paged_engine(store, k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vg, ig = serving.search(store, qs, k, n_probes=n_probes, res=res)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t
+        row = {"phase": "serve.gather", "store": kind, "k": k,
+               "queries": GATHER_QUERIES, "engine": engine,
+               "search_s": search_s, "full_rows": int((ig >= 0).all(1).sum())}
+        if k_fetch:
+            vr, ir = refine.refine(dataset, qs, ig, K, res=res)
+            row.update(recall_gather=neighborhood_recall(ir, gt_i, vr, gt_v),
+                       recall_k3=neighborhood_recall(i3, gt_i, v3, gt_v))
+            ok = row["recall_gather"] >= row["recall_k3"]
+        else:
+            # K3's values carry the packed column in their low mantissa
+            # bits, relative to the scan score −2⟨q, x⟩ + ‖x‖², which
+            # adding ‖q‖² back cancels: the error is absolute at that scale
+            atol = 5e-4 * float(qs.float().pow(2).sum(1).max())
+            row["agreement_with_k3"] = topk_agreement(
+                v3, i3, vg[:, :K], ig[:, :K], atol=atol)
+            ok = row["agreement_with_k3"]["ok"]
+        emit(row)
+        if engine != "gather" or not ok or row["full_rows"] != GATHER_QUERIES:
+            raise AssertionError(f"serve.gather: {row}")
 
 
 def serve_codes_inputs(store, kind, qs, n_probes, kf, res):
@@ -1704,6 +2258,18 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
     rec = neighborhood_recall(i, gt_i, v, gt_v)
     if rec < 0.95 or launches <= 0:
         raise AssertionError(f"paged {kind}: recall {rec}, {launches} launches")
+
+    # filters and (PQ) the gather scan, while the store holds only dataset
+    # rows (the exact refine reads them)
+    def frun(f):
+        _, cand = serving.search(store, qs, kf, n_probes=n_probes, filter=f,
+                                 res=res)
+        return refine.refine(dataset, qs, cand, K, res=res)
+
+    filtered_rungs(shared, f"serve.{kind}", frun, counter, probes_widened(
+        n_probes, store.n_lists, kf))
+    if kind == "pq":
+        serve_gather(shared, store, n_probes, res, k_fetch=kf)
 
     # one round: upsert 2·32 query vectors, delete half of them and 32
     # original rows, search the upserted rows' queries
@@ -2203,6 +2769,15 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
                              f" values within tolerance {vals_ok}")
     del vg, ig, vp, ip_
 
+    def frun(f):
+        _, cand = ivf_pq.search(index, qs, pick["k_fetch"],
+                                n_probes=pick["n_probes"], backend="pallas",
+                                filter=f, res=res)
+        return refine.refine(dataset, qs, cand, K, res=res)
+
+    filtered_rungs(shared, "lut", frun, ps.PQ_KERNEL, probes_widened(
+        pick["n_probes"], n_lists, pick["k_fetch"]))
+
     # extend with the queries under ids n + i; each must find itself
     t = time.perf_counter()
     ext = ivf_pq.extend(index, qs, new_ids=torch.arange(
@@ -2400,6 +2975,14 @@ def cache_phase(shared, n_lists=N_LISTS, dev="cuda"):
     emit({"phase": "cache.search", **pick, "recall_final": rec,
           "qps": len(times) * q / sum(times), "batch_s": times,
           "search_ms": search_ms, "k1_launches": launches})
+
+    def frun(f):
+        _, cand = ivf_pq.search(index, qs, pick["k_fetch"],
+                                n_probes=pick["n_probes"], filter=f, res=res)
+        return refine.refine(dataset, qs, cand, K, res=res)
+
+    filtered_rungs(shared, "cache", frun, ss.STRIP_KERNEL, probes_widened(
+        pick["n_probes"], n_lists, pick["k_fetch"]))
     del index
     torch.cuda.empty_cache()
 
@@ -2785,6 +3368,16 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "hops": hops, "k6_launches": launches,
           "compressed_qps": len(ctimes) * q / sum(ctimes),
           "compressed_batch_s": ctimes, "compressed_recall": crec})
+
+    # filters: the traversal routes through filtered-out nodes and masks
+    # the buffer at the exit re-rank; recall is printed, not gated (the
+    # result is what the itopk buffer holds)
+    filtered_rungs(
+        shared, "cagra",
+        lambda f: cagra.search(index, qs, K, pick["sp"], filter=f, res=res),
+        ch.HOP_KERNEL, lambda f: {"itopk": pick["itopk"],
+                                  "width": pick["width"],
+                                  "pass_rate": f.pass_rate()}, gate=None)
 
     # K6 at the path's own inputs: every hop of one search (picking its
     # own parents, as the search runs it), parity on the state after hop
@@ -3563,6 +4156,9 @@ def main() -> int:
             result, held["bq"] = bq_phase(shared)
             fold(k2, result)
 
+        def bq_streaming():
+            bq_streaming_phase(shared, held["bq"][1])
+
         def ivf_flat():
             held["flat"] = flat_phase(shared)
 
@@ -3581,15 +4177,20 @@ def main() -> int:
         def cache():
             cache_phase(shared)
 
+        def brute():
+            brute_metrics_phase(shared)
+
         def cagra():       # last: its index holds 4.2 GB of codes
             result, k1_err = cagra_phase(shared)
             fold(k6, result)
             k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
         for name, path in (("main", ivf_pq), ("bq", ivf_bq),
+                           ("bq.streaming", bq_streaming),
                            ("flat", ivf_flat), ("serve", serve),
                            ("serve.pq", serve_pq), ("serve.bq", serve_bq),
-                           ("lut", lut), ("cache", cache), ("cagra", cagra)):
+                           ("lut", lut), ("cache", cache), ("brute", brute),
+                           ("cagra", cagra)):
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})

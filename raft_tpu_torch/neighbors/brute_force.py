@@ -1,11 +1,14 @@
 """Exact k-NN by brute force (counterpart of
-``raft_tpu/neighbors/brute_force.py``), sqeuclidean only in this slice.
+``raft_tpu/neighbors/brute_force.py``) under every metric of
+:data:`raft_tpu_torch.ops.distance.ALL_METRICS`.
 
 The search is tiled over the dataset — 10k queries against 1M rows would be
 40 GB of fp32 distances — with a running top-k merge: each tile's distances
-come from one ``torch.matmul`` (full fp32, TF32 off), its k best by a
+come from one ``torch.matmul`` (full fp32, TF32 off) for the expanded
+metrics or one broadcast block for the elementwise ones, its k best by a
 stable sort, and a stable merge with the running result, so ties go to the
-lowest row id as in the JAX package. This is the ground truth of the port.
+lowest row id as in the JAX package. ``filter`` excludes rows by id. This
+is the ground truth of the port, filtered recall's too.
 """
 
 from __future__ import annotations
@@ -16,16 +19,19 @@ from typing import Optional
 import torch
 
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
-from raft_tpu_torch.ops.distance import canonical_metric, matmul_t, sqnorm
+from raft_tpu_torch.ops import distance as dist
 
-SUPPORTED_METRICS = ("sqeuclidean",)
+# metrics where larger is better (the search keeps the largest)
+_MAX_METRICS = frozenset({"inner_product"})
+_NORM_METRICS = frozenset({"sqeuclidean", "euclidean", "cosine"})
 
 
 @dataclass
 class BruteForceIndex:
-    dataset: torch.Tensor          # (n, dim), any real dtype
-    norms: torch.Tensor            # (n,) fp32 squared norms
+    dataset: torch.Tensor            # (n, dim), any real dtype
+    norms: Optional[torch.Tensor]    # (n,) fp32 squared norms (L2, cosine)
     metric: str = "sqeuclidean"
+    metric_arg: float = 2.0          # minkowski's p
 
     @property
     def size(self) -> int:
@@ -36,25 +42,44 @@ class BruteForceIndex:
         return self.dataset.shape[1]
 
 
-def build(dataset, metric: str = "sqeuclidean",
+def build(dataset, metric: str = "sqeuclidean", metric_arg: float = 2.0,
           res: Optional[Resources] = None,
           device: Optional[DeviceLike] = None) -> BruteForceIndex:
-    """Keep the dataset on the device with its row norms."""
-    metric = canonical_metric(metric)
-    if metric not in SUPPORTED_METRICS:
-        raise NotImplementedError(
-            f"brute_force metric {metric!r} arrives with a later slice of the "
-            f"port; this one has {SUPPORTED_METRICS}")
+    """Keep the dataset on the device, with its row norms for the metrics
+    that use them."""
+    metric = dist.canonical_metric(metric)
     res = resources_for(device, res)
     data = torch.as_tensor(dataset).to(res.device)
-    return BruteForceIndex(data, sqnorm(data), metric)
+    norms = dist.sqnorm(data) if metric in _NORM_METRICS else None
+    return BruteForceIndex(data, norms, metric, float(metric_arg))
 
 
-def search(index: BruteForceIndex, queries, k: int,
+def _tile_distances(queries, qn, tile, tile_norms, metric: str,
+                    metric_arg: float, compute_dtype):
+    """Distances of all queries against one dataset tile, with the query
+    norms ``qn`` hoisted out of the tile loop."""
+    if metric in ("sqeuclidean", "euclidean"):
+        ip = dist.matmul_t(queries, tile, compute_dtype)
+        d = torch.clamp(qn[:, None] + tile_norms[None, :] - 2.0 * ip, min=0.0)
+        return torch.sqrt(d) if metric == "euclidean" else d
+    if metric == "cosine":
+        ip = dist.matmul_t(queries, tile, compute_dtype)
+        return 1.0 - ip / torch.clamp(torch.sqrt(qn)[:, None]
+                                      * torch.sqrt(tile_norms)[None, :],
+                                      min=1e-30)
+    return dist.metric_block(queries, tile, metric, metric_arg,
+                             compute_dtype)
+
+
+def search(index: BruteForceIndex, queries, k: int, filter=None,
            tile_rows: Optional[int] = None,
            res: Optional[Resources] = None,
            device: Optional[DeviceLike] = None):
-    """Exact k-NN → (distances (q, k) fp32, indices (q, k) int32)."""
+    """Exact k-NN → (distances (q, k) fp32, indices (q, k) int32); the
+    largest values for inner product, the smallest otherwise. ``filter``, a
+    :class:`~raft_tpu_torch.core.bitset.Bitset` of ``index.size`` bits,
+    excludes rows; ids are -1 (values ±inf) where fewer than k rows
+    pass."""
     res = resources_for(device, res)
     if index.dataset.device != res.device:
         raise ValueError(f"index lives on {index.dataset.device}, search "
@@ -65,32 +90,51 @@ def search(index: BruteForceIndex, queries, k: int,
     q = queries.shape[0]
     if not 0 < k <= n:
         raise ValueError(f"k={k} out of range for n={n}")
+    if filter is not None and filter.n_bits != n:
+        raise ValueError(f"filter covers {filter.n_bits} bits but index has "
+                         f"{n} rows")
+    metric = index.metric
+    expanded = metric in dist.EXPANDED_METRICS
     if tile_rows is None:
-        # the (q, tile) distance block, its sorted copy and int64 order
-        per_col = max(1, q * 16 + index.dim * 4)
-        tile_rows = int(min(n, max(k, res.workspace_bytes // per_col)))
+        # the (q, tile) distance block, its sorted copy and int64 order;
+        # an elementwise metric also broadcasts a (q, tile, dim) block
+        per_col = q * 16 + index.dim * 4 + (0 if expanded
+                                            else q * index.dim * 4)
+        tile_rows = int(min(n, max(k, res.workspace_bytes // max(1, per_col))))
     tile_rows = max(min(int(tile_rows), n), k)
-    qn = sqnorm(queries)
+    select_min = metric not in _MAX_METRICS
+    norms = index.norms
+    if metric in _NORM_METRICS and norms is None:
+        norms = dist.sqnorm(index.dataset)
+    qn = dist.sqnorm(queries) if metric in _NORM_METRICS else None
+    compute_dtype = res.compute_dtype if expanded else None
+    inf = float("inf")
     best_v = best_i = None
     for s in range(0, n, tile_rows):
         tile = index.dataset[s:s + tile_rows]
-        d = torch.clamp(qn[:, None] + index.norms[None, s:s + tile.shape[0]]
-                        - 2.0 * matmul_t(queries, tile), min=0.0)
-        kk = min(k, d.shape[1])
-        v, i = torch.sort(d, dim=1, stable=True)
+        d = _tile_distances(queries, qn, tile,
+                            None if norms is None else norms[s:s + tile.shape[0]],
+                            metric, index.metric_arg, compute_dtype)
+        key = d if select_min else -d
+        if filter is not None:
+            ids = torch.arange(s, s + tile.shape[0], device=res.device)
+            key = torch.where(filter.test(ids)[None, :], key, inf)
+        kk = min(k, key.shape[1])
+        v, i = torch.sort(key, dim=1, stable=True)
         v, i = v[:, :kk], i[:, :kk] + s
         if best_v is not None:
             v, order = torch.sort(torch.cat([best_v, v], 1), dim=1, stable=True)
             i = torch.gather(torch.cat([best_i, i], 1), 1, order)
             v, i = v[:, :k], i[:, :k]
         best_v, best_i = v, i
-    return best_v, best_i.to(torch.int32)
+    best_i = torch.where(best_v == inf, -1, best_i)
+    return (best_v if select_min else -best_v), best_i.to(torch.int32)
 
 
 def knn(queries, dataset, k: int, metric: str = "sqeuclidean",
-        res: Optional[Resources] = None,
+        metric_arg: float = 2.0, res: Optional[Resources] = None,
         device: Optional[DeviceLike] = None):
     """One-shot exact k-NN of ``queries`` in ``dataset`` → (distances,
     indices), as :func:`search` over :func:`build`."""
-    return search(build(dataset, metric, res=res, device=device), queries, k,
-                  res=res, device=device)
+    return search(build(dataset, metric, metric_arg, res=res, device=device),
+                  queries, k, res=res, device=device)

@@ -38,7 +38,13 @@ is therefore held on a JAX-built index carried across
 (:func:`from_jax_arrays`, :meth:`CagraIndex.load`), build parity by recall
 and invariants.
 
-Not in this slice (each raises ``NotImplementedError``): ``filter=``,
+``filter`` (a :class:`~raft_tpu_torch.core.bitset.Bitset` over the
+index's rows) leaves the traversal as it is (filtered-out nodes still
+route) and masks the buffer at the finish: before the output top-k of the
+exact loop and in the exit re-rank of the compressed and fused ones, as
+the JAX package does.
+
+Not in this slice (each raises ``NotImplementedError``):
 ``build_algo="nn_descent"``, the hnsw export and the distributed search.
 """
 
@@ -631,9 +637,11 @@ def _repeat(hop):
 
 
 def _search_impl(dataset, graph, queries, gen, k: int, itopk: int,
-                 width: int, max_iter: int, min_iter: int, n_rand: int):
+                 width: int, max_iter: int, min_iter: int, n_rand: int,
+                 filter=None):
     """The exact traversal: random seeds, full-precision distances to the
-    gathered rows, the stable merge. → (d, ids, hops)."""
+    gathered rows, the stable merge; ``filter`` masks the buffer before the
+    output top-k. → (d, ids, hops)."""
     n = dataset.shape[0]
     q = queries.shape[0]
     deg = graph.shape[1]
@@ -674,6 +682,8 @@ def _search_impl(dataset, graph, queries, gen, k: int, itopk: int,
 
     (buf_ids, buf_d, _), hops = _traverse(state, _repeat(hop), max_iter,
                                            min_iter)
+    if filter is not None:
+        buf_d = torch.where(filter.test(buf_ids), buf_d, inf)
     out_d, sel = iter_topk_min(buf_d, k)
     out_ids = torch.gather(buf_ids, 1, sel.long())
     qn = torch.sum(qf * qf, dim=1)
@@ -719,15 +729,18 @@ def _seed_compressed(index: CagraIndex, qf, qp, gen, itopk: int, n_rand: int,
     return merge(*_empty_buffer(q, itopk, dev, vis_dtype), seed_ids, seed_d)
 
 
-def _exact_rerank(dataset, qf, buf_ids, k: int, rt: int):
+def _exact_rerank(dataset, qf, buf_ids, k: int, rt: int, filter=None):
     """Exact re-rank of the buffer head (its best ``rt`` entries) against
-    the raw dataset, the exit both compressed traversals share."""
+    the raw dataset, the exit both compressed traversals share; ids that
+    fail ``filter`` are masked."""
     inf = float("inf")
     r_ids = buf_ids[:, :rt]
     xv = dataset[torch.clamp(r_ids, min=0).long()].to(torch.float32)
     ip = torch.bmm(xv, qf[:, :, None])[:, :, 0]
     d_exact = torch.sum(xv * xv, dim=2) - 2.0 * ip
     d_exact = torch.where(r_ids >= 0, d_exact, torch.full_like(d_exact, inf))
+    if filter is not None:
+        d_exact = torch.where(filter.test(r_ids), d_exact, inf)
     out_d, sel = iter_topk_min(d_exact, k)
     out_ids = torch.gather(r_ids, 1, sel.long())
     qn = torch.sum(qf * qf, dim=1)
@@ -747,7 +760,8 @@ def _code_merge(itopk: int):
 
 def _search_impl_compressed(index: CagraIndex, queries, gen, k: int,
                             itopk: int, width: int, max_iter: int,
-                            min_iter: int, n_rand: int, refine_topk: int):
+                            min_iter: int, n_rand: int, refine_topk: int,
+                            filter=None):
     """The unfused traversal over inlined codes: per hop, q·w graph-row and
     code-record gathers, a (q, w·deg, p) int8 × bf16 contraction, the
     exact (or slack) dedup and the packed itopk select; the exit re-ranks
@@ -787,7 +801,8 @@ def _search_impl_compressed(index: CagraIndex, queries, gen, k: int,
 
     (buf_ids, _, _), hops = _traverse(state, _repeat(hop), max_iter,
                                       min_iter)
-    out_d, out_ids = _exact_rerank(index.dataset, qf, buf_ids, k, refine_topk)
+    out_d, out_ids = _exact_rerank(index.dataset, qf, buf_ids, k, refine_topk,
+                                   filter)
     return out_d, out_ids, hops
 
 
@@ -812,14 +827,15 @@ def _fused_hop_chunk(index: CagraIndex, qp, state, width: int, hops: int):
     return state
 
 
-def _fused_finish(index: CagraIndex, queries, buf_ids, k: int, rt: int):
+def _fused_finish(index: CagraIndex, queries, buf_ids, k: int, rt: int,
+                  filter=None):
     return _exact_rerank(index.dataset, queries.to(torch.float32), buf_ids,
-                         k, rt)
+                         k, rt, filter)
 
 
 def _run_fused_tile(index: CagraIndex, qs, gen, k: int, itopk: int,
                     width: int, max_iter: int, min_iter: int, n_rand: int,
-                    rt: int):
+                    rt: int, filter=None):
     """One query tile through the fused traversal: init, hops in chunks,
     exact exit re-rank. → (d, ids, hops)."""
     buf_ids, buf_d, buf_vis, qp = _fused_init(index, qs, gen, itopk, n_rand)
@@ -827,7 +843,7 @@ def _run_fused_tile(index: CagraIndex, qs, gen, k: int, itopk: int,
         (buf_ids, buf_d, buf_vis),
         lambda state, hops: _fused_hop_chunk(index, qp, state, width, hops),
         max_iter, min_iter)
-    out_d, out_ids = _fused_finish(index, qs, buf_ids, k, rt)
+    out_d, out_ids = _fused_finish(index, qs, buf_ids, k, rt, filter)
     return out_d, out_ids, hops
 
 
@@ -880,10 +896,9 @@ def search(index: CagraIndex, queries, k: int,
     it. Queries are traversed in tiles sized from the workspace. ``stats``,
     when given, receives the resolved ``mode``, ``refine_topk``,
     ``q_tile``, ``tiles`` and the ``hops`` run in each tile, and for the
-    fused traversal the hop's ``occupancy``."""
-    if filter is not None:
-        raise NotImplementedError(f"filtered cagra search {_LATER} (it needs "
-                                  "core/bitset.py)")
+    fused traversal the hop's ``occupancy``. ``filter``: a
+    :class:`~raft_tpu_torch.core.bitset.Bitset` of ``index.size`` bits;
+    filtered-out nodes route but never come back."""
     res = resources_for(device, res)
     dev = res.device
     if index.device != dev:
@@ -895,6 +910,9 @@ def search(index: CagraIndex, queries, k: int,
     itopk = int(min(params.itopk_size, index.size))
     if not 0 < k <= itopk:
         raise ValueError(f"k={k} must be in (0, itopk_size={itopk}]")
+    if filter is not None and filter.n_bits != index.size:
+        raise ValueError(f"filter covers {filter.n_bits} bits but index has "
+                         f"{index.size} rows")
     width = int(params.search_width)
     max_iter = int(params.max_iterations) or max(16, itopk // width)
     min_iter = int(min(params.min_iterations, max_iter))
@@ -930,15 +948,16 @@ def search(index: CagraIndex, queries, k: int,
             qs = torch.nn.functional.pad(qs, (0, 0, 0, q_tile - qs.shape[0]))
         if mode == "fused":
             od, oi, h = _run_fused_tile(index, qs, gen, int(k), itopk, width,
-                                        max_iter, min_iter, n_rand, rt)
+                                        max_iter, min_iter, n_rand, rt,
+                                        filter)
         elif mode == "compressed":
             od, oi, h = _search_impl_compressed(index, qs, gen, int(k), itopk,
                                                 width, max_iter, min_iter,
-                                                n_rand, rt)
+                                                n_rand, rt, filter)
         else:
             od, oi, h = _search_impl(index.dataset, index.graph, qs, gen,
                                      int(k), itopk, width, max_iter, min_iter,
-                                     n_rand)
+                                     n_rand, filter)
         outs.append((od, oi))
         hops.append(h)
     if stats is not None:

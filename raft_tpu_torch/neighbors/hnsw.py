@@ -6,7 +6,7 @@ port, which can reuse the JAX package's writer format as it stands."""
 from __future__ import annotations
 
 _LATER = ("arrives with a later slice of the PyTorch port (the CAGRA "
-          "remainder: nn_descent, hnsw export, filters, distributed search)")
+          "remainder: nn_descent, hnsw export, distributed search)")
 
 
 def save_to_hnswlib(index, path) -> None:

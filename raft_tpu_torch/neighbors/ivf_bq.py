@@ -20,17 +20,19 @@ index is strip-eligible. Random numbers come from ``torch.Generator``s
 seeded from ``params.seed``: a port-built index is not the JAX package's
 bit for bit (``from_jax_arrays`` carries one across).
 
-This port has build, search and search_refined for all four metrics,
-bits 1–4 and both rotation kinds, and the paged search over a
-``PagedListStore`` (kernel K4, :func:`search_paged`). Filtered search,
-``extend``, the streamed build and ``reconstruct_rows`` come with later
-slices and raise ``NotImplementedError`` here.
+This port has build, the streamed :func:`build_streaming`, :func:`extend`,
+search and search_refined for all four metrics, bits 1–4 and both rotation
+kinds, :func:`reconstruct_rows`, and the paged search over a
+``PagedListStore`` (kernel K4, :func:`search_paged`). ``filter`` is one
+more bias operand of K2 and K4 (+inf where a source id fails).
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,17 +40,19 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
-from raft_tpu_torch.neighbors import _packing, refine
+from raft_tpu_torch.neighbors import _filtering, _packing, refine
 from raft_tpu_torch.neighbors.ivf_flat import (_finalize_ragged,
                                                _paged_plan_static,
                                                _paged_search_args,
                                                _ragged_plan_static)
-from raft_tpu_torch.neighbors.ivf_pq import _pq_probe_prep
+from raft_tpu_torch.neighbors.ivf_pq import (_chunk_positions,
+                                             _pq_probe_prep, _sync)
 from raft_tpu_torch.ops import bq_scan, linalg
 from raft_tpu_torch.ops.distance import canonical_metric, sqnorm
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
-_LATER = "arrives with a later slice of the PyTorch port"
+PAGED_BACKENDS = ("auto", "paged", "paged_jnp")
+_log = logging.getLogger("raft_tpu_torch")
 
 #: fixed list granule: code rows are tiny, so the strip alignment is
 #: near-free and every index is strip-eligible
@@ -97,6 +101,10 @@ class IvfBqIndex:
     metric: str = "sqeuclidean"
     bits: int = 1
     rotation_kind: str = "dense"
+    #: streamed builds: seconds of training, pass 1 and pass 2
+    build_timings_s: Optional[Dict[str, float]] = None
+    #: streamed builds: rows whose two nearest capped lists were full
+    _streaming_dropped: int = 0
     _lens_np_cache: Optional[np.ndarray] = field(default=None, repr=False)
     _ragged_static_cache: Any = field(default=None, repr=False)
 
@@ -315,18 +323,212 @@ def build(dataset, params: IvfBqParams = IvfBqParams(),
                       params.metric, params.bits, params.rotation_kind)
 
 
-def extend(index, new_vectors, new_ids=None, res=None, device=None):
-    raise NotImplementedError(f"ivf_bq.extend {_LATER}")
+def extend(index: IvfBqIndex, new_vectors, new_ids=None,
+           res: Optional[Resources] = None,
+           device: Optional[DeviceLike] = None) -> IvfBqIndex:
+    """Encode new rows with the index's quantizers and repack → a new
+    index. The old rows' codes and scalars are carried as they are (codes
+    cannot give the vectors back); new rows go to their nearest fixed
+    center and spill under the auto cap on top of each list's fill. Ids
+    default to ``max + 1 …``."""
+    res = resources_for(device, res)
+    if index.device != res.device:
+        raise ValueError(f"index lives on {index.device}, extend runs on "
+                         f"{res.device}; move it with index.to(device)")
+    X = torch.as_tensor(new_vectors).to(device=res.device, dtype=torch.float32)
+    if X.ndim != 2 or X.shape[1] != index.dim:
+        raise ValueError(f"new_vectors must be (n, {index.dim}), got "
+                         f"{tuple(X.shape)}")
+    if index.metric == "cosine":
+        X = X / torch.clamp(torch.linalg.vector_norm(X, dim=1, keepdim=True),
+                            min=1e-30)
+    km_metric = ("inner_product" if index.metric in ("cosine", "inner_product")
+                 else "sqeuclidean")
+    labels = kmeans_balanced.predict(
+        X, index.centers, kmeans_balanced.KMeansBalancedParams(
+            metric=km_metric), res=res)
+    cap = _packing.auto_list_cap(index.size + X.shape[0], index.n_lists,
+                                 _GROUP)
+    labels = _packing.spill_to_cap(X, index.centers, labels, km_metric, cap,
+                                   base_counts=index.list_sizes())
+    new_codes, new_scale, new_bias = _encode_rows(
+        X, labels, index.centers, index.rotation, index.metric, index.bits,
+        index.rotation_kind)
+    old_codes, old_ids, old_labels = _packing.unpack_lists(index.list_codes,
+                                                           index.list_ids)
+    old_aux, _, _ = _packing.unpack_lists(
+        torch.stack([index.list_scale,
+                     torch.where(index.list_ids >= 0, index.list_bias, 0.0)],
+                    dim=2), index.list_ids)
+    if new_ids is None:
+        start = int(old_ids.max()) + 1 if old_ids.numel() else 0
+        new_ids = torch.arange(start, start + X.shape[0], dtype=torch.int32,
+                               device=X.device)
+    else:
+        new_ids = torch.as_tensor(new_ids).to(X.device, torch.int32)
+    all_ids = torch.cat([old_ids, new_ids])
+    all_labels = torch.cat([old_labels.to(torch.int64), labels.to(torch.int64)])
+    list_codes, list_ids = _packing.pack_lists(
+        torch.cat([old_codes, new_codes]), all_ids, all_labels,
+        index.n_lists, _GROUP, pow2_chunks=True)
+    aux, _ = _packing.pack_lists(
+        torch.cat([old_aux, torch.stack([new_scale, new_bias], dim=1)]),
+        all_ids, all_labels, index.n_lists, _GROUP, pow2_chunks=True)
+    return IvfBqIndex(
+        index.centers, index.rotation, list_codes, list_ids,
+        aux[:, :, 0].contiguous(),
+        torch.where(list_ids >= 0, aux[:, :, 1], float("inf")).contiguous(),
+        index.metric, index.bits, index.rotation_kind)
 
 
-def build_streaming(chunk_fn, n, dim, params=IvfBqParams(), res=None,
-                    device=None, chunk_rows=0, train_rows=0):
-    raise NotImplementedError(f"ivf_bq.build_streaming {_LATER}")
+def _scatter_chunk_bq(list_codes, list_ids, list_scale, list_bias, codes,
+                      scale, bias, labels, base, row_start: int) -> None:
+    """One streamed-build chunk's encoded rows written in place at the
+    per-list write offsets ``base`` plus their chunk-local arrival ranks
+    (IVF-PQ's :func:`_chunk_positions`: rows with the drop sentinel or
+    past the padded size are left out)."""
+    n_lists, mls = list_ids.shape
+    order, lst, pos = _chunk_positions(labels.to(torch.int64), base, n_lists,
+                                       mls)
+    list_codes[lst, pos] = codes[order]
+    list_ids[lst, pos] = (row_start + order).to(torch.int32)
+    list_scale[lst, pos] = scale[order]
+    list_bias[lst, pos] = bias[order]
 
 
-def reconstruct_rows(centers, rotation, codes, scale, labels, bits=1,
-                     rotation_kind="dense", dim=None):
-    raise NotImplementedError(f"ivf_bq.reconstruct_rows {_LATER}")
+def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
+                    params: IvfBqParams = IvfBqParams(),
+                    res: Optional[Resources] = None,
+                    device: Optional[DeviceLike] = None,
+                    chunk_rows: int = 0, train_rows: int = 0) -> IvfBqIndex:
+    """Out-of-memory build: the dataset visits the device one chunk at a
+    time. ``chunk_fn(start, end)`` returns rows ``start:end`` (numpy or a
+    tensor, any device); it is called for a training sample and once per
+    chunk in each of two passes, so it must be deterministic.
+
+    * the coarse centers train on ``train_rows`` rows (default ≤ 2M, a
+      slice from every chunk; ``>= n`` reads the whole dataset in order);
+    * pass 1 assigns each chunk; under the list cap a row whose nearest
+      list is full goes to its second-nearest (:func:`_packing.
+      assign_top2`, :func:`_packing.divert_to_cap`), and a row whose
+      second choice is full too is dropped and counted
+      (``index._streaming_dropped``);
+    * pass 2 encodes each chunk (:func:`_encode_rows`, in sub-chunks whose
+      (rows, rot_dim) fp32 temporaries fit ``res.workspace_bytes``) and
+      writes it at precomputed per-list offsets into the preallocated
+      lists (:func:`_scatter_chunk_bq`), in place.
+
+    ``index.build_timings_s`` holds the seconds of training, pass 1 and
+    pass 2. Cosine needs normalized chunks: normalize inside ``chunk_fn``
+    and build with inner_product."""
+    res = resources_for(device, res)
+    dev = res.device
+    if params.metric == "cosine":
+        raise ValueError("build_streaming: cosine needs normalized chunks; "
+                         "normalize inside chunk_fn and use inner_product")
+    rot_dim = auto_rot_dim(dim, params.rotation_kind)
+    n_lists = params.n_lists
+    km_metric = ("inner_product" if params.metric == "inner_product"
+                 else "sqeuclidean")
+    km = kmeans_balanced.KMeansBalancedParams(
+        n_iters=params.kmeans_n_iters, metric=km_metric, seed=params.seed)
+    chunk = int(chunk_rows) or int(
+        max(262_144, min(n, res.workspace_bytes // max(dim * 12, 1))))
+    chunk = min(chunk, n)
+    starts = list(range(0, n, chunk))
+    cap = params.list_size_cap
+    if cap < 0:
+        cap = _packing.auto_list_cap(n, n_lists, _GROUP)
+
+    def rows_of(s, e):
+        return torch.as_tensor(chunk_fn(s, e)).to(dev).to(torch.float32)
+
+    t0 = time.perf_counter()
+    _, g_rot = kmeans_balanced.seeded_generators(params.seed, 2, dev)
+    rotation = _make_rotation(g_rot, rot_dim, params.rotation_kind, dev)
+    t_rows = int(train_rows) or int(min(2_000_000, max(
+        n_lists * 32, n * params.kmeans_trainset_fraction)))
+    t_rows = min(t_rows, n)
+    if t_rows >= n:
+        trainset = torch.cat([rows_of(s, min(s + chunk, n)) for s in starts])
+    else:
+        per = max(1, t_rows // len(starts))
+        trainset = torch.cat([rows_of(s, min(s + per, n)) for s in starts])
+    centers = kmeans_balanced.fit(trainset, n_lists, km, res=res)
+    del trainset
+    _sync(dev)
+    t1 = time.perf_counter()
+
+    # pass 1: streamed assignment, diverted under the cap
+    run = torch.zeros(n_lists, dtype=torch.int64, device=dev)
+    counts, labels_chunks = [], []
+    for s in starts:
+        rows = rows_of(s, min(s + chunk, n))
+        if cap:
+            l1, l2_ = _packing.assign_top2(rows, centers, metric=km_metric)
+            labels = _packing.divert_to_cap(l1, l2_, run, cap, n_lists)
+        else:
+            labels = kmeans_balanced.predict(rows, centers, km, res=res)
+        labels_chunks.append(labels)
+        c = torch.bincount(labels.to(torch.int64).clamp(max=n_lists),
+                           minlength=n_lists + 1)
+        counts.append(c[:n_lists])
+        run += c[:n_lists]
+        del rows
+    counts_np = torch.stack(counts).cpu().numpy()
+    dropped = n - int(counts_np.sum())
+    mls = _packing.round_list_size(int(counts_np.sum(axis=0).max()), _GROUP,
+                                   pow2_chunks=True)
+    base_np = np.cumsum(counts_np, axis=0) - counts_np    # per-chunk offsets
+    if dropped:
+        _log.warning(
+            "ivf_bq.build_streaming: %d row(s) overflowed both their nearest "
+            "and second-nearest capped lists and were dropped (cap=%d); "
+            "raise list_size_cap or n_lists.", dropped, cap)
+    _sync(dev)
+    t2 = time.perf_counter()
+
+    # pass 2: encode and write each chunk at its offsets
+    sub = max(4096, res.workspace_bytes // (16 * rot_dim * 4))
+    list_codes = torch.zeros(
+        (n_lists, mls, bq_scan.multibit_width(rot_dim, params.bits)),
+        dtype=torch.uint8, device=dev)
+    list_ids = torch.full((n_lists, mls), -1, dtype=torch.int32, device=dev)
+    list_scale = torch.zeros((n_lists, mls), device=dev)
+    list_bias = torch.full((n_lists, mls), float("inf"), device=dev)
+    for ci, s in enumerate(starts):
+        labels = labels_chunks[ci]
+        codes, scale, bias = _encode_rows(
+            rows_of(s, min(s + chunk, n)),
+            labels.to(torch.int64).clamp(max=n_lists - 1), centers, rotation,
+            params.metric, params.bits, params.rotation_kind, chunk=sub)
+        _scatter_chunk_bq(list_codes, list_ids, list_scale, list_bias, codes,
+                          scale, bias, labels,
+                          torch.from_numpy(base_np[ci]).to(dev), s)
+    _sync(dev)
+    t3 = time.perf_counter()
+    return IvfBqIndex(centers, rotation, list_codes, list_ids, list_scale,
+                      list_bias, params.metric, params.bits,
+                      params.rotation_kind,
+                      {"train": t1 - t0, "assign": t2 - t1,
+                       "encode": t3 - t2}, dropped)
+
+
+def reconstruct_rows(centers, rotation, codes, scale, labels, bits: int = 1,
+                     rotation_kind: str = "dense",
+                     dim: Optional[int] = None) -> torch.Tensor:
+    """Approximate input vectors from packed codes: ``c_label +
+    R⁻¹(f·L)``, the estimator's projection of the rotated residual on its
+    own code levels. Assignment-grade, not exact."""
+    rot_dim = int(rotation.shape[-1])
+    if bits == 1:
+        levels = bq_scan.unpack_sign_bits(codes, rot_dim)
+    else:
+        levels = bq_scan.unpack_code_levels(codes, rot_dim, bits)
+    u_hat = scale.to(torch.float32)[:, None] * levels.to(torch.float32)
+    resid = linalg.unrotate_rows(u_hat, rotation, rotation_kind)
+    d = int(centers.shape[1]) if dim is None else int(dim)
+    return centers[labels.to(torch.int64)] + resid[:, :d]
 
 
 # ---------------------------------------------------------------------------
@@ -347,14 +549,17 @@ def _bq_search_prep(queries, centers, rotation, n_probes: int,
 
 def _bq_fused(queries, index: IvfBqIndex, k: int, n_probes: int,
               select_algo: str, l2: bool, classes, class_counts, cls_ord,
-              q_tile: int):
+              q_tile: int, filter=None):
     """Prep, device plan, packed strip scan (tournament allowed: the path
-    over-fetches and re-ranks exactly) and finalize (‖Rq̃‖² = ‖q‖²)."""
+    over-fetches and re-ranks exactly) and finalize (‖Rq̃‖² = ‖q‖²). A
+    filter turns its failing ids' bias lanes to +inf."""
     probes, qr, pair_const = _bq_search_prep(
         queries, index.centers, index.rotation, n_probes, select_algo, l2,
         index.bits, index.rotation_kind)
+    bias = _filtering.apply_filter_bias(index.list_bias, index.list_ids,
+                                        filter)
     vals, ids = bq_scan.bq_strip_search_traced(
-        qr, probes, index.list_codes, index.list_scale, index.list_bias,
+        qr, probes, index.list_codes, index.list_scale, bias,
         index.list_ids, cls_ord, classes, class_counts, int(k), int(k),
         -2.0 if l2 else -1.0, q_tile, pair_const=pair_const, approx_ok=True)
     return _finalize_ragged(vals, ids, queries, index.metric)
@@ -366,9 +571,9 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
            device: Optional[DeviceLike] = None):
     """Approximate k-NN over the packed lists → (distances (q, k) fp32, ids
     (q, k) int32). Distances are unbiased estimates, not exact: re-rank
-    with :func:`search_refined` for the recall-gated configuration."""
-    if filter is not None:
-        raise NotImplementedError(f"filtered ivf_bq search {_LATER}")
+    with :func:`search_refined` for the recall-gated configuration.
+    ``filter``: a :class:`~raft_tpu_torch.core.bitset.Bitset` over source
+    ids; n_probes widens by its selectivity."""
     res = resources_for(device, res)
     if index.device != res.device:
         raise ValueError(f"index lives on {index.device}, search runs on "
@@ -377,6 +582,7 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
     if queries.ndim != 2 or queries.shape[1] != index.dim:
         raise ValueError(f"queries must be (q, {index.dim}), got {tuple(queries.shape)}")
     n_probes = int(min(n_probes, index.n_lists))
+    n_probes = _filtering.widen_plan(filter, n_probes, index.n_lists)[0]
     if not 0 < k <= min(n_probes * index.max_list_size, 512):
         raise ValueError(
             f"k={k} out of range (1..min(n_probes·max_list_size, 512)) for "
@@ -390,7 +596,7 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
         index, n_probes, k, res, index.rot_dim * index.bits)
     return _bq_fused(queries, index, int(k), n_probes, select_algo, l2,
                      classes, class_counts, cls_ord,
-                     min(q_tile, queries.shape[0]))
+                     min(q_tile, queries.shape[0]), filter)
 
 
 def search_refined(index: IvfBqIndex, dataset, queries, k: int,
@@ -399,11 +605,15 @@ def search_refined(index: IvfBqIndex, dataset, queries, k: int,
                    device: Optional[DeviceLike] = None):
     """The recall-gated configuration: over-fetch ``k·refine_ratio``
     estimated candidates (at most 512), then re-rank them exactly against
-    ``dataset``, the caller's original rows."""
+    ``dataset``, the caller's original rows. A filter widens the
+    over-fetch by its selectivity too (still at most 512)."""
     if refine_ratio < 1:
         raise ValueError(f"refine_ratio must be >= 1, got {refine_ratio}")
     res = resources_for(device, res)
     k_fetch = min(int(k) * int(refine_ratio), 512)
+    if filter is not None:
+        k_fetch = _filtering.widen_plan(filter, n_probes, index.n_lists,
+                                        k_fetch=k_fetch, k_cap=512)[1]
     _, cand = search(index, queries, k_fetch, n_probes=n_probes,
                      filter=filter, res=res)
     return refine.refine(dataset, queries, cand, int(k), metric=index.metric,
@@ -417,11 +627,12 @@ def search_refined(index: IvfBqIndex, dataset, queries, k: int,
 
 def _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
                     page_ids, table, chain_pages, k: int, n_probes: int,
-                    select_algo: str, q_tile: int):
+                    select_algo: str, q_tile: int,
+                    class_impl=bq_scan.paged_bq_class):
     """The packed path's prep (probes, plane-extended rotated queries, the
     exact pair term), K4 over the store's code, scale and bias pools in
-    place, merge and finalize. No tournament: the paged scan runs the
-    exact carry."""
+    place (``class_impl``: K4's wrapper, or its plain twin), merge and
+    finalize. No tournament: the paged scan runs the exact carry."""
     l2 = store.metric in ("sqeuclidean", "euclidean")
     probes, qr, pair_const = _bq_search_prep(
         queries, store.centers, store.rotation, n_probes, select_algo, l2,
@@ -429,7 +640,7 @@ def _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
     vals, ids = bq_scan.paged_bq_search_traced(
         qr, probes, codes_pool, scale_pool, bias_pool, page_ids, table,
         chain_pages, int(k), int(k), -2.0 if l2 else -1.0, q_tile,
-        pair_const=pair_const)
+        pair_const=pair_const, class_impl=class_impl)
     return _finalize_ragged(vals, ids, queries, store.metric)
 
 
@@ -440,17 +651,24 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
     """Approximate k-NN over a mutable paged code store (``PagedListStore``
     of kind ``"ivf_bq"``): :func:`search`'s estimator contract while rows
     stream in and out, k ≤ min(n_probes·table_width·page_rows, 512).
-    ``backend``: "paged" (K4 over the store's pools) or "auto" (the
-    same). Re-rank with :func:`raft_tpu_torch.neighbors.refine.refine`."""
-    res, n_probes, queries = _paged_search_args(
+    ``backend``: "paged" (K4 over the store's pools), "auto" (the same;
+    ``ValueError`` naming why when the store's plan cannot feed k) or
+    "paged_jnp" (K4's plain twin on any device, only when named).
+    ``filter`` (else the store's standing one) is an +inf bias lane.
+    Re-rank with :func:`raft_tpu_torch.neighbors.refine.refine`."""
+    res, n_probes, queries, filter, backend = _paged_search_args(
         store, "ivf_bq", queries, k, n_probes, filter, backend, res, device,
-        k_cap=512)
+        k_cap=512, backends=PAGED_BACKENDS)
     codes_pool, bias_pool, scale_pool, page_ids, table, chain_pages = \
         store.paged_scan_state()
+    bias_pool = _filtering.apply_filter_bias(bias_pool, page_ids, filter)
     rot_dim = int(store.rotation.shape[0])
     q_tile = min(_paged_plan_static(store, n_probes, k, res,
                                     rot_dim * store.bq_bits),
                  queries.shape[0])
     return _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
                            page_ids, table, chain_pages, int(k), n_probes,
-                           select_algo, q_tile)
+                           select_algo, q_tile,
+                           bq_scan._paged_bq_class_plain
+                           if backend == "paged_jnp"
+                           else bq_scan.paged_bq_class)

@@ -17,14 +17,19 @@ lists and keeps each pair's top-k, and the merge picks the query's top-k.
 lists gathered per query tile, one einsum, a stable select over every
 probed entry; it serves any list length and any k. :func:`search_paged`
 runs the strip search over a :class:`raft_tpu_torch.serving.PagedListStore`,
-whose pages kernel K3 scans in place.
+whose pages kernel K3 scans in place, or the same gather over the page
+table where K3's plan cannot feed k.
 
-Filters and ``extend`` come with later slices and raise
-``NotImplementedError`` here.
+``filter`` (a :class:`raft_tpu_torch.core.bitset.Bitset` over source ids)
+is one more bias operand on the strip paths (+inf where an id fails,
+:mod:`raft_tpu_torch.neighbors._filtering`) and a validity mask on the
+gather paths; n_probes widens by the filter's selectivity. :func:`extend`
+assigns new rows to the fixed centers and repacks.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional
 
@@ -34,7 +39,7 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
-from raft_tpu_torch.neighbors import _packing
+from raft_tpu_torch.neighbors import _filtering, _packing
 from raft_tpu_torch.ops import strip_scan as ss
 from raft_tpu_torch.ops.distance import (canonical_metric,
                                          expanded_sqeuclidean, matmul_t,
@@ -43,7 +48,9 @@ from raft_tpu_torch.ops.select_k import select_k
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
 BACKENDS = ("auto", "ragged", "gather")
-_LATER = "arrives with a later slice of the PyTorch port"
+PAGED_BACKENDS = ("auto", "paged", "gather")
+
+_log = logging.getLogger("raft_tpu_torch")
 
 
 @dataclass(frozen=True)
@@ -222,8 +229,68 @@ def build(dataset, params: IvfFlatParams = IvfFlatParams(),
                         params.metric, group)
 
 
-def extend(index, new_vectors, new_ids=None, res=None, device=None):
-    raise NotImplementedError(f"ivf_flat.extend {_LATER}")
+def extend(index: IvfFlatIndex, new_vectors, new_ids=None,
+           res: Optional[Resources] = None,
+           device: Optional[DeviceLike] = None) -> IvfFlatIndex:
+    """Add rows to an index → a new index: the rows go to their nearest
+    fixed center, spill under the auto cap on top of each list's fill (at
+    the index's granule; legacy indexes infer it) and the lists are
+    repacked. Integer storage stays integer (rounded and clipped, with a
+    warning when that moves a component by more than 0.5). Ids default to
+    ``max + 1 …``."""
+    res = resources_for(device, res)
+    if index.device != res.device:
+        raise ValueError(f"index lives on {index.device}, extend runs on "
+                         f"{res.device}; move it with index.to(device)")
+    X = torch.as_tensor(new_vectors).to(device=res.device, dtype=torch.float32)
+    if X.ndim != 2 or X.shape[1] != index.dim:
+        raise ValueError(f"new_vectors must be (n, {index.dim}), got "
+                         f"{tuple(X.shape)}")
+    if index.metric == "cosine":
+        X = X / torch.clamp(torch.linalg.vector_norm(X, dim=1, keepdim=True),
+                            min=1e-30)
+    old_vecs, old_ids, old_labels = _packing.unpack_lists(index.list_data,
+                                                          index.list_ids)
+    if new_ids is None:
+        start = int(old_ids.max()) + 1 if old_ids.numel() else 0
+        new_ids = torch.arange(start, start + X.shape[0], dtype=torch.int32,
+                               device=X.device)
+    else:
+        new_ids = torch.as_tensor(new_ids).to(X.device, torch.int32)
+    km_metric = ("inner_product" if index.metric in ("cosine", "inner_product")
+                 else "sqeuclidean")
+    labels = kmeans_balanced.predict(
+        X, index.centers, kmeans_balanced.KMeansBalancedParams(
+            metric=km_metric), res=res)
+    group = index.group_size or (512 if index.max_list_size % 512 == 0
+                                 else 64)
+    cap = _packing.auto_list_cap(old_ids.shape[0] + X.shape[0],
+                                 index.n_lists, group)
+    labels = _packing.spill_to_cap(X, index.centers, labels, km_metric, cap,
+                                   base_counts=index.list_sizes())
+    dtype = index.list_data.dtype
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        new_store = torch.clamp(torch.round(X), info.min, info.max).to(dtype)
+        err = float((new_store.to(torch.float32) - X).abs().max()) \
+            if X.numel() else 0.0
+        if err > 0.5:
+            _log.warning(
+                "ivf_flat.extend: quantizing float vectors into %s storage "
+                "loses up to %.3g per component (out-of-range or fractional "
+                "inputs); rebuild with fp32 storage if that matters",
+                dtype, err)
+    else:
+        new_store = X.to(dtype)
+    list_data, list_ids = _pack_lists(
+        torch.cat([old_vecs, new_store]), torch.cat([old_ids, new_ids]),
+        torch.cat([old_labels.to(torch.int64), labels.to(torch.int64)]),
+        index.n_lists, group)
+    list_norms = None
+    if index.metric in ("sqeuclidean", "euclidean"):
+        list_norms = sqnorm(list_data, dim=2)
+    return IvfFlatIndex(index.centers, list_data, list_ids, list_norms,
+                        index.metric, group)
 
 
 def split_list_rows(rows, n_iter: int = 8):
@@ -342,17 +409,20 @@ def _ragged_fused(queries, index: IvfFlatIndex, bias, k: int, n_probes: int,
 
 
 def _search_ragged(index: IvfFlatIndex, queries, k: int, n_probes: int,
-                   select_algo: str, res: Resources):
+                   select_algo: str, res: Resources, filter=None):
     """The strip path: work follows the probed lists' real entries, each
-    pair's top-k kept inside K1. The bias depends only on the index, so it
-    is cached on it."""
+    pair's top-k kept inside K1. The unfiltered bias depends only on the
+    index, so it is cached on it; a filter turns its failing ids' lanes to
+    +inf."""
     l2 = index.metric in ("sqeuclidean", "euclidean")
     if index._bias_cache is None:
         index._bias_cache = _ragged_bias(index.list_ids, index.list_norms,
                                          "l2" if l2 else "ip")
+    bias = _filtering.apply_filter_bias(index._bias_cache, index.list_ids,
+                                        filter)
     classes, class_counts, cls_ord, q_tile = _ragged_plan_static(
         index, n_probes, k, res, index.dim)
-    return _ragged_fused(queries, index, index._bias_cache, int(k), n_probes,
+    return _ragged_fused(queries, index, bias, int(k), n_probes,
                          select_algo, res, classes, class_counts, cls_ord,
                          min(q_tile, queries.shape[0]))
 
@@ -367,48 +437,63 @@ def _prep_queries(queries, dim: int, metric: str, dev: torch.device):
     return queries
 
 
-def _search_gather(index: IvfFlatIndex, queries, k: int, n_probes: int,
-                   select_algo: str, res: Resources):
-    """The gather backend (the JAX package's ``_search_impl``): the coarse
-    select at full fp32, then per query tile the probed lists gathered
-    (qt, p, m, dim), one fp32 einsum, the metric's norm terms, the -1 ids
-    masked, and a stable select over all p·m entries. The tile keeps the
-    gather under ``res.workspace_bytes``."""
-    q = queries.shape[0]
-    m, dim = index.max_list_size, index.dim
-    metric = index.metric
+def _gather_scan(queries, centers, metric: str, k: int, n_probes: int,
+                 select_algo: str, res: Resources, cols: int, gather,
+                 filter=None):
+    """The gather scan (the JAX package's ``_search_impl`` and paged
+    ``_paged_impl``): the coarse select at full fp32, then per query tile
+    the probed candidates gathered by ``gather(probes) → (rows (qt, p,
+    cols, dim), ids (qt, p, cols), norms (qt, p, cols) or None)``, one
+    fp32 einsum, the metric's norm terms, ids that are -1 or fail
+    ``filter`` masked, and a stable select over all p·cols entries. The
+    tile keeps the gather under ``res.workspace_bytes``."""
+    q, dim = queries.shape
     l2 = metric in ("sqeuclidean", "euclidean")
     select_min = metric != "inner_product"
     bad = float("inf") if select_min else float("-inf")
     if l2:
-        coarse = expanded_sqeuclidean(queries, index.centers,
-                                      res.compute_dtype)
+        coarse = expanded_sqeuclidean(queries, centers, res.compute_dtype)
     else:       # cosine (normalized) and inner product probe by max ip
-        coarse = -matmul_t(queries, index.centers, res.compute_dtype)
+        coarse = -matmul_t(queries, centers, res.compute_dtype)
     _, probes = select_k(coarse, n_probes, select_min=True, algo=select_algo)
-    per_query = max(1, n_probes * m * (dim + 2) * 4)
+    per_query = max(1, n_probes * cols * (dim + 2) * 4)
     q_tile = int(max(1, min(q, res.workspace_bytes // per_query)))
     outs = []
     for s in range(0, q, q_tile):
         q_blk = queries[s:s + q_tile]
-        pb = probes[s:s + q_tile].to(torch.int64)
-        ip = torch.einsum("qd,qpmd->qpm", q_blk,
-                          index.list_data[pb].to(torch.float32))
+        rows, ids, norms = gather(probes[s:s + q_tile].to(torch.int64))
+        ip = torch.einsum("qd,qpmd->qpm", q_blk, rows.to(torch.float32))
         if l2:
-            d = torch.clamp(sqnorm(q_blk)[:, None, None]
-                            + index.list_norms[pb] - 2.0 * ip, min=0.0)
+            d = torch.clamp(sqnorm(q_blk)[:, None, None] + norms - 2.0 * ip,
+                            min=0.0)
             if metric == "euclidean":
                 d = torch.sqrt(d)
         elif metric == "cosine":
             d = 1.0 - ip
         else:
             d = ip
-        flat_ids = index.list_ids[pb].reshape(pb.shape[0], -1)
-        d = torch.where(flat_ids >= 0, d.reshape(flat_ids.shape), bad)
+        flat_ids = ids.reshape(ids.shape[0], -1)
+        valid = flat_ids >= 0
+        if filter is not None:
+            valid = valid & filter.test(flat_ids)
+        d = torch.where(valid, d.reshape(flat_ids.shape), bad)
         vals, sel = select_k(d, k, select_min=select_min, algo=select_algo)
-        ids = torch.gather(flat_ids, 1, sel.to(torch.int64))
-        outs.append((vals, torch.where(vals == bad, -1, ids)))
+        out_ids = torch.gather(flat_ids, 1, sel.to(torch.int64))
+        outs.append((vals, torch.where(vals == bad, -1, out_ids)))
     return torch.cat([v for v, _ in outs]), torch.cat([i for _, i in outs])
+
+
+def _search_gather(index: IvfFlatIndex, queries, k: int, n_probes: int,
+                   select_algo: str, res: Resources, filter=None):
+    """The gather backend over the padded lists."""
+    l2 = index.metric in ("sqeuclidean", "euclidean")
+
+    def gather(pb):
+        return (index.list_data[pb], index.list_ids[pb],
+                index.list_norms[pb] if l2 else None)
+
+    return _gather_scan(queries, index.centers, index.metric, k, n_probes,
+                        select_algo, res, index.max_list_size, gather, filter)
 
 
 def resolve_backend(backend: str, device_type: str, max_list_size: int,
@@ -440,14 +525,16 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
     (distances (q, k) fp32, ids (q, k) int32, -1 where fewer than k valid
     candidates were found). ``backend``: "ragged" (the strip scan through
     K1), "gather" (plain torch, exact fp32) or "auto"
-    (:func:`resolve_backend`)."""
-    if filter is not None:
-        raise NotImplementedError(f"filtered ivf_flat search {_LATER}")
+    (:func:`resolve_backend`). ``filter``: a
+    :class:`~raft_tpu_torch.core.bitset.Bitset` over source ids; rows whose
+    id fails never come back, and n_probes widens by its selectivity
+    (:func:`_filtering.widen_plan`)."""
     res = resources_for(device, res)
     if index.device != res.device:
         raise ValueError(f"index lives on {index.device}, search runs on "
                          f"{res.device}; move it with index.to(device)")
     n_probes = int(min(n_probes, index.n_lists))
+    n_probes = _filtering.widen_plan(filter, n_probes, index.n_lists)[0]
     if not 0 < k <= n_probes * index.max_list_size:
         raise ValueError(
             f"k={k} out of range for n_probes={n_probes} x "
@@ -457,8 +544,9 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
     queries = _prep_queries(queries, index.dim, index.metric, res.device)
     if backend == "gather":
         return _search_gather(index, queries, int(k), n_probes, select_algo,
-                              res)
-    return _search_ragged(index, queries, int(k), n_probes, select_algo, res)
+                              res, filter)
+    return _search_ragged(index, queries, int(k), n_probes, select_algo, res,
+                          filter)
 
 
 # ---------------------------------------------------------------------------
@@ -473,26 +561,40 @@ def _paged_row_bytes(store) -> int:
     return int(payload.shape[-1]) * payload.element_size()
 
 
+def paged_block_error(store, k: int) -> Optional[str]:
+    """Why the paged plan of this store cannot feed k to K3 / K4 (pages
+    under 8 rows, k over 512, or a fetch block narrower than k), or None
+    when it can."""
+    width, rows = store.table_width, store.page_rows
+    if ss.paged_eligible(width, rows, _paged_row_bytes(store), int(k)):
+        return None
+    _, _, w = ss.paged_plan(width, rows, _paged_row_bytes(store), int(k))
+    return (f"the paged scan cannot serve k={k} on this store (page_rows "
+            f"{rows}, table_width {width}, fetch block {w} rows): it needs "
+            "page_rows >= 8, k <= 512 and k <= the fetch block")
+
+
 def paged_backend_auto(store, k: int) -> str:
-    """The engine ``backend="auto"`` takes: the paged strip scan. It runs
-    kernel K3 (K4 for IVF-BQ) on a CUDA store and the kernels' plain twins
-    on a CPU store. A CUDA store whose plan cannot feed the kernel is an
-    error, never a detour (:func:`check_paged_eligible`)."""
-    return "paged"
+    """The engine ``backend="auto"`` takes: ``"paged"`` (kernel K3, K4 for
+    IVF-BQ, on a CUDA store; their plain twins on a CPU store) wherever the
+    store's plan can feed k, else ``"gather"`` for flat and PQ stores. An
+    IVF-BQ store the plan cannot feed raises ``ValueError`` naming why."""
+    why = paged_block_error(store, k)
+    if why is None:
+        return "paged"
+    if store.kind == "ivf_bq":
+        raise ValueError(f"{why}; IVF-BQ serves only through K4")
+    return "gather"
 
 
 def check_paged_eligible(store, k: int) -> None:
-    """Raise ``ValueError`` with the reason when the paged plan of this
-    store cannot serve ``k``: pages under 8 rows, k over 512, or a fetch
-    block narrower than k."""
-    width, rows = store.table_width, store.page_rows
-    if not ss.paged_eligible(width, rows, _paged_row_bytes(store), int(k)):
-        _, _, w = ss.paged_plan(width, rows, _paged_row_bytes(store), int(k))
-        raise ValueError(
-            f"the paged scan cannot serve k={k} on this store (page_rows "
-            f"{rows}, table_width {width}, fetch block {w} rows): it needs "
-            "page_rows >= 8, k <= 512 and k <= the fetch block; the gather "
-            f"backend {_LATER}")
+    """Raise ``ValueError`` with the reason when an explicit
+    ``backend="paged"`` cannot serve k on this store."""
+    why = paged_block_error(store, k)
+    if why is not None:
+        if store.kind != "ivf_bq":
+            why += "; backend='auto' serves it through the gather scan"
+        raise ValueError(why)
 
 
 def _paged_plan_static(store, n_probes: int, k: int, res, dim: int) -> int:
@@ -519,32 +621,56 @@ def _paged_fused(queries, centers, pages, bias_pool, page_ids, table,
 
 
 def _paged_search_args(store, kind: str, queries, k: int, n_probes: int,
-                       filter, backend: str, res, device, k_cap=None):
-    """What every family's ``search_paged`` checks first → (resources,
-    n_probes, queries). ``k_cap`` bounds k further (IVF-BQ: 512)."""
+                       filter, backend: str, res, device, k_cap=None,
+                       backends=PAGED_BACKENDS):
+    """What every family's ``search_paged`` settles first → (resources,
+    n_probes, queries, filter, backend). A call without ``filter`` takes
+    the store's standing one (:meth:`PagedListStore.set_filter`); either
+    widens n_probes. ``k_cap`` bounds k further (IVF-BQ: 512);
+    ``backends`` are the kind's names, ``"auto"`` resolving by
+    :func:`paged_backend_auto`."""
     if store.kind != kind:
         raise ValueError(f"expected an {kind} store, got {store.kind!r}")
-    if backend == "gather":
-        raise NotImplementedError(f"{kind} paged backend 'gather' {_LATER}")
-    if backend == "auto":
-        backend = paged_backend_auto(store, k)
-    if backend != "paged":
-        raise ValueError(f"unknown backend {backend!r}")
-    if filter is not None:
-        raise NotImplementedError(f"filtered {kind} paged search {_LATER}")
+    if backend not in backends:
+        raise ValueError(f"unknown backend {backend!r} (expected one of "
+                         f"{backends})")
     res = resources_for(device, res)
     if store.device != res.device:
         raise ValueError(f"store lives on {store.device}, search runs on "
                          f"{res.device}")
+    if filter is None:
+        filter = store.filter
     n_probes = int(min(n_probes, store.n_lists))
+    n_probes = _filtering.widen_plan(filter, n_probes, store.n_lists)[0]
     limit = n_probes * store.table_width * store.page_rows
     if k_cap is not None:
         limit = min(limit, k_cap)
     if not 0 < k <= limit:
         raise ValueError(f"k={k} out of range")
-    check_paged_eligible(store, k)
+    if backend == "auto":
+        backend = paged_backend_auto(store, k)
+    elif backend == "paged":
+        check_paged_eligible(store, k)
     queries = _prep_queries(queries, store.dim, store.metric, res.device)
-    return res, n_probes, queries
+    return res, n_probes, queries, filter, backend
+
+
+def _page_gather(table, page_ids, payload, aux):
+    """``gather(probes)`` over a page table: each probed list's chain
+    slots (absent slots read page 0) → (payload (qt, p, W·R, ·), ids (qt,
+    p, W·R) with -1 at absent slots, aux (qt, p, W·R) or None)."""
+    page_rows = page_ids.shape[1]
+
+    def gather(pb):
+        tbl = table[pb]                                   # (qt, p, W)
+        safe = tbl.clamp(min=0).to(torch.int64)
+        qt, p, width = tbl.shape
+        cols = width * page_rows
+        ids = torch.where(tbl[..., None] >= 0, page_ids[safe], -1)
+        return (payload[safe].reshape((qt, p, cols) + tuple(payload.shape[2:])),
+                ids.reshape(qt, p, cols),
+                None if aux is None else aux[safe].reshape(qt, p, cols))
+    return gather
 
 
 def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
@@ -553,12 +679,24 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
                  device: Optional[DeviceLike] = None):
     """k-NN over a mutable paged vector store (``PagedListStore`` of kind
     ``"ivf_flat"``): :func:`search`'s contract, while rows stream in and
-    out. ``backend``: "paged" (K3 over the store's pools, in place) or
-    "auto" (the same)."""
-    res, n_probes, queries = _paged_search_args(
+    out. ``backend``: "paged" (K3 over the store's pools, in place),
+    "gather" (the gather scan over the page table, plain torch, any k) or
+    "auto" (:func:`paged_backend_auto`). ``filter`` (else the store's
+    standing one) masks source ids: an +inf bias lane for K3, a validity
+    mask for the gather."""
+    res, n_probes, queries, filter, backend = _paged_search_args(
         store, "ivf_flat", queries, k, n_probes, filter, backend, res, device)
+    if backend == "gather":
+        pages, page_ids, page_aux, table = store.scan_state()
+        l2 = store.metric in ("sqeuclidean", "euclidean")
+        return _gather_scan(
+            queries, store.centers, store.metric, int(k), n_probes,
+            select_algo, res, table.shape[1] * store.page_rows,
+            _page_gather(table, page_ids, pages, page_aux if l2 else None),
+            filter)
     pages, bias_pool, _, page_ids, table, chain_pages = \
         store.paged_scan_state()
+    bias_pool = _filtering.apply_filter_bias(bias_pool, page_ids, filter)
     q_tile = min(_paged_plan_static(store, n_probes, k, res, store.dim),
                  queries.shape[0])
     return _paged_fused(queries, store.centers, pages, bias_pool, page_ids,

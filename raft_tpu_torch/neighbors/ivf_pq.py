@@ -24,9 +24,11 @@ Candidates are meant for exact re-ranking
 per-subspace or per-cluster codebooks, the out-of-memory
 :func:`build_streaming` (packed codes, or only a truncated int8 cache),
 :func:`extend`; :func:`reconstruct_rows` decodes rows back to the input
-space; :func:`search_paged` scans a ``PagedListStore`` through K3.
-Filtered search comes with a later slice and raises
-``NotImplementedError`` here.
+space; :func:`search_paged` scans a ``PagedListStore`` through K3, or
+with the gather backend's lookup over the page table where K3's plan
+cannot feed k. ``filter`` rides every backend: an +inf bias lane for K1
+and K3, a mask on K5's scores before the select over p·m, a validity mask
+on the gather.
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
-from raft_tpu_torch.neighbors import _packing
+from raft_tpu_torch.neighbors import _filtering, _packing
 from raft_tpu_torch.neighbors.ivf_flat import (_finalize_ragged,
+                                               _page_gather,
                                                _paged_plan_static,
                                                _paged_search_args,
                                                _ragged_plan_static)
@@ -57,7 +60,6 @@ from raft_tpu_torch.ops.select_k import select_k
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
 BACKENDS = ("auto", "ragged", "pallas", "gather")
-_LATER = "arrives with a later slice of the PyTorch port"
 _log = logging.getLogger("raft_tpu_torch")
 
 
@@ -924,16 +926,18 @@ def _pq_probe_prep(queries, centers, rotation, n_probes: int,
 
 
 def _pq_search_prep(queries, centers, rotation, b_sum, decoded_scale,
-                    n_probes: int, select_algo: str, l2: bool):
+                    n_probes: int, select_algo: str, l2: bool,
+                    list_ids=None, filter=None):
     probes, qr, pair_const = _pq_probe_prep(queries, centers, rotation,
                                             n_probes, select_algo, l2)
-    bias = _ragged_bias_pq(b_sum, centers, rotation, l2)
+    bias = _filtering.apply_filter_bias(
+        _ragged_bias_pq(b_sum, centers, rotation, l2), list_ids, filter)
     return probes, qr * decoded_scale, bias, pair_const
 
 
 def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
                      select_algo: str, l2: bool, classes, class_counts,
-                     cls_ord, q_tile: int):
+                     cls_ord, q_tile: int, filter=None):
     """Prep, device plan, int8 strip scan (tournament allowed: the path
     over-fetches and re-ranks exactly) and finalize. A cache truncated to
     its first ``cache_dim`` rotated coordinates (``build_streaming(store=
@@ -942,7 +946,8 @@ def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
     exact."""
     probes, qr_scaled, bias, pair_const = _pq_search_prep(
         queries, index.centers, index.rotation, index.b_sum,
-        index.decoded_scale, n_probes, select_algo, l2)
+        index.decoded_scale, n_probes, select_algo, l2, index.list_ids,
+        filter)
     qr_scaled = qr_scaled[:, :index.decoded.shape[-1]]
     vals, ids = strip_scan.strip_search_traced(
         qr_scaled, probes, index.decoded, bias, index.list_ids, cls_ord,
@@ -952,7 +957,7 @@ def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
 
 
 def _search_ragged_pq(index: IvfPqIndex, queries, k: int, n_probes: int,
-                      select_algo: str, res: Resources):
+                      select_algo: str, res: Resources, filter=None):
     if index.decoded is None:
         index.decoded, index.decoded_scale = _decode_lists(
             index.codebooks, index.list_codes, index.pq_dim, index.pq_bits,
@@ -962,7 +967,7 @@ def _search_ragged_pq(index: IvfPqIndex, queries, k: int, n_probes: int,
         index, n_probes, k, res, int(index.decoded.shape[-1]))
     return _ragged_fused_pq(queries, index, int(k), n_probes, select_algo, l2,
                             classes, class_counts, cls_ord,
-                            min(q_tile, queries.shape[0]))
+                            min(q_tile, queries.shape[0]), filter)
 
 
 # ---------------------------------------------------------------------------
@@ -1030,10 +1035,11 @@ def _pallas_pairs(probe_blk):
 
 
 def _pallas_tile(luts_t, probe_blk, cvals_blk, codes_t, index: IvfPqIndex,
-                 k: int, select_algo: str):
+                 k: int, select_algo: str, filter=None):
     """One query tile: its pairs through K5 (scores in query/probe order,
-    +inf at padding entries), the pair constant added, the top-k over p·m
-    and the winners' ids → (scores, ids, pairs sorted by list)."""
+    +inf at padding entries), the pair constant added, entries whose id
+    fails ``filter`` set to +inf, the top-k over p·m and the winners' ids
+    → (scores, ids, pairs sorted by list)."""
     qt, p = probe_blk.shape
     m = index.max_list_size
     pair_lut, pair_list, pair_out = _pallas_pairs(probe_blk)
@@ -1041,10 +1047,12 @@ def _pallas_tile(luts_t, probe_blk, cvals_blk, codes_t, index: IvfPqIndex,
                                    codes_t, index.b_sum, index.n_codes)
     d = scores.reshape(qt, p, m) + cvals_blk[:, :, None]
     del scores
+    pb = probe_blk.to(torch.int64)
+    if filter is not None:
+        d = torch.where(filter.test(index.list_ids[pb]), d, float("inf"))
     vals, sel = select_k(d.reshape(qt, -1), k, select_min=True,
                          algo=select_algo)
     sel = sel.to(torch.int64)
-    pb = probe_blk.to(torch.int64)
     ids = index.list_ids[torch.gather(pb, 1, sel // m), sel % m]
     ids = torch.where(torch.isinf(vals), -1, ids)
     return vals, ids, pair_list
@@ -1062,7 +1070,7 @@ def pallas_q_tile(q: int, n_probes: int, max_list_size: int, lut_row_bytes: int,
 
 def _search_pallas(index: IvfPqIndex, queries, k: int, n_probes: int,
                    select_algo: str, res: Resources,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None, filter=None):
     """The pallas backend: shared prep, then every query tile's probed
     pairs through K5 (:func:`_pallas_tile`) in one pass. No pair is
     dropped, so the result is the JAX package's final attempt at a cap no
@@ -1084,7 +1092,8 @@ def _search_pallas(index: IvfPqIndex, queries, k: int, n_probes: int,
     for s in range(0, q, q_tile):
         v, i, pair_list = _pallas_tile(
             luts[s:s + q_tile], probes[s:s + q_tile],
-            coarse_vals[s:s + q_tile], codes_t, index, k, select_algo)
+            coarse_vals[s:s + q_tile], codes_t, index, k, select_algo,
+            filter)
         outs.append((v, i))
         if stats is not None:
             loads.append(torch.bincount(pair_list.to(torch.int64)).max())
@@ -1098,50 +1107,65 @@ def _search_pallas(index: IvfPqIndex, queries, k: int, n_probes: int,
     return _finish_lut(vals, ids, index.metric), ids
 
 
-def _search_impl_jnp(queries, index: IvfPqIndex, k: int, n_probes: int,
-                     q_tile: int, select_algo: str, compute_dtype):
-    """Gather-backend search (the JAX package's ``_search_impl_jnp``):
-    coarse select, fp32 per-query LUTs (per probed pair for per-cluster
-    codebooks) and a code lookup with plain tensor ops, per query tile."""
+def _search_impl_jnp(queries, centers, rotation, codebooks, metric: str,
+                     pq_dim: int, pq_bits: int, cluster: bool, k: int,
+                     n_probes: int, q_tile: int, select_algo: str,
+                     compute_dtype, gather, filter=None):
+    """Gather-backend search (the JAX package's ``_search_impl_jnp`` and
+    paged ``_paged_impl``): coarse select, fp32 per-query LUTs (per probed
+    pair for per-cluster codebooks) and a code lookup with plain tensor
+    ops, per query tile. ``gather(probes)`` → (packed codes (qt, p, M, ·),
+    ids (qt, p, M), b_sum (qt, p, M)) of the probed lists' M slots; ids
+    that are -1 or fail ``filter`` are masked."""
     q = queries.shape[0]
-    l2 = index.metric in ("sqeuclidean", "euclidean")
-    cluster = index.codebook_kind == "cluster"
-    pq_dim, n_codes, dsub = index.pq_dim, index.n_codes, index.codebooks.shape[2]
-    m = index.max_list_size
-    coarse_vals, probes = _coarse_select(queries, index.centers, n_probes,
+    l2 = metric in ("sqeuclidean", "euclidean")
+    n_codes, dsub = codebooks.shape[-2], codebooks.shape[-1]
+    coarse_vals, probes = _coarse_select(queries, centers, n_probes,
                                          select_algo, l2, compute_dtype)
     if cluster:       # the LUT varies by list: keep the rotated queries
-        luts = rotate_rows(queries, index.rotation).reshape(q, pq_dim, dsub)
+        luts = rotate_rows(queries, rotation).reshape(q, pq_dim, dsub)
     else:
-        luts = _query_luts(queries, index.rotation, index.codebooks,
-                           index.metric, torch.float32).reshape(q, -1)
+        luts = _query_luts(queries, rotation, codebooks, metric,
+                           torch.float32).reshape(q, -1)
     s_off = torch.arange(pq_dim, device=queries.device) * n_codes
     outs = []
     for s in range(0, q, q_tile):
         pb = probes[s:s + q_tile].to(torch.int64)
         qt, p = pb.shape
-        idx = _codes_view(index.list_codes[pb], pq_dim,
-                          index.pq_bits).to(torch.int64) + s_off  # (qt,p,m,s)
+        codes, ids, b = gather(pb)
+        m = codes.shape[2]
+        idx = _codes_view(codes, pq_dim, pq_bits).to(torch.int64) + s_off
         if cluster:
             A = torch.einsum("qsd,qpcd->qpsc", luts[s:s + q_tile],
-                             index.codebooks[pb])
+                             codebooks[pb])
             A = ((-2.0 if l2 else -1.0) * A).reshape(qt * p, pq_dim * n_codes)
             picked = torch.gather(A, 1, idx.reshape(qt * p, m * pq_dim))
         else:
             picked = torch.gather(luts[s:s + q_tile], 1, idx.reshape(qt, -1))
-        d = (picked.reshape(qt, p, m, pq_dim).sum(3) + index.b_sum[pb]
+        d = (picked.reshape(qt, p, m, pq_dim).sum(3) + b
              + coarse_vals[s:s + q_tile, :, None])
         if l2:
             d = torch.clamp(d, min=0.0)
-            if index.metric == "euclidean":
+            if metric == "euclidean":
                 d = torch.sqrt(d)
-        flat_ids = index.list_ids[pb].reshape(qt, -1)
-        d = torch.where(flat_ids >= 0, d.reshape(qt, -1), float("inf"))
+        flat_ids = ids.reshape(qt, -1)
+        valid = flat_ids >= 0
+        if filter is not None:
+            valid = valid & filter.test(flat_ids)
+        d = torch.where(valid, d.reshape(qt, -1), float("inf"))
         vals, sel = select_k(d, k, select_min=True, algo=select_algo)
-        ids = torch.gather(flat_ids, 1, sel.to(torch.int64))
-        outs.append((vals, torch.where(torch.isinf(vals), -1, ids)))
+        out_ids = torch.gather(flat_ids, 1, sel.to(torch.int64))
+        outs.append((vals, torch.where(torch.isinf(vals), -1, out_ids)))
     vals = torch.cat([v for v, _ in outs])
     return (vals if l2 else -vals), torch.cat([i for _, i in outs])
+
+
+def _gather_q_tile(q: int, n_probes: int, cols: int, pq_dim: int,
+                   workspace_bytes: int) -> int:
+    """Query tile of the gather backends: the (qt, p, cols, pq_dim) code
+    gather dominates."""
+    per_query = max(1, n_probes * cols * (pq_dim * 5 + 8))
+    return int(max(1, min(q, workspace_bytes // per_query)))
 
 
 def resolve_backend(backend: str, device_type: str, max_list_size: int,
@@ -1198,9 +1222,9 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
     "ragged", "pallas" or "gather" (:func:`resolve_backend`). ``stats``, a
     dict, receives the backend and, for "pallas", the query tile, tiles,
     each tile's largest per-list load and its one attempt (K5 launches =
-    tiles)."""
-    if filter is not None:
-        raise NotImplementedError(f"filtered ivf_pq search {_LATER}")
+    tiles). ``filter``: a :class:`~raft_tpu_torch.core.bitset.Bitset` over
+    source ids; rows whose id fails never come back, and n_probes widens
+    by its selectivity."""
     res = resources_for(device, res)
     if index.device != res.device:
         raise ValueError(f"index lives on {index.device}, search runs on "
@@ -1209,6 +1233,7 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
     if queries.ndim != 2 or queries.shape[1] != index.dim:
         raise ValueError(f"queries must be (q, {index.dim}), got {tuple(queries.shape)}")
     n_probes = int(min(n_probes, index.n_lists))
+    n_probes = _filtering.widen_plan(filter, n_probes, index.n_lists)[0]
     if not 0 < k <= n_probes * index.max_list_size:
         raise ValueError(f"k={k} out of range")
     backend = resolve_backend(backend, res.device.type, index.max_list_size,
@@ -1226,18 +1251,21 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
                 f"k={k}; rebuild with group_size=512 (or use "
                 "backend='pallas'/'gather')")
         return _search_ragged_pq(index, queries, int(k), n_probes,
-                                 select_algo, res)
+                                 select_algo, res, filter)
     if backend == "pallas":
         vals, ids = _search_pallas(index, queries, int(k), n_probes,
-                                   select_algo, res, stats)
+                                   select_algo, res, stats, filter)
     else:
-        # tile budget: the (qt, p, m, s) code gather dominates
-        per_query = max(1, n_probes * index.max_list_size
-                        * (index.pq_dim * 5 + 8))
-        q_tile = int(max(1, min(queries.shape[0],
-                                res.workspace_bytes // per_query)))
-        vals, ids = _search_impl_jnp(queries, index, int(k), n_probes, q_tile,
-                                     select_algo, res.compute_dtype)
+        q_tile = _gather_q_tile(queries.shape[0], n_probes,
+                                index.max_list_size, index.pq_dim,
+                                res.workspace_bytes)
+        vals, ids = _search_impl_jnp(
+            queries, index.centers, index.rotation, index.codebooks,
+            index.metric, index.pq_dim, index.pq_bits,
+            index.codebook_kind == "cluster", int(k), n_probes, q_tile,
+            select_algo, res.compute_dtype,
+            lambda pb: (index.list_codes[pb], index.list_ids[pb],
+                        index.b_sum[pb]), filter)
     if index.metric == "cosine":
         vals = torch.where(ids >= 0, 1.0 - vals, float("inf"))
     return vals, ids
@@ -1271,12 +1299,29 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
                  device: Optional[DeviceLike] = None):
     """Approximate k-NN over a mutable paged code store (``PagedListStore``
     of kind ``"ivf_pq"``): :func:`search`'s contract while rows stream in
-    and out. ``backend``: "paged" (K3 over the int8 cache pool) or "auto"
-    (the same). Re-rank with :func:`raft_tpu_torch.neighbors.refine.refine`."""
-    res, n_probes, queries = _paged_search_args(
+    and out. ``backend``: "paged" (K3 over the int8 cache pool), "gather"
+    (the gather backend's fp32 lookup over the page table's codes, plain
+    torch, any k) or "auto" (:func:`ivf_flat.paged_backend_auto`).
+    ``filter`` (else the store's standing one) masks source ids. Re-rank
+    with :func:`raft_tpu_torch.neighbors.refine.refine`."""
+    res, n_probes, queries, filter, backend = _paged_search_args(
         store, "ivf_pq", queries, k, n_probes, filter, backend, res, device)
+    if backend == "gather":
+        pages, page_ids, page_aux, table = store.scan_state()
+        cols = table.shape[1] * store.page_rows
+        vals, ids = _search_impl_jnp(
+            queries, store.centers, store.rotation, store.codebooks,
+            store.metric, store.pq_dim, store.pq_bits, False, int(k),
+            n_probes, _gather_q_tile(queries.shape[0], n_probes, cols,
+                                     store.pq_dim, res.workspace_bytes),
+            select_algo, res.compute_dtype,
+            _page_gather(table, page_ids, pages, page_aux), filter)
+        if store.metric == "cosine":
+            vals = torch.where(ids >= 0, 1.0 - vals, float("inf"))
+        return vals, ids
     cache_pool, bias_pool, _, page_ids, table, chain_pages = \
         store.paged_scan_state()
+    bias_pool = _filtering.apply_filter_bias(bias_pool, page_ids, filter)
     q_tile = min(_paged_plan_static(store, n_probes, k, res,
                                     store._cache_dim), queries.shape[0])
     return _paged_fused_pq(queries, store, cache_pool, bias_pool, page_ids,

@@ -385,9 +385,10 @@ def paged_bq_class(strip_list, table_flat, chain_pages, sub_live, a, codes,
 def paged_bq_search_traced(queries_rot, probes, codes, scale_pool,
                            bias_pool, page_ids, table, chain_pages, k: int,
                            kf: int, alpha: float, q_tile: int,
-                           pair_const=None):
+                           pair_const=None, class_impl=None):
     """Paged packed strip search on the static capacity layout: strip_scan's
-    paged plan and merge with K4 as the per-class function. ``queries_rot``
+    paged plan and merge with K4 (``class_impl``: :func:`paged_bq_class`
+    by default, or its plain twin) as the per-class function. ``queries_rot``
     (q, bits·rot_dim) rotated, plane-extended queries; ``codes``
     (cap_pages, page_rows, bits·rot_dim/8); ``scale_pool`` / ``bias_pool``
     (cap_pages, page_rows) fp32."""
@@ -395,7 +396,8 @@ def paged_bq_search_traced(queries_rot, probes, codes, scale_pool,
     plan, table_flat, chain, sub_live = ss.paged_scan_setup(
         codes, bias_pool, table, chain_pages, probes, kf,
         int(codes.shape[-1]))
-    class_fn = lambda sl, a, ppf, n_sub, rows: paged_bq_class(  # noqa: E731
+    class_impl = class_impl or paged_bq_class
+    class_fn = lambda sl, a, ppf, n_sub, rows: class_impl(  # noqa: E731
         sl, table_flat, chain, sub_live, a, codes, scale_pool, bias_pool,
         ppf, n_sub, page_rows, table_width, float(alpha), kf, rows)
     return ss._scan_tiles(queries_rot, probes,

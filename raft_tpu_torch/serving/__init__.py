@@ -19,11 +19,15 @@ Usage::
     store.upsert(new_vectors, new_ids)          # appends to tail pages
     store.delete(stale_ids)                     # tombstones in place
     vals, ids = serving.search(store, queries, k=10, n_probes=32)
+    store.set_filter(allowed_mask)              # a standing predicate
+    vals, ids = serving.search(store, queries, k=10, n_probes=32)
     snapshot = store.compact()                  # packed index, savable
 
-Dynamic batching (``QueryQueue``), the compaction, maintenance and
-capacity managers, the burn-rate controller and standing filters come with
-later slices of the port.
+``backend="auto"`` runs K3 / K4 wherever the store's plan can feed k and
+the gather scan over the page table otherwise (flat and PQ stores; k >
+512, pages under 8 rows). Dynamic batching (``QueryQueue``), the
+compaction, maintenance and capacity managers and the burn-rate controller
+come with later slices of the port.
 """
 
 from raft_tpu_torch.neighbors import ivf_bq as _ivf_bq

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.neighbors import ivf_bq as ivf_bq_mod
 from raft_tpu_torch.neighbors import ivf_flat as ivf_flat_mod
@@ -163,6 +164,9 @@ class PagedListStore:
         self._dev_lens = None   # guarded-by: _lock -- device chain-length mirror
         self._version = 0       # guarded-by: _lock -- bumped on every committed mutation
         self._growths = 0       # guarded-by: _lock
+        # the standing predicate (set_filter); not a swap field, so it
+        # survives compact_swap (clones are built filterless)
+        self.filter = None      # guarded-by: _lock, reads-ok
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -338,6 +342,19 @@ class PagedListStore:
                 "growth_events": self._growths,
                 "mutation_version": self._version,
             }
+
+    def set_filter(self, mask) -> None:
+        """Install (or clear, with ``None``) the store's standing predicate:
+        a :class:`~raft_tpu_torch.core.bitset.Bitset` over source ids, or a
+        boolean array made into one on the store's device. Every paged
+        search that passes no ``filter`` of its own takes it; ids at or past
+        its length fail, so rows upserted after the mask was built are
+        excluded. Counts as a mutation (``mutation_version`` moves)."""
+        if mask is not None and not isinstance(mask, Bitset):
+            mask = Bitset.from_mask(mask, device=self.device)
+        with self._lock:
+            self.filter = mask
+            self._version += 1
 
     def device_table(self) -> torch.Tensor:
         """Device mirror of the page table, rebuilt only after the table

@@ -16,6 +16,7 @@ from raft_tpu.neighbors import cagra as jc
 from raft_tpu.ops import linalg as jlinalg
 from raft_tpu.ops import segment as jseg
 from raft_tpu.stats import summary as jsummary
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.distributed import cagra as tdist
 from raft_tpu_torch.neighbors import brute_force as tbf
@@ -389,8 +390,10 @@ def test_what_later_slices_bring_raises(build_data, carried):
     _, tidx, _, _ = carried
     with pytest.raises(NotImplementedError, match="later slice"):
         tc.build(data[:500], tc.CagraParams(build_algo="nn_descent"), **CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tc.search(tidx, Q[:4, :32], 5, filter=np.ones(10_000, bool), **CPU)
+    # filters serve now; a filter of the wrong length is refused
+    with pytest.raises(ValueError, match="filter covers"):
+        tc.search(tidx, Q[:4, :32], 5,
+                  filter=Bitset.from_mask(np.ones(10, bool), **CPU), **CPU)
     with pytest.raises(NotImplementedError, match="later slice"):
         thnsw.save_to_hnswlib(tidx, "unused.bin")
     with pytest.raises(NotImplementedError, match="distributed slice"):

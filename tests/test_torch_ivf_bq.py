@@ -28,6 +28,7 @@ from raft_tpu.ops import distance as jdist
 from raft_tpu.ops import linalg as jlin
 from raft_tpu.stats import metrics as jmet
 from raft_tpu_torch.bench.datasets import sift_like
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.neighbors import ivf_bq as tbq
 from raft_tpu_torch.ops import distance as tdist
 from raft_tpu_torch.ops import linalg as tlin
@@ -218,19 +219,28 @@ def test_unknown_rotation_kind_is_refused(jax_index):
 
 
 def test_later_slice_features_raise(port_index, data):
+    """What a later slice once brought now serves (filters, ``extend``,
+    ``reconstruct_rows``, the paged filter); IVF-BQ's paged search still
+    has no gather backend, and a streamed build refuses cosine."""
     ds, qs = data
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbq.search(port_index, qs, 10, filter=object(), device=CPU)
+    none = Bitset.create(port_index.size, False, device=CPU)
+    v, i = tbq.search(port_index, qs, 10, filter=none, device=CPU)
+    assert (i == -1).all() and torch.isinf(v).all()
     store = PagedListStore.from_index(port_index, page_rows=64, device=CPU)
-    for fn, args, kw in ((tbq.extend, (port_index, ds[:10]), {}),
-                         (tbq.build_streaming, (None, 10, 32), {}),
-                         (tbq.search_paged, (store, qs, 10),
-                          {"backend": "gather", "device": CPU}),
-                         (tbq.search_paged, (store, qs, 10),
-                          {"filter": object(), "device": CPU}),
-                         (tbq.reconstruct_rows, (None,) * 5, {})):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            fn(*args, **kw)
+    with pytest.raises(ValueError, match="unknown backend"):
+        tbq.search_paged(store, qs, 10, backend="gather", device=CPU)
+    v, i = tbq.search_paged(store, qs, 10, filter=none, device=CPU)
+    assert (i == -1).all() and torch.isinf(v).all()
+    assert tbq.extend(port_index, ds[:10], device=CPU).size == \
+        port_index.size + 10
+    with pytest.raises(ValueError, match="cosine"):
+        tbq.build_streaming(None, 10, 32, tbq.IvfBqParams(metric="cosine"),
+                            device=CPU)
+    rows = tbq.reconstruct_rows(
+        port_index.centers, port_index.rotation, port_index.list_codes[0],
+        port_index.list_scale[0], torch.zeros(port_index.max_list_size,
+                                              dtype=torch.int64))
+    assert tuple(rows.shape) == (port_index.max_list_size, port_index.dim)
 
 
 def test_params_validation():

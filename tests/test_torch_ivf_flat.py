@@ -29,6 +29,7 @@ from raft_tpu.neighbors import brute_force as jbf
 from raft_tpu.neighbors import ivf_flat as jfl
 from raft_tpu.stats import metrics as jmet
 from raft_tpu_torch.bench.datasets import sift_like
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.neighbors import ivf_flat as tfl
 from raft_tpu_torch.stats import metrics as tmet
 
@@ -188,11 +189,17 @@ def test_split_list_rows_matches_jax():
 
 
 def test_later_slice_features_raise(port_index, data):
+    """Filters and ``extend``, once a later slice's, now serve; an unknown
+    backend still raises."""
     _, qs = data
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tfl.search(port_index, qs, 10, device=CPU, filter=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tfl.extend(port_index, qs)
+    v, i = tfl.search(port_index, qs, 10, device=CPU,
+                      filter=Bitset.create(port_index.size, False,
+                                           device=CPU))
+    assert (i == -1).all() and torch.isinf(v).all()
+    grown = tfl.extend(port_index, qs, device=CPU)
+    assert grown.size == port_index.size + qs.shape[0]
+    with pytest.raises(ValueError, match="dim mismatch|must be"):
+        tfl.extend(port_index, qs[:, :8], device=CPU)
     with pytest.raises(ValueError, match="unknown backend"):
         tfl.search(port_index, qs, 10, backend="paged", device=CPU)
 

@@ -18,6 +18,7 @@ from raft_tpu.neighbors import refine as jref
 from raft_tpu.stats import metrics as jmet
 from raft_tpu_torch.bench.datasets import sift_like
 from raft_tpu_torch.cluster import kmeans_balanced as tkm
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.neighbors import refine as trf
@@ -220,6 +221,11 @@ def test_pack_codes_matches_jax(bits):
 
 
 def test_later_slice_features_raise(port_index, data):
+    """Filtered search, once a later slice's, now serves: an all-fail
+    filter returns ids -1 and values +inf on every backend."""
     _, qs = data
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpq.search(port_index, qs, 10, filter=object(), device=CPU)
+    none = Bitset.create(port_index.size, False, device=CPU)
+    for backend in ("ragged", "pallas", "gather"):
+        v, i = tpq.search(port_index, qs, 10, filter=none, backend=backend,
+                          device=CPU)
+        assert (i == -1).all() and torch.isinf(v).all() and (v > 0).all()

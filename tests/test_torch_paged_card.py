@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from paged_cases import paged_inputs, sub_live_of
+from raft_tpu_torch.core.bitset import Bitset
+from raft_tpu_torch.neighbors._filtering import apply_filter_bias
 from raft_tpu_torch.ops import bq_scan as tbq
 from raft_tpu_torch.ops import strip_scan as tss
 
@@ -38,6 +40,23 @@ def _nan_past_chains(c):
     c["bias"][~held] = np.nan
     if c["pages"].dtype == np.float32:
         c["pages"][~held] = np.nan
+    return c
+
+
+def _filtered(c, rng):
+    """The class's bias pool under a search filter, built as a search
+    builds it (``apply_filter_bias`` of a ``Bitset`` over the rows' ids):
+    every row of lists 1 and 4 fails (whole dead sub-blocks, which the
+    plan then skips), half the other rows fail at random."""
+    cap, rows = c["bias"].shape
+    ids = np.arange(cap * rows).reshape(cap, rows)
+    mask = rng.random(cap * rows) < 0.5
+    for lst in (1, 4):
+        held = c["table"][lst][c["table"][lst] >= 0]
+        mask[ids[held].reshape(-1)] = False
+    c["bias"] = apply_filter_bias(
+        torch.from_numpy(c["bias"]), torch.from_numpy(ids),
+        Bitset.from_mask(mask, device="cpu")).numpy()
     return c
 
 
@@ -70,6 +89,10 @@ K3_CARD_CASES = {
     "r128_bf16_kf20": ((128, 8, 4, 2), "bf16", 128, 20, "wgmma"),
     "r64_fp32_dim64_kf10": ((64, 16, 8, 2), "fp32", 64, 10, "wgmma"),
     "r8_uint8_dim24_kf20": ("r8_w64_nsub2", "uint8", 24, 20, "mma.sync"),
+    # a search filter's bias: whole dead lists, half the other rows dead
+    "filtered_r128_uint8_kf10": ((128, 8, 4, 2), "uint8", 128, 10, "ring"),
+    "filtered_r128_int8_kf20": ((128, 8, 4, 2), "int8", 128, 20, "ring"),
+    "filtered_r64_bf16_kf40": ((64, 16, 8, 2), "bf16", 128, 40, "wgmma"),
 }
 
 
@@ -84,8 +107,11 @@ def test_k3_matches_plain_twin_on_card(case):
         pytest.skip("needs an NVIDIA card: K3 is CUDA code with no CPU mode")
     layout, payload, dim, kf, loop = K3_CARD_CASES[case]
     rng = np.random.default_rng(31)
-    c = _nan_past_chains(paged_inputs(
-        rng, layout, "fp32" if payload == "bf16" else payload, dim=dim))
+    c = paged_inputs(rng, layout, "fp32" if payload == "bf16" else payload,
+                     dim=dim)
+    if case.startswith("filtered"):
+        c = _filtered(c, rng)
+    c = _nan_past_chains(c)
     c["bf16"] = payload == "bf16"
     args = _cuda_args(c, torch.device("cuda"))
     static = (c["ppf"], c["n_sub"], c["R"], c["W"], -2.0, kf)
@@ -125,6 +151,7 @@ K4_CARD_CASES = {
     "nb16_n_sub1_kf80": ((128, 4, 4, 1), 1, 128, 80, "wgmma"),
     "bits2_nb32_kf80": ((128, 8, 4, 2), 2, 128, 80, "wgmma"),
     "nb5_kf80": ("r64_w128_nsub2", 1, 40, 80, "mma.sync"),
+    "filtered_nb16_kf80": ((128, 8, 4, 2), 1, 128, 80, "wgmma"),
 }
 
 
@@ -139,6 +166,8 @@ def test_k4_matches_plain_twin_on_card(case):
     layout, bits, dim, kf, loop = K4_CARD_CASES[case]
     rng = np.random.default_rng(32)
     c = paged_inputs(rng, layout, ("bits", bits), dim=dim)
+    if case.startswith("filtered"):
+        c = _filtered(c, rng)
     dev = torch.device("cuda")
     scale = torch.from_numpy(rng.uniform(0.5, 2.0, c["bias"].shape).astype(
         np.float32)).to(dev)

@@ -12,12 +12,14 @@ import torch
 
 from raft_tpu_torch import serving
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources, resolve_device
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq, ivf_flat,
                                       ivf_pq, refine)
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import cagra_hop as ch
+from raft_tpu_torch.ops import distance as dist
 from raft_tpu_torch.ops import pq_scan as ps
 from raft_tpu_torch.ops import strip_scan as ss
 
@@ -189,6 +191,10 @@ def _entry_points(x, q, **dev):
     cagra_params = cagra.CagraParams(intermediate_graph_degree=16,
                                      graph_degree=8, compress="on")
     cagra_cpu = cagra.build(x[:512], cagra_params, device="cpu")
+    half = Bitset.from_mask(np.arange(x.shape[0]) % 2 == 0, device="cpu")
+    half512 = Bitset.from_mask(np.arange(512) % 2 == 0, device="cpu")
+    bq_store_cpu = serving.PagedListStore.from_index(bq_cpu, page_rows=64,
+                                                     device="cpu")
     return {
         "cagra.build": lambda: cagra.build(x[:512], cagra_params, **dev),
         "cagra.search": lambda: cagra.search(cagra_cpu, q, 5, **dev),
@@ -228,6 +234,30 @@ def _entry_points(x, q, **dev):
                                         **dev),
         "brute_force.build": lambda: brute_force.build(x, **dev),
         "brute_force.search": lambda: brute_force.search(bf_cpu, q, 5, **dev),
+        "brute_force.knn.l1": lambda: brute_force.knn(q, x, 5, "l1", **dev),
+        "brute_force.search.filter": lambda: brute_force.search(
+            bf_cpu, q, 5, filter=half, **dev),
+        "pairwise_distance": lambda: dist.pairwise_distance(
+            q, x[:64], "canberra", **dev),
+        "ivf_flat.search.filter": lambda: ivf_flat.search(
+            flat_cpu, q, 5, n_probes=2, backend="ragged", filter=half, **dev),
+        "ivf_flat.extend": lambda: ivf_flat.extend(flat_cpu, q, **dev),
+        "serving.search.gather": lambda: serving.search(
+            store_cpu, q, 600, n_probes=4, **dev),
+        "serving.search.filter": lambda: serving.search(
+            store_cpu, q, 5, n_probes=2, filter=half, **dev),
+        "serving.search.bq.filter": lambda: serving.search(
+            bq_store_cpu, q, 5, n_probes=2, filter=half, **dev),
+        "ivf_pq.search.filter": lambda: ivf_pq.search(
+            idx_cpu, q, 5, n_probes=2, backend="pallas", filter=half, **dev),
+        "ivf_bq.search.filter": lambda: ivf_bq.search_refined(
+            bq_cpu, x, q, 5, n_probes=2, filter=half, **dev),
+        "ivf_bq.extend": lambda: ivf_bq.extend(bq_cpu, q, **dev),
+        "ivf_bq.build_streaming": lambda: ivf_bq.build_streaming(
+            lambda s, e: x[s:e], x.shape[0], x.shape[1], bq_params,
+            chunk_rows=1024, **dev),
+        "cagra.search.filter": lambda: cagra.search(cagra_cpu, q, 5,
+                                                    filter=half512, **dev),
     }
 
 
@@ -252,7 +282,17 @@ def _cagra_file_load(index, **dev):
                                   "ivf_bq.build",
                                   "ivf_bq.search", "ivf_bq.search_refined",
                                   "refine", "brute_force.build",
-                                  "brute_force.search"])
+                                  "brute_force.search", "brute_force.knn.l1",
+                                  "brute_force.search.filter",
+                                  "pairwise_distance",
+                                  "ivf_flat.search.filter", "ivf_flat.extend",
+                                  "serving.search.gather",
+                                  "serving.search.filter",
+                                  "serving.search.bq.filter",
+                                  "ivf_pq.search.filter",
+                                  "ivf_bq.search.filter", "ivf_bq.extend",
+                                  "ivf_bq.build_streaming",
+                                  "cagra.search.filter"])
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -276,6 +316,47 @@ def test_resolve_device_default_is_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_bitsets_from_host_data_default_to_cuda(no_cuda):
+    """A bitset made from host data lives on the card unless the caller
+    asks for the CPU; one made from a tensor keeps the tensor's device."""
+    mask = np.arange(40) % 3 == 0
+    for make in (lambda **d: Bitset.from_mask(mask, **d),
+                 lambda **d: Bitset.create(40, **d),
+                 lambda **d: Bitset.from_numpy_words(np.zeros(2, np.uint32),
+                                                     40, **d)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    assert Bitset.from_mask(torch.from_numpy(mask)).device.type == "cpu"
+
+
+# the modules this slice added or extended on a kernel path: a CUDA tensor
+# gets the kernel or an exception, never a quiet detour
+FILTER_SLICE_MODULES = (
+    "raft_tpu_torch/core/bitset.py", "raft_tpu_torch/neighbors/_filtering.py",
+    "raft_tpu_torch/neighbors/ivf_flat.py",
+    "raft_tpu_torch/neighbors/ivf_bq.py",
+    "raft_tpu_torch/neighbors/brute_force.py",
+    "raft_tpu_torch/ops/distance.py", "raft_tpu_torch/serving/store.py",
+    "raft_tpu_torch/serving/__init__.py")
+
+
+@pytest.mark.parametrize("rel", FILTER_SLICE_MODULES)
+def test_no_try_on_the_filter_and_remainder_paths(rel):
+    tree = ast.parse((REPO / rel).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+
+
+def test_paged_auto_never_picks_a_twin_by_name():
+    """``"auto"`` resolves to K3/K4 ("paged") or, for flat and PQ stores,
+    the gather scan; K4's plain twin ("paged_jnp") runs only when named."""
+    src = (REPO / "raft_tpu_torch/neighbors/ivf_flat.py").read_text()
+    body = src[src.index("def paged_backend_auto"):
+               src.index("def check_paged_eligible")]
+    assert "paged_jnp" not in body
+    assert 'return "paged"' in body and 'return "gather"' in body
 
 
 def test_k1_wrapper_takes_plain_path_on_cpu_without_counting():

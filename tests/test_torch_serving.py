@@ -303,14 +303,19 @@ def test_search_paged_rules(flat_pair, data):
     jidx, tidx = flat_pair
     st = tsv.PagedListStore.from_index(tidx, page_rows=8, device=CPU)
     assert tsv.paged_engine(st, 10) == "paged"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsv.search(st, qs, 10, backend="gather", device=CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsv.search(st, qs, 10, filter=object(), device=CPU)
+    # the gather backend serves what K3's plan cannot feed (k > 512)
+    assert tsv.paged_engine(st, 600) == "gather"
+    vg, ig = tsv.search(st, qs, 10, backend="gather", device=CPU)
+    vp, ip = tsv.search(st, qs, 10, device=CPU)
+    assert tmet.topk_agreement(vg, ig, vp, ip, rtol=5e-4,
+                               atol=5e-4 * float((qs.astype(np.float64) ** 2)
+                                                 .sum(1).max()))["ok"]
     with pytest.raises(ValueError, match="expected an ivf_pq store"):
         tpq.search_paged(st, qs, 10, device=CPU)
     with pytest.raises(ValueError, match="cannot serve k=600"):
-        tsv.search(st, qs, 600, n_probes=16, device=CPU)
+        tsv.search(st, qs, 600, n_probes=16, backend="paged", device=CPU)
+    v, i = tsv.search(st, qs, 600, n_probes=16, device=CPU)
+    assert tuple(i.shape) == (qs.shape[0], 600) and (i[:, :10] >= 0).all()
     run = tsv.searcher(st, 5, n_probes=2, device=CPU)
     v, i = run(qs[:3])
     assert tuple(i.shape) == (3, 5)
