@@ -12,6 +12,8 @@ hand-written kernels against their plain PyTorch versions.
 Phases, one JSON line each:
 
 1. device — the card's name and power limit as nvidia-smi prints them;
+   then ``health``: ``obs.health.probe()``, a bounded child process that
+   runs a small matmul on the card (healthy within ``MAX_TIMEOUT``);
 2. build — every kernel source under ``raft_tpu_torch/ops/csrc`` compiled
    with nvcc, one process per source, all at once; then (``ptxas``) each
    kernel's registers, stack frame and spill bytes from the build log;
@@ -45,7 +47,15 @@ Phases, one JSON line each:
    byte 2^31; each case with its parents given and picking its own, from
    the case's unsorted buffer and from the sorted one a hop returns;
    bitwise on integer-valued qp, within tolerance on real-valued qp);
-4. main — ``sift_like(1_000_000, 128, 10_000)`` and its tiled brute-force
+4. kmeans — Lloyd k-means on the dataset as fp32:
+   ``kmeans.fit(KMeansParams(n_clusters=1024))`` (k-means++, max_iter 300,
+   tol 1e-4), seeding and EM seconds apart, the inertia never rising, its
+   ``cluster_cost`` equal to the inertia, ``predict`` on 10,000 rows equal
+   to the argmin of ``pairwise_distance`` but at ties; ``kmeans.array``:
+   the card's and the CPU's ``init="array"`` fits on a 100,000-row
+   subsample for 10 iterations (centroids at rtol 1e-4, equal n_iter), and
+   ``metric="euclidean"`` once;
+   main — ``sift_like(1_000_000, 128, 10_000)`` and its tiled brute-force
    ground truth, made once for every path. IVF-PQ: ``ivf_pq.build`` at the
    bench's parameters (n_lists 1024, pq_dim 64, 8 bits, train fraction
    0.2), the bench's n_probes / k_fetch escalation with exact refine to
@@ -139,16 +149,34 @@ the older tree against this one's at the paths' own class inputs (K1 at
 kf 20, kf 10 on uint8 and kf 129 on the CAGRA build's batch; K2; K3 and K4
 at their serving inputs) in the order old, new, new, old, holds the two
 trees' results against each other as ``compare`` holds a kernel and its
-twin, and runs each tree's LUT search (K5) in a process of its own on one
-index and query file, then K6 on a CAGRA index built there: the two
+twin, and runs each tree's LUT search (K5) and IVF-PQ ragged search (K1)
+in a process of its own on one index and query file (telemetry off), then
+K6 on a CAGRA index built there: the two
 trees' parents-given entries at one search's hops, the older tree's torch
 pickup plus K6 against this tree's picking entry, and each tree's fused
 search (QPS, recall, K6 launches) in a process of its own on one index
-file, old, new, new, old; it prints no last line. ``--k1-variants`` and
+file; each path-level search runs in 8 processes, old, new, new, old
+twice, 10 batches each, and a tree's figure is the median process's
+median batch (``AB_ORDER``, ``AB_BATCHES``); it prints no last line. ``--k1-variants`` and
 ``--k2-variants`` time K1 (or K2 and K4) built from other kernel source
 trees against each other at the paths' shapes (``strip_variants``);
 ``--k6-variants`` K6 at synthetic hops of the fused rungs
 (``hop_variants``).
+
+Telemetry and faults ride the paths too. ``<path>.obs`` (main, bq, flat,
+serve, lut, cagra): one 10k-query search with telemetry on, its span tree
+(``ivf_pq::search`` → ``ivf_pq::scan`` and the like), the
+``*.search.queries`` and backend counters against the queries served and
+the kernel's launches (equal to a telemetry-off run's), then QPS with
+telemetry off, on and on in sync mode; ``obs``: the rungs' Chrome trace
+under ``results/`` and their QPS table. ``faults``: the 1M streamed
+IVF-BQ build with ``ivf_bq.build.encode_chunk=oom:1`` armed, bit-identical
+to the unarmed build; a real CUDA OOM in brute force (a tile whose
+(queries × rows) fp32 block exceeds the free memory) recovered by
+``degrade_on_oom`` with ids equal to a default-tile search but at ties;
+every faultpoint of the port armed once on 100,000-row indexes, surfacing
+classified, then serving; a spent soft deadline keeping the first of three
+k-means fits, marked degraded.
 
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
@@ -200,6 +228,17 @@ PARITY_ATOL_FRAC = 1e-5      # × the case's largest |finite value|
 # the older tree (ab_phase reads them)
 AB_INPUTS = None
 AB_FILES = None
+# the path-level A/B: each tree's search in a process of its own, in turns,
+# AB_BATCHES timed batches a process, the median batch a process and the
+# median process a tree
+AB_ORDER = ("old", "new", "new", "old") * 2
+AB_BATCHES = 10
+
+
+def median(vals):
+    vals = sorted(vals)
+    mid = len(vals) // 2
+    return vals[mid] if len(vals) % 2 else (vals[mid - 1] + vals[mid]) / 2
 
 
 def keep_for_ab(key, value) -> None:
@@ -1338,6 +1377,16 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
 
     filtered_rungs(shared, "main", frun, ss.STRIP_KERNEL, probes_widened(
         pick["n_probes"], n_lists, pick["k_fetch"]))
+    obs_rung("main", lambda: ivf_pq.search(
+        index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
+        backend="ragged", res=res), q, "ivf_pq::search", "ivf_pq::scan",
+        "ivf_pq.search", "backend.ragged", ss.STRIP_KERNEL)
+    if AB_INPUTS is not None:
+        AB_FILES.mkdir(parents=True, exist_ok=True)
+        index.save(AB_FILES / "main.index")
+        torch.save(qs.cpu(), AB_FILES / "main_queries.pt")
+        AB_INPUTS["main"] = (AB_FILES / "main.index",
+                             AB_FILES / "main_queries.pt", pick)
     return {"launches": launches, "max_abs_err": max_err,
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}, (index, pick)
@@ -1491,6 +1540,10 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
         raise AssertionError(f"bq.extend: read-back {readback}, "
                              f"{ext_launches} K2 launches, size {ext.size}")
     del ext, ie
+    obs_rung("bq", lambda: ivf_bq.search(
+        index, qs, pick["k_fetch"], n_probes=pick["n_probes"], res=res), q,
+        "ivf_bq::search", "ivf_bq::scan", "ivf_bq.search", "backend.packed",
+        bq.BQ_KERNEL)
     return {"launches": launches, "max_abs_err": max_err,
             "loop": "/".join(loops),
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1701,6 +1754,10 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
         raise AssertionError(f"flat.extend: read-back {readback}, "
                              f"{ext_launches} K1 launches, size {ext.size}")
     del ext, ie
+    obs_rung("flat", lambda: ivf_flat.search(
+        index, qs, K, n_probes=pick["n_probes"], res=res), q,
+        "ivf_flat::search", "ivf_flat::scan", "ivf_flat.search",
+        "backend.ragged", ss.STRIP_KERNEL)
     return index, pick, (v, i)
 
 
@@ -2024,6 +2081,11 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
     if readback < 1.0 or leaked or growth:
         raise AssertionError(f"mutation window: read-back {readback}, "
                              f"{leaked} deleted ids returned, {growth} growths")
+    # after the serving path's count is read: the rung sets the counts to 0
+    obs_rung("serve", lambda: serving.search(store, qs, K, n_probes=n_probes,
+                                             res=res), q,
+             "ivf_flat::search_paged", "ivf_flat::paged_pallas",
+             "ivf_flat.search_paged", "backend.paged", ss.PAGED_KERNEL)
 
     # compact → the packed search through K1 agrees with the paged one;
     # compact_swap keeps capacity and width and the results
@@ -2864,6 +2926,10 @@ def lut_phase(shared, n_lists=N_LISTS, dev="cuda"):
           "max_list_load": loads, "search_ms": search_ms, "prep_ms": prep_ms,
           "other_ms": search_ms - k5_search_ms - select_ms - prep_ms})
     lut_q_tile_phase(index, qs, pick, tile, q_all, res)
+    obs_rung("lut", lambda: ivf_pq.search(
+        index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
+        backend="pallas", res=res), q, "ivf_pq::search", "ivf_pq::scan",
+        "ivf_pq.search", "backend.pallas", ps.PQ_KERNEL)
     del index
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max_err, "ms": k5_ms,
@@ -3368,6 +3434,9 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "hops": hops, "k6_launches": launches,
           "compressed_qps": len(ctimes) * q / sum(ctimes),
           "compressed_batch_s": ctimes, "compressed_recall": crec})
+    obs_rung("cagra", lambda: run(pick["sp"]), q, "cagra::search",
+             "cagra::hop", "cagra.search", "traversal.fused",
+             ch.HOP_KERNEL)
 
     # filters: the traversal routes through filtered-out nodes and masks
     # the buffer at the exit re-rank; recall is printed, not gated (the
@@ -3433,6 +3502,476 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
             "bound_by": bound_by, "library_ms": None}, k1_err
 
 
+# ---------------------------------------------------------------------------
+# the resilience and observability core on the card: health, k-means, the
+# paths under telemetry, faults and recovery
+# ---------------------------------------------------------------------------
+
+OBS_ROWS = []       # each path's obs rung line, for the obs phase
+OBS_SPANS = []      # the span records of each rung's checked search
+OBS_TRACE = "results/trace_chip_smoke.json"
+
+
+def health_phase():
+    """``obs.health.probe()`` on the card, in its bounded child process:
+    healthy, within ``MAX_TIMEOUT``."""
+    from raft_tpu_torch import obs
+
+    rep = obs.probe()
+    emit({"phase": "health", **rep.as_dict(),
+          "max_timeout_s": obs.MAX_TIMEOUT})
+    if not rep.healthy or rep.elapsed_s > obs.MAX_TIMEOUT:
+        raise AssertionError(f"health probe: {rep}")
+
+
+def span_pairs(spans):
+    """(span name, parent name) of span records."""
+    names = {s["span_id"]: s["name"] for s in spans}
+    return {(s["name"], names.get(s["parent_id"])) for s in spans}
+
+
+def obs_rung(path, run, q, entry, scan, prefix, backend, counter):
+    """One path's 10k-query search (``run``) under telemetry: its span tree
+    holds ``entry`` → ``scan``; the ``<prefix>.queries`` counter equals the
+    queries served and ``<prefix>.<backend>`` (``backend.ragged``,
+    ``traversal.fused``, ...) the searches run; the
+    kernel's launches (``counter``) with telemetry on equal those with it
+    off (for CAGRA, also the hops the ``cagra::hop`` spans report). Then
+    QPS over 3 batches with telemetry off, on, and on in sync mode."""
+    import torch
+
+    from raft_tpu_torch import obs
+
+    obs.disable()
+    obs.disable_sync()
+    reset_counts()
+    run()
+    torch.cuda.synchronize()
+    off_launches = counter.launches
+    qps_off, s_off = host_qps(run, q)
+    obs.enable()
+    obs.reset()
+    obs.clear_spans()
+    reset_counts()
+    run()
+    torch.cuda.synchronize()
+    on_launches = counter.launches
+    spans = obs.spans()
+    counters = obs.snapshot()["counters"]
+    OBS_SPANS.extend(spans)
+    pairs = span_pairs(spans)
+    searches = counters.get(f"{prefix}.{backend}", 0)
+    hop_sum = sum(s["attrs"]["hops"] for s in spans if s["name"] == scan
+                  and "hops" in (s.get("attrs") or {}))
+    row = {"phase": f"{path}.obs", "entry": entry, "scan": scan,
+           "span_tree_ok": (scan, entry) in pairs, "spans": len(spans),
+           "queries_counted": counters.get(f"{prefix}.queries", 0),
+           "backend": backend, "backend_count": searches,
+           "launches_off": off_launches, "launches_on": on_launches,
+           "hops_in_spans": hop_sum or None}
+    if not row["span_tree_ok"] or row["queries_counted"] != q \
+            or searches != 1 or on_launches != off_launches \
+            or on_launches <= 0 or (hop_sum and hop_sum != on_launches):
+        obs.disable()
+        raise AssertionError(f"{path}.obs: {row}, spans {sorted(pairs)}")
+    qps_on, s_on = host_qps(run, q)
+    obs.enable_sync()
+    qps_sync, s_sync = host_qps(run, q)
+    obs.disable_sync()
+    obs.disable()
+    obs.reset()
+    obs.clear_spans()
+    row.update(qps_off=qps_off, batch_s_off=s_off, qps_on=qps_on,
+               batch_s_on=s_on, qps_sync=qps_sync, batch_s_sync=s_sync,
+               on_over_off=qps_on / qps_off, sync_over_off=qps_sync / qps_off)
+    emit(row)
+    OBS_ROWS.append(row)
+
+
+def obs_phase():
+    """The Chrome trace of every path's checked search, written under
+    ``results/``, and the QPS table of the obs rungs."""
+    from raft_tpu_torch.core.fsio import atomic_write
+    from raft_tpu_torch.obs import tracing
+
+    doc = tracing.chrome_trace(span_records=OBS_SPANS, events=[],
+                               extra={"source": "chip_smoke.py obs rungs"})
+    with atomic_write(OBS_TRACE, "w") as f:
+        json.dump(doc, f)
+    emit({"phase": "obs", "trace": OBS_TRACE,
+          "span_count": len(doc["traceEvents"]),
+          "paths": [r["phase"][:-4] for r in OBS_ROWS],
+          "qps": {r["phase"][:-4]: {k: r[k] for k in (
+              "qps_off", "qps_on", "qps_sync", "on_over_off",
+              "sync_over_off")} for r in OBS_ROWS}})
+    if len(OBS_ROWS) != 6 or not doc["traceEvents"]:
+        raise AssertionError(f"obs: {len(OBS_ROWS)} rungs ran, "
+                             f"{len(doc['traceEvents'])} spans")
+
+
+KMEANS_CLUSTERS = 1024       # the bench's n_lists
+KMEANS_PREDICT_ROWS = 10_000
+KMEANS_SUB_ROWS = 100_000    # the card-against-CPU fit
+KMEANS_SUB_ITERS = 10
+KMEANS_RISE_RTOL = 1e-5      # an fp32 sum of 1M terms, not a rise
+
+
+def kmeans_phase(shared, dev="cuda"):
+    """Lloyd k-means on the card at the bench's size: ``kmeans.fit`` with
+    ``KMeansParams(n_clusters=1024)`` (k-means++, max_iter 300, tol 1e-4,
+    n_init 1) on the 1M × 128 dataset as fp32, seeding and EM seconds
+    apart, the inertia never rising from one iteration to the next,
+    ``cluster_cost`` equal to the reported inertia, ``predict`` equal to
+    the argmin of ``pairwise_distance`` but at ties, the card's and the
+    CPU's ``init="array"`` fits equal on a 100,000-row subsample, and
+    ``metric="euclidean"`` once."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.ops.distance import (fused_l2_nn_argmin,
+                                             pairwise_distance)
+
+    res = Resources(device=dev)
+    X = shared["dataset"].to(torch.float32)
+    n = X.shape[0]
+    params = kmeans.KMeansParams(n_clusters=KMEANS_CLUSTERS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = kmeans.fit(X, params, res=res)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    # the same fit in its two parts, timed apart: the seeding, then the EM
+    # loop from that seed, keeping each iteration's inertia
+    gen = torch.Generator(device=X.device)
+    gen.manual_seed(params.seed)
+    w = torch.ones(n, device=X.device)
+    t = time.perf_counter()
+    c0 = kmeans._init_plus_plus(gen, X, w, KMEANS_CLUSTERS)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t
+    history = []
+    t = time.perf_counter()
+    _, inertia_em, n_iter_em = kmeans._lloyd(
+        X, c0, w, params.max_iter, params.tol, res.workspace_bytes, history)
+    torch.cuda.synchronize()
+    em_s = time.perf_counter() - t
+    rises = [(b - a) / a for a, b in zip(history, history[1:]) if b > a]
+    cost = float(kmeans.cluster_cost(X, out.centroids, res=res))
+    inertia = float(out.inertia)
+    # predict on 10,000 rows against the argmin of the full distance block
+    rows = X[:KMEANS_PREDICT_ROWS]
+    labels, _ = kmeans.predict(rows, out.centroids, res=res)
+    d = pairwise_distance(rows, out.centroids, res=res)
+    best = torch.argmin(d, dim=1)
+    diff = labels != best
+    gap = (d.gather(1, labels[:, None]) - d.gather(1, best[:, None])).abs()
+    tie_tol = 1e-4 * d.gather(1, best[:, None]).abs() + 1e-3
+    ties_only = bool((gap[diff] <= tie_tol[diff]).all())
+    row = {"phase": "kmeans", "rows": n, "dim": X.shape[1],
+           "n_clusters": KMEANS_CLUSTERS, "fit_s": fit_s, "n_iter": out.n_iter,
+           "inertia": inertia, "seed_s": seed_s, "em_s": em_s,
+           "em_n_iter": n_iter_em, "em_inertia": float(inertia_em),
+           "em_s_per_iter": em_s / n_iter_em,
+           "inertia_first": history[0], "inertia_last": history[-1],
+           "largest_rise_rel": max(rises, default=0.0),
+           "cluster_cost": cost, "predict_rows": KMEANS_PREDICT_ROWS,
+           "predict_mismatches": int(diff.sum()),
+           "predict_mismatches_ties_only": ties_only}
+    emit(row)
+    if max(rises, default=0.0) > KMEANS_RISE_RTOL:
+        raise AssertionError(f"kmeans: the inertia rose: {history}")
+    if abs(cost - inertia) > 1e-4 * abs(inertia):
+        raise AssertionError(f"kmeans: cluster_cost {cost} != inertia "
+                             f"{inertia}")
+    if not ties_only or not bool(torch.isfinite(out.centroids).all()):
+        raise AssertionError(f"kmeans: predict disagrees with the argmin: "
+                             f"{row}")
+
+    # the card's fit against the CPU's from one start on a subsample. A row
+    # whose two nearest centroids are within the fp32 rounding of the gemm
+    # may take either on either device, and one such flip moves its two
+    # clusters' means and every later step: so the two devices are held in
+    # lockstep (each step from the same centroids: labels equal but at
+    # near-ties, every untouched cluster's mean at rtol 1e-4), then the two
+    # free-running fits' n_iter and inertia
+    sub = X[torch.randperm(n, generator=gen, device=X.device)
+            [:KMEANS_SUB_ROWS]]
+    start = sub[:KMEANS_CLUSTERS].clone()
+    sub_cpu, c = sub.cpu(), start.cpu()
+    w_card = torch.ones(KMEANS_SUB_ROWS, device=X.device)
+    w_cpu = torch.ones(KMEANS_SUB_ROWS)
+    xn = (sub_cpu.double() ** 2).sum(1)
+    steps = []
+    for _ in range(KMEANS_SUB_ITERS):
+        _, lab_card = fused_l2_nn_argmin(sub, c.to(X.device))
+        _, lab_cpu = fused_l2_nn_argmin(sub_cpu, c)
+        lab_card = lab_card.cpu()
+        flip = torch.nonzero(lab_card != lab_cpu)[:, 0]
+        cd = c.double()
+        d_a = ((sub_cpu[flip].double() - cd[lab_card[flip]]) ** 2).sum(1)
+        d_b = ((sub_cpu[flip].double() - cd[lab_cpu[flip]]) ** 2).sum(1)
+        bound = 1e-5 * (xn[flip] + (cd ** 2).sum(1).max())
+        near = bool(((d_a - d_b).abs() <= bound).all())
+        new_card, _ = kmeans._update_centers(sub, lab_card.to(X.device),
+                                             w_card, KMEANS_CLUSTERS,
+                                             c.to(X.device))
+        new_cpu, _ = kmeans._update_centers(sub_cpu, lab_cpu, w_cpu,
+                                            KMEANS_CLUSTERS, c)
+        touched = torch.zeros(KMEANS_CLUSTERS, dtype=torch.bool)
+        touched[lab_card[flip]] = True
+        touched[lab_cpu[flip]] = True
+        same = bool(torch.allclose(new_card.cpu()[~touched],
+                                   new_cpu[~touched], rtol=1e-4, atol=1e-4))
+        steps.append({"flips": int(flip.numel()), "flips_near_ties": near,
+                      "clusters_touched": int(touched.sum()),
+                      "others_allclose": same})
+        c = new_cpu
+    ap = kmeans.KMeansParams(n_clusters=KMEANS_CLUSTERS, init="array",
+                             max_iter=KMEANS_SUB_ITERS)
+    t = time.perf_counter()
+    card = kmeans.fit(sub, ap, centroids=start, res=res)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = kmeans.fit(sub_cpu, ap, centroids=start.cpu(), device="cpu")
+    cpu_s = time.perf_counter() - t
+    free_diff = (card.centroids.cpu() - cpu.centroids).abs()
+    inertia_rel = abs(float(card.inertia) - float(cpu.inertia)) \
+        / float(cpu.inertia)
+    # metric="euclidean" from the fitted centroids: the sum of distances
+    t = time.perf_counter()
+    eu = kmeans.fit(X, kmeans.KMeansParams(
+        n_clusters=KMEANS_CLUSTERS, init="array", metric="euclidean"),
+        centroids=out.centroids, res=res)
+    torch.cuda.synchronize()
+    eu_s = time.perf_counter() - t
+    d2, _ = fused_l2_nn_argmin(X, eu.centroids)
+    eu_sum = float(torch.sqrt(d2).sum())
+    row = {"phase": "kmeans.array", "rows": KMEANS_SUB_ROWS,
+           "max_iter": KMEANS_SUB_ITERS, "lockstep": steps,
+           "card_n_iter": card.n_iter, "cpu_n_iter": cpu.n_iter,
+           "card_s": card_s, "cpu_s": cpu_s,
+           "free_running_centroids_allclose": bool(torch.allclose(
+               card.centroids.cpu(), cpu.centroids, rtol=1e-4, atol=1e-4)),
+           "free_running_max_abs_diff": float(free_diff.max()),
+           "free_running_clusters_differing": int(
+               (free_diff > 1e-4 + 1e-4 * cpu.centroids.abs()).any(1).sum()),
+           "card_inertia": float(card.inertia),
+           "cpu_inertia": float(cpu.inertia), "inertia_rel_diff": inertia_rel,
+           "euclidean_n_iter": eu.n_iter, "euclidean_s": eu_s,
+           "euclidean_inertia": float(eu.inertia),
+           "sum_of_distances": eu_sum}
+    emit(row)
+    if not all(st["flips_near_ties"] and st["others_allclose"]
+               for st in steps) or card.n_iter != cpu.n_iter \
+            or inertia_rel > 1e-4:
+        raise AssertionError(f"kmeans: the card's fit differs from the "
+                             f"CPU's: {row}")
+    if abs(eu_sum - float(eu.inertia)) > 1e-4 * eu_sum:
+        raise AssertionError(f"kmeans: the euclidean inertia is not the sum "
+                             f"of distances: {row}")
+
+
+FAULT_ROWS = 100_000         # the faultpoint sweep's indexes
+
+
+def faults_phase(shared, dev="cuda"):
+    """Faults and recovery on the card: the 1M streamed IVF-BQ build with
+    ``ivf_bq.build.encode_chunk=oom:1`` armed bit-identical to the unarmed
+    build; a real CUDA OOM in brute force recovered by halving the tile;
+    every faultpoint of the port armed once, surfacing classified, then
+    serving; a spent soft deadline keeping the first of three k-means
+    fits."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch import Resources, obs, resilience, serving
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
+    from raft_tpu_torch.core import serialize
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq,
+                                          ivf_flat, ivf_pq)
+
+    res = Resources(device=dev)
+    dataset, qs, host = shared["dataset"], shared["queries"], shared["host"]
+    n, dim = host.shape
+
+    # (1) the degraded streamed encode: two builds in deterministic mode
+    # (the balanced k-means' index_add_ sums in a fixed order), one armed
+    def bq_build():
+        out = ivf_bq.build_streaming(
+            lambda s, e: host[s:e], n, dim, ivf_bq.IvfBqParams(
+                n_lists=N_LISTS, kmeans_trainset_fraction=0.2),
+            res=res, chunk_rows=STREAM_CHUNK_ROWS)
+        torch.cuda.synchronize()
+        return out
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        clean = bq_build()
+        obs.enable()
+        obs.reset()
+        resilience.clear_events()
+        resilience.arm_faults("ivf_bq.build.encode_chunk=oom:1")
+        degraded = bq_build()
+        resilience.clear_faults()
+        counters = obs.snapshot()["counters"]
+        obs.disable()
+        obs.reset()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = {name: bool(torch.equal(getattr(clean, name),
+                                   getattr(degraded, name)))
+            for name in ("centers", "list_codes", "list_scale", "list_bias",
+                         "list_ids")}
+    events = [e for e in resilience.recent_events()
+              if e["event"] == "degraded_chunk"]
+    row = {"phase": "faults.bq_encode", "rows": n,
+           "chunks": -(-n // STREAM_CHUNK_ROWS), "bit_identical": same,
+           "degraded_chunk": counters.get("ivf_bq.build.degraded_chunk", 0),
+           "retries_oom": counters.get("resilience.retries.oom", 0),
+           "sub_chunk_rows": [e["chunk_rows"] for e in events]}
+    emit(row)
+    if not all(same.values()) or row["degraded_chunk"] != 1:
+        raise AssertionError(f"faults.bq_encode: {row}")
+    del clean, degraded
+    torch.cuda.empty_cache()
+
+    # (2) a real CUDA OOM: a tile whose (queries × tile_rows) fp32 block is
+    # larger than the card's free memory, recovered by halving the tile
+    index = brute_force.build(dataset, res=res)
+    free, total = torch.cuda.mem_get_info()
+    q_oom = int(free // (4 * n)) + 1024
+    queries = dataset[torch.arange(q_oom, device=dataset.device) % n]
+    obs.enable()
+    obs.reset()
+    resilience.clear_events()
+    t = time.perf_counter()
+    v, i = brute_force.search(index, queries, K, tile_rows=n, res=res)
+    torch.cuda.synchronize()
+    oom_s = time.perf_counter() - t
+    counters = obs.snapshot()["counters"]
+    obs.disable()
+    obs.reset()
+    steps = [(e["from_size"], e["to_size"]) for e in resilience.recent_events()
+             if e["event"] == "degraded_tile"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    dv, di = brute_force.search(index, queries, K, res=res)
+    torch.cuda.synchronize()
+    default_s = time.perf_counter() - t
+    diff = i != di
+    ties_only = bool(torch.allclose(v[diff], dv[diff], rtol=1e-5, atol=1e-3))
+    row = {"phase": "faults.real_oom", "queries": q_oom, "rows": n,
+           "free_bytes": free, "total_bytes": total,
+           "block_bytes": 4 * q_oom * n, "steps": steps,
+           "retries_oom": counters.get("resilience.retries.oom", 0),
+           "degraded_s": oom_s, "default_tile_s": default_s,
+           "id_mismatches": int(diff.sum()), "mismatches_ties_only": ties_only,
+           "values_max_abs_err": float((v - dv).abs().max())}
+    emit(row)
+    if row["retries_oom"] < 1 or not ties_only:
+        raise AssertionError(f"faults.real_oom: {row}")
+    del index, queries, v, i, dv, di
+    torch.cuda.empty_cache()
+
+    # (3) every faultpoint once, on small indexes of the dataset's rows
+    sub = dataset[:FAULT_ROWS]
+    q = qs[:1000]
+    flat = ivf_flat.build(sub, ivf_flat.IvfFlatParams(
+        n_lists=64, group_size=512), res=res)
+    pq = ivf_pq.build(sub, ivf_pq.IvfPqParams(
+        n_lists=64, pq_dim=64, group_size=512), res=res)
+    bq = ivf_bq.build(sub, ivf_bq.IvfBqParams(n_lists=64), res=res)
+    stores = {k: serving.PagedListStore.from_index(v, page_rows=128,
+                                                   res=res)
+              for k, v in (("flat", flat), ("pq", pq), ("bq", bq))}
+    cag = cagra.build(sub[:20_000], cagra.CagraParams(
+        intermediate_graph_degree=64, graph_degree=32, compress="on"),
+        res=res)
+    fused = cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                    traversal="fused")
+    half = Bitset.from_mask(torch.arange(FAULT_ROWS) % 2 == 0, device=dev)
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "fault.bin"
+    serialize.save_arrays(path, {"kind": "t"}, {"a": torch.arange(8)})
+    cases = {
+        "brute_force.search": lambda: brute_force.search(
+            brute_force.build(sub, res=res), q, K, res=res),
+        "ivf_flat.search.filter": lambda: ivf_flat.search(
+            flat, q, K, filter=half, res=res),
+        "ivf_flat.search.scan": lambda: ivf_flat.search(flat, q, K, res=res),
+        "ivf_flat.search_paged.scan": lambda: ivf_flat.search_paged(
+            stores["flat"], q, K, res=res),
+        "ivf_pq.search.filter": lambda: ivf_pq.search(
+            pq, q, K, filter=half, res=res),
+        "ivf_pq.search.scan": lambda: ivf_pq.search(pq, q, K, res=res),
+        "ivf_pq.search_paged.scan": lambda: ivf_pq.search_paged(
+            stores["pq"], q, K, res=res),
+        "ivf_bq.search.filter": lambda: ivf_bq.search(
+            bq, q, K, filter=half, res=res),
+        "ivf_bq.search.scan": lambda: ivf_bq.search(bq, q, K, res=res),
+        "ivf_bq.search_paged.scan": lambda: ivf_bq.search_paged(
+            stores["bq"], q, K, res=res),
+        "ivf_bq.build.encode_chunk": lambda: ivf_bq.build_streaming(
+            lambda s, e: host[s:e], FAULT_ROWS, dim,
+            ivf_bq.IvfBqParams(n_lists=64), res=res, chunk_rows=50_000),
+        "cagra.build": lambda: cagra.build(sub[:5000], cagra.CagraParams(
+            intermediate_graph_degree=32, graph_degree=16), res=res),
+        "cagra.search": lambda: cagra.search(cag, q, K, fused, res=res),
+        "cagra.search.hop": lambda: cagra.search(cag, q, K, fused, res=res),
+        "kmeans.fit.em": lambda: kmeans.fit(sub, kmeans.KMeansParams(
+            n_clusters=64, max_iter=5), res=res),
+        "kmeans_balanced.fit.em": lambda: kmeans_balanced.fit(sub, 64,
+                                                              res=res),
+        "serving.store.upsert": lambda: stores["flat"].upsert(
+            q[:32], ids=torch.arange(UPSERT_ID0, UPSERT_ID0 + 32)),
+        "serialize.save.write": lambda: serialize.save_arrays(
+            path, {"kind": "t"}, {"a": torch.arange(9)}),
+        "serialize.load.read": lambda: serialize.load_arrays(path),
+    }
+    swept = []
+    for site, call in cases.items():
+        # transient: the sites that degrade on an OOM would recover from one
+        resilience.arm_faults(f"{site}=transient:1")
+        try:
+            call()
+            kind = None
+        except resilience.FaultInjected as e:
+            kind = resilience.classify(e)
+        resilience.clear_faults()
+        call()
+        torch.cuda.synchronize()
+        swept.append({"site": site, "surfaced": kind})
+    tmp.cleanup()
+    emit({"phase": "faults.sweep", "sites": swept})
+    bad = [s for s in swept if s["surfaced"] != resilience.TRANSIENT]
+    if bad:
+        raise AssertionError(f"faults.sweep: {bad}")
+    del flat, pq, bq, stores, cag
+    torch.cuda.empty_cache()
+
+    # (4) a soft deadline spent before k-means starts: the first of three
+    # fits comes back, marked degraded
+    with resilience.Deadline(0.0, hard=False) as dl:
+        t = time.perf_counter()
+        out = kmeans.fit(sub, kmeans.KMeansParams(
+            n_clusters=KMEANS_CLUSTERS, n_init=3), res=res)
+        torch.cuda.synchronize()
+        dl_s = time.perf_counter() - t
+    row = {"phase": "faults.deadline", "rows": FAULT_ROWS,
+           "n_clusters": KMEANS_CLUSTERS, "n_init": 3,
+           "degraded": dl.degraded, "sites": dl.degraded_sites,
+           "n_iter": out.n_iter, "inertia": float(out.inertia),
+           "seconds": dl_s}
+    emit(row)
+    if not dl.degraded or dl.degraded_sites != ["kmeans.fit"]:
+        raise AssertionError(f"faults.deadline: {row}")
+
+
 AB_SHORT = {"strip_scan": "k1", "bq_scan": "k2", "paged_scan": "k3",
             "paged_bq_scan": "k4"}
 
@@ -3449,10 +3988,11 @@ def ab_phase(old_tree, shared, dev="cuda"):
     (both builds' ptxas lines are printed); the wrappers, plan and inputs
     are this tree's (the four kernels' C interfaces are the same); each
     kernel's product alone as well (``ab.k1_product`` .. ``ab.k4_product``)
-    where the older tree has its product-only instantiation. Then K5
-    at path level (its C interface changed): each tree's LUT search in a
+    where the older tree has its product-only instantiation. Then K5 and
+    K1 at path level: each tree's LUT search and IVF-PQ ragged search in a
     process of its own, on one index file and one query file, old, new,
-    new, old."""
+    new, old, twice (``AB_ORDER``; the median of each tree's search ms,
+    QPS, kernel ms and launches)."""
     import ctypes
     from pathlib import Path
 
@@ -3538,37 +4078,45 @@ def ab_phase(old_tree, shared, dev="cuda"):
                   "new_ms_mean": sum(t for w, t in prod if w == "new") / 2})
         setattr(mod, getter, lambda fn=new_fn: fn)
 
-    # K5 at path level: each tree's LUT search in its own process
-    index_file, query_file, pick = AB_INPUTS["lut"]
-    runs = []
-    for which in ("old", "new", "new", "old"):
-        tree = Path(old_tree) if which == "old" else Path(__file__).parent
-        ids_file = AB_FILES / f"lut_ids_{which}.pt"
-        done = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--lut-child",
-             str(tree.resolve()), str(index_file), str(query_file),
-             str(pick["n_probes"]), str(pick["k_fetch"]), str(ids_file)],
-            check=True, capture_output=True, text=True)
-        line = json.loads(done.stdout.strip().splitlines()[-1])
-        runs.append({"tree": which, **line})
-        emit({"phase": "ab.lut_run", **runs[-1]})
-    same_ids = bool(torch.equal(torch.load(AB_FILES / "lut_ids_old.pt"),
-                                torch.load(AB_FILES / "lut_ids_new.pt")))
+    # K5 and K1 at path level: each tree's LUT search and IVF-PQ ragged
+    # search in a process of its own, telemetry off
+    for path, backend, kernel in (("lut", "pallas", "pq_scan"),
+                                  ("main", "ragged", "strip_scan")):
+        index_file, query_file, pick = AB_INPUTS[path]
+        runs = []
+        for which in AB_ORDER:
+            tree = Path(old_tree) if which == "old" else Path(__file__).parent
+            ids_file = AB_FILES / f"{path}_ids_{which}.pt"
+            done = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--search-child", str(tree.resolve()), backend,
+                 str(index_file), str(query_file), str(pick["n_probes"]),
+                 str(pick["k_fetch"]), str(ids_file)],
+                check=True, capture_output=True, text=True)
+            line = json.loads(done.stdout.strip().splitlines()[-1])
+            runs.append({"tree": which, **line})
+            emit({"phase": f"ab.{path}_run", **runs[-1]})
+        same_ids = bool(torch.equal(
+            torch.load(AB_FILES / f"{path}_ids_old.pt"),
+            torch.load(AB_FILES / f"{path}_ids_new.pt")))
 
-    def mean(which, key):
-        vals = [r[key] for r in runs if r["tree"] == which]
-        return sum(vals) / len(vals)
+        def mean(which, key):
+            return median([r[key] for r in runs if r["tree"] == which])
 
-    lut = {"kernel": "pq_scan", "inputs": "lut_path_search",
-           "n_probes": pick["n_probes"], "k_fetch": pick["k_fetch"],
-           "old_search_ms": mean("old", "search_ms"),
-           "new_search_ms": mean("new", "search_ms"),
-           "old_k5_ms": mean("old", "k5_ms"), "new_k5_ms": mean("new", "k5_ms"),
-           "old_k5_launches": mean("old", "k5_launches"),
-           "new_k5_launches": mean("new", "k5_launches"),
-           "same_ids": same_ids}
-    emit({"phase": "ab", **lut})
-    cases.append(lut)
+        row = {"kernel": kernel, "inputs": f"{path}_path_search",
+               "backend": backend, "n_probes": pick["n_probes"],
+               "k_fetch": pick["k_fetch"],
+               "old_search_ms": mean("old", "search_ms"),
+               "new_search_ms": mean("new", "search_ms"),
+               "old_qps": mean("old", "qps"), "new_qps": mean("new", "qps"),
+               "new_over_old_qps": mean("new", "qps") / mean("old", "qps"),
+               "old_kernel_ms": mean("old", "kernel_ms"),
+               "new_kernel_ms": mean("new", "kernel_ms"),
+               "old_launches": mean("old", "launches"),
+               "new_launches": mean("new", "launches"),
+               "same_ids": same_ids}
+        emit({"phase": "ab", **row})
+        cases.append(row)
     return cases
 
 
@@ -3581,7 +4129,8 @@ def ab_k6_phase(old_tree, shared, dev="cuda"):
     twin; (2) one search's hops as the older tree ran them (the torch
     pickup, then its K6) against this tree's picking entry; (3) each
     tree's fused search in a process of its own (``--cagra-child``) on one
-    index file, old, new, new, old: QPS, recall@10 and K6 launches."""
+    index file, in ``AB_ORDER``: the median QPS, recall@10 and K6
+    launches."""
     import ctypes
     from pathlib import Path
 
@@ -3675,7 +4224,7 @@ def ab_k6_phase(old_tree, shared, dev="cuda"):
     del index
     torch.cuda.empty_cache()
     runs = []
-    for which in ("old", "new", "new", "old"):
+    for which in AB_ORDER:
         tree = Path(old_tree) if which == "old" else Path(__file__).parent
         ids_file = AB_FILES / f"cagra_ids_{which}.pt"
         done = subprocess.run(
@@ -3694,8 +4243,7 @@ def ab_k6_phase(old_tree, shared, dev="cuda"):
                                 torch.load(AB_FILES / "cagra_ids_new.pt")))
 
     def mean(which, key):
-        vals = [r[key] for r in runs if r["tree"] == which]
-        return sum(vals) / len(vals)
+        return median([r[key] for r in runs if r["tree"] == which])
 
     cases.append({"kernel": "cagra_hop", "inputs": "cagra_fused_search",
                   "itopk": sp.itopk_size, "width": sp.search_width,
@@ -3713,9 +4261,9 @@ def ab_k6_phase(old_tree, shared, dev="cuda"):
 def cagra_child(tree, index_file, query_file, itopk, width, ids_file):
     """One tree's fused CAGRA search for ``ab_k6_phase``, in a process of
     its own: ``tree``'s package searches the index's arrays (a warm-up,
-    then 3 timed 10k-query batches, host clock to a synchronise) and saves
-    the last batch's ids and distances. Prints one JSON line: QPS, the
-    batch seconds and K6 launches a search."""
+    then AB_BATCHES timed 10k-query batches, host clock to a synchronise)
+    and saves the last batch's ids and distances. Prints one JSON line: the
+    median batch's QPS, the batch seconds and K6 launches a search."""
     sys.path.insert(0, tree)
     import torch
 
@@ -3733,7 +4281,7 @@ def cagra_child(tree, index_file, query_file, itopk, width, ids_file):
     torch.cuda.synchronize()
     ch.HOP_KERNEL.reset()
     times = []
-    for _ in range(3):
+    for _ in range(AB_BATCHES):
         t = time.perf_counter()
         d, i = cagra.search(index, qs, K, sp, res=res)
         torch.cuda.synchronize()
@@ -3741,8 +4289,10 @@ def cagra_child(tree, index_file, query_file, itopk, width, ids_file):
     torch.save(i.cpu(), ids_file)
     torch.save(d.cpu(), ids_file + ".d")
     print(json.dumps({"module": ch.__file__,
-                      "qps": 3 * qs.shape[0] / sum(times), "batch_s": times,
-                      "k6_launches": ch.HOP_KERNEL.launches / 3}), flush=True)
+                      "qps": qs.shape[0] / sorted(times)[AB_BATCHES // 2],
+                      "batch_s": times,
+                      "k6_launches": ch.HOP_KERNEL.launches / AB_BATCHES}),
+          flush=True)
     return 0
 
 
@@ -3999,24 +4549,30 @@ def hop_variants(specs):
     return 0
 
 
-def lut_child(tree, index_file, query_file, n_probes, k_fetch, ids_file):
-    """One tree's LUT search for ``ab_phase``, in a process of its own:
-    ``tree``'s package loads the index and runs ``search(backend="pallas")``
-    on the queries (a warm-up, then 3 timed searches); K5's launches are
+def search_child(tree, backend, index_file, query_file, n_probes, k_fetch,
+                 ids_file):
+    """One tree's IVF-PQ search for ``ab_phase``, in a process of its own:
+    ``tree``'s package loads the index and runs ``search(backend=...)`` on
+    the queries (two warm-ups, then AB_BATCHES searches, each timed by CUDA
+    events); the kernel's launches (K5 for "pallas", K1 for "ragged") are
     timed by CUDA events around the tree's own launcher. Prints one JSON
-    line: search ms, K5 ms and K5 launches per search."""
+    line: the median search's ms and its QPS, every search's ms, kernel ms
+    and launches per search."""
     sys.path.insert(0, tree)
     import torch
 
     from raft_tpu_torch import Resources
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.ops import pq_scan as ps
+    from raft_tpu_torch.ops import strip_scan as ss
 
     res = Resources(device="cuda")
     index = ivf_pq.IvfPqIndex.load(index_file, res=res)
     qs = torch.load(query_file).cuda()
     events = []
-    launch = ps._pq_scan_cuda
+    mod, name = ((ps, "_pq_scan_cuda") if backend == "pallas"
+                 else (ss, "_strip_class_cuda"))
+    launch = getattr(mod, name)
 
     def timed(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -4027,21 +4583,24 @@ def lut_child(tree, index_file, query_file, n_probes, k_fetch, ids_file):
         events.append((start, end))
         return out
 
-    ps._pq_scan_cuda = timed
+    setattr(mod, name, timed)
 
     def search():
         return ivf_pq.search(index, qs, int(k_fetch), n_probes=int(n_probes),
-                             backend="pallas", res=res)
+                             backend=backend, res=res)
 
     _, ids = search()
     torch.save(ids.cpu(), ids_file)
+    search()
     events.clear()
-    search_ms = cuda_ms(search, reps=3, warmup=0)
+    batch_ms = [cuda_ms(search, reps=1, warmup=0) for _ in range(AB_BATCHES)]
     torch.cuda.synchronize()
-    k5_ms = sum(s.elapsed_time(e) for s, e in events) / 3
-    print(json.dumps({"module": ps.__file__, "search_ms": search_ms,
-                      "k5_ms": k5_ms, "k5_launches": len(events) / 3}),
-          flush=True)
+    kernel_ms = sum(s.elapsed_time(e) for s, e in events) / AB_BATCHES
+    search_ms = sorted(batch_ms)[AB_BATCHES // 2]
+    print(json.dumps({"module": mod.__file__, "search_ms": search_ms,
+                      "qps": qs.shape[0] / search_ms * 1e3,
+                      "batch_ms": batch_ms, "kernel_ms": kernel_ms,
+                      "launches": len(events) / AB_BATCHES}), flush=True)
     return 0
 
 
@@ -4071,11 +4630,11 @@ def main() -> int:
                     help="time K6 built from these kernel source trees "
                          "against each other at synthetic hops of the "
                          "bench's fused rungs, then stop")
-    ap.add_argument("--lut-child", nargs=6, help=argparse.SUPPRESS)
+    ap.add_argument("--search-child", nargs=7, help=argparse.SUPPRESS)
     ap.add_argument("--cagra-child", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.lut_child:
-        return lut_child(*args.lut_child)
+    if args.search_child:
+        return search_child(*args.search_child)
     if args.cagra_child:
         return cagra_child(*args.cagra_child)
     if args.k1_variants:
@@ -4100,6 +4659,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
+    health_phase()
 
     t = time.perf_counter()
     built = _native.build()
@@ -4180,17 +4740,19 @@ def main() -> int:
         def brute():
             brute_metrics_phase(shared)
 
-        def cagra():       # last: its index holds 4.2 GB of codes
+        def cagra():       # its index holds 4.2 GB of codes
             result, k1_err = cagra_phase(shared)
             fold(k6, result)
             k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
-        for name, path in (("main", ivf_pq), ("bq", ivf_bq),
+        for name, path in (("kmeans", lambda: kmeans_phase(shared)),
+                           ("main", ivf_pq), ("bq", ivf_bq),
                            ("bq.streaming", bq_streaming),
                            ("flat", ivf_flat), ("serve", serve),
                            ("serve.pq", serve_pq), ("serve.bq", serve_bq),
                            ("lut", lut), ("cache", cache), ("brute", brute),
-                           ("cagra", cagra)):
+                           ("cagra", cagra), ("obs", obs_phase),
+                           ("faults", lambda: faults_phase(shared))):
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})

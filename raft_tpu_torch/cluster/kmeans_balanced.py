@@ -18,8 +18,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
+from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.ops.distance import fused_l2_nn_argmin, matmul_t
+from raft_tpu_torch.resilience import faultpoint
 
 
 @dataclass(frozen=True)
@@ -52,7 +56,7 @@ def _assign(X: torch.Tensor, centers: torch.Tensor, metric: str,
         ip = matmul_t(X, centers)
         best, labels = torch.max(ip, dim=1)
         return -best, labels
-    return fused_l2_nn_argmin(X, centers, workspace_bytes)
+    return fused_l2_nn_argmin(X, centers, workspace_bytes=workspace_bytes)
 
 
 def calc_centers_and_sizes(X: torch.Tensor, labels: torch.Tensor,
@@ -127,12 +131,24 @@ def _fit_full(X, n_clusters: int, params: KMeansBalancedParams,
         raise ValueError(f"n_clusters={n_clusters} > n_samples={n}")
     g_init, g_adjust = seeded_generators(params.seed, 2, X.device)
     rows = torch.randint(0, n, (n_clusters,), generator=g_init, device=X.device)
-    return _balanced_em(X, X[rows].clone(), g_adjust, int(n_clusters),
-                        int(params.n_iters), params.metric,
-                        float(params.balancing_threshold),
-                        int(res.workspace_bytes))
+    em_attrs = None
+    if obs.enabled():
+        obs.add("kmeans_balanced.fits", 1)
+        obs.add("kmeans_balanced.rows", n)
+        # configured, not executed: the balancing loop may run up to 5× this
+        obs.add("kmeans_balanced.iterations_configured", int(params.n_iters))
+        em_attrs = {"rows": int(n), "clusters": int(n_clusters),
+                    "iters_configured": int(params.n_iters)}
+    check_interrupt()
+    faultpoint("kmeans_balanced.fit.em")
+    with obs.record_span("kmeans_balanced::em", attrs=em_attrs):
+        return _balanced_em(X, X[rows].clone(), g_adjust, int(n_clusters),
+                            int(params.n_iters), params.metric,
+                            float(params.balancing_threshold),
+                            int(res.workspace_bytes))
 
 
+@traced("kmeans_balanced::fit")
 def fit(X, n_clusters: int,
         params: KMeansBalancedParams = KMeansBalancedParams(),
         res: Optional[Resources] = None,
@@ -142,6 +158,7 @@ def fit(X, n_clusters: int,
     return centers
 
 
+@traced("kmeans_balanced::fit_predict")
 def fit_predict(X, n_clusters: int,
                 params: KMeansBalancedParams = KMeansBalancedParams(),
                 res: Optional[Resources] = None,

@@ -18,6 +18,8 @@ port's fp32 products stay full fp32.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -31,7 +33,8 @@ DeviceLike = Union[str, torch.device]
 
 @dataclass
 class Resources:
-    """Execution context for raft_tpu_torch calls.
+    """Execution context for raft_tpu_torch calls. Entry points take
+    ``res=None`` and fall back to :func:`current_resources`.
 
     Attributes:
       device: where entry points run; ``"cuda"`` by default.
@@ -47,10 +50,11 @@ class Resources:
 def resolve_device(device: Optional[DeviceLike] = None,
                    res: Optional[Resources] = None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else
-    ``res.device``, else ``cuda``. Raises ``RuntimeError`` when that is a
+    ``res.device``, else the scoped :func:`current_resources` (``cuda``
+    unless a :func:`use_resources` scope says otherwise). Raises ``RuntimeError`` when that is a
     CUDA device and no card is present."""
     if device is None:
-        device = res.device if res is not None else "cuda"
+        device = (res if res is not None else current_resources()).device
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -66,6 +70,32 @@ def resolve_device(device: Optional[DeviceLike] = None,
 def resources_for(device: Optional[DeviceLike] = None,
                   res: Optional[Resources] = None) -> Resources:
     """``res`` with its device resolved (and overridden by ``device``)."""
-    res = res or Resources()
+    res = res or current_resources()
     return Resources(resolve_device(device, res), res.workspace_bytes,
                      res.compute_dtype)
+
+
+_tls = threading.local()
+
+
+def current_resources() -> Resources:
+    """The innermost :func:`use_resources` scope of this thread, else a
+    fresh default :class:`Resources` (``cuda``)."""
+    stack = getattr(_tls, "stack", None)
+    if stack:
+        return stack[-1]
+    return Resources()
+
+
+@contextlib.contextmanager
+def use_resources(res: Resources):
+    """Scope ``res`` as the current context within the ``with`` block (per
+    thread)."""
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    stack.append(res)
+    try:
+        yield res
+    finally:
+        stack.pop()

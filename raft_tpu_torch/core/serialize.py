@@ -11,8 +11,10 @@ the JAX package can be searched by the port and back::
 
 Arrays may be numpy arrays or tensors (written from host memory); loads
 return numpy arrays, which callers move to their device. Path saves are
-atomic (temp file, fsync, rename). Version-1 files (no lengths or CRCs)
-still load.
+atomic (``core/fsio.atomic_write``: temp file, fsync, rename). Version-1
+files (no lengths or CRCs) still load. The ``serialize.save.write``
+faultpoint sits mid-write (after the header, before the arrays) and
+``serialize.load.read`` before every read.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import io
 import json
 import os
 import struct
-import tempfile
 import zlib
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from raft_tpu_torch.core.fsio import atomic_write
+from raft_tpu_torch.resilience import faultpoint
 
 _MAGIC = b"RAFTTPU\x00"
 _VERSION = 2
@@ -67,22 +71,6 @@ class _CrcSink(io.RawIOBase):
         return len(b)
 
 
-def _atomic_write_path(path, write_to) -> None:
-    path = os.fspath(path)
-    d = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(prefix=".tmp-", dir=d)
-    try:
-        with os.fdopen(fd, "wb") as f:
-            write_to(f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-
-
 def save_arrays(path_or_stream, meta: Mapping[str, Any],
                 arrays: Mapping[str, Any]) -> None:
     """Save a JSON-meta + named-array container. Lengths and CRCs precede
@@ -105,11 +93,14 @@ def save_arrays(path_or_stream, meta: Mapping[str, Any],
         stream.write(struct.pack("<I", _VERSION))
         stream.write(struct.pack("<Q", len(blob_meta)))
         stream.write(blob_meta)
+        # mid-write injection site: a fatal here leaves the target whole
+        faultpoint("serialize.save.write")
         for name in meta["arrays"]:
             serialize_array(stream, host[name])
 
     if isinstance(path_or_stream, (str, bytes, os.PathLike)):
-        _atomic_write_path(path_or_stream, write_to)
+        with atomic_write(path_or_stream) as stream:
+            write_to(stream)
     else:
         write_to(path_or_stream)
 
@@ -141,6 +132,7 @@ def _load_v2(stream, meta) -> Dict[str, np.ndarray]:
 
 def load_arrays(path_or_stream) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
     """Load a container written by either package's ``save_arrays``."""
+    faultpoint("serialize.load.read")
     own = isinstance(path_or_stream, (str, bytes, os.PathLike))
     stream = open(path_or_stream, "rb") if own else path_or_stream
     try:

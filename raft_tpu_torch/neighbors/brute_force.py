@@ -9,6 +9,12 @@ metrics or one broadcast block for the elementwise ones, its k best by a
 stable sort, and a stable merge with the running result, so ties go to the
 lowest row id as in the JAX package. ``filter`` excludes rows by id. This
 is the ground truth of the port, filtered recall's too.
+
+The tile size is OOM-adaptive, as in the JAX package: a search whose
+tile's blocks do not fit on the card (``torch.cuda.OutOfMemoryError``)
+runs again at half the tile, down to a floor
+(``resilience.degrade_on_oom``); the tile only partitions the scan, so
+every size gives the same result.
 """
 
 from __future__ import annotations
@@ -18,8 +24,13 @@ from typing import Optional
 
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.ops import distance as dist
+from raft_tpu_torch.ops.select_k import select_k
+from raft_tpu_torch.resilience import degrade_on_oom, faultpoint
+from raft_tpu_torch.utils.tiling import ceil_div
 
 # metrics where larger is better (the search keeps the largest)
 _MAX_METRICS = frozenset({"inner_product"})
@@ -42,6 +53,7 @@ class BruteForceIndex:
         return self.dataset.shape[1]
 
 
+@traced("brute_force::build")
 def build(dataset, metric: str = "sqeuclidean", metric_arg: float = 2.0,
           res: Optional[Resources] = None,
           device: Optional[DeviceLike] = None) -> BruteForceIndex:
@@ -71,15 +83,19 @@ def _tile_distances(queries, qn, tile, tile_norms, metric: str,
                              compute_dtype)
 
 
+@traced("brute_force::search")
 def search(index: BruteForceIndex, queries, k: int, filter=None,
-           tile_rows: Optional[int] = None,
+           tile_rows: Optional[int] = None, select_algo: str = "exact",
            res: Optional[Resources] = None,
            device: Optional[DeviceLike] = None):
     """Exact k-NN → (distances (q, k) fp32, indices (q, k) int32); the
     largest values for inner product, the smallest otherwise. ``filter``, a
     :class:`~raft_tpu_torch.core.bitset.Bitset` of ``index.size`` bits,
     excludes rows; ids are -1 (values ±inf) where fewer than k rows
-    pass."""
+    pass. ``select_algo`` picks each tile's select as the JAX package's
+    does (:func:`~raft_tpu_torch.ops.select_k.select_k`: "exact", "iter",
+    "approx" or "packed", the last over each tile's real columns); the
+    merge across tiles is exact."""
     res = resources_for(device, res)
     if index.dataset.device != res.device:
         raise ValueError(f"index lives on {index.dataset.device}, search "
@@ -93,8 +109,9 @@ def search(index: BruteForceIndex, queries, k: int, filter=None,
     if filter is not None and filter.n_bits != n:
         raise ValueError(f"filter covers {filter.n_bits} bits but index has "
                          f"{n} rows")
-    metric = index.metric
-    expanded = metric in dist.EXPANDED_METRICS
+    if select_algo not in ("exact", "iter", "approx", "packed"):
+        raise ValueError(f"unknown select_algo {select_algo!r}")
+    expanded = index.metric in dist.EXPANDED_METRICS
     if tile_rows is None:
         # the (q, tile) distance block, its sorted copy and int64 order;
         # an elementwise metric also broadcasts a (q, tile, dim) block
@@ -102,6 +119,30 @@ def search(index: BruteForceIndex, queries, k: int, filter=None,
                                             else q * index.dim * 4)
         tile_rows = int(min(n, max(k, res.workspace_bytes // max(1, per_col))))
     tile_rows = max(min(int(tile_rows), n), k)
+    if obs.enabled():
+        obs.add("brute_force.search.queries", q)
+        obs.add("brute_force.search.rows_scanned", q * n)
+        obs.add("brute_force.search.tiles", ceil_div(n, tile_rows))
+
+    def attempt(tr):
+        faultpoint("brute_force.search")
+        return _search_tiles(index, queries, int(k), filter, int(tr),
+                             select_algo, res)
+
+    # the tile only partitions the scan (any size >= k is exact), so an
+    # OOM retries at half the tile down to the floor
+    floor = min(tile_rows, max(min(n, int(k)), 128))
+    return degrade_on_oom(attempt, tile_rows, floor=floor,
+                          site="brute_force.search")
+
+
+def _search_tiles(index: BruteForceIndex, queries, k: int, filter,
+                  tile_rows: int, select_algo: str, res: Resources):
+    """The scan at one tile size: each tile's k best by ``select_algo``,
+    merged with the running result by a stable sort."""
+    n = index.size
+    metric = index.metric
+    expanded = metric in dist.EXPANDED_METRICS
     select_min = metric not in _MAX_METRICS
     norms = index.norms
     if metric in _NORM_METRICS and norms is None:
@@ -120,8 +161,8 @@ def search(index: BruteForceIndex, queries, k: int, filter=None,
             ids = torch.arange(s, s + tile.shape[0], device=res.device)
             key = torch.where(filter.test(ids)[None, :], key, inf)
         kk = min(k, key.shape[1])
-        v, i = torch.sort(key, dim=1, stable=True)
-        v, i = v[:, :kk], i[:, :kk] + s
+        v, i = select_k(key, kk, algo=select_algo)
+        i = i.to(torch.int64) + s
         if best_v is not None:
             v, order = torch.sort(torch.cat([best_v, v], 1), dim=1, stable=True)
             i = torch.gather(torch.cat([best_i, i], 1), 1, order)
@@ -131,6 +172,7 @@ def search(index: BruteForceIndex, queries, k: int, filter=None,
     return (best_v if select_min else -best_v), best_i.to(torch.int32)
 
 
+@traced("brute_force::knn")
 def knn(queries, dataset, k: int, metric: str = "sqeuclidean",
         metric_arg: float = 2.0, res: Optional[Resources] = None,
         device: Optional[DeviceLike] = None):

@@ -44,6 +44,18 @@ route) and masks the buffer at the finish: before the output top-k of the
 exact loop and in the exit re-rank of the compressed and fused ones, as
 the JAX package does.
 
+Telemetry and fault injection are the JAX package's: ``cagra::build``
+(``cagra.build`` faultpoint first, ``check_interrupt`` before every block
+of the kNN-graph and refine sweeps, ``cagra.build.nodes`` and one
+``cagra.build.<phase>`` timer a phase), ``cagra::search`` (``cagra.search``
+faultpoint, ``check_interrupt`` before every query tile,
+``cagra.search.*`` counters) and, on the fused traversal, one
+``cagra::hop`` span a chunk of hops behind the ``cagra.search.hop``
+faultpoint. The JAX package falls back to its unfused traversal when a
+fused hop fails; the port does not: a failed K6 launch, or a fault at the
+hop site, surfaces classified and the search does not carry on without
+the kernel.
+
 Not in this slice (each raises ``NotImplementedError``):
 ``build_algo="nn_descent"``, the hnsw export and the distributed search.
 """
@@ -57,9 +69,12 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
 from raft_tpu_torch.ops.cagra_hop import (fused_hop, hop_shape_error,
                                           occupancy_stats)
@@ -68,6 +83,7 @@ from raft_tpu_torch.ops.linalg import eig_dc
 from raft_tpu_torch.ops.segment import (lexsort2, merge_topk_dedup,
                                         segment_take)
 from raft_tpu_torch.ops.select_k import iter_topk_min, iter_topk_min_packed
+from raft_tpu_torch.resilience import faultpoint
 from raft_tpu_torch.stats.summary import cov
 
 _LATER = "arrives with a later slice of the PyTorch port"
@@ -350,6 +366,7 @@ def _build_knn_ivf_pq(X: torch.Tensor, ideg: int, params: CagraParams,
         B = int(max(4096, min(n, res.workspace_bytes
                               // max(kf * (dim + 8) * 4, 1))))
         for s in range(0, n, B):
+            check_interrupt()
             _, ids = ivf_flat.search(idx, X[s:s + B], kf, n_probes=n_probes,
                                      backend="ragged", res=res)
             out.append(_drop_self(ids, s, ideg))
@@ -362,6 +379,7 @@ def _build_knn_ivf_pq(X: torch.Tensor, ideg: int, params: CagraParams,
         B = int(max(4096, min(n, res.workspace_bytes
                               // max(kf * (dim + 8) * 4, 1))))
         for s in range(0, n, B):
+            check_interrupt()
             qb = X[s:s + B]
             _, cand = ivf_pq.search(idx, qb, kf, n_probes=n_probes, res=res)
             _, ids = refine.refine(X, qb, cand, min(ideg + 1, kf), res=res)
@@ -417,6 +435,7 @@ def refine_knn_graph(X: torch.Tensor, graph: torch.Tensor, iters: int,
     for _ in range(iters):
         parts = []
         for s in range(0, n, block):
+            check_interrupt()
             pick = torch.randint(0, ideg * ideg, (block, int(sample)),
                                  generator=gen, device=X.device)
             parts.append(_refine_graph_block(X, graph, s, pick)[:n - s])
@@ -424,6 +443,7 @@ def refine_knn_graph(X: torch.Tensor, graph: torch.Tensor, iters: int,
     return graph
 
 
+@traced("cagra::build")
 def build(dataset, params: CagraParams = CagraParams(),
           res: Optional[Resources] = None,
           device: Optional[DeviceLike] = None) -> CagraIndex:
@@ -436,6 +456,7 @@ def build(dataset, params: CagraParams = CagraParams(),
     if params.build_algo == "nn_descent":
         raise NotImplementedError(f"cagra build_algo='nn_descent' {_LATER} "
                                   "(neighbors/nn_descent.py)")
+    faultpoint("cagra.build")
     res = resources_for(device, res)
     dev = res.device
     data = torch.as_tensor(dataset).to(dev)
@@ -487,6 +508,10 @@ def build(dataset, params: CagraParams = CagraParams(),
         _sync(dev)
         timings["compress"] = time.perf_counter() - t0
     out.build_timings_s = timings
+    if obs.enabled():
+        obs.add("cagra.build.nodes", n)
+        for phase, secs in timings.items():
+            obs.record_timing(f"cagra.build.{phase}", secs)
     return out
 
 
@@ -505,7 +530,7 @@ def _attach_compression(index: CagraIndex, X: torch.Tensor,
         m = min(n, 262_144)
         rows = (torch.randint(0, n, (m,), generator=gen, device=dev)
                 if m < n else torch.arange(n, device=dev))
-        vals, vecs = eig_dc(cov(X[rows]))  # ascending
+        vals, vecs = eig_dc(cov(X[rows], sample=False))  # ascending
         proj = vecs.flip(1)[:, :p].contiguous()
         energy = torch.sum(vals[-p:]) / torch.clamp(torch.sum(vals),
                                                     min=1e-30)
@@ -547,6 +572,7 @@ def _attach_compression(index: CagraIndex, X: torch.Tensor,
                       proj_energy=energy)
 
 
+@traced("cagra::build_from_graph")
 def build_from_graph(dataset, graph, res: Optional[Resources] = None,
                      device: Optional[DeviceLike] = None) -> CagraIndex:
     """Wrap a prebuilt kNN graph (the interop path)."""
@@ -820,10 +846,15 @@ def _fused_init(index: CagraIndex, queries, gen, itopk: int, n_rand: int):
 def _fused_hop_chunk(index: CagraIndex, qp, state, width: int, hops: int):
     """``hops`` hops of the fused loop, each one :func:`fused_hop` that
     picks its own ``width`` parents (one launch of K6 on a card, and no
-    torch op beside it)."""
-    for _ in range(hops):
-        state = fused_hop(*state, None, qp, index.graph, index.nbr_codes,
-                          width=width)
+    torch op beside it), behind the ``cagra.search.hop`` faultpoint and in
+    one ``cagra::hop`` span."""
+    faultpoint("cagra.search.hop")
+    with obs.record_span("cagra::hop",
+                         attrs=({"hops": hops, "width": width}
+                                if obs.enabled() else None)):
+        for _ in range(hops):
+            state = fused_hop(*state, None, qp, index.graph, index.nbr_codes,
+                              width=width)
     return state
 
 
@@ -886,6 +917,7 @@ def _resolve_traversal(params: CagraSearchParams, has_payload: bool, k: int,
     return mode, rt
 
 
+@traced("cagra::search")
 def search(index: CagraIndex, queries, k: int,
            params: CagraSearchParams = CagraSearchParams(), filter=None,
            res: Optional[Resources] = None,
@@ -939,10 +971,17 @@ def search(index: CagraIndex, queries, k: int,
     n_tiles = -(-nq // q_tile)
     q_tile = -(-nq // n_tiles)
 
+    if obs.enabled():
+        obs.add("cagra.search.queries", nq)
+        obs.add("cagra.search.tiles", n_tiles)
+        obs.add("cagra.search.iterations", nq * max_iter)
+        obs.add(f"cagra.search.traversal.{mode}", 1)
+    faultpoint("cagra.search")
     (gen,) = kmeans_balanced.seeded_generators(params.seed, 1, dev)
     n_rand = int(max(1, params.num_random_samplings))
     outs, hops = [], []
     for s in range(0, nq, q_tile):
+        check_interrupt()
         qs = queries[s:s + q_tile]
         if qs.shape[0] < q_tile:
             qs = torch.nn.functional.pad(qs, (0, 0, 0, q_tile - qs.shape[0]))

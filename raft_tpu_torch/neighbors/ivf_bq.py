@@ -25,6 +25,19 @@ search and search_refined for all four metrics, bits 1–4 and both rotation
 kinds, :func:`reconstruct_rows`, and the paged search over a
 ``PagedListStore`` (kernel K4, :func:`search_paged`). ``filter`` is one
 more bias operand of K2 and K4 (+inf where a source id fails).
+
+Telemetry, fault injection and recovery are the JAX package's:
+``ivf_bq::build`` (phases ``coarse_train``, ``encode``, ``pack``),
+``ivf_bq::build_streaming`` (``coarse_train``, one ``encode_chunk`` span a
+chunk), ``ivf_bq::search`` → ``ivf_bq::scan``, ``ivf_bq::search_paged`` →
+``ivf_bq::paged_pallas``; ``ivf_bq.build.*`` and ``ivf_bq.search*``
+counters; the ``ivf_bq.build.encode_chunk``, ``ivf_bq.search.filter``,
+``.search.scan`` and ``.search_paged.scan`` faultpoints. Two of them
+recover from an OOM by re-running the same path smaller
+(``resilience.degrade_on_oom``): the streamed encode halves its sub-chunk
+(``ivf_bq.build.degraded_chunk``; rows are encoded independently, so the
+index is bit-identical) and the search halves its query tile
+(``ivf_bq.search.degraded_tile``).
 """
 
 from __future__ import annotations
@@ -37,18 +50,26 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.neighbors import _filtering, _packing, refine
-from raft_tpu_torch.neighbors.ivf_flat import (_finalize_ragged,
+from raft_tpu_torch.neighbors.ivf_flat import (_filter_plan,
+                                               _finalize_ragged,
                                                _paged_plan_static,
+                                               _paged_scan_span,
                                                _paged_search_args,
-                                               _ragged_plan_static)
+                                               _ragged_plan_static,
+                                               _scan_telemetry)
 from raft_tpu_torch.neighbors.ivf_pq import (_chunk_positions,
                                              _pq_probe_prep, _sync)
 from raft_tpu_torch.ops import bq_scan, linalg
 from raft_tpu_torch.ops.distance import canonical_metric, sqnorm
+from raft_tpu_torch.resilience import (degrade_on_oom, faultpoint,
+                                       record_event)
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
 PAGED_BACKENDS = ("auto", "paged", "paged_jnp")
@@ -271,6 +292,7 @@ def _encode_rows(work, labels, centers, rotation, metric: str, bits: int = 1,
     return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
 
+@traced("ivf_bq::build")
 def build(dataset, params: IvfBqParams = IvfBqParams(),
           res: Optional[Resources] = None,
           device: Optional[DeviceLike] = None) -> IvfBqIndex:
@@ -294,13 +316,19 @@ def build(dataset, params: IvfBqParams = IvfBqParams(),
         n_iters=params.kmeans_n_iters, metric=km_metric, seed=params.seed)
     g_train, g_rot = kmeans_balanced.seeded_generators(params.seed, 2, dev)
     n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
-    if n_train < n:
-        rows = torch.randint(0, n, (n_train,), generator=g_train, device=dev)
-        centers = kmeans_balanced.fit(work[rows], params.n_lists, km, res=res)
-        labels = kmeans_balanced.predict(work, centers, km, res=res)
-    else:
-        centers, labels = kmeans_balanced.fit_predict(work, params.n_lists, km,
-                                                      res=res)
+    with obs.record_span("ivf_bq::coarse_train"):
+        if n_train < n:
+            rows = torch.randint(0, n, (n_train,), generator=g_train,
+                                 device=dev)
+            centers = kmeans_balanced.fit(work[rows], params.n_lists, km,
+                                          res=res)
+            labels = kmeans_balanced.predict(work, centers, km, res=res)
+        else:
+            centers, labels = kmeans_balanced.fit_predict(
+                work, params.n_lists, km, res=res)
+    if obs.enabled():
+        obs.add("ivf_bq.build.rows", n)
+        obs.add("ivf_bq.build.lists", params.n_lists)
     cap = params.list_size_cap
     if cap < 0:
         cap = _packing.auto_list_cap(n, params.n_lists, _GROUP)
@@ -308,21 +336,27 @@ def build(dataset, params: IvfBqParams = IvfBqParams(),
         labels = _packing.spill_to_cap(work, centers, labels, km_metric, cap)
 
     rotation = _make_rotation(g_rot, rot_dim, params.rotation_kind, dev)
-    codes, scale, bias = _encode_rows(work, labels, centers, rotation,
-                                      params.metric, params.bits,
-                                      params.rotation_kind)
-    row_ids = torch.arange(n, dtype=torch.int32, device=dev)
-    list_codes, list_ids = _packing.pack_lists(
-        codes, row_ids, labels, params.n_lists, _GROUP, pow2_chunks=True)
-    aux, _ = _packing.pack_lists(torch.stack([scale, bias], dim=1), row_ids,
-                                 labels, params.n_lists, _GROUP,
-                                 pow2_chunks=True)
+    enc_attrs = ({"rows": int(n), "bits": int(params.bits),
+                  "rotation_kind": params.rotation_kind}
+                 if obs.enabled() else None)
+    with obs.record_span("ivf_bq::encode", attrs=enc_attrs):
+        codes, scale, bias = _encode_rows(work, labels, centers, rotation,
+                                          params.metric, params.bits,
+                                          params.rotation_kind)
+    with obs.record_span("ivf_bq::pack"):
+        row_ids = torch.arange(n, dtype=torch.int32, device=dev)
+        list_codes, list_ids = _packing.pack_lists(
+            codes, row_ids, labels, params.n_lists, _GROUP, pow2_chunks=True)
+        aux, _ = _packing.pack_lists(torch.stack([scale, bias], dim=1),
+                                     row_ids, labels, params.n_lists, _GROUP,
+                                     pow2_chunks=True)
     list_bias = torch.where(list_ids >= 0, aux[:, :, 1], float("inf"))
     return IvfBqIndex(centers, rotation, list_codes, list_ids,
                       aux[:, :, 0].contiguous(), list_bias.contiguous(),
                       params.metric, params.bits, params.rotation_kind)
 
 
+@traced("ivf_bq::extend")
 def extend(index: IvfBqIndex, new_vectors, new_ids=None,
            res: Optional[Resources] = None,
            device: Optional[DeviceLike] = None) -> IvfBqIndex:
@@ -396,6 +430,34 @@ def _scatter_chunk_bq(list_codes, list_ids, list_scale, list_bias, codes,
     list_bias[lst, pos] = bias[order]
 
 
+def _encode_chunk_degradable(rows, labels, centers, rotation, metric: str,
+                             bits: int, rotation_kind: str, sub: int,
+                             floor: int = 4096):
+    """One streamed chunk through :func:`_encode_rows` in sub-chunks of
+    ``sub`` rows, behind the ``ivf_bq.build.encode_chunk`` faultpoint. An
+    OOM-classified failure re-encodes the chunk at half the sub-chunk, down
+    to ``floor`` (``resilience.degrade_on_oom``), counting
+    ``ivf_bq.build.degraded_chunk``: rows are encoded independently, so the
+    result is bit-identical, only the launch count grows."""
+    m = rows.shape[0]
+    # small chunks still get one halving before the floor bites
+    floor = max(64, min(floor, m // 2))
+    first = min(int(sub), m)
+
+    def attempt(size):
+        if size < first:
+            obs.add("ivf_bq.build.degraded_chunk")
+            record_event("degraded_chunk", site="ivf_bq.build.encode_chunk",
+                         chunk_rows=size)
+        faultpoint("ivf_bq.build.encode_chunk")
+        return _encode_rows(rows, labels, centers, rotation, metric, bits,
+                            rotation_kind, chunk=size)
+
+    return degrade_on_oom(attempt, first, floor=min(first, floor),
+                          site="ivf_bq.build.encode_chunk")
+
+
+@traced("ivf_bq::build_streaming")
 def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
                     params: IvfBqParams = IvfBqParams(),
                     res: Optional[Resources] = None,
@@ -413,10 +475,11 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
       assign_top2`, :func:`_packing.divert_to_cap`), and a row whose
       second choice is full too is dropped and counted
       (``index._streaming_dropped``);
-    * pass 2 encodes each chunk (:func:`_encode_rows`, in sub-chunks whose
-      (rows, rot_dim) fp32 temporaries fit ``res.workspace_bytes``) and
-      writes it at precomputed per-list offsets into the preallocated
-      lists (:func:`_scatter_chunk_bq`), in place.
+    * pass 2 encodes each chunk (:func:`_encode_chunk_degradable`, in
+      sub-chunks whose (rows, rot_dim) fp32 temporaries fit
+      ``res.workspace_bytes``, halved on an OOM) and writes it at
+      precomputed per-list offsets into the preallocated lists
+      (:func:`_scatter_chunk_bq`), in place.
 
     ``index.build_timings_s`` holds the seconds of training, pass 1 and
     pass 2. Cosine needs normalized chunks: normalize inside ``chunk_fn``
@@ -449,13 +512,20 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
     t_rows = int(train_rows) or int(min(2_000_000, max(
         n_lists * 32, n * params.kmeans_trainset_fraction)))
     t_rows = min(t_rows, n)
-    if t_rows >= n:
-        trainset = torch.cat([rows_of(s, min(s + chunk, n)) for s in starts])
-    else:
-        per = max(1, t_rows // len(starts))
-        trainset = torch.cat([rows_of(s, min(s + per, n)) for s in starts])
-    centers = kmeans_balanced.fit(trainset, n_lists, km, res=res)
-    del trainset
+    with obs.record_span("ivf_bq::coarse_train"):
+        if t_rows >= n:
+            trainset = torch.cat([rows_of(s, min(s + chunk, n))
+                                  for s in starts])
+        else:
+            per = max(1, t_rows // len(starts))
+            trainset = torch.cat([rows_of(s, min(s + per, n))
+                                  for s in starts])
+        centers = kmeans_balanced.fit(trainset, n_lists, km, res=res)
+        del trainset
+    if obs.enabled():
+        obs.add("ivf_bq.build.rows", n)
+        obs.add("ivf_bq.build.lists", params.n_lists)
+        obs.add("ivf_bq.build.streamed_chunks", len(starts))
     _sync(dev)
     t1 = time.perf_counter()
 
@@ -463,6 +533,7 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
     run = torch.zeros(n_lists, dtype=torch.int64, device=dev)
     counts, labels_chunks = [], []
     for s in starts:
+        check_interrupt()
         rows = rows_of(s, min(s + chunk, n))
         if cap:
             l1, l2_ = _packing.assign_top2(rows, centers, metric=km_metric)
@@ -497,14 +568,19 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
     list_scale = torch.zeros((n_lists, mls), device=dev)
     list_bias = torch.full((n_lists, mls), float("inf"), device=dev)
     for ci, s in enumerate(starts):
+        check_interrupt()
         labels = labels_chunks[ci]
-        codes, scale, bias = _encode_rows(
-            rows_of(s, min(s + chunk, n)),
-            labels.to(torch.int64).clamp(max=n_lists - 1), centers, rotation,
-            params.metric, params.bits, params.rotation_kind, chunk=sub)
-        _scatter_chunk_bq(list_codes, list_ids, list_scale, list_bias, codes,
-                          scale, bias, labels,
-                          torch.from_numpy(base_np[ci]).to(dev), s)
+        e = min(s + chunk, n)
+        with obs.record_span("ivf_bq::encode_chunk",
+                             attrs=({"rows": int(e - s), "chunk": ci}
+                                    if obs.enabled() else None)):
+            codes, scale, bias = _encode_chunk_degradable(
+                rows_of(s, e), labels.to(torch.int64).clamp(max=n_lists - 1),
+                centers, rotation, params.metric, params.bits,
+                params.rotation_kind, sub)
+            _scatter_chunk_bq(list_codes, list_ids, list_scale, list_bias,
+                              codes, scale, bias, labels,
+                              torch.from_numpy(base_np[ci]).to(dev), s)
     _sync(dev)
     t3 = time.perf_counter()
     return IvfBqIndex(centers, rotation, list_codes, list_ids, list_scale,
@@ -565,6 +641,7 @@ def _bq_fused(queries, index: IvfBqIndex, k: int, n_probes: int,
     return _finalize_ragged(vals, ids, queries, index.metric)
 
 
+@traced("ivf_bq::search")
 def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
            filter=None, select_algo: str = "exact",
            res: Optional[Resources] = None,
@@ -573,7 +650,10 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
     (q, k) int32). Distances are unbiased estimates, not exact: re-rank
     with :func:`search_refined` for the recall-gated configuration.
     ``filter``: a :class:`~raft_tpu_torch.core.bitset.Bitset` over source
-    ids; n_probes widens by its selectivity."""
+    ids; n_probes widens by its selectivity. An OOM-classified failure of
+    the scan runs it again at half the query tile, down to 64 rows
+    (``resilience.degrade_on_oom``; ``ivf_bq.search.degraded_tile``
+    counts each halving): the result is the same."""
     res = resources_for(device, res)
     if index.device != res.device:
         raise ValueError(f"index lives on {index.device}, search runs on "
@@ -582,7 +662,8 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
     if queries.ndim != 2 or queries.shape[1] != index.dim:
         raise ValueError(f"queries must be (q, {index.dim}), got {tuple(queries.shape)}")
     n_probes = int(min(n_probes, index.n_lists))
-    n_probes = _filtering.widen_plan(filter, n_probes, index.n_lists)[0]
+    n_probes, filter_attrs = _filter_plan("ivf_bq.search.filter", filter,
+                                          n_probes, index.n_lists)
     if not 0 < k <= min(n_probes * index.max_list_size, 512):
         raise ValueError(
             f"k={k} out of range (1..min(n_probes·max_list_size, 512)) for "
@@ -594,11 +675,29 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
     # plan at the scan's real row width: bits·rot_dim unpacked columns
     classes, class_counts, cls_ord, q_tile = _ragged_plan_static(
         index, n_probes, k, res, index.rot_dim * index.bits)
-    return _bq_fused(queries, index, int(k), n_probes, select_algo, l2,
-                     classes, class_counts, cls_ord,
-                     min(q_tile, queries.shape[0]), filter)
+    q_tile = min(q_tile, queries.shape[0])
+    scan_attrs = None
+    if obs.enabled():
+        q = int(queries.shape[0])
+        # the JAX package's names: "packed" is the kernel (K2 here),
+        # "reference" its plain twin (CPU tensors)
+        scan_attrs = _scan_telemetry(
+            "ivf_bq.search", "packed" if queries.is_cuda else "reference", q,
+            n_probes, k, filter_attrs)
+
+    def attempt(qt):
+        if qt < q_tile:
+            obs.add("ivf_bq.search.degraded_tile")
+        faultpoint("ivf_bq.search.scan")
+        with obs.record_span("ivf_bq::scan", attrs=scan_attrs):
+            return _bq_fused(queries, index, int(k), n_probes, select_algo,
+                             l2, classes, class_counts, cls_ord, qt, filter)
+
+    return degrade_on_oom(attempt, q_tile, floor=min(q_tile, 64),
+                          site="ivf_bq.search.scan")
 
 
+@traced("ivf_bq::search_refined")
 def search_refined(index: IvfBqIndex, dataset, queries, k: int,
                    n_probes: int = 20, refine_ratio: int = 4, filter=None,
                    res: Optional[Resources] = None,
@@ -644,6 +743,7 @@ def _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
     return _finalize_ragged(vals, ids, queries, store.metric)
 
 
+@traced("ivf_bq::search_paged")
 def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
                  select_algo: str = "exact", backend: str = "auto",
                  res: Optional[Resources] = None,
@@ -656,9 +756,10 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
     "paged_jnp" (K4's plain twin on any device, only when named).
     ``filter`` (else the store's standing one) is an +inf bias lane.
     Re-rank with :func:`raft_tpu_torch.neighbors.refine.refine`."""
-    res, n_probes, queries, filter, backend = _paged_search_args(
-        store, "ivf_bq", queries, k, n_probes, filter, backend, res, device,
-        k_cap=512, backends=PAGED_BACKENDS)
+    res, n_probes, queries, filter, backend, filter_attrs = \
+        _paged_search_args(store, "ivf_bq", queries, k, n_probes, filter,
+                           backend, res, device, k_cap=512,
+                           backends=PAGED_BACKENDS)
     codes_pool, bias_pool, scale_pool, page_ids, table, chain_pages = \
         store.paged_scan_state()
     bias_pool = _filtering.apply_filter_bias(bias_pool, page_ids, filter)
@@ -666,9 +767,11 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
     q_tile = min(_paged_plan_static(store, n_probes, k, res,
                                     rot_dim * store.bq_bits),
                  queries.shape[0])
-    return _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
-                           page_ids, table, chain_pages, int(k), n_probes,
-                           select_algo, q_tile,
-                           bq_scan._paged_bq_class_plain
-                           if backend == "paged_jnp"
-                           else bq_scan.paged_bq_class)
+    with _paged_scan_span(store, backend, int(queries.shape[0]), n_probes, k,
+                          filter_attrs):
+        return _paged_fused_bq(queries, store, codes_pool, scale_pool,
+                               bias_pool, page_ids, table, chain_pages,
+                               int(k), n_probes, select_algo, q_tile,
+                               bq_scan._paged_bq_class_plain
+                               if backend == "paged_jnp"
+                               else bq_scan.paged_bq_class)

@@ -25,6 +25,13 @@ is one more bias operand on the strip paths (+inf where an id fails,
 :mod:`raft_tpu_torch.neighbors._filtering`) and a validity mask on the
 gather paths; n_probes widens by the filter's selectivity. :func:`extend`
 assigns new rows to the fixed centers and repacks.
+
+Telemetry and fault injection are the JAX package's: ``ivf_flat::build``
+(phases ``coarse_train``, ``pack``), ``ivf_flat::search`` →
+``ivf_flat::scan`` and ``ivf_flat::search_paged`` → ``paged_pallas`` (K3)
+or ``paged_scan`` (gather) spans; ``ivf_flat.search.*`` /
+``ivf_flat.search_paged.*`` counters; the ``ivf_flat.search.filter``,
+``.search.scan`` and ``.search_paged.scan`` faultpoints.
 """
 
 from __future__ import annotations
@@ -36,15 +43,18 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.neighbors import _filtering, _packing
 from raft_tpu_torch.ops import strip_scan as ss
 from raft_tpu_torch.ops.distance import (canonical_metric,
                                          expanded_sqeuclidean, matmul_t,
                                          sqnorm)
 from raft_tpu_torch.ops.select_k import select_k
+from raft_tpu_torch.resilience import faultpoint
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
 BACKENDS = ("auto", "ragged", "gather")
@@ -180,6 +190,7 @@ def _pack_lists(dataset, row_ids, labels, n_lists: int, group: int = 0):
                                pow2_chunks=group == 512)
 
 
+@traced("ivf_flat::build")
 def build(dataset, params: IvfFlatParams = IvfFlatParams(),
           res: Optional[Resources] = None,
           device: Optional[DeviceLike] = None) -> IvfFlatIndex:
@@ -204,13 +215,19 @@ def build(dataset, params: IvfFlatParams = IvfFlatParams(),
         n_iters=params.kmeans_n_iters, metric=km_metric, seed=params.seed)
     (g_train,) = kmeans_balanced.seeded_generators(params.seed, 1, dev)
     n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
-    if n_train < n:
-        rows = torch.randint(0, n, (n_train,), generator=g_train, device=dev)
-        centers = kmeans_balanced.fit(work[rows], params.n_lists, km, res=res)
-        labels = kmeans_balanced.predict(work, centers, km, res=res)
-    else:
-        centers, labels = kmeans_balanced.fit_predict(work, params.n_lists, km,
-                                                      res=res)
+    with obs.record_span("ivf_flat::coarse_train"):
+        if n_train < n:
+            rows = torch.randint(0, n, (n_train,), generator=g_train,
+                                 device=dev)
+            centers = kmeans_balanced.fit(work[rows], params.n_lists, km,
+                                          res=res)
+            labels = kmeans_balanced.predict(work, centers, km, res=res)
+        else:
+            centers, labels = kmeans_balanced.fit_predict(
+                work, params.n_lists, km, res=res)
+    if obs.enabled():
+        obs.add("ivf_flat.build.rows", n)
+        obs.add("ivf_flat.build.lists", params.n_lists)
     group = params.group_size or _packing.auto_group_size(n, params.n_lists)
     cap = params.list_size_cap
     if cap < 0:
@@ -220,15 +237,17 @@ def build(dataset, params: IvfFlatParams = IvfFlatParams(),
     integer = not data.is_floating_point() and params.metric != "cosine"
     store = data if integer else work
     row_ids = torch.arange(n, dtype=torch.int32, device=dev)
-    list_data, list_ids = _pack_lists(store, row_ids, labels, params.n_lists,
-                                      group)
-    list_norms = None
-    if params.metric in ("sqeuclidean", "euclidean"):
-        list_norms = sqnorm(list_data, dim=2)
+    with obs.record_span("ivf_flat::pack"):
+        list_data, list_ids = _pack_lists(store, row_ids, labels,
+                                          params.n_lists, group)
+        list_norms = None
+        if params.metric in ("sqeuclidean", "euclidean"):
+            list_norms = sqnorm(list_data, dim=2)
     return IvfFlatIndex(centers, list_data, list_ids, list_norms,
                         params.metric, group)
 
 
+@traced("ivf_flat::extend")
 def extend(index: IvfFlatIndex, new_vectors, new_ids=None,
            res: Optional[Resources] = None,
            device: Optional[DeviceLike] = None) -> IvfFlatIndex:
@@ -517,6 +536,42 @@ def resolve_backend(backend: str, device_type: str, max_list_size: int,
     return backend
 
 
+def _scan_telemetry(prefix: str, backend: str, q: int, n_probes: int, k: int,
+                    filter_attrs: Optional[dict] = None,
+                    rows_scanned: Optional[int] = None, **extra) -> dict:
+    """Count one search under ``prefix`` (``<prefix>.queries``,
+    ``.probes``, ``.rows_scanned`` when given, ``.backend.<backend>``) and
+    return its scan span's attributes. Called only under
+    ``obs.enabled()``."""
+    obs.add(f"{prefix}.queries", q)
+    obs.add(f"{prefix}.probes", q * n_probes)
+    if rows_scanned is not None:
+        # padded upper bound on candidate rows visited (telemetry, not
+        # billing)
+        obs.add(f"{prefix}.rows_scanned", rows_scanned)
+    obs.add(f"{prefix}.backend.{backend}", 1)
+    attrs = {"backend": backend, "queries": q, "probes": int(n_probes),
+             "k": int(k), **extra}
+    if filter_attrs:
+        attrs.update(filter_attrs)
+    return attrs
+
+
+def _filter_plan(site: str, filter, n_probes: int, n_lists: int):
+    """A search's filter step → (n_probes, filter span attributes or
+    None): the ``site`` faultpoint and the selectivity widening, for a
+    filtered search; ``(n_probes, None)`` without a filter."""
+    if filter is None:
+        return n_probes, None
+    faultpoint(site)
+    n_probes, _, rate, widen = _filtering.widen_plan(filter, n_probes,
+                                                     n_lists)
+    return n_probes, {"filter_pass_rate": round(rate, 6),
+                      "filter_widen_x": round(widen, 4),
+                      "filter_n_probes": n_probes}
+
+
+@traced("ivf_flat::search")
 def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
            filter=None, select_algo: str = "exact", backend: str = "auto",
            res: Optional[Resources] = None,
@@ -534,7 +589,8 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
         raise ValueError(f"index lives on {index.device}, search runs on "
                          f"{res.device}; move it with index.to(device)")
     n_probes = int(min(n_probes, index.n_lists))
-    n_probes = _filtering.widen_plan(filter, n_probes, index.n_lists)[0]
+    n_probes, filter_attrs = _filter_plan("ivf_flat.search.filter", filter,
+                                          n_probes, index.n_lists)
     if not 0 < k <= n_probes * index.max_list_size:
         raise ValueError(
             f"k={k} out of range for n_probes={n_probes} x "
@@ -542,11 +598,19 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
     backend = resolve_backend(backend, res.device.type, index.max_list_size,
                               int(k))
     queries = _prep_queries(queries, index.dim, index.metric, res.device)
-    if backend == "gather":
-        return _search_gather(index, queries, int(k), n_probes, select_algo,
+    scan_attrs = None
+    if obs.enabled():
+        q = int(queries.shape[0])
+        scan_attrs = _scan_telemetry(
+            "ivf_flat.search", backend, q, n_probes, k, filter_attrs,
+            rows_scanned=q * n_probes * index.max_list_size)
+    faultpoint("ivf_flat.search.scan")
+    with obs.record_span("ivf_flat::scan", attrs=scan_attrs):
+        if backend == "gather":
+            return _search_gather(index, queries, int(k), n_probes,
+                                  select_algo, res, filter)
+        return _search_ragged(index, queries, int(k), n_probes, select_algo,
                               res, filter)
-    return _search_ragged(index, queries, int(k), n_probes, select_algo, res,
-                          filter)
 
 
 # ---------------------------------------------------------------------------
@@ -624,9 +688,10 @@ def _paged_search_args(store, kind: str, queries, k: int, n_probes: int,
                        filter, backend: str, res, device, k_cap=None,
                        backends=PAGED_BACKENDS):
     """What every family's ``search_paged`` settles first → (resources,
-    n_probes, queries, filter, backend). A call without ``filter`` takes
-    the store's standing one (:meth:`PagedListStore.set_filter`); either
-    widens n_probes. ``k_cap`` bounds k further (IVF-BQ: 512);
+    n_probes, queries, filter, backend, filter span attributes). A call
+    without ``filter`` takes the store's standing one
+    (:meth:`PagedListStore.set_filter`); either widens n_probes, past the
+    ``<kind>.search.filter`` faultpoint. ``k_cap`` bounds k further (IVF-BQ: 512);
     ``backends`` are the kind's names, ``"auto"`` resolving by
     :func:`paged_backend_auto`."""
     if store.kind != kind:
@@ -641,7 +706,8 @@ def _paged_search_args(store, kind: str, queries, k: int, n_probes: int,
     if filter is None:
         filter = store.filter
     n_probes = int(min(n_probes, store.n_lists))
-    n_probes = _filtering.widen_plan(filter, n_probes, store.n_lists)[0]
+    n_probes, filter_attrs = _filter_plan(f"{kind}.search.filter", filter,
+                                          n_probes, store.n_lists)
     limit = n_probes * store.table_width * store.page_rows
     if k_cap is not None:
         limit = min(limit, k_cap)
@@ -652,7 +718,25 @@ def _paged_search_args(store, kind: str, queries, k: int, n_probes: int,
     elif backend == "paged":
         check_paged_eligible(store, k)
     queries = _prep_queries(queries, store.dim, store.metric, res.device)
-    return res, n_probes, queries, filter, backend
+    return res, n_probes, queries, filter, backend, filter_attrs
+
+
+def _paged_scan_span(store, backend: str, q: int, n_probes: int, k: int,
+                     filter_attrs: Optional[dict]):
+    """The scan span of a paged search (``<kind>::paged_pallas`` for the
+    K3/K4 engine or its named twin, ``<kind>::paged_scan`` for the
+    gather), past the
+    ``<kind>.search_paged.scan`` faultpoint, with the
+    ``<kind>.search_paged.*`` counters when telemetry is on."""
+    kind = store.kind
+    attrs = None
+    if obs.enabled():
+        attrs = _scan_telemetry(f"{kind}.search_paged", backend, q, n_probes,
+                                k, filter_attrs,
+                                table_width=int(store.table_width))
+    faultpoint(f"{kind}.search_paged.scan")
+    name = "paged_scan" if backend == "gather" else "paged_pallas"
+    return obs.record_span(f"{kind}::{name}", attrs=attrs)
 
 
 def _page_gather(table, page_ids, payload, aux):
@@ -673,6 +757,7 @@ def _page_gather(table, page_ids, payload, aux):
     return gather
 
 
+@traced("ivf_flat::search_paged")
 def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
                  select_algo: str = "exact", backend: str = "auto",
                  res: Optional[Resources] = None,
@@ -684,21 +769,24 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
     "auto" (:func:`paged_backend_auto`). ``filter`` (else the store's
     standing one) masks source ids: an +inf bias lane for K3, a validity
     mask for the gather."""
-    res, n_probes, queries, filter, backend = _paged_search_args(
-        store, "ivf_flat", queries, k, n_probes, filter, backend, res, device)
-    if backend == "gather":
-        pages, page_ids, page_aux, table = store.scan_state()
-        l2 = store.metric in ("sqeuclidean", "euclidean")
-        return _gather_scan(
-            queries, store.centers, store.metric, int(k), n_probes,
-            select_algo, res, table.shape[1] * store.page_rows,
-            _page_gather(table, page_ids, pages, page_aux if l2 else None),
-            filter)
-    pages, bias_pool, _, page_ids, table, chain_pages = \
-        store.paged_scan_state()
-    bias_pool = _filtering.apply_filter_bias(bias_pool, page_ids, filter)
-    q_tile = min(_paged_plan_static(store, n_probes, k, res, store.dim),
-                 queries.shape[0])
-    return _paged_fused(queries, store.centers, pages, bias_pool, page_ids,
-                        table, chain_pages, int(k), n_probes, store.metric,
-                        select_algo, res, q_tile)
+    res, n_probes, queries, filter, backend, filter_attrs = \
+        _paged_search_args(store, "ivf_flat", queries, k, n_probes, filter,
+                           backend, res, device)
+    with _paged_scan_span(store, backend, int(queries.shape[0]), n_probes, k,
+                          filter_attrs):
+        if backend == "gather":
+            pages, page_ids, page_aux, table = store.scan_state()
+            l2 = store.metric in ("sqeuclidean", "euclidean")
+            return _gather_scan(
+                queries, store.centers, store.metric, int(k), n_probes,
+                select_algo, res, table.shape[1] * store.page_rows,
+                _page_gather(table, page_ids, pages,
+                             page_aux if l2 else None), filter)
+        pages, bias_pool, _, page_ids, table, chain_pages = \
+            store.paged_scan_state()
+        bias_pool = _filtering.apply_filter_bias(bias_pool, page_ids, filter)
+        q_tile = min(_paged_plan_static(store, n_probes, k, res, store.dim),
+                     queries.shape[0])
+        return _paged_fused(queries, store.centers, pages, bias_pool,
+                            page_ids, table, chain_pages, int(k), n_probes,
+                            store.metric, select_algo, res, q_tile)

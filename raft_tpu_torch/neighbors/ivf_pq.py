@@ -29,6 +29,15 @@ with the gather backend's lookup over the page table where K3's plan
 cannot feed k. ``filter`` rides every backend: an +inf bias lane for K1
 and K3, a mask on K5's scores before the select over p·m, a validity mask
 on the gather.
+
+Telemetry and fault injection are the JAX package's: ``ivf_pq::build``
+(phases ``coarse_train``, ``codebook_train``, ``encode`` → ``encode_tile``,
+``pack``), ``ivf_pq::build_streaming`` (``check_interrupt`` before every
+chunk), ``ivf_pq::search`` → ``ivf_pq::scan`` and
+``ivf_pq::search_paged`` → ``paged_pallas`` / ``paged_scan`` spans;
+``ivf_pq.build.*``, ``ivf_pq.search.*`` and ``ivf_pq.search_paged.*``
+counters; the ``ivf_pq.search.filter``, ``.search.scan`` and
+``.search_paged.scan`` faultpoints.
 """
 
 from __future__ import annotations
@@ -41,15 +50,21 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.neighbors import _filtering, _packing
-from raft_tpu_torch.neighbors.ivf_flat import (_finalize_ragged,
+from raft_tpu_torch.neighbors.ivf_flat import (_filter_plan,
+                                               _finalize_ragged,
                                                _page_gather,
                                                _paged_plan_static,
+                                               _paged_scan_span,
                                                _paged_search_args,
-                                               _ragged_plan_static)
+                                               _ragged_plan_static,
+                                               _scan_telemetry)
 from raft_tpu_torch.ops import pq_scan, strip_scan
 from raft_tpu_torch.ops.distance import (canonical_metric,
                                          expanded_sqeuclidean, matmul_t,
@@ -57,6 +72,7 @@ from raft_tpu_torch.ops.distance import (canonical_metric,
 from raft_tpu_torch.ops.linalg import (make_rotation_matrix, rotate_rows,
                                        unrotate_rows)
 from raft_tpu_torch.ops.select_k import select_k
+from raft_tpu_torch.resilience import faultpoint
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
 BACKENDS = ("auto", "ragged", "pallas", "gather")
@@ -482,6 +498,7 @@ def _compute_b_sum(centers, rotation, codebooks, list_codes, list_ids,
     return out + pad_inf
 
 
+@traced("ivf_pq::build")
 def build(dataset, params: IvfPqParams = IvfPqParams(),
           res: Optional[Resources] = None,
           device: Optional[DeviceLike] = None) -> IvfPqIndex:
@@ -512,30 +529,37 @@ def build(dataset, params: IvfPqParams = IvfPqParams(),
         n_iters=params.kmeans_n_iters, metric=km_metric, seed=params.seed)
     g_train, g_rot, g_cb = kmeans_balanced.seeded_generators(params.seed, 3, dev)
     n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
-    if n_train < n:
-        rows = torch.randint(0, n, (n_train,), generator=g_train, device=dev)
-        trainset = work[rows]
-        centers = kmeans_balanced.fit(trainset, params.n_lists, km, res=res)
-        labels = kmeans_balanced.predict(work, centers, km, res=res)
-    else:
-        trainset = work
-        centers, labels = kmeans_balanced.fit_predict(work, params.n_lists, km,
-                                                      res=res)
+    with obs.record_span("ivf_pq::coarse_train"):
+        if n_train < n:
+            rows = torch.randint(0, n, (n_train,), generator=g_train,
+                                 device=dev)
+            trainset = work[rows]
+            centers = kmeans_balanced.fit(trainset, params.n_lists, km,
+                                          res=res)
+            labels = kmeans_balanced.predict(work, centers, km, res=res)
+        else:
+            trainset = work
+            centers, labels = kmeans_balanced.fit_predict(
+                work, params.n_lists, km, res=res)
 
-    rotation = make_rotation_matrix(g_rot, rot_dim, dev)
-    train_labels = kmeans_balanced.predict(trainset, centers, km, res=res)
-    resid = rotate_rows(trainset - centers[train_labels], rotation)
-    cb_rows = min(resid.shape[0], 65536)
-    resid_cb = resid[:cb_rows].reshape(cb_rows, pq_dim, dsub)
     cluster = params.codebook_kind == "cluster"
-    if cluster:
-        codebooks = _train_codebooks_cluster(
-            resid_cb, train_labels[:cb_rows], g_cb, n_codes,
-            params.codebook_n_iters, params.n_lists)
-    else:
-        codebooks = _train_codebooks(resid_cb.transpose(0, 1).contiguous(),
-                                     g_cb, n_codes, params.codebook_n_iters,
-                                     res.workspace_bytes)
+    with obs.record_span("ivf_pq::codebook_train"):
+        rotation = make_rotation_matrix(g_rot, rot_dim, dev)
+        train_labels = kmeans_balanced.predict(trainset, centers, km, res=res)
+        resid = rotate_rows(trainset - centers[train_labels], rotation)
+        cb_rows = min(resid.shape[0], 65536)
+        resid_cb = resid[:cb_rows].reshape(cb_rows, pq_dim, dsub)
+        if cluster:
+            codebooks = _train_codebooks_cluster(
+                resid_cb, train_labels[:cb_rows], g_cb, n_codes,
+                params.codebook_n_iters, params.n_lists)
+        else:
+            codebooks = _train_codebooks(
+                resid_cb.transpose(0, 1).contiguous(), g_cb, n_codes,
+                params.codebook_n_iters, res.workspace_bytes)
+    if obs.enabled():
+        obs.add("ivf_pq.build.rows", n)
+        obs.add("ivf_pq.build.lists", params.n_lists)
 
     group = params.group_size or _packing.auto_group_size(n, params.n_lists,
                                                           floor=128)
@@ -546,19 +570,29 @@ def build(dataset, params: IvfPqParams = IvfPqParams(),
         labels = _packing.spill_to_cap(work, centers, labels, km_metric, cap)
 
     enc_chunk = int(max(65536, res.workspace_bytes // max(rot_dim * 16, 1)))
-    parts = []
-    for s in range(0, n, enc_chunk):
-        lch = labels[s:s + enc_chunk]
-        r = rotate_rows(work[s:s + enc_chunk] - centers[lch], rotation)
-        parts.append(pack_codes(_encode_rows(r.reshape(-1, pq_dim, dsub), lch,
-                                             codebooks, cluster),
-                                params.pq_bits))
-    codes = torch.cat(parts, 0)
-    row_ids = torch.arange(n, dtype=torch.int32, device=dev)
-    list_codes, list_ids = _packing.pack_lists(
-        codes, row_ids, labels, params.n_lists, group, pow2_chunks=group == 512)
-    b_sum = _compute_b_sum(centers, rotation, codebooks, list_codes, list_ids,
-                           params.metric, pq_dim, params.pq_bits, cluster)
+    enc_attrs = ({"rows": int(n), "chunk": enc_chunk}
+                 if obs.enabled() else None)
+    with obs.record_span("ivf_pq::encode", attrs=enc_attrs):
+        parts = []
+        for s in range(0, n, enc_chunk):
+            lch = labels[s:s + enc_chunk]
+            with obs.record_span("ivf_pq::encode_tile",
+                                 attrs=({"rows": int(lch.shape[0])}
+                                        if obs.enabled() else None)):
+                r = rotate_rows(work[s:s + enc_chunk] - centers[lch],
+                                rotation)
+                parts.append(pack_codes(_encode_rows(
+                    r.reshape(-1, pq_dim, dsub), lch, codebooks, cluster),
+                    params.pq_bits))
+        codes = torch.cat(parts, 0)
+    with obs.record_span("ivf_pq::pack"):
+        row_ids = torch.arange(n, dtype=torch.int32, device=dev)
+        list_codes, list_ids = _packing.pack_lists(
+            codes, row_ids, labels, params.n_lists, group,
+            pow2_chunks=group == 512)
+        b_sum = _compute_b_sum(centers, rotation, codebooks, list_codes,
+                               list_ids, params.metric, pq_dim,
+                               params.pq_bits, cluster)
     return IvfPqIndex(centers, rotation, codebooks, list_codes, list_ids,
                       b_sum, params.metric, params.pq_bits, group,
                       params.codebook_kind, pq_dim)
@@ -621,6 +655,7 @@ def _scatter_chunk_cache(cache, list_ids, b_sum, chunk, labels, base,
     b_sum[lst, pos] = b[order]
 
 
+@traced("ivf_pq::build_streaming")
 def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
                     params: IvfPqParams = IvfPqParams(),
                     res: Optional[Resources] = None,
@@ -719,6 +754,7 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
     counts = []
     labels_chunks = []
     for s in starts:
+        check_interrupt()
         rows = rows_of(s, min(s + chunk, n))
         if cap:
             l1, l2 = _packing.assign_top2(rows, centers, metric=km_metric)
@@ -754,6 +790,7 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
         rc_t = rotate_rows(centers, rotation)[:, :cd]
         scale = torch.clamp(codebooks.abs().max(), min=1e-30) / 127.0
         for ci, s in enumerate(starts):
+            check_interrupt()
             _scatter_chunk_cache(
                 decoded, list_ids, b_sum, rows_of(s, min(s + chunk, n)),
                 labels_chunks[ci], torch.from_numpy(base_np[ci]).to(dev), s,
@@ -768,6 +805,7 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
             (n_lists, mls, packed_width(pq_dim, params.pq_bits)),
             dtype=torch.uint8, device=dev)
         for ci, s in enumerate(starts):
+            check_interrupt()
             _scatter_chunk(
                 list_codes, list_ids, rows_of(s, min(s + chunk, n)),
                 labels_chunks[ci], torch.from_numpy(base_np[ci]).to(dev), s,
@@ -784,6 +822,7 @@ def build_streaming(chunk_fn: Callable[[int, int], Any], n: int, dim: int,
                          "encode": t3 - t2}, dropped)
 
 
+@traced("ivf_pq::extend")
 def extend(index: IvfPqIndex, new_vectors, new_ids=None,
            res: Optional[Resources] = None,
            device: Optional[DeviceLike] = None) -> IvfPqIndex:
@@ -1211,6 +1250,7 @@ def resolve_backend(backend: str, device_type: str, max_list_size: int,
     return backend
 
 
+@traced("ivf_pq::search")
 def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
            filter=None, select_algo: str = "exact", backend: str = "auto",
            res: Optional[Resources] = None,
@@ -1233,7 +1273,8 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
     if queries.ndim != 2 or queries.shape[1] != index.dim:
         raise ValueError(f"queries must be (q, {index.dim}), got {tuple(queries.shape)}")
     n_probes = int(min(n_probes, index.n_lists))
-    n_probes = _filtering.widen_plan(filter, n_probes, index.n_lists)[0]
+    n_probes, filter_attrs = _filter_plan("ivf_pq.search.filter", filter,
+                                          n_probes, index.n_lists)
     if not 0 < k <= n_probes * index.max_list_size:
         raise ValueError(f"k={k} out of range")
     backend = resolve_backend(backend, res.device.type, index.max_list_size,
@@ -1243,6 +1284,22 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
     if index.metric == "cosine":
         queries = queries / torch.clamp(
             torch.linalg.vector_norm(queries, dim=1, keepdim=True), min=1e-30)
+    scan_attrs = None
+    if obs.enabled():
+        q = int(queries.shape[0])
+        scan_attrs = _scan_telemetry(
+            "ivf_pq.search", backend, q, n_probes, k, filter_attrs,
+            rows_scanned=q * n_probes * index.max_list_size)
+    faultpoint("ivf_pq.search.scan")
+    with obs.record_span("ivf_pq::scan", attrs=scan_attrs):
+        return _search_backend(index, queries, int(k), n_probes, filter,
+                               select_algo, backend, res, stats)
+
+
+def _search_backend(index: IvfPqIndex, queries, k: int, n_probes: int,
+                    filter, select_algo: str, backend: str, res: Resources,
+                    stats: Optional[dict]):
+    """The scan of :func:`search` through the resolved backend."""
     if backend == "ragged":
         if not (strip_scan.strip_eligible(index.max_list_size) and k <= 512):
             raise ValueError(
@@ -1293,6 +1350,7 @@ def _paged_fused_pq(queries, store, cache_pool, bias_pool, page_ids, table,
     return _finalize_ragged(vals, ids, queries, store.metric)
 
 
+@traced("ivf_pq::search_paged")
 def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
                  select_algo: str = "exact", backend: str = "auto",
                  res: Optional[Resources] = None,
@@ -1304,8 +1362,18 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
     torch, any k) or "auto" (:func:`ivf_flat.paged_backend_auto`).
     ``filter`` (else the store's standing one) masks source ids. Re-rank
     with :func:`raft_tpu_torch.neighbors.refine.refine`."""
-    res, n_probes, queries, filter, backend = _paged_search_args(
-        store, "ivf_pq", queries, k, n_probes, filter, backend, res, device)
+    res, n_probes, queries, filter, backend, filter_attrs = \
+        _paged_search_args(store, "ivf_pq", queries, k, n_probes, filter,
+                           backend, res, device)
+    with _paged_scan_span(store, backend, int(queries.shape[0]), n_probes, k,
+                          filter_attrs):
+        return _search_paged_backend(store, queries, int(k), n_probes,
+                                     filter, select_algo, backend, res)
+
+
+def _search_paged_backend(store, queries, k: int, n_probes: int, filter,
+                          select_algo: str, backend: str, res: Resources):
+    """The scan of :func:`search_paged` through the resolved backend."""
     if backend == "gather":
         pages, page_ids, page_aux, table = store.scan_state()
         cols = table.shape[1] * store.page_rows

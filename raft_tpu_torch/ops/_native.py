@@ -12,6 +12,13 @@ loads at once.
 Every kernel wrapper owns a :class:`KernelCounter` and adds one to it where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernel.
+
+A source that does not build or a library that does not load raises
+:class:`NativeBuildError`, which ``resilience.classify`` holds FATAL
+whatever the compiler printed: no retry re-runs a kernel that failed to
+build. A launch that returns a CUDA error raises a ``RuntimeError`` with
+:func:`launch_message`'s text, which reads "out of memory" for
+``cudaErrorMemoryAllocation`` and so classifies OOM.
 """
 
 from __future__ import annotations
@@ -39,6 +46,27 @@ PTXAS_FLAGS = ("-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: cudaError_t codes a launch may return that the launch errors name
+_CUDA_ERRORS = {1: "cudaErrorInvalidValue",
+                2: "cudaErrorMemoryAllocation: out of memory",
+                98: "cudaErrorInvalidDeviceFunction",
+                209: "cudaErrorNoKernelImageForDevice"}
+
+
+class NativeBuildError(RuntimeError):
+    """A kernel source failed to build (nvcc missing or failing) or its
+    library failed to load."""
+
+
+def launch_message(kernel: str, rc: int) -> str:
+    """The text of the ``RuntimeError`` a wrapper raises when its launch
+    returned CUDA error ``rc``; it names the error
+    (``cudaErrorMemoryAllocation`` reads "out of memory", which classifies
+    OOM)."""
+    name = _CUDA_ERRORS.get(int(rc), "")
+    return (f"{kernel} kernel launch failed: CUDA error {rc}"
+            + (f" ({name})" if name else ""))
 
 
 @dataclass
@@ -90,7 +118,7 @@ def nvcc() -> str:
             return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+        raise NativeBuildError("nvcc not found: the CUDA kernels are built on the "
                            "machine with the card, from the CUDA toolkit")
     return found
 
@@ -120,9 +148,13 @@ def build() -> Optional[float]:
     procs = []
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs.append((src, out, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, *PTXAS_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        try:
+            proc = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, *PTXAS_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        except OSError as e:
+            raise NativeBuildError(f"nvcc did not start: {e}") from e
+        procs.append((src, out, tmp, proc))
     failed = []
     for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -133,7 +165,7 @@ def build() -> Optional[float]:
             out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise NativeBuildError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -182,8 +214,12 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             source = CSRC / f"{name}.cu"
             if not source.is_file():
-                raise FileNotFoundError(f"no kernel source {source}")
+                raise NativeBuildError(f"no kernel source {source}")
             if not library_path(source).exists():
                 build()
-            _loaded[name] = ctypes.CDLL(str(library_path(source)))
+            try:
+                _loaded[name] = ctypes.CDLL(str(library_path(source)))
+            except OSError as e:
+                raise NativeBuildError(
+                    f"kernel library {name} did not load: {e}") from e
         return _loaded[name]

@@ -183,7 +183,7 @@ def _bq_class_cuda(strip_list, a, list_codes, scale, bias, w_blocks: int,
             list_codes.shape[1], w, n_sub, kf, float(alpha),
             int(ss.tournament_engaged(kf, w, approx_ok)), stream)
     if rc != 0:
-        raise RuntimeError(f"bq_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(_native.launch_message("bq_scan", rc))
     BQ_KERNEL.launches += 1
     BQ_KERNEL.loop = _native.last_loop("bq_scan")
     return out_v, out_e
@@ -344,8 +344,7 @@ def _paged_bq_class_cuda(strip_list, table_flat, chain_pages, sub_live, a,
             out_e.data_ptr(), s_pad, c, codes.shape[2], page_rows,
             table_width, ppf, n_sub, kf, float(alpha), stream)
     if rc != 0:
-        raise RuntimeError(
-            f"paged_bq_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(_native.launch_message("paged_bq_scan", rc))
     PAGED_BQ_KERNEL.launches += 1
     PAGED_BQ_KERNEL.loop = _native.last_loop("paged_bq_scan")
     return out_v, out_e

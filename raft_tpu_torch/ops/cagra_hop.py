@@ -250,7 +250,7 @@ def _fused_hop_cuda(buf_ids, buf_d, buf_vis, parents, qp, graph, nbr_codes,
     else:
         rc = _kernel_fn()(*head, parents.data_ptr(), *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"cagra_hop kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(_native.launch_message("cagra_hop", rc))
     HOP_KERNEL.launches += 1
     return out_ids, out_d, out_vis
 

@@ -75,12 +75,14 @@ def expanded_sqeuclidean(x: torch.Tensor, y: torch.Tensor,
                        min=0.0)
 
 
-def fused_l2_nn_argmin(x: torch.Tensor, y: torch.Tensor,
+def fused_l2_nn_argmin(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False,
                        workspace_bytes: int = 1 << 30
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row nearest row of ``y`` under L2: (min d², int64 argmin), tiled
-    over ``x`` so that no (tile, n_y) fp32 block exceeds the workspace.
-    Ties go to the lowest index, as ``jnp.argmin``."""
+    """Per-row nearest row of ``y`` under L2: (min d², int64 argmin), or the
+    distance itself with ``sqrt``; tiled over ``x`` so that no (tile, n_y)
+    fp32 block exceeds the workspace. Ties go to the lowest index, as
+    ``jnp.argmin``. A plain gemm plus a row argmin: the JAX package computes
+    it outside any Pallas kernel too."""
     m = x.shape[0]
     n = y.shape[0]
     tm = max(1, min(int(workspace_bytes) // max(1, n * 4 * 4), 8192))
@@ -91,7 +93,7 @@ def fused_l2_nn_argmin(x: torch.Tensor, y: torch.Tensor,
         d2 = torch.clamp(sqnorm(xt)[:, None] + yn[None, :]
                          - 2.0 * matmul_t(xt, y), min=0.0)
         v, i = torch.min(d2, dim=1)
-        vals.append(v)
+        vals.append(torch.sqrt(v) if sqrt else v)
         idxs.append(i)
     return torch.cat(vals), torch.cat(idxs)
 

@@ -222,7 +222,7 @@ def _pq_scan_cuda(luts, pair_lut, pair_out, blocks, codes_t, b_sum,
                       codes_t.data_ptr(), b_sum.data_ptr(), out.data_ptr(),
                       n_blocks, s, m, nc, stream)
     if rc != 0:
-        raise RuntimeError(f"pq_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(_native.launch_message("pq_scan", rc))
     PQ_KERNEL.launches += 1
     return out
 

@@ -12,7 +12,8 @@ sorting:
   result.
 * ``select_k(..., algo="exact")`` — a stable sort, which reproduces
   ``lax.top_k``'s lowest-index tie order (``torch.topk`` does not promise
-  one).
+  one). ``algo="approx"`` runs the same exact select: an exact select meets
+  any ``recall_target``.
 """
 
 from __future__ import annotations
@@ -90,18 +91,21 @@ def iter_topk_min_packed(values: torch.Tensor, k: int
 
 
 def select_k(values: torch.Tensor, k: int, select_min: bool = True,
-             indices: Optional[torch.Tensor] = None, algo: str = "exact"
+             indices: Optional[torch.Tensor] = None, algo: str = "exact",
+             recall_target: float = 0.95
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k smallest (or largest) per row of ``values`` (batch, n) →
     (values, int32 indices); with ``indices`` the winners' ids are gathered
     from it. ``algo``: "exact" or "iter" (both a stable sort: lowest index on
-    ties) or "packed" (``iter_topk_min_packed``)."""
+    ties), "packed" (``iter_topk_min_packed``) or "approx" (the JAX
+    package's partial reduce, which trades recall for speed on the TPU;
+    here the exact select, which meets any ``recall_target``)."""
     squeeze = values.ndim == 1
     if squeeze:
         values = values[None, :]
     if not 0 < k <= values.shape[-1]:
         raise ValueError(f"k={k} out of range for n={values.shape[-1]}")
-    if algo not in ("exact", "iter", "packed"):
+    if algo not in ("exact", "iter", "approx", "packed"):
         raise ValueError(f"unknown select_k algo {algo!r}")
     x = values if select_min else -values
     # wide rows would steal real mantissa bits (the JAX package's same cap)

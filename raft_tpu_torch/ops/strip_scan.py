@@ -450,7 +450,7 @@ def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
             kf, float(alpha), int(tournament_engaged(kf, w, approx_ok)),
             _B_DTYPES[list_data.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"strip_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(_native.launch_message("strip_scan", rc))
     STRIP_KERNEL.launches += 1
     return out_v, out_e
 
@@ -897,7 +897,7 @@ def _paged_class_cuda(strip_list, table_flat, chain_pages, sub_live, a,
             s_pad, c, dim, page_rows, table_width, ppf, n_sub, kf,
             float(alpha), _B_DTYPES[pages.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"paged_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(_native.launch_message("paged_scan", rc))
     PAGED_KERNEL.launches += 1
     PAGED_KERNEL.loop = _native.last_loop("paged_scan")
     return out_v, out_e

@@ -32,6 +32,15 @@ tensors and swaps them in under the lock, so a search that took its
 snapshot (:meth:`~PagedListStore.paged_scan_state`) reads one consistent
 state while mutations proceed — the JAX package's immutable-array
 contract, at the cost of one pool copy per mutation.
+
+Telemetry, fault injection and recovery are the JAX package's:
+``serving::upsert`` / ``serving::delete`` / ``serving::compact`` spans,
+``serving.store.*`` counters (upserts, replaced, deletes, compactions,
+compact_swaps, set_filter, capacity and table growth, stale and regrown
+swaps), and the ``serving.store.upsert`` faultpoint before each appended
+chunk. An upsert whose append fails with an OOM-classified error appends
+the rest in half-size chunks, down to a page
+(``resilience.degrade_on_oom``); chunks already landed stay landed.
 """
 
 from __future__ import annotations
@@ -43,15 +52,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.neighbors import ivf_bq as ivf_bq_mod
 from raft_tpu_torch.neighbors import ivf_flat as ivf_flat_mod
 from raft_tpu_torch.neighbors import ivf_pq as ivf_pq_mod
 from raft_tpu_torch.neighbors._packing import pack_lists
 from raft_tpu_torch.ops import linalg
 from raft_tpu_torch.ops.distance import sqnorm
+from raft_tpu_torch.resilience import degrade_on_oom, faultpoint, record_event
 
 PAGE_ROWS_ENV = "RAFT_TPU_SERVING_PAGE_ROWS"
 _DEFAULT_PAGE_ROWS = 128
@@ -355,6 +367,8 @@ class PagedListStore:
         with self._lock:
             self.filter = mask
             self._version += 1
+        if obs.enabled():
+            obs.add("serving.store.set_filter")
 
     def device_table(self) -> torch.Tensor:
         """Device mirror of the page table, rebuilt only after the table
@@ -414,6 +428,8 @@ class PagedListStore:
         self._free.extend(range(old, new))
         self._growths += 1
         self._version += 1
+        obs.add("serving.store.capacity_growth")
+        record_event("serving_capacity_growth", pages_from=old, pages_to=new)
 
     def _grow_table(self, min_width: int) -> None:
         old_w = self.table_width
@@ -424,6 +440,7 @@ class PagedListStore:
         self._dev_table = None
         self._growths += 1
         self._version += 1
+        obs.add("serving.store.table_growth")
 
     def reserve(self, n_rows: int, skew_factor: int = 4) -> None:
         """Pre-size capacity for ``n_rows`` more rows, so a serving window
@@ -541,10 +558,12 @@ class PagedListStore:
             self.pq_bits)
         return payload, aux, bias, extra
 
+    @traced("serving::upsert")
     def upsert(self, vectors, ids=None) -> dict:
         """Insert rows, or replace them by id: each goes to its nearest
         center's list, appended to the tail page. Pool and table shapes
-        change only when capacity itself grows.
+        change only when capacity itself grows. An OOM-classified failure
+        of the append retries the rest at half the chunk, down to a page.
 
         Returns ``{"upserts": n, "replaced": r, "growths": g}``."""
         if isinstance(vectors, np.ndarray):
@@ -585,10 +604,27 @@ class PagedListStore:
             old_locs = [self._id_loc[int(i)] for i in ids_np
                         if int(i) in self._id_loc]
             g0 = self._growths
-            self._append(payload, ids_np, aux, labels_np, bias, extra)
+            done = [0]  # survives degraded retries: landed chunks stay
+
+            def append_chunks(chunk_rows: int):
+                while done[0] < n:
+                    faultpoint("serving.store.upsert")
+                    s, e = done[0], min(n, done[0] + chunk_rows)
+                    self._append(payload[s:e], ids_np[s:e], aux[s:e],
+                                 labels_np[s:e], bias[s:e],
+                                 None if extra is None else extra[s:e])
+                    done[0] = e
+                return n
+
+            degrade_on_oom(append_chunks, n, floor=min(n, self.page_rows),
+                           site="serving.store.upsert")
             if old_locs:
                 self._tombstone_slots(old_locs)
             growths = self._growths - g0
+        if obs.enabled():
+            obs.add("serving.store.upserts", n)
+            if old_locs:
+                obs.add("serving.store.replaced", len(old_locs))
         return {"upserts": n, "replaced": len(old_locs), "growths": growths}
 
     def _append(self, payload, ids_np, aux, labels_np, bias, extra) -> None:
@@ -641,13 +677,17 @@ class PagedListStore:
             del self._id_loc[i]
         return len(present)
 
+    @traced("serving::delete")
     def delete(self, ids) -> int:
         """Tombstone rows by id; unknown ids are ignored. Returns the
         number of rows removed."""
         ids_np = np.asarray(torch.as_tensor(ids).cpu()).reshape(-1)
         with self._lock:
-            return self._tombstone_ids(
+            removed = self._tombstone_ids(
                 [int(i) for i in ids_np if int(i) in self._id_loc])
+        if obs.enabled() and removed:
+            obs.add("serving.store.deletes", removed)
+        return removed
 
     # -- compaction ---------------------------------------------------------
     def _live_rows(self):
@@ -686,6 +726,7 @@ class PagedListStore:
         return (payload, aux, extra, ids_sel.astype(np.int32),
                 labels_sel.astype(np.int32))
 
+    @traced("serving::compact")
     def compact(self):
         """Fold the live rows back into the packed representation: an
         ``IvfFlatIndex`` / ``IvfPqIndex`` / ``IvfBqIndex`` over exactly the
@@ -701,6 +742,8 @@ class PagedListStore:
         list_payload, list_ids = pack_lists(
             payload, ids_dev, labels_dev, self.n_lists, group,
             pow2_chunks=True)
+        if obs.enabled():
+            obs.add("serving.store.compactions")
         if self.kind == "ivf_bq":
             aux2, _ = pack_lists(torch.stack([extra, aux], dim=1), ids_dev,
                                  labels_dev, self.n_lists, group,
@@ -760,17 +803,21 @@ class PagedListStore:
                     "page_cache", "page_scale", "_table", "_list_pages",
                     "_fill", "_page_list", "_free", "_id_loc", "_list_live")
 
-    def _adopt_clone(self, clone: "PagedListStore",
-                     expected_version: int) -> bool:
+    def _adopt_clone(self, clone: "PagedListStore", expected_version: int,
+                     tag: str) -> bool:
         """The atomic swap: re-validate ``mutation_version`` against
         ``expected_version`` (a mutation after the caller's snapshot aborts:
-        False, nothing changed), refuse a clone whose staging grew the
-        operand shapes, then adopt its pools, host tables and centers."""
+        False, nothing changed, counted ``serving.store.<tag>_stale``),
+        refuse a clone whose staging grew the operand shapes
+        (``<tag>_regrown``), then adopt its pools, host tables and
+        centers."""
         with self._lock:
             if self._version != int(expected_version):
+                obs.add(f"serving.store.{tag}_stale")
                 return False
             if (clone.capacity_pages != self.capacity_pages
                     or clone.table_width != self.table_width):
+                obs.add(f"serving.store.{tag}_regrown")
                 return False
             for name in self._SWAP_FIELDS:
                 setattr(self, name, getattr(clone, name))
@@ -790,7 +837,11 @@ class PagedListStore:
         swap and returns False."""
         clone = self._empty_clone()
         clone._ingest_packed(compacted)
-        return self._adopt_clone(clone, expected_version)
+        if not self._adopt_clone(clone, expected_version, "compact_swap"):
+            return False
+        if obs.enabled():
+            obs.add("serving.store.compact_swaps")
+        return True
 
     def _ingest_rows(self, payload, ids_np, aux, labels_np, bias, extra,
                      chunk_rows: int = 65536) -> None:  # holds: _lock

@@ -140,7 +140,7 @@ def test_cov_eig_dc_and_knn_match_the_jax_package():
     rng = np.random.default_rng(9)
     x = rng.normal(size=(500, 12)).astype(np.float32) * np.arange(1, 13)
     c_j = np.asarray(jsummary.cov(jnp.asarray(x), sample=False))
-    c_t = tsummary.cov(_t(x)).numpy()
+    c_t = tsummary.cov(_t(x), sample=False).numpy()
     np.testing.assert_allclose(c_t, c_j, rtol=1e-5, atol=1e-4)
     w_j, v_j = jlinalg.eig_dc(jnp.asarray(c_j))
     w_t, v_t = tlinalg.eig_dc(_t(c_j))

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from raft_tpu_torch import serving
-from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources, resolve_device
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq, ivf_flat,
@@ -258,6 +258,13 @@ def _entry_points(x, q, **dev):
             chunk_rows=1024, **dev),
         "cagra.search.filter": lambda: cagra.search(cagra_cpu, q, 5,
                                                     filter=half512, **dev),
+        "kmeans.fit": lambda: kmeans.fit(x, kmeans.KMeansParams(
+            n_clusters=4, max_iter=3), **dev),
+        "kmeans.fit_predict": lambda: kmeans.fit_predict(
+            x, kmeans.KMeansParams(n_clusters=4, max_iter=3), **dev),
+        "kmeans.predict": lambda: kmeans.predict(x, x[:4], **dev),
+        "kmeans.transform": lambda: kmeans.transform(x, x[:4], **dev),
+        "kmeans.cluster_cost": lambda: kmeans.cluster_cost(x, x[:4], **dev),
     }
 
 
@@ -292,7 +299,9 @@ def _cagra_file_load(index, **dev):
                                   "ivf_pq.search.filter",
                                   "ivf_bq.search.filter", "ivf_bq.extend",
                                   "ivf_bq.build_streaming",
-                                  "cagra.search.filter"])
+                                  "cagra.search.filter", "kmeans.fit",
+                                  "kmeans.fit_predict", "kmeans.predict",
+                                  "kmeans.transform", "kmeans.cluster_cost"])
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -593,3 +602,149 @@ def test_no_path_leads_from_k5_to_a_fallback():
         "PQ_KERNEL.launches += 1")
     wrapper = src[src.index("def pq_scan("):]
     assert 'device.type == "cuda"' in wrapper
+
+
+# ---------------------------------------------------------------------------
+# the resilience and observability core
+# ---------------------------------------------------------------------------
+
+CORE_MODULES = (
+    "core/interruptible.py", "core/logger.py", "core/fsio.py",
+    "core/trace.py", "obs/__init__.py", "obs/tracing.py", "obs/aggregate.py",
+    "obs/registry.py", "obs/health.py", "resilience/__init__.py",
+    "resilience/errors.py", "resilience/retry.py",
+    "resilience/faultinject.py", "resilience/deadline.py",
+    "resilience/shard_health.py", "utils/tiling.py", "cluster/kmeans.py")
+
+
+@pytest.mark.parametrize("rel", CORE_MODULES)
+def test_core_modules_import_neither_jax_nor_the_jax_package(rel):
+    path = REPO / "raft_tpu_torch" / rel
+    assert path in _port_files()
+    roots = {m.split(".")[0] for m in _imported_modules(path)}
+    assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
+
+
+_RECOVERY = ("degrade_on_oom", "with_retries")
+_LOADERS = ("build", "load", "CDLL", "_kernel_fn", "nvcc")
+
+
+def _recovered_bodies(tree):
+    """The functions and lambdas passed to a recovery executor, found by
+    name in the same module."""
+    defs = {n.name: n for n in ast.walk(tree)
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    for call in ast.walk(tree):
+        if not isinstance(call, ast.Call) or not call.args:
+            continue
+        fn = call.func
+        name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+            fn, "id", "")
+        if name not in _RECOVERY:
+            continue
+        arg = call.args[0]
+        if isinstance(arg, ast.Lambda):
+            yield arg
+        elif isinstance(arg, ast.Name) and arg.id in defs:
+            yield defs[arg.id]
+
+
+def test_no_recovery_executor_encloses_a_kernel_build_or_load():
+    """Every function handed to degrade_on_oom or with_retries in the port
+    neither builds nor loads a kernel library itself, and ``_native``
+    reaches for no recovery executor."""
+    found = 0
+    for path in (REPO / "raft_tpu_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for body in _recovered_bodies(tree):
+            found += 1
+            for node in ast.walk(body):
+                if isinstance(node, ast.Attribute) and isinstance(
+                        node.value, ast.Name) and node.value.id in (
+                            "_native", "ctypes"):
+                    assert node.attr not in _LOADERS, (path, node.attr)
+                if isinstance(node, ast.Name):
+                    assert node.id not in ("_kernel_fn", "CDLL"), path
+    assert found >= 5
+    roots = set(_imported_modules(REPO / "raft_tpu_torch/ops/_native.py"))
+    assert not any("resilience" in m for m in roots)
+
+
+def test_a_failed_nvcc_classifies_fatal(tmp_path, monkeypatch):
+    """Whatever nvcc prints — here words of the transient and OOM tables —
+    its failure is a NativeBuildError, FATAL, and no recovery executor runs
+    it twice."""
+    from raft_tpu_torch import resilience
+
+    (tmp_path / "k.cu").write_text("// refused\n")
+    monkeypatch.setattr(_native, "CSRC", tmp_path)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "_build")
+    script = tmp_path / "fake_nvcc"
+    script.write_text("#!/bin/sh\necho 'resource temporarily unavailable; "
+                      "connection reset; out of memory'\nexit 1\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(_native, "nvcc", lambda: str(script))
+    with pytest.raises(_native.NativeBuildError) as ei:
+        _native.build()
+    assert resilience.classify(ei.value) == resilience.FATAL
+    calls = []
+
+    def attempt(size):
+        calls.append(size)
+        return _native.build()
+
+    with pytest.raises(_native.NativeBuildError):
+        resilience.degrade_on_oom(attempt, 64, floor=1)
+    with pytest.raises(_native.NativeBuildError):
+        resilience.with_retries(lambda: attempt(0), sleep=lambda s: None)
+    assert calls == [64, 0]
+    lib = _native.library_path(tmp_path / "k.cu")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    lib.write_bytes(b"not a library")
+    monkeypatch.setattr(_native, "_loaded", {})
+    with pytest.raises(_native.NativeBuildError) as ei:
+        _native.load("k")
+    assert resilience.classify(ei.value) == resilience.FATAL
+    with pytest.raises(_native.NativeBuildError):
+        _native.load("missing")
+
+
+def test_missing_nvcc_classifies_fatal(monkeypatch):
+    from torch.utils import cpp_extension
+
+    from raft_tpu_torch import resilience
+
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(_native.shutil, "which", lambda name: None)
+    with pytest.raises(_native.NativeBuildError) as ei:
+        _native.nvcc()
+    assert resilience.classify(ei.value) == resilience.FATAL
+
+
+def test_telemetry_initialises_no_cuda_context():
+    """Importing obs and recording spans (telemetry off, then on in sync
+    mode) never initialises CUDA: the child makes CUDA's lazy init raise."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('CUDA initialised')\n"
+        "torch.cuda._lazy_init = boom\n"
+        "from raft_tpu_torch import obs\n"
+        "from raft_tpu_torch.core.trace import traced\n"
+        "with obs.record_span('off'):\n"
+        "    pass\n"
+        "traced('t')(lambda: None)()\n"
+        "obs.enable(); obs.enable_sync()\n"
+        "with obs.record_span('on'):\n"
+        "    with obs.record_span('inner'):\n"
+        "        pass\n"
+        "traced('t')(lambda: None)()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert len(obs.spans()) == 3\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
