@@ -178,6 +178,39 @@ every faultpoint of the port armed once on 100,000-row indexes, surfacing
 classified, then serving; a spent soft deadline keeping the first of three
 k-means fits, marked degraded.
 
+The obs cost layer and the serving managers ride the paths too.
+``obs.cost``: ``costmodel.predict_index_bytes(**index_layout(x)) ==
+memory.index_bytes(x)`` exactly for the IVF-PQ, IVF-BQ, IVF-Flat and CAGRA
+indexes and the three serving stores at 1M × 128 (checked where each is
+built, with the caching allocator's growth around the build beside it),
+``hbm_budget()`` the card's total, ``platform_peaks()`` the card's entry of
+the peak table, and ADMIT for one 10k batch of the flat store.
+``serve.queue``: the flat store (K3) behind a ``QueryQueue`` at the flat
+path's n_probes and k = 10 — a batch-1 baseline of 64 sequential queries;
+windows of 256 Poisson requests at 2×, 5× and 10× its rate (max_batch 64,
+fill_wait = the 64-batch latency, slo = max(4·that, 2·batch-1), deadlines
+2·slo for every 5th request and 8·slo for the rest, 32 upserted rows and a
+FIFO delete every 32 requests inside a reserved window, the paged-scan
+cost hook, a 0.25 ``ShadowSampler`` against the store's exhaustive scan):
+QPS, p50/p90/p99, multi-batch share and verdicts; no error verdict, K3
+launches in each window, every dispatch priced, no new scan signature, no
+unexplained retrace, shadow recall ≥ 0.90; a window with
+``serving.queue.dispatch=oom:1`` armed (cap 64 → 32, every request ok); a
+``CompactionManager`` cycle that keeps the results. ``obs.roofline``: in
+sync mode one 10k batch of the flat store and of IVF-PQ ragged, the
+roofline's model against the committed span times (model_to_measured ≤
+1, no utilization over 1.05). ``serve.maint``: two PQ-cache stores (K3 on
+the int8 cache) from the IVF-PQ index, pre-grown (``restore_shape``) to
+the final footprint, take a drifted stream of 120,000 rows in 6 batches;
+one is maintained (``MaintenanceManager``, exact row source), one is the
+control: ≥ 1 cycle with pairs, every status classified, no new scan
+signature, drifted recall@10 (refined) at least the control's, original
+recall ≥ 0.95. ``capacity``: 8 IVF-Flat tenants of 250,000 rows (n_lists
+256), warm IVF-BQ twins built on the card, ~4× oversubscribed, 480 Zipf
+(1.1) requests through ``CapacityController`` with autopromotion: no OOM,
+every outcome and transition classified, the promote latency measured, K1
+launches for hot serves and K2 for warm ones.
+
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed phase raises: the script exits non-zero and prints no
@@ -1302,12 +1335,14 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
     dataset, qs = shared["dataset"], shared["queries"]
     gt_v, gt_i = shared["gt"]
     n, q = dataset.shape[0], qs.shape[0]
+    before = allocated()
     t = time.perf_counter()
     index = ivf_pq.build(dataset, ivf_pq.IvfPqParams(
         n_lists=n_lists, pq_dim=64, pq_bits=8,
         kmeans_trainset_fraction=0.2), res=res)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
+    cost_row("ivf_pq", index, before)
     emit({"phase": "main.setup", "rows": n, "queries": q,
           "n_lists": n_lists, "max_list_size": index.max_list_size,
           "data_gen_s": shared["data_gen_s"],
@@ -1440,11 +1475,13 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
     dataset, qs = shared["dataset"], shared["queries"]
     gt_v, gt_i = shared["gt"]
     n, q = dataset.shape[0], qs.shape[0]
+    before = allocated()
     t = time.perf_counter()
     index = ivf_bq.build(dataset, ivf_bq.IvfBqParams(
         n_lists=n_lists, kmeans_trainset_fraction=0.2), res=res)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
+    cost_row("ivf_bq", index, before)
     emit({"phase": "bq.setup", "rows": n, "queries": q, "n_lists": n_lists,
           "max_list_size": index.max_list_size, "rot_dim": index.rot_dim,
           "bits": index.bits, "rotation_kind": index.rotation_kind,
@@ -1674,11 +1711,13 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
     dataset, qs = shared["dataset"], shared["queries"]
     gt_v, gt_i = shared["gt"]
     q = qs.shape[0]
+    before = allocated()
     t = time.perf_counter()
     index = ivf_flat.build(dataset, ivf_flat.IvfFlatParams(
         n_lists=n_lists, kmeans_trainset_fraction=0.2), res=res)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
+    cost_row("ivf_flat", index, before)
     emit({"phase": "flat.setup", "rows": dataset.shape[0], "n_lists": n_lists,
           "list_dtype": str(index.list_data.dtype).replace("torch.", ""),
           "max_list_size": index.max_list_size, "build_s": build_s})
@@ -1982,11 +2021,14 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
     gt_v, gt_i = shared["gt"]
     q = qs.shape[0]
     n_probes = flat_pick["n_probes"]
+    before = allocated()
     t = time.perf_counter()
     store = serving.PagedListStore.from_index(
         flat_index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
     store.reserve(WINDOW_ROUNDS * UPSERT_ROWS)
+    store.device_table()        # built by the first search, counted now
     torch.cuda.synchronize()
+    cost_row("serve.flat", store, before)
     ppf, n_sub, w = ss.paged_plan(store.table_width, store.page_rows,
                                   store.dim, K)
     chains = store._list_pages
@@ -2142,6 +2184,7 @@ def serve_phase(shared, flat_index, flat_pick, packed_out, dev="cuda"):
         n_probes, store.n_lists))
     standing_filter_checks(shared, store, n_probes, res)
     serve_gather(shared, store, n_probes, res)
+    HELD["serve.flat"] = (store, n_probes)
     return {"launches": launches, "max_abs_err": max_err,
             "loop": "/".join(loops),
             **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -2295,11 +2338,14 @@ def serve_codes_phase(shared, kind, index, pick, dev="cuda"):
     n_probes = min(pick["n_probes"], int(index.centers.shape[0]))
     kf = pick["k_fetch"]
     counter = ss.PAGED_KERNEL if kind == "pq" else bq.PAGED_BQ_KERNEL
+    before = allocated()
     t = time.perf_counter()
     store = serving.PagedListStore.from_index(
         index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
     store.reserve(4 * UPSERT_ROWS)
+    store.device_table()        # built by the first search, counted now
     torch.cuda.synchronize()
+    cost_row(f"serve.{kind}", store, before)
     store_s = time.perf_counter() - t
 
     def run(queries):
@@ -3323,10 +3369,12 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
         intermediate_graph_degree=128, graph_degree=64, build_algo="auto",
         compress="auto")
     reset_counts()
+    before = allocated()
     t = time.perf_counter()
     index = cagra.build(dataset, params, res=res)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
+    cost_row("cagra", index, before)
     k1_build = ss.STRIP_KERNEL.launches
     g = index.graph
     deg = index.graph_degree
@@ -4604,6 +4652,594 @@ def search_child(tree, backend, index_file, query_file, n_probes, k_fetch,
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The obs cost layer and the serving managers
+# ---------------------------------------------------------------------------
+
+HELD = {}           # objects one path leaves for a later one
+COST_ROWS = []      # obs.cost: each built object's prediction and residency
+COST_CHECKS = {}    # obs.cost: the admission check of a 10k batch
+
+QUEUE_LOADS = (2, 5, 10)     # offered load, × the batch-1 rate
+QUEUE_REQUESTS = 256         # Poisson requests a window
+QUEUE_BASELINE = 64          # sequential batch-1 queries
+QUEUE_MAX_BATCH = 64
+QUEUE_MUTATE_EVERY = 32      # 32 upserted rows and a FIFO delete
+QUEUE_SHADOW_RATE = 0.25
+QUEUE_ID0 = 3_000_000
+
+MAINT_ROWS = 120_000         # the drifted stream: 12% of the store
+MAINT_BATCHES = 6
+MAINT_HOT_LISTS = 4          # the drift lands in a few lists
+MAINT_QUERIES = 1_000
+MAINT_SEED = 17
+MAINT_KNOWN = {"ok", "idle", "noop", "denied", "stale", "oom", "transient",
+               "fatal", "deadline", None}
+
+CAP_TENANTS = 8
+CAP_ROWS = 250_000
+CAP_LISTS = 256
+CAP_REQUESTS = 480
+CAP_PROBES = 16
+CAP_ZIPF = 1.1
+
+
+def allocated():
+    """Bytes the CUDA caching allocator holds after the queue drains; None
+    off the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    torch.cuda.synchronize()
+    return int(torch.cuda.memory_allocated())
+
+
+def cost_row(name, obj, before=None):
+    """Hold ``obs.costmodel``'s prediction of ``obj``'s resident bytes to
+    ``obs.memory.index_bytes`` (exactly) and keep the row, with the
+    allocator's growth since ``before`` beside it, for the obs.cost line."""
+    from raft_tpu_torch.obs import costmodel, memory
+
+    layout = costmodel.index_layout(obj)
+    after = allocated()
+    row = {"name": name, "kind": layout["kind"],
+           "predicted": costmodel.predict_index_bytes(**layout),
+           "index_bytes": memory.index_bytes(obj),
+           "alloc_delta": (None if before is None or after is None
+                           else after - before)}
+    COST_ROWS.append(row)
+    if row["predicted"] != row["index_bytes"]:
+        raise AssertionError(f"obs.cost: prediction not exact: {row}")
+
+
+def obs_cost_phase():
+    """The cost model on the run's own objects: every prediction exact
+    (each checked where it was built), the allocator's growth around each
+    build beside it, the memory budget from the card, the roofline's peak
+    table entry for the card, and the admission of a 10k batch."""
+    import torch
+
+    from raft_tpu_torch.obs import costmodel, roofline
+
+    budget = costmodel.hbm_budget()
+    peaks = roofline.platform_peaks()
+    total = torch.cuda.mem_get_info()[1] if torch.cuda.is_available() else 0
+    emit({"phase": "obs.cost", "objects": COST_ROWS, "budget": budget,
+          "card_total_bytes": total, "peaks": peaks, **COST_CHECKS})
+    names = {r["name"] for r in COST_ROWS}
+    want = {"ivf_pq", "ivf_bq", "ivf_flat", "cagra", "serve.flat",
+            "serve.pq", "serve.bq"}
+    if not want <= names:
+        raise AssertionError(f"obs.cost: no row for {sorted(want - names)}")
+    if budget != {"bytes": total, "source": "device_stats"}:
+        raise AssertionError(f"obs.cost: budget {budget}, card {total}")
+    entry = next((row for row in roofline._PEAK_TABLE
+                  if row[0] in peaks["device_kind"].lower()), None)
+    if peaks["source"] != "table" or entry is None or \
+            (peaks["peak_flops"], peaks["peak_bw"]) != entry[1:] or \
+            not entry[0].startswith("h100"):
+        raise AssertionError(f"obs.cost: peaks {peaks}")
+    if COST_CHECKS.get("admission", {}).get("verdict") != costmodel.ADMIT:
+        raise AssertionError(f"obs.cost: admission {COST_CHECKS}")
+
+
+def _pct(vals, p):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(vals, np.float64), p)) \
+        if len(vals) else None
+
+
+def serve_queue_phase(shared, store, n_probes, dev="cuda"):
+    """The serving flat store (K3) behind a ``QueryQueue`` at the bench's
+    serving parameters: a batch-1 baseline, then windows of Poisson
+    requests at 2×, 5× and 10× its rate with mixed deadlines, upserts and
+    FIFO deletes, the paged-scan cost hook and a shadow sampler; an OOM
+    window (the batch cap halves, every request served); then a
+    compaction cycle, which keeps the results."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import Resources, obs, resilience, serving
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.obs import costmodel
+    from raft_tpu_torch.obs import shadow as obs_shadow
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    res = Resources(device=dev)
+    qs = shared["queries"]
+    nq = qs.shape[0]
+    host_q = qs.cpu().numpy().astype(np.float32)
+    store.set_filter(None)
+    n_windows = len(QUEUE_LOADS) + 1
+    store.reserve(n_windows * (QUEUE_REQUESTS // QUEUE_MUTATE_EVERY + 1)
+                  * UPSERT_ROWS)
+    COST_CHECKS["admission"] = costmodel.check_admission(
+        costmodel.estimate_search(store, q=nq, k=K, n_probes=n_probes),
+        entry="chip_smoke.serve_10k")
+
+    def exact(x):
+        return serving.search(store, x, K, n_probes=store.n_lists, res=res)
+
+    # meet every batch bucket's and the exact scan's signature before the
+    # windows: from here on a new one is a fault
+    for b in serving.QueryQueue(lambda x: x, max_batch=QUEUE_MAX_BATCH).buckets:
+        serving.search(store, host_q[:b], K, n_probes=n_probes, res=res)
+    exact(host_q[:1])
+
+    one = host_q[:1]
+    base = []
+    for j in range(QUEUE_BASELINE):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, ids = serving.search(store, host_q[j:j + 1], K, n_probes=n_probes,
+                                res=res)
+        ids.cpu()
+        base.append(time.perf_counter() - t)
+    lat1 = _pct(base, 50)
+    full = []
+    for j in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        serving.search(store, host_q[:QUEUE_MAX_BATCH], K, n_probes=n_probes,
+                       res=res)[1].cpu()
+        full.append(time.perf_counter() - t)
+    lat_full = _pct(full, 50)
+    rate1 = 1.0 / lat1
+    slo = max(4 * lat_full, 2 * lat1)
+    emit({"phase": "serve.queue.baseline", "n_probes": n_probes, "k": K,
+          "batch1_p50_ms": lat1 * 1e3, "batch1_p99_ms": _pct(base, 99) * 1e3,
+          "batch64_ms": lat_full * 1e3, "batch1_qps": rate1,
+          "slo_ms": slo * 1e3, "fill_wait_ms": lat_full * 1e3,
+          "admission_10k": COST_CHECKS["admission"]})
+    del one
+
+    sampler = obs_shadow.ShadowSampler(exact, k=K, rate=QUEUE_SHADOW_RATE,
+                                       seed=MAINT_SEED)
+    live = collections.deque()
+    next_id = [QUEUE_ID0]
+    mutations = [0]
+
+    def mutate():
+        ids = np.arange(next_id[0], next_id[0] + UPSERT_ROWS, dtype=np.int64)
+        next_id[0] += UPSERT_ROWS
+        rows = host_q[(ids - QUEUE_ID0) % nq]
+        store.upsert(rows, ids)
+        live.append(ids)
+        if len(live) > 1:
+            store.delete(live.popleft())
+        mutations[0] += 1
+
+    def window(name, load_x, seed, long_deadlines=False):
+        rng = np.random.default_rng(seed)
+        t_arr = np.cumsum(rng.exponential(1.0 / (load_x * rate1),
+                                          QUEUE_REQUESTS))
+        picks = rng.integers(0, nq, QUEUE_REQUESTS)
+        q = serving.QueryQueue(
+            serving.searcher(store, K, n_probes=n_probes, res=res),
+            slo_s=slo, max_batch=QUEUE_MAX_BATCH, fill_wait_s=lat_full,
+            cost_model=costmodel.paged_scan_estimator(store, K, n_probes),
+            shadow=sampler)
+        counters0 = obs.snapshot()["counters"]
+        reset_counts()
+        handles = []
+        i = 0
+        t0 = time.monotonic()
+        while i < QUEUE_REQUESTS or q.depth:
+            now = time.monotonic() - t0
+            while i < QUEUE_REQUESTS and t_arr[i] <= now:
+                mult = 8 if long_deadlines or i % 5 else 2
+                handles.append(q.submit(host_q[picks[i]],
+                                        timeout_s=mult * slo))
+                i += 1
+                if i % QUEUE_MUTATE_EVERY == 0:
+                    mutate()
+            if not q.pump() and i < QUEUE_REQUESTS:
+                time.sleep(min(max(t_arr[i] - now, 0.0), 5e-4))
+        wall = time.monotonic() - t0
+        launches = ss.PAGED_KERNEL.launches
+        counters = obs.snapshot()["counters"]
+        verdicts = collections.Counter(h.verdict for h in handles)
+        lats = [h.latency_s for h in handles if h.verdict == "ok"]
+        admitted = sum(costmodel.admission_counts(counters).values()) - sum(
+            costmodel.admission_counts(counters0).values())
+        # every dispatch is priced once, the failed ones too
+        failed = sum(v - counters0.get(k, 0) for k, v in counters.items()
+                     if k.startswith("serving.dispatch.")
+                     and k != "serving.dispatch.oom_halved")
+        row = {"phase": f"serve.queue.{name}", "offered_x": load_x,
+               "offered_qps": load_x * rate1,
+               "achieved_qps": verdicts["ok"] / wall,
+               "speedup": verdicts["ok"] / wall / rate1, "wall_s": wall,
+               "p50_ms": _pct(lats, 50) * 1e3, "p90_ms": _pct(lats, 90) * 1e3,
+               "p99_ms": _pct(lats, 99) * 1e3, "batches": q.batches,
+               "multi_batch_share": q.multi_batches / max(q.batches, 1),
+               "batch_cap": q.batch_cap, "verdicts": dict(verdicts),
+               "admission_verdicts": admitted, "failed_dispatches": failed,
+               "k3_launches": launches,
+               "mutations": mutations[0]}
+        emit(row)
+        errors = sum(v for k, v in verdicts.items()
+                     if k not in ("ok", resilience.DEADLINE))
+        if errors or launches <= 0 or admitted != q.batches + failed:
+            raise AssertionError(f"serve.queue.{name}: {errors} error "
+                                 f"verdicts, {launches} K3 launches, "
+                                 f"{admitted} admission verdicts for "
+                                 f"{q.batches} + {failed} dispatches")
+        return row, q
+
+    obs.reset()
+    obs.enable()
+    try:
+        t0 = serving.scan_trace_count()
+        rows = []
+        for load in QUEUE_LOADS:
+            rows.append(window(f"x{load}", load, 100 + load)[0])
+            while sampler.pump():        # the shadow's exact scans, off the
+                pass                     # window
+        shadow = sampler.estimate()
+        trace_delta = serving.scan_trace_count() - t0
+        resilience.arm_faults("serving.queue.dispatch=oom:1")
+        oom_row, oom_q = window("oom", QUEUE_LOADS[0], 99,
+                                long_deadlines=True)
+    finally:
+        resilience.clear_faults()
+        obs.disable()
+    p99_1 = _pct(base, 99) * 1e3
+    fit = [r for r in rows if r["p99_ms"] <= p99_1]
+    best = max(fit, key=lambda r: r["achieved_qps"]) if fit else None
+    emit({"phase": "serve.queue", "batch1_qps": rate1,
+          "best_speedup": best and best["achieved_qps"] / rate1,
+          "best_at_x": best and best["offered_x"], "shadow": shadow,
+          "scan_trace_delta": trace_delta,
+          "unexplained_retraces": obs_compile.unexplained_retraces()})
+    if trace_delta or obs_compile.unexplained_retraces() or \
+            shadow["recall"] is None or shadow["recall"] < 0.90:
+        raise AssertionError(f"serve.queue: trace delta {trace_delta}, "
+                             f"shadow {shadow}")
+    if oom_q.batch_cap != QUEUE_MAX_BATCH // 2 or \
+            oom_row["verdicts"] != {"ok": QUEUE_REQUESTS}:
+        raise AssertionError(f"serve.queue.oom: cap {oom_q.batch_cap}, "
+                             f"verdicts {oom_row['verdicts']}")
+
+    # compaction: the window's tombstones reclaimed, the results kept
+    before = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    tomb = store.tombstones
+    t = time.perf_counter()
+    out = serving.CompactionManager(store, ratio=0.0).pump()
+    compact_s = time.perf_counter() - t
+    after = serving.search(store, qs, K, n_probes=n_probes, res=res)
+    agree = topk_agreement(before[0], before[1], after[0], after[1])
+    emit({"phase": "serve.queue.compact", "tombstones": tomb,
+          "status": out and out["status"], "seconds": compact_s,
+          "agreement": agree, "stats": store.stats()})
+    if not out or out["status"] != "ok" or not tomb or not agree["ok"]:
+        raise AssertionError(f"serve.queue.compact: {out}, {agree}")
+
+
+def roofline_phase(shared, store, n_probes, pq_index, pq_pick, dev="cuda"):
+    """Sync mode, one 10k-query batch of the serving flat store (K3) and
+    of IVF-PQ ragged (K1): the roofline's static model against the
+    committed span times, with the card's peaks."""
+    from raft_tpu_torch import Resources, obs, serving
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import roofline
+
+    res = Resources(device=dev)
+    qs = shared["queries"]
+
+    def batches():
+        serving.search(store, qs, K, n_probes=n_probes, res=res)
+        ivf_pq.search(pq_index, qs, pq_pick["k_fetch"],
+                      n_probes=pq_pick["n_probes"], backend="ragged",
+                      res=res)
+
+    batches()                               # the plans' host caches
+    obs.reset()
+    roofline.reset()
+    obs.enable()
+    obs.enable_sync()
+    try:
+        reset_counts()
+        batches()
+        summ = roofline.summary()
+    finally:
+        obs.disable_sync()
+        obs.disable()
+    keys = ("flops", "bytes", "bound", "predicted_bound_s", "measured_s",
+            "mxu_utilization", "hbm_bw_utilization", "model_to_measured",
+            "achieved_gflops", "dispatches")
+    rows = {e: {k: summ["entries"].get(e, {}).get(k) for k in keys}
+            for e in ("ivf_flat.paged_pallas", "ivf_pq.search")}
+    emit({"phase": "obs.roofline", "peaks": summ["peaks"], "entries": rows,
+          "occupancy": {e: summ["entries"].get(e, {}).get("occupancy")
+                        for e in rows}})
+    for e, r in rows.items():
+        if r["measured_s"] is None or r["predicted_bound_s"] is None or \
+                r["model_to_measured"] > 1.0 or \
+                r["mxu_utilization"] > 1.05 or \
+                r["hbm_bw_utilization"] > 1.05:
+            raise AssertionError(f"obs.roofline: {e}: {r}")
+
+
+def drifted_rows(centers, n, batch, sample_seed):
+    """``n`` rows of drifted traffic at stream batch ``batch``: a
+    ``sift_like`` sample (``sample_seed``) shrunk around a few lists'
+    centers and pushed along one direction, further each batch; the lists
+    and the direction come from ``MAINT_SEED``."""
+    import numpy as np
+
+    from raft_tpu_torch.bench.datasets import sift_like
+
+    rng = np.random.default_rng(MAINT_SEED)
+    hot = rng.choice(centers.shape[0], MAINT_HOT_LISTS, replace=False)
+    direction = rng.standard_normal(centers.shape[1]).astype(np.float32)
+    direction /= np.linalg.norm(direction)
+    spread = float(np.median(np.linalg.norm(
+        centers - centers.mean(0), axis=1)))
+    raw, _ = sift_like(n, centers.shape[1], 1, seed=sample_seed)
+    raw = raw.astype(np.float32)
+    raw = (raw - raw.mean(0)) * 0.25
+    pick = np.random.default_rng(sample_seed).integers(0, MAINT_HOT_LISTS,
+                                                       n)
+    shift = 0.25 * spread * (batch + 1)
+    return (centers[hot[pick]] + raw + shift * direction).astype(np.float32)
+
+
+def serve_maint_phase(shared, index, pick, dev="cuda"):
+    """The PQ-cache store (K3 on the int8 cache) under a drifted stream of
+    ``MAINT_ROWS`` rows in ``MAINT_BATCHES`` batches, maintained by
+    ``MaintenanceManager`` (exact row source, as the bench runs it)
+    against an unmaintained control; both pre-grown to the final
+    footprint, so no scan meets a new shape."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import Resources, serving
+    from raft_tpu_torch.neighbors import brute_force, refine
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    res = Resources(device=dev)
+    host = shared["host"].astype(np.float32)
+    n0 = host.shape[0]
+    centers = index.centers.cpu().numpy()
+    per = MAINT_ROWS // MAINT_BATCHES
+    batches = [drifted_rows(centers, per, b, MAINT_SEED + 1 + b)
+               for b in range(MAINT_BATCHES)]
+    q_drift = drifted_rows(centers, MAINT_QUERIES, MAINT_BATCHES - 1,
+                           MAINT_SEED + 99)
+    rows_all = np.concatenate([host] + batches)
+    n_probes, kf = pick["n_probes"], pick["k_fetch"]
+
+    maintained = serving.PagedListStore.from_index(
+        index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+    control = serving.PagedListStore.from_index(
+        index, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+    # the final footprint: every new row in its nearest list, twice the
+    # longest resulting chain (a split may pile a list's rows on its donor)
+    labels = maintained._assign_labels(torch.from_numpy(
+        rows_all[n0:]).to(maintained.device))
+    add = np.bincount(labels, minlength=maintained.n_lists)
+    rows_per_page = maintained.page_rows
+    chains = maintained._list_pages + -(-add // rows_per_page) + 1
+    width = 1 << int(2 * chains.max() - 1).bit_length()
+    pages = maintained.pages_used + int(-(-add // rows_per_page).sum()) \
+        + 2 * maintained.n_lists
+    for store in (maintained, control):
+        store.restore_shape(pages, width)
+    cost_row("serve.pq.maintained", maintained)
+    mgr = serving.MaintenanceManager(
+        maintained, compaction=None, drift_threshold=0.5, split_skew=1.5,
+        row_source=lambda ids: rows_all[np.asarray(ids)])
+
+    dev_all = torch.from_numpy(rows_all).to(res.device)
+    gt_index = brute_force.build(dev_all, res=res)
+    q_orig = shared["queries"][:MAINT_QUERIES]
+    q_dr = torch.from_numpy(q_drift).to(res.device)
+    gt_orig = brute_force.search(gt_index, q_orig, K, res=res)[1]
+    gt_dr = brute_force.search(gt_index, q_dr, K, res=res)[1]
+    del gt_index
+
+    def recall(store, queries, gt):
+        _, cand = serving.search(store, queries, kf, n_probes=n_probes,
+                                 res=res)
+        _, ids = refine.refine(dev_all, queries, cand, K, res=res)
+        return id_recall(ids, gt)
+
+    for store in (maintained, control):      # meet the scans' signatures
+        recall(store, q_orig, gt_orig)
+    t0 = serving.scan_trace_count()
+    reset_counts()
+    statuses, cycles = [], []
+    next_id = n0
+    for b, rows in enumerate(batches):
+        ids = np.arange(next_id, next_id + rows.shape[0], dtype=np.int64)
+        next_id += rows.shape[0]
+        for store in (maintained, control):
+            store.upsert(rows, ids)
+        t = time.perf_counter()
+        out = mgr.pump()
+        rec = (out or {}).get("recluster") or {}
+        statuses.append((out or {}).get("status"))
+        cycles.append({"batch": b, "status": statuses[-1],
+                       "seconds": time.perf_counter() - t,
+                       "pairs": rec.get("pairs", 0),
+                       "rows_moved": rec.get("rows_moved", 0),
+                       "drift": round((out or {}).get("drift", {}).get(
+                           "drift_score", 0.0), 4)})
+    for _ in range(4):                       # let the detector go quiet
+        if not mgr.detect()["drifted"]:
+            break
+        out = mgr.pump()
+        rec = (out or {}).get("recluster") or {}
+        statuses.append((out or {}).get("status"))
+        cycles.append({"batch": "drain", "status": statuses[-1],
+                       "pairs": rec.get("pairs", 0),
+                       "rows_moved": rec.get("rows_moved", 0)})
+    r_m = recall(maintained, q_dr, gt_dr)
+    r_c = recall(control, q_dr, gt_dr)
+    r_orig = recall(maintained, q_orig, gt_orig)
+    r_orig_c = recall(control, q_orig, gt_orig)
+    launches = ss.PAGED_KERNEL.launches
+    delta = serving.scan_trace_count() - t0
+    rep = mgr.report()
+    emit({"phase": "serve.maint", "rows": MAINT_ROWS,
+          "batches": MAINT_BATCHES, "n_probes": n_probes, "k_fetch": kf,
+          "restore_shape": {"pages": pages, "table_width": width},
+          "cycles": cycles, "report": {k: rep[k] for k in (
+              "cycles", "pairs_total", "rows_moved", "stale_aborts",
+              "failures", "skipped", "drift_score", "list_skew")},
+          "recall_drifted_maintained": r_m, "recall_drifted_control": r_c,
+          "recall_original_maintained": r_orig,
+          "recall_original_control": r_orig_c,
+          "scan_trace_delta": delta, "k3_launches": launches,
+          "stats": maintained.stats()})
+    unknown = [s for s in statuses if s not in MAINT_KNOWN]
+    if rep["cycles"] < 1 or rep["pairs_total"] <= 0 or unknown or delta \
+            or r_m < r_c or r_orig < 0.95 or launches <= 0:
+        raise AssertionError(
+            f"serve.maint: cycles {rep['cycles']}, pairs "
+            f"{rep['pairs_total']}, unclassified {unknown}, trace delta "
+            f"{delta}, recall {r_m} vs control {r_c}, original {r_orig}")
+
+
+def capacity_phase(dev="cuda"):
+    """Many IVF-Flat tenants over one memory budget (the bench's capacity
+    rung at ``CAP_TENANTS`` × ``CAP_ROWS`` rows): Zipf popularity, Poisson
+    requests through ``CapacityController`` at about 4× oversubscription,
+    warm twins (IVF-BQ, K2) built on the card, snapshots in a temporary
+    directory."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import Resources, resilience, serving
+    from raft_tpu_torch.bench.datasets import sift_like
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import costmodel
+    from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    res = Resources(device=dev)
+    rng = np.random.default_rng(29)
+    snap = tempfile.TemporaryDirectory()
+    try:
+        registry = serving.TenantRegistry()
+        sizing = serving.CapacityController(registry=registry,
+                                            budget_bytes=1 << 50, res=res)
+        queries = {}
+        t = time.perf_counter()
+        for i in range(CAP_TENANTS):
+            name = f"tenant{i:02d}"
+            data, qs = sift_like(CAP_ROWS, 128, 64, seed=10 + i)
+            queries[name] = qs.astype(np.float32)
+            idx = ivf_flat.build(torch.from_numpy(data).to(res.device),
+                                 ivf_flat.IvfFlatParams(n_lists=CAP_LISTS),
+                                 res=res)
+            sizing.register(name, idx, snap.name)
+        setup_s = time.perf_counter() - t
+        total = registry.resident_bytes()
+        biggest = max(t.resident_bytes() for t in registry.tenants())
+        one_probe = costmodel.estimate_search(
+            registry.tenants()[0].hot_obj, q=1, k=K,
+            n_probes=CAP_PROBES)["transient_bytes"]
+        budget = int(max(total / 4.0, (biggest + 2 * one_probe) / 0.8))
+        ctrl = serving.CapacityController(registry=registry,
+                                          budget_bytes=budget, window_s=0.2,
+                                          res=res)
+        t_end = time.perf_counter() + 30
+        rec = ctrl.admit(0, entry="capacity.rebudget")
+        while rec["verdict"] != "admit" and time.perf_counter() < t_end:
+            if not ctrl.make_room(rec.get("shortfall_bytes", 0)):
+                time.sleep(ctrl.window_s + 0.02)
+            rec = ctrl.admit(0, entry="capacity.rebudget")
+
+        names = sorted(queries)
+        ranks = np.arange(1, CAP_TENANTS + 1, dtype=np.float64)
+        pop = 1.0 / ranks ** CAP_ZIPF
+        choices = rng.choice(CAP_TENANTS, size=CAP_REQUESTS, p=pop / pop.sum())
+        think = rng.exponential(0.002, size=CAP_REQUESTS)
+        outcomes = collections.Counter()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(CAP_REQUESTS):
+            name = names[int(choices[i])]
+            q = queries[name][i % 64][None]
+            try:
+                with resilience.Deadline(2.0, label="capacity.request"):
+                    out = ctrl.search(name, q, K, n_probes=CAP_PROBES)
+                outcomes["degraded" if out.degraded else "ok"] += 1
+            except Exception as e:
+                kind = resilience.classify(e)
+                outcomes["rejected" if isinstance(e, serving.CapacityRejected)
+                         else kind] += 1
+            if i % 12 == 0:
+                ctrl.autopromote(1)
+            if think[i] > 0.004:
+                time.sleep(min(think[i], 0.01))
+        wall = time.perf_counter() - t0
+        k1, k2 = ss.STRIP_KERNEL.launches, bq.BQ_KERNEL.launches
+        if ctrl.promote_latency()["count"] == 0:
+            victim = names[-1]
+            ctrl.demote(victim)
+            ctrl.registry.get(victim).last_demoted = 0.0
+            ctrl.promote(victim)
+        rep = ctrl.report()
+        failed = [e for e in resilience.recent_events()
+                  if e.get("event") in ("capacity_demote_failed",
+                                        "capacity_promote_failed",
+                                        "capacity_replay_failed")]
+    finally:
+        snap.cleanup()
+    plat = rep["promote"]
+    emit({"phase": "capacity", "tenants": CAP_TENANTS, "rows": CAP_ROWS,
+          "n_lists": CAP_LISTS, "setup_s": setup_s, "budget_bytes": budget,
+          "oversubscription_x": total / budget, "requests": CAP_REQUESTS,
+          "qps": CAP_REQUESTS / wall, "outcomes": dict(outcomes),
+          "tiers": {"hot": rep["tenants_resident_hot"],
+                    "warm": rep["tenants_resident_warm"],
+                    "cold": rep["tenants_cold"]},
+          "demotions": rep["demotions"], "promotions": rep["promotions"],
+          "rejections": rep["rejections"], "promote": plat,
+          "queued_degraded": rep["queued_degraded"],
+          "k1_launches": k1, "k2_launches": k2,
+          "failed_transitions": len(failed),
+          "resident_fraction": rep["resident_fraction"]})
+    known = {"ok", "degraded", "rejected", resilience.DEADLINE}
+    if outcomes.get(resilience.OOM) or set(outcomes) - known or failed \
+            or not plat.get("p50_s") or \
+            (outcomes.get("degraded") and k2 <= 0) or \
+            (outcomes.get("ok") and k1 <= 0):
+        raise AssertionError(f"capacity: outcomes {dict(outcomes)}, failed "
+                             f"{failed[:3]}, promote {plat}, K1 {k1}, K2 {k2}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true",
@@ -4701,7 +5337,7 @@ def main() -> int:
         t = time.perf_counter()
         shared = shared_data()
         emit({"phase": "data", "seconds": time.perf_counter() - t})
-        held = {}
+        held = HELD
 
         def fold(entry, result):
             worst = entry["max_abs_err"]
@@ -4725,8 +5361,17 @@ def main() -> int:
         def serve():
             fold(k3, serve_phase(shared, *held.pop("flat")))
 
+        def serve_queue():
+            serve_queue_phase(shared, *held["serve.flat"])
+
         def serve_pq():
-            serve_codes_phase(shared, "pq", *held.pop("main"))
+            serve_codes_phase(shared, "pq", *held["main"])
+
+        def roofline():
+            roofline_phase(shared, *held.pop("serve.flat"), *held["main"])
+
+        def serve_maint():
+            serve_maint_phase(shared, *held.pop("main"))
 
         def serve_bq():
             fold(k4, serve_codes_phase(shared, "bq", *held.pop("bq")))
@@ -4749,9 +5394,14 @@ def main() -> int:
                            ("main", ivf_pq), ("bq", ivf_bq),
                            ("bq.streaming", bq_streaming),
                            ("flat", ivf_flat), ("serve", serve),
-                           ("serve.pq", serve_pq), ("serve.bq", serve_bq),
+                           ("serve.queue", serve_queue),
+                           ("serve.pq", serve_pq), ("obs.roofline", roofline),
+                           ("serve.maint", serve_maint),
+                           ("serve.bq", serve_bq),
                            ("lut", lut), ("cache", cache), ("brute", brute),
-                           ("cagra", cagra), ("obs", obs_phase),
+                           ("capacity", capacity_phase),
+                           ("cagra", cagra), ("obs.cost", obs_cost_phase),
+                           ("obs", obs_phase),
                            ("faults", lambda: faults_phase(shared))):
             t = time.perf_counter()
             path()

@@ -16,6 +16,21 @@ _N_ALT = 4  # nearest-alternative rounds before the pressure valve
 
 _log = logging.getLogger("raft_tpu_torch")
 
+#: compile-ledger entries of the paged scans: a delta of
+#: :func:`paged_trace_count` over a serving window counts the new operand
+#: signatures (shapes) the scans met, and each one's ledger record names
+#: the operand that changed (obs/compile.py)
+PAGED_ENTRIES = ("ivf_flat.paged_scan", "ivf_pq.paged_scan",
+                 "ivf_flat.paged_pallas", "ivf_pq.paged_pallas",
+                 "ivf_bq.paged_pallas")
+
+
+def paged_trace_count() -> int:
+    """Ledger records of the paged scan entries in this process."""
+    from raft_tpu_torch.obs import compile as obs_compile
+
+    return sum(obs_compile.trace_count(e) for e in PAGED_ENTRIES)
+
 
 def round_list_size(max_count: int, group_size: int,
                     pow2_chunks: bool = False) -> int:

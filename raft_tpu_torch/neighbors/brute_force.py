@@ -25,6 +25,9 @@ from typing import Optional
 import torch
 
 from raft_tpu_torch import obs
+from raft_tpu_torch.obs import compile as obs_compile
+from raft_tpu_torch.obs import roofline as obs_roofline
+from raft_tpu_torch.obs.costmodel import dtype_name
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.ops import distance as dist
@@ -123,9 +126,22 @@ def search(index: BruteForceIndex, queries, k: int, filter=None,
         obs.add("brute_force.search.queries", q)
         obs.add("brute_force.search.rows_scanned", q * n)
         obs.add("brute_force.search.tiles", ceil_div(n, tile_rows))
+        # the exact scan is the roofline's calibration anchor: one dense
+        # gemm, no padding
+        obs_roofline.note_dispatch(
+            "brute_force.search",
+            {"q": q, "n": n, "dim": index.dim, "k": int(k),
+             "dtype": dtype_name(index.dataset.dtype)})
 
     def attempt(tr):
         faultpoint("brute_force.search")
+        obs_compile.trace_event(
+            "brute_force.search", queries=queries, dataset=index.dataset,
+            norms=index.norms, filter=filter,
+            static={"k": int(k), "metric": index.metric,
+                    "metric_arg": index.metric_arg, "tile_rows": int(tr),
+                    "select_algo": select_algo,
+                    "compute_dtype": res.compute_dtype})
         return _search_tiles(index, queries, int(k), filter, int(tr),
                              select_algo, res)
 

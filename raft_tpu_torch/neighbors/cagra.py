@@ -70,6 +70,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import obs
+from raft_tpu_torch.obs import compile as obs_compile
+from raft_tpu_torch.obs import roofline as obs_roofline
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
@@ -976,6 +978,17 @@ def search(index: CagraIndex, queries, k: int,
         obs.add("cagra.search.tiles", n_tiles)
         obs.add("cagra.search.iterations", nq * max_iter)
         obs.add(f"cagra.search.traversal.{mode}", 1)
+        if mode == "fused":
+            # K6's static FLOP/byte model and the query-block occupancy;
+            # one ``cagra::hop`` span covers one K6 launch, so one hop
+            obs_roofline.note_dispatch(
+                "cagra.fused_hop",
+                {"q": q_tile, "width": width,
+                 "degree": index.graph_degree, "proj_dim": p,
+                 "itopk": itopk, "hops": 1},
+                occupancy=occupancy_stats(
+                    min(nq, q_tile), _CAGRA_QBLOCK, width,
+                    index.graph_degree, p, itopk))
     faultpoint("cagra.search")
     (gen,) = kmeans_balanced.seeded_generators(params.seed, 1, dev)
     n_rand = int(max(1, params.num_random_samplings))

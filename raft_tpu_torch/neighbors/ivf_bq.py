@@ -51,6 +51,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import obs
+from raft_tpu_torch.obs import compile as obs_compile
+from raft_tpu_torch.obs import roofline as obs_roofline
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
@@ -73,6 +75,16 @@ from raft_tpu_torch.resilience import (degrade_on_oom, faultpoint,
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
 PAGED_BACKENDS = ("auto", "paged", "paged_jnp")
+
+#: compile-ledger entry of the packed scan: a record-count delta of zero
+#: across repeated searches is the steady state (obs/compile.py)
+_LEDGER_ENTRY = "ivf_bq.search"
+
+
+def scan_trace_count() -> int:
+    """New signatures the packed BQ scan has met in this process — a shim
+    over the compile ledger, deltaed like the JAX package's."""
+    return obs_compile.trace_count(_LEDGER_ENTRY)
 _log = logging.getLogger("raft_tpu_torch")
 
 #: fixed list granule: code rows are tiny, so the strip alignment is
@@ -629,6 +641,15 @@ def _bq_fused(queries, index: IvfBqIndex, k: int, n_probes: int,
     """Prep, device plan, packed strip scan (tournament allowed: the path
     over-fetches and re-ranks exactly) and finalize (‖Rq̃‖² = ‖q‖²). A
     filter turns its failing ids' bias lanes to +inf."""
+    obs_compile.trace_event(
+        _LEDGER_ENTRY, queries=queries, centers=index.centers,
+        rotation=index.rotation, list_codes=index.list_codes,
+        list_scale=index.list_scale, list_bias=index.list_bias,
+        list_ids=index.list_ids, filter=filter, cls_ord=cls_ord,
+        static={"k": k, "n_probes": n_probes, "metric": index.metric,
+                "select_algo": select_algo, "classes": classes,
+                "class_counts": class_counts, "q_tile": q_tile,
+                "bits": index.bits, "rotation_kind": index.rotation_kind})
     probes, qr, pair_const = _bq_search_prep(
         queries, index.centers, index.rotation, n_probes, select_algo, l2,
         index.bits, index.rotation_kind)
@@ -684,12 +705,37 @@ def search(index: IvfBqIndex, queries, k: int, n_probes: int = 20,
         scan_attrs = _scan_telemetry(
             "ivf_bq.search", "packed" if queries.is_cuda else "reference", q,
             n_probes, k, filter_attrs)
+        # the packed scan's FLOP/byte model, with the strip planner's
+        # occupancy at the scan's planning width (bits·rot_dim)
+        lens_cached = getattr(index, "_lens_np_cache", None)
+        occ = None
+        if lens_cached is not None \
+                and lens_cached.shape[0] == index.n_lists:
+            kf_occ = min(int(k), 512)
+            occ = obs_roofline.memo_occupancy(
+                index,
+                (id(lens_cached), q, int(n_probes), kf_occ,
+                 res.workspace_bytes),
+                lambda: bq_scan.occupancy_stats(
+                    lens_cached, index.max_list_size, q, n_probes,
+                    rot_dim=index.rot_dim,
+                    workspace_bytes=res.workspace_bytes, kf=kf_occ,
+                    bits=index.bits))
+        obs_roofline.note_dispatch(
+            "ivf_bq.search",
+            {"q": q, "dim": index.dim, "n_lists": index.n_lists,
+             "max_list_size": index.max_list_size,
+             "n_probes": int(n_probes), "k": int(k),
+             "rot_dim": index.rot_dim, "bits": index.bits,
+             "rotation_kind": index.rotation_kind},
+            occupancy=occ)
 
     def attempt(qt):
         if qt < q_tile:
             obs.add("ivf_bq.search.degraded_tile")
         faultpoint("ivf_bq.search.scan")
-        with obs.record_span("ivf_bq::scan", attrs=scan_attrs):
+        with obs.record_span("ivf_bq::scan", attrs=scan_attrs), \
+                obs_compile.watch():
             return _bq_fused(queries, index, int(k), n_probes, select_algo,
                              l2, classes, class_counts, cls_ord, qt, filter)
 
@@ -732,6 +778,16 @@ def _paged_fused_bq(queries, store, codes_pool, scale_pool, bias_pool,
     exact pair term), K4 over the store's code, scale and bias pools in
     place (``class_impl``: K4's wrapper, or its plain twin), merge and
     finalize. No tournament: the paged scan runs the exact carry."""
+    obs_compile.trace_event(
+        "ivf_bq.paged_pallas", queries=queries, centers=store.centers,
+        rotation=store.rotation, codes_pool=codes_pool,
+        scale_pool=scale_pool, bias_pool=bias_pool, page_ids=page_ids,
+        table=table, chain_pages=chain_pages,
+        static={"k": k, "n_probes": n_probes, "metric": store.metric,
+                "select_algo": select_algo, "q_tile": q_tile,
+                "impl": getattr(class_impl, "__name__", "paged_bq_class"),
+                "bits": store.bq_bits,
+                "rotation_kind": store.rotation_kind})
     l2 = store.metric in ("sqeuclidean", "euclidean")
     probes, qr, pair_const = _bq_search_prep(
         queries, store.centers, store.rotation, n_probes, select_algo, l2,
@@ -768,7 +824,7 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
                                     rot_dim * store.bq_bits),
                  queries.shape[0])
     with _paged_scan_span(store, backend, int(queries.shape[0]), n_probes, k,
-                          filter_attrs):
+                          filter_attrs, res):
         return _paged_fused_bq(queries, store, codes_pool, scale_pool,
                                bias_pool, page_ids, table, chain_pages,
                                int(k), n_probes, select_algo, q_tile,

@@ -36,6 +36,7 @@ or ``paged_scan`` (gather) spans; ``ivf_flat.search.*`` /
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional
@@ -49,6 +50,9 @@ from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
 from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.neighbors import _filtering, _packing
+from raft_tpu_torch.obs import compile as obs_compile
+from raft_tpu_torch.obs import roofline as obs_roofline
+from raft_tpu_torch.obs.costmodel import dtype_name
 from raft_tpu_torch.ops import strip_scan as ss
 from raft_tpu_torch.ops.distance import (canonical_metric,
                                          expanded_sqeuclidean, matmul_t,
@@ -100,7 +104,6 @@ class IvfFlatIndex:
     group_size: int = 0
     _lens_np_cache: Optional[np.ndarray] = field(default=None, repr=False)
     _ragged_static_cache: Any = field(default=None, repr=False)
-    _bias_cache: Optional[torch.Tensor] = field(default=None, repr=False)
 
     @property
     def n_lists(self) -> int:
@@ -418,6 +421,14 @@ def _ragged_fused(queries, index: IvfFlatIndex, bias, k: int, n_probes: int,
                   cls_ord, q_tile: int):
     """Coarse gemm, device strip plan, K1 over the probed lists, merge and
     finalize."""
+    obs_compile.trace_event(
+        "ivf_flat.search_ragged", queries=queries, centers=index.centers,
+        list_data=index.list_data, bias=bias, list_ids=index.list_ids,
+        cls_ord=cls_ord,
+        static={"k": k, "n_probes": n_probes, "metric": index.metric,
+                "select_algo": select_algo,
+                "compute_dtype": res.compute_dtype, "classes": classes,
+                "class_counts": class_counts, "q_tile": q_tile})
     probes = _coarse_probes(queries, index.centers, n_probes, index.metric,
                             select_algo, res.compute_dtype)
     l2 = index.metric in ("sqeuclidean", "euclidean")
@@ -430,15 +441,14 @@ def _ragged_fused(queries, index: IvfFlatIndex, bias, k: int, n_probes: int,
 def _search_ragged(index: IvfFlatIndex, queries, k: int, n_probes: int,
                    select_algo: str, res: Resources, filter=None):
     """The strip path: work follows the probed lists' real entries, each
-    pair's top-k kept inside K1. The unfiltered bias depends only on the
-    index, so it is cached on it; a filter turns its failing ids' lanes to
-    +inf."""
+    pair's top-k kept inside K1. The bias is the list norms (L2) or zeros,
+    +inf at padding; a filter turns its failing ids' lanes to +inf."""
     l2 = index.metric in ("sqeuclidean", "euclidean")
-    if index._bias_cache is None:
-        index._bias_cache = _ragged_bias(index.list_ids, index.list_norms,
-                                         "l2" if l2 else "ip")
-    bias = _filtering.apply_filter_bias(index._bias_cache, index.list_ids,
-                                        filter)
+    # made per search, not cached: the index holds exactly the fields
+    # obs.costmodel.predict_index_bytes counts
+    bias = _filtering.apply_filter_bias(
+        _ragged_bias(index.list_ids, index.list_norms, "l2" if l2 else "ip"),
+        index.list_ids, filter)
     classes, class_counts, cls_ord, q_tile = _ragged_plan_static(
         index, n_probes, k, res, index.dim)
     return _ragged_fused(queries, index, bias, int(k), n_probes,
@@ -506,6 +516,13 @@ def _search_gather(index: IvfFlatIndex, queries, k: int, n_probes: int,
                    select_algo: str, res: Resources, filter=None):
     """The gather backend over the padded lists."""
     l2 = index.metric in ("sqeuclidean", "euclidean")
+    obs_compile.trace_event(
+        "ivf_flat.search", queries=queries, centers=index.centers,
+        list_data=index.list_data, list_ids=index.list_ids,
+        list_norms=index.list_norms, filter=filter,
+        static={"k": k, "n_probes": n_probes, "metric": index.metric,
+                "select_algo": select_algo,
+                "compute_dtype": res.compute_dtype})
 
     def gather(pb):
         return (index.list_data[pb], index.list_ids[pb],
@@ -604,8 +621,31 @@ def search(index: IvfFlatIndex, queries, k: int, n_probes: int = 20,
         scan_attrs = _scan_telemetry(
             "ivf_flat.search", backend, q, n_probes, k, filter_attrs,
             rows_scanned=q * n_probes * index.max_list_size)
+        # the dispatch's static FLOP/byte model, with the strip planner's
+        # occupancy when the host already holds the list lengths
+        occ = None
+        lens_cached = getattr(index, "_lens_np_cache", None)
+        if backend == "ragged" and lens_cached is not None \
+                and lens_cached.shape[0] == index.n_lists:
+            kf_occ = min(int(k), 512)
+            occ = obs_roofline.memo_occupancy(
+                index,
+                (id(lens_cached), q, int(n_probes), kf_occ,
+                 res.workspace_bytes),
+                lambda: ss.occupancy_stats(
+                    lens_cached, index.max_list_size, q, n_probes,
+                    dim=index.dim, workspace_bytes=res.workspace_bytes,
+                    kf=kf_occ))
+        obs_roofline.note_dispatch(
+            "ivf_flat.search",
+            {"q": q, "dim": index.dim, "n_lists": index.n_lists,
+             "max_list_size": index.max_list_size,
+             "n_probes": int(n_probes), "k": int(k),
+             "dtype": dtype_name(index.list_data.dtype)},
+            occupancy=occ)
     faultpoint("ivf_flat.search.scan")
-    with obs.record_span("ivf_flat::scan", attrs=scan_attrs):
+    with obs.record_span("ivf_flat::scan", attrs=scan_attrs), \
+            obs_compile.watch():
         if backend == "gather":
             return _search_gather(index, queries, int(k), n_probes,
                                   select_algo, res, filter)
@@ -675,6 +715,13 @@ def _paged_fused(queries, centers, pages, bias_pool, page_ids, table,
     """Coarse gemm, device strip plan over the capacity layout, K3 over the
     page pool in place, merge and finalize. The bias pool is already +inf
     at dead slots."""
+    obs_compile.trace_event(
+        "ivf_flat.paged_pallas", queries=queries, centers=centers,
+        pages=pages, bias_pool=bias_pool, page_ids=page_ids, table=table,
+        chain_pages=chain_pages,
+        static={"k": k, "n_probes": n_probes, "metric": metric,
+                "select_algo": select_algo,
+                "compute_dtype": res.compute_dtype, "q_tile": q_tile})
     probes = _coarse_probes(queries, centers, n_probes, metric, select_algo,
                             res.compute_dtype)
     l2 = metric in ("sqeuclidean", "euclidean")
@@ -721,8 +768,9 @@ def _paged_search_args(store, kind: str, queries, k: int, n_probes: int,
     return res, n_probes, queries, filter, backend, filter_attrs
 
 
+@contextlib.contextmanager
 def _paged_scan_span(store, backend: str, q: int, n_probes: int, k: int,
-                     filter_attrs: Optional[dict]):
+                     filter_attrs: Optional[dict], res):
     """The scan span of a paged search (``<kind>::paged_pallas`` for the
     K3/K4 engine or its named twin, ``<kind>::paged_scan`` for the
     gather), past the
@@ -734,9 +782,62 @@ def _paged_scan_span(store, backend: str, q: int, n_probes: int, k: int,
         attrs = _scan_telemetry(f"{kind}.search_paged", backend, q, n_probes,
                                 k, filter_attrs,
                                 table_width=int(store.table_width))
+        _note_paged(store, backend, q, n_probes, k, res)
     faultpoint(f"{kind}.search_paged.scan")
     name = "paged_scan" if backend == "gather" else "paged_pallas"
-    return obs.record_span(f"{kind}::{name}", attrs=attrs)
+    # the ledger watch stamps a new signature's record with the dispatch's
+    # wall clock
+    with obs.record_span(f"{kind}::{name}", attrs=attrs) as span, \
+            obs_compile.watch():
+        yield span
+
+
+def _note_paged(store, backend: str, q: int, n_probes: int, k: int,
+                res) -> None:
+    """The roofline note of one paged search: the gather scan's
+    capacity-padded per-(query, probe) model, or K3/K4's strip-shared one
+    with the paged planner's occupancy (memoized on the store until its
+    layout or fill moves). Called only under ``obs.enabled()``."""
+    kind = store.kind
+    width = int(store.table_width)
+    base = {"q": q, "dim": store.dim, "n_lists": store.n_lists,
+            "page_rows": store.page_rows, "table_width": width,
+            "n_probes": int(n_probes), "k": int(k)}
+    if kind == "ivf_pq":
+        rot_dim = int(store.rotation.shape[0])
+        pq = dict(base, pq_dim=store.pq_dim, pq_bits=store.pq_bits,
+                  rot_dim=rot_dim)
+        if backend == "gather":
+            obs_roofline.note_dispatch("ivf_pq.paged_scan", pq)
+            return
+        row_bytes, dim, entry, model = rot_dim, rot_dim, \
+            "ivf_pq.paged_pallas", pq
+    elif kind == "ivf_bq":
+        rot_dim = int(store.rotation.shape[0])
+        row_bytes = int(store.pages.shape[-1])
+        dim = rot_dim * store.bq_bits
+        entry, model = "ivf_bq.paged_pallas", dict(
+            base, rot_dim=rot_dim, bits=store.bq_bits,
+            rotation_kind=store.rotation_kind)
+    else:
+        flat = dict(base, dtype=dtype_name(store.pages.dtype))
+        if backend == "gather":
+            obs_roofline.note_dispatch("ivf_flat.paged_scan", flat)
+            return
+        row_bytes = int(store.pages.shape[-1]) * store.pages.element_size()
+        dim, entry, model = store.dim, "ivf_flat.paged_pallas", flat
+    with store._lock:
+        chain = store._list_pages.copy()
+        key = (store.pages_used, len(store._id_loc), store._tombstones,
+               width, q, int(n_probes), int(k), res.workspace_bytes)
+        live, dead = len(store._id_loc), store._tombstones
+    occ = obs_roofline.memo_occupancy(
+        store, key,
+        lambda: ss.paged_occupancy_stats(
+            width, store.page_rows, chain, live, dead, q, int(n_probes),
+            int(k), row_bytes, workspace_bytes=res.workspace_bytes,
+            dim=dim))
+    obs_roofline.note_dispatch(entry, model, occupancy=occ)
 
 
 def _page_gather(table, page_ids, payload, aux):
@@ -773,10 +874,17 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
         _paged_search_args(store, "ivf_flat", queries, k, n_probes, filter,
                            backend, res, device)
     with _paged_scan_span(store, backend, int(queries.shape[0]), n_probes, k,
-                          filter_attrs):
+                          filter_attrs, res):
         if backend == "gather":
             pages, page_ids, page_aux, table = store.scan_state()
             l2 = store.metric in ("sqeuclidean", "euclidean")
+            obs_compile.trace_event(
+                "ivf_flat.paged_scan", queries=queries, centers=store.centers,
+                pages=pages, page_ids=page_ids, page_aux=page_aux,
+                table=table, filter=filter,
+                static={"k": int(k), "n_probes": n_probes,
+                        "metric": store.metric, "select_algo": select_algo,
+                        "compute_dtype": res.compute_dtype})
             return _gather_scan(
                 queries, store.centers, store.metric, int(k), n_probes,
                 select_algo, res, table.shape[1] * store.page_rows,

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import obs
+from raft_tpu_torch.obs import compile as obs_compile
+from raft_tpu_torch.obs import roofline as obs_roofline
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
@@ -983,6 +985,14 @@ def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
     "cache")``) takes the query operand's same leading coordinates; its
     b_sum was built in the truncated space and the center terms stay
     exact."""
+    obs_compile.trace_event(
+        "ivf_pq.search_ragged", queries=queries, centers=index.centers,
+        rotation=index.rotation, b_sum=index.b_sum, list_ids=index.list_ids,
+        decoded=index.decoded, decoded_scale=index.decoded_scale,
+        filter=filter, cls_ord=cls_ord,
+        static={"k": k, "n_probes": n_probes, "metric": index.metric,
+                "select_algo": select_algo, "l2": l2, "classes": classes,
+                "class_counts": class_counts, "q_tile": q_tile})
     probes, qr_scaled, bias, pair_const = _pq_search_prep(
         queries, index.centers, index.rotation, index.b_sum,
         index.decoded_scale, n_probes, select_algo, l2, index.list_ids,
@@ -1125,6 +1135,15 @@ def _search_pallas(index: IvfPqIndex, queries, k: int, n_probes: int,
     q_tile = pallas_q_tile(q, n_probes, index.max_list_size,
                            index.pq_dim * index.n_codes * 2,
                            res.workspace_bytes)
+    obs_compile.trace_event(
+        "ivf_pq.search_pallas", queries=queries, centers=index.centers,
+        rotation=index.rotation, codebooks=index.codebooks,
+        list_codes=index.list_codes, list_ids=index.list_ids,
+        b_sum=index.b_sum, filter=filter,
+        static={"k": k, "n_probes": n_probes, "metric": index.metric,
+                "q_tile": q_tile, "select_algo": select_algo,
+                "compute_dtype": res.compute_dtype, "pq_dim": index.pq_dim,
+                "pq_bits": index.pq_bits})
     coarse_vals, probes, luts, codes_t = _pallas_prep(
         queries, index, n_probes, select_algo, res.compute_dtype)
     outs, loads = [], []
@@ -1290,8 +1309,33 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
         scan_attrs = _scan_telemetry(
             "ivf_pq.search", backend, q, n_probes, k, filter_attrs,
             rows_scanned=q * n_probes * index.max_list_size)
+        # the dispatch's static FLOP/byte model, with the strip planner's
+        # occupancy when the host already holds the list lengths
+        rot_dim_obs = int(index.rotation.shape[0])
+        occ = None
+        lens_cached = getattr(index, "_lens_np_cache", None)
+        if backend == "ragged" and lens_cached is not None \
+                and lens_cached.shape[0] == index.n_lists:
+            kf_occ = min(int(k), 512)
+            occ = obs_roofline.memo_occupancy(
+                index,
+                (id(lens_cached), q, int(n_probes), kf_occ,
+                 res.workspace_bytes),
+                lambda: strip_scan.occupancy_stats(
+                    lens_cached, index.max_list_size, q, n_probes,
+                    dim=rot_dim_obs, workspace_bytes=res.workspace_bytes,
+                    kf=kf_occ))
+        obs_roofline.note_dispatch(
+            "ivf_pq.search",
+            {"q": q, "dim": index.dim, "n_lists": index.n_lists,
+             "max_list_size": index.max_list_size,
+             "pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
+             "n_probes": int(n_probes), "k": int(k),
+             "rot_dim": rot_dim_obs},
+            occupancy=occ)
     faultpoint("ivf_pq.search.scan")
-    with obs.record_span("ivf_pq::scan", attrs=scan_attrs):
+    with obs.record_span("ivf_pq::scan", attrs=scan_attrs), \
+            obs_compile.watch():
         return _search_backend(index, queries, int(k), n_probes, filter,
                                select_algo, backend, res, stats)
 
@@ -1316,6 +1360,16 @@ def _search_backend(index: IvfPqIndex, queries, k: int, n_probes: int,
         q_tile = _gather_q_tile(queries.shape[0], n_probes,
                                 index.max_list_size, index.pq_dim,
                                 res.workspace_bytes)
+        obs_compile.trace_event(
+            "ivf_pq.search", queries=queries, centers=index.centers,
+            rotation=index.rotation, codebooks=index.codebooks,
+            list_codes=index.list_codes, list_ids=index.list_ids,
+            b_sum=index.b_sum, filter=filter,
+            static={"k": k, "n_probes": n_probes, "metric": index.metric,
+                    "q_tile": q_tile, "select_algo": select_algo,
+                    "compute_dtype": res.compute_dtype,
+                    "pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
+                    "cluster": index.codebook_kind == "cluster"})
         vals, ids = _search_impl_jnp(
             queries, index.centers, index.rotation, index.codebooks,
             index.metric, index.pq_dim, index.pq_bits,
@@ -1340,6 +1394,13 @@ def _paged_fused_pq(queries, store, cache_pool, bias_pool, page_ids, table,
     −2⟨q, c_l⟩ pair term), K3 over the cache pool in place with the
     store's bias pool (already ‖R·c_l‖² + b_sum per row), merge and
     finalize. No tournament: the paged scan runs the exact carry."""
+    obs_compile.trace_event(
+        "ivf_pq.paged_pallas", queries=queries, centers=store.centers,
+        rotation=store.rotation, cache_pool=cache_pool, bias_pool=bias_pool,
+        page_ids=page_ids, table=table, chain_pages=chain_pages,
+        decoded_scale=store.decoded_scale,
+        static={"k": k, "n_probes": n_probes, "metric": store.metric,
+                "select_algo": select_algo, "q_tile": q_tile})
     l2 = store.metric in ("sqeuclidean", "euclidean")
     probes, qr, pair_const = _pq_probe_prep(
         queries, store.centers, store.rotation, n_probes, select_algo, l2)
@@ -1366,7 +1427,7 @@ def search_paged(store, queries, k: int, n_probes: int = 20, filter=None,
         _paged_search_args(store, "ivf_pq", queries, k, n_probes, filter,
                            backend, res, device)
     with _paged_scan_span(store, backend, int(queries.shape[0]), n_probes, k,
-                          filter_attrs):
+                          filter_attrs, res):
         return _search_paged_backend(store, queries, int(k), n_probes,
                                      filter, select_algo, backend, res)
 
@@ -1377,12 +1438,22 @@ def _search_paged_backend(store, queries, k: int, n_probes: int, filter,
     if backend == "gather":
         pages, page_ids, page_aux, table = store.scan_state()
         cols = table.shape[1] * store.page_rows
+        q_tile = _gather_q_tile(queries.shape[0], n_probes, cols,
+                                store.pq_dim, res.workspace_bytes)
+        obs_compile.trace_event(
+            "ivf_pq.paged_scan", queries=queries, centers=store.centers,
+            rotation=store.rotation, codebooks=store.codebooks, pages=pages,
+            page_ids=page_ids, page_aux=page_aux, table=table,
+            filter=filter,
+            static={"k": int(k), "n_probes": n_probes,
+                    "metric": store.metric, "q_tile": q_tile,
+                    "select_algo": select_algo,
+                    "compute_dtype": res.compute_dtype,
+                    "pq_dim": store.pq_dim, "pq_bits": store.pq_bits})
         vals, ids = _search_impl_jnp(
             queries, store.centers, store.rotation, store.codebooks,
             store.metric, store.pq_dim, store.pq_bits, False, int(k),
-            n_probes, _gather_q_tile(queries.shape[0], n_probes, cols,
-                                     store.pq_dim, res.workspace_bytes),
-            select_algo, res.compute_dtype,
+            n_probes, q_tile, select_algo, res.compute_dtype,
             _page_gather(table, page_ids, pages, page_aux), filter)
         if store.metric == "cosine":
             vals = torch.where(ids >= 0, 1.0 - vals, float("inf"))

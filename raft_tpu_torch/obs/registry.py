@@ -31,6 +31,7 @@ from raft_tpu_torch.obs import tracing as _tracing
 from raft_tpu_torch.obs.aggregate import percentile_bounds
 
 __all__ = [
+    "DISPATCH_HIST_PREFIX",
     "EXEMPLAR_CAP",
     "MetricsRegistry",
     "NOOP_SPAN",
@@ -43,6 +44,7 @@ __all__ = [
     "observe",
     "record_span",
     "record_timing",
+    "register_dispatch_span",
     "registry",
     "reset",
     "set_gauge",
@@ -52,6 +54,23 @@ __all__ = [
 #: exemplars kept per histogram (newest win): enough to link each
 #: percentile bucket of a latency histogram to a recent trace id
 EXEMPLAR_CAP = 8
+
+#: histogram namespace of sync-mode committed span durations:
+#: ``dispatch.<span name>``, the measured leg obs/roofline pairs with its
+#: static FLOP/byte model
+DISPATCH_HIST_PREFIX = "dispatch."
+
+#: spans whose sync-mode committed durations fold into a ``dispatch.*``
+#: histogram — only registered device-dispatch spans (obs/roofline
+#: registers its entries' spans at import), so host spans are never
+#: labelled as device dispatches
+_DISPATCH_SPANS: set = set()
+
+
+def register_dispatch_span(name: str) -> None:
+    """Opt a span name into the sync-mode ``dispatch.*`` histogram fold."""
+    _DISPATCH_SPANS.add(name)
+
 
 _enabled = os.environ.get("RAFT_TPU_OBS", "").strip().lower() in (
     "1", "true", "on", "yes",
@@ -362,6 +381,11 @@ class _Span:
             error = _classify_error(exc)
             self._reg.add(f"span.errors.{error}")
         self._reg.record_timing(self._name, dt)
+        if dispatch_s is not None and self._name in _DISPATCH_SPANS:
+            # committed duration of a registered dispatch span, exemplar-
+            # linked to this span's trace
+            self._reg.observe(f"{DISPATCH_HIST_PREFIX}{self._name}", dt,
+                              trace_id=self._ids[0])
         _tracing.exit_span(self._ids, self._token, name=self._name,
                            t0=self._t0_epoch, dur_s=dt, attrs=self._attrs,
                            error=error, dispatch_s=dispatch_s)

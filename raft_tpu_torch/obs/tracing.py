@@ -36,6 +36,7 @@ from collections import deque
 from typing import Optional
 
 __all__ = [
+    "alloc_id",
     "chrome_trace",
     "clear_spans",
     "current_span",
@@ -45,6 +46,7 @@ __all__ = [
     "enter_span",
     "exit_span",
     "export_chrome_trace",
+    "manual_span",
     "process_info",
     "push_span",
     "set_ring_cap",
@@ -204,6 +206,43 @@ def exit_span(ids, token, *, name: str, t0: float, dur_s: float,
         rec["error"] = error
     if dispatch_s is not None:
         rec["dispatch_s"] = dispatch_s
+    push_span(rec)
+    return rec
+
+
+def alloc_id() -> str:
+    """One fresh span/trace id from the process-local counter. A caller
+    building spans with explicit lineage (:func:`manual_span`) allocates
+    ids up front, so children can name a parent that completes later —
+    the serving request, whose root span closes after its dispatch
+    children were recorded on another thread."""
+    return _next_id()
+
+
+def manual_span(name: str, *, t0: float, dur_s: float,
+                trace_id: Optional[str] = None,
+                span_id: Optional[str] = None,
+                parent_id: Optional[str] = None,
+                attrs: Optional[dict] = None,
+                error: Optional[str] = None) -> dict:
+    """Record one completed span with explicit lineage, bypassing the
+    contextvar stack: the cross-thread path of a serving request's
+    submit → admit → dispatch → complete lifecycle, which spans the
+    caller's thread and the batcher's. ``t0`` is epoch seconds. Returns
+    the record put into the ring."""
+    rec = {
+        "name": name,
+        "trace_id": trace_id if trace_id is not None else _next_id(),
+        "span_id": span_id if span_id is not None else _next_id(),
+        "parent_id": parent_id,
+        "t0": t0,
+        "dur_s": dur_s,
+        "tid": threading.get_ident(),
+    }
+    if attrs:
+        rec["attrs"] = dict(attrs)
+    if error is not None:
+        rec["error"] = error
     push_span(rec)
     return rec
 

@@ -209,17 +209,27 @@ def resource_usage(source: Path) -> List[dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, building first if needed.
+    Each build-and-load lands in the compile ledger as ``native.<name>``
+    keyed by the library's hash, with the wall clock of the build and the
+    load (``obs.compile.watch``): a library loads once a process, so a
+    second record under the same hash is an unexplained retrace."""
+    from raft_tpu_torch.obs import compile as obs_compile
+
     with _lock:
         if name not in _loaded:
             source = CSRC / f"{name}.cu"
             if not source.is_file():
                 raise NativeBuildError(f"no kernel source {source}")
-            if not library_path(source).exists():
-                build()
-            try:
-                _loaded[name] = ctypes.CDLL(str(library_path(source)))
-            except OSError as e:
-                raise NativeBuildError(
-                    f"kernel library {name} did not load: {e}") from e
+            path = library_path(source)
+            with obs_compile.watch():
+                if not path.exists():
+                    build()
+                try:
+                    _loaded[name] = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise NativeBuildError(
+                        f"kernel library {name} did not load: {e}") from e
+                obs_compile.native_event(f"native.{name}",
+                                         library=path.name)
         return _loaded[name]

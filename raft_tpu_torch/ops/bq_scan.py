@@ -402,3 +402,17 @@ def paged_bq_search_traced(queries_rot, probes, codes, scale_pool,
     return ss._scan_tiles(queries_rot, probes,
                           ss.PagedIds(page_ids, table, page_rows), k, kf,
                           q_tile, plan, class_fn, pair_const)
+
+
+def occupancy_stats(lens, m: int, q: int, p: int, rot_dim: int,
+                    workspace_bytes: int = 1 << 30, kf: int = 10,
+                    bits: int = 1) -> dict:
+    """Static occupancy diagnostics of one packed-scan dispatch: the strip
+    planner's numbers (:func:`strip_scan.occupancy_stats`) at the scan's
+    REAL planning width (the bf16 unpacked block is ``bits·rot_dim`` wide —
+    the width ivf_bq's ``_ragged_plan_static`` plans with), plus the
+    packed-code byte width the DMAs actually move."""
+    out = ss.occupancy_stats(lens, m, q, p, dim=rot_dim * int(bits),
+                             workspace_bytes=workspace_bytes, kf=kf)
+    out["code_bytes_per_entry"] = multibit_width(rot_dim, bits)
+    return out

@@ -156,6 +156,65 @@ def fit_q_tile(q: int, p: int, n_lists: int, n_classes: int, kf: int,
     return q_tile
 
 
+def occupancy_stats(lens, m: int, q: int, p: int, dim: int = 0,
+                    workspace_bytes: int = 1 << 30, kf: int = 10) -> dict:
+    """Static occupancy diagnostics of one strip-scan dispatch (the JAX
+    package's, for ``obs/roofline``), from the same planning code the
+    dispatch uses (class_info / fit_q_tile / static_layout):
+
+    * ``grid`` — per length-class ``[padded_strips, n_sub, w_blocks]``
+      (the compiled kernel grids);
+    * ``padded_strip_fraction`` — static-layout padding strips over the
+      padded total, with the REAL strip count taken at the planner's
+      best case (full ``C``-slot packing, ``ceil(q·p / C)`` — the bench
+      regime; skewed probe distributions only add real strips, so this
+      is the floor of the padding, not an estimate of it);
+    * ``tile_fill`` — real (query, probe) pairs over the slots those
+      best-case strips provide (how full the MXU M-dimension runs);
+    * ``padded_row_fraction`` — scan-relative row padding: real entries
+      over the pow2-block-padded widths the kernel actually fetches per
+      list (every probed pair pays its list's padded width);
+    * ``storage_padded_fraction`` — index-relative padding against the
+      global ``m``-wide list storage (what residency pays).
+
+    ``lens`` are per-list REAL entry counts, ``m`` the padded list width,
+    ``(q, p)`` the dispatch's query/probe shape. Pure numpy."""
+    lens_np = np.maximum(np.asarray(lens, np.int64), 0)
+    n_lists = int(lens_np.shape[0])
+    classes, cls_ord = class_info(lens_np, dim=dim)
+    class_counts = class_counts_of(cls_ord, len(classes))
+    q_tile = fit_q_tile(q, p, n_lists, len(classes), kf, workspace_bytes,
+                        dim=dim, class_counts=class_counts)
+    qt = min(q_tile, q)
+    tiles = _ceil_div(q, qt) if qt else 0
+    _, s_tot, layout = static_layout(classes, class_counts, qt, p)
+    strips_best = _ceil_div(qt * p, C)
+    n_mc = np.maximum(_ceil_div(lens_np, MC), 1)
+    scanned = (1 << np.ceil(np.log2(n_mc)).astype(np.int64)) * MC
+    real_rows = int(lens_np.sum())
+    scanned_sum = int(scanned.sum())
+    return {
+        "grid": [[int(cnt), int(n_sub), int(w_blocks)]
+                 for (w_blocks, n_sub, _start, cnt) in layout],
+        "strips_padded": int(s_tot),
+        "strips_real_bestcase": int(strips_best),
+        "padded_strip_fraction": round(
+            max(0.0, 1.0 - strips_best / s_tot), 4) if s_tot else 0.0,
+        "tile_fill": round(min(1.0, qt * p / (strips_best * C)), 4)
+        if strips_best else 0.0,
+        "padded_row_fraction": round(
+            max(0.0, 1.0 - real_rows / scanned_sum), 4)
+        if scanned_sum else 0.0,
+        "storage_padded_fraction": round(
+            max(0.0, 1.0 - real_rows / (n_lists * m)), 4)
+        if n_lists * m else 0.0,
+        "q_tile": int(qt),
+        "tiles": int(tiles),
+        "c": C,
+        "mc": MC,
+    }
+
+
 def _plan_device(probes: torch.Tensor, cls_ord: torch.Tensor, n_lists: int,
                  region_starts: Tuple[int, ...], s_tot: int):
     """Strip tables built on the probes' device: per-list pair counts by a
@@ -692,6 +751,67 @@ def paged_plan(table_width: int, page_rows: int, row_bytes: int,
     while ppf > 1 and not _ok(ppf):
         ppf //= 2
     return ppf, max(1, W // ppf), ppf * R
+
+
+def paged_occupancy_stats(table_width: int, page_rows: int, chain_pages,
+                          live_rows: int, tombstones: int, q: int, p: int,
+                          k: int, row_bytes: int,
+                          workspace_bytes: int = 1 << 30,
+                          dim: int = 0) -> dict:
+    """Static occupancy diagnostics of one paged (K3 / K4) dispatch, from
+    the same planning code the dispatch uses (:func:`paged_plan` +
+    ``static_layout``). Beyond the strip numbers, the paged plane's own
+    wastes:
+
+    * ``page_fill`` — live rows over the slots of the pages actually
+      chained (tail-fill waste the DMA still moves);
+    * ``tombstone_fraction`` — tombstoned slots over chained-page slots
+      (the waste background compaction reclaims);
+    * ``chain_fill`` — chained pages over table capacity (how much of the
+      capacity-planned grid the skip path prunes).
+
+    ``chain_pages`` is the per-list live page count (numpy)."""
+    chain_np = np.maximum(np.asarray(chain_pages, np.int64), 0)
+    n_lists = int(chain_np.shape[0])
+    kf = min(int(k), 512)
+    ppf, n_sub, w = paged_plan(table_width, page_rows, row_bytes, kf)
+    classes = ((ppf, n_sub),)
+    class_counts = (n_lists,)
+    q_tile = fit_q_tile(q, p, n_lists, 1, kf, workspace_bytes, dim=dim,
+                        class_counts=class_counts)
+    qt = min(q_tile, q) or 1
+    _, s_tot, layout = static_layout(classes, class_counts, qt, p)
+    strips_best = _ceil_div(qt * p, C)
+    chained = int(chain_np.sum())
+    chained_slots = chained * int(page_rows)
+    cap_slots = n_lists * int(table_width) * int(page_rows)
+    live = max(0, int(live_rows))
+    dead = max(0, int(tombstones))
+    return {
+        "grid": [[int(cnt), int(ns), int(wb)]
+                 for (wb, ns, _s, cnt) in layout],
+        "pages_per_fetch": int(ppf),
+        "n_sub": int(n_sub),
+        "w": int(w),
+        "strips_padded": int(s_tot),
+        "strips_real_bestcase": int(strips_best),
+        "padded_strip_fraction": round(
+            max(0.0, 1.0 - strips_best / s_tot), 4) if s_tot else 0.0,
+        "tile_fill": round(min(1.0, qt * p / (strips_best * C)), 4)
+        if strips_best else 0.0,
+        "page_fill": round(live / chained_slots, 4) if chained_slots
+        else 0.0,
+        "tombstone_fraction": round(dead / chained_slots, 4)
+        if chained_slots else 0.0,
+        "chain_fill": round(chained / (n_lists * table_width), 4)
+        if n_lists * table_width else 0.0,
+        "padded_row_fraction": round(
+            max(0.0, 1.0 - live / chained_slots), 4) if chained_slots
+        else 0.0,
+        "capacity_slots": cap_slots,
+        "q_tile": int(qt),
+        "c": C,
+    }
 
 
 def paged_eligible(table_width: int, page_rows: int, row_bytes: int,

@@ -40,7 +40,12 @@ compact_swaps, set_filter, capacity and table growth, stale and regrown
 swaps), and the ``serving.store.upsert`` faultpoint before each appended
 chunk. An upsert whose append fails with an OOM-classified error appends
 the rest in half-size chunks, down to a page
-(``resilience.degrade_on_oom``); chunks already landed stay landed.
+(``resilience.degrade_on_oom``); chunks already landed stay landed. The
+cost layer's hooks are the JAX package's too: ``serving.scatter`` and
+``serving.tombstone`` compile-ledger entries (a pool growth is recorded
+with the operand that grew) and the ``serving.scatter`` roofline note.
+:meth:`~PagedListStore.recluster_swap` adopts a maintenance clone and
+:meth:`~PagedListStore.restore_shape` pre-grows to a captured page plan.
 """
 
 from __future__ import annotations
@@ -61,6 +66,9 @@ from raft_tpu_torch.neighbors import ivf_bq as ivf_bq_mod
 from raft_tpu_torch.neighbors import ivf_flat as ivf_flat_mod
 from raft_tpu_torch.neighbors import ivf_pq as ivf_pq_mod
 from raft_tpu_torch.neighbors._packing import pack_lists
+from raft_tpu_torch.obs import compile as obs_compile
+from raft_tpu_torch.obs import roofline as obs_roofline
+from raft_tpu_torch.obs.costmodel import dtype_name
 from raft_tpu_torch.ops import linalg
 from raft_tpu_torch.ops.distance import sqnorm
 from raft_tpu_torch.resilience import degrade_on_oom, faultpoint, record_event
@@ -625,6 +633,20 @@ class PagedListStore:
             obs.add("serving.store.upserts", n)
             if old_locs:
                 obs.add("serving.store.replaced", len(old_locs))
+            # the append is pure data movement (flops 0, memory-bound by
+            # construction); the model prices the rows and the kind's
+            # second pool row (int8 cache for PQ, fp32 scale for BQ)
+            extra_bytes = 0
+            if self.kind == "ivf_pq":
+                extra_bytes = self._cache_dim
+            elif self.kind == "ivf_bq":
+                extra_bytes = 4
+            obs_roofline.note_dispatch(
+                "serving.scatter",
+                {"n_rows": n, "dim": self.dim,
+                 "payload_width": int(self.pages.shape[2]),
+                 "payload_dtype": dtype_name(self.pages.dtype),
+                 "extra_row_bytes": extra_bytes})
         return {"upserts": n, "replaced": len(old_locs), "growths": growths}
 
     def _append(self, payload, ids_np, aux, labels_np, bias, extra) -> None:
@@ -638,6 +660,14 @@ class PagedListStore:
         pp_np, rr_np = self._alloc_slots(np.asarray(labels_np))
         pp = torch.from_numpy(pp_np).to(self.device)
         rr = torch.from_numpy(rr_np).to(self.device)
+        # a capacity growth lands in the ledger attributed to the pool
+        # operand that grew (obs/compile.py)
+        obs_compile.trace_event(
+            "serving.scatter", pages=self.pages, page_ids=self.page_ids,
+            page_aux=self.page_aux, page_bias=self.page_bias,
+            extra_pool=(self.page_cache if self.kind == "ivf_pq"
+                        else self.page_scale),
+            payload=payload, ids=ids_np, aux=aux, pp=pp, rr=rr)
         pages = _put(self.pages, pp, rr, payload)
         page_ids = _put(self.page_ids, pp, rr,
                         torch.from_numpy(ids_np.astype(np.int32)))
@@ -663,6 +693,8 @@ class PagedListStore:
         np.subtract.at(self._list_live, labs[labs >= 0], 1)
         pp = torch.from_numpy(pp_np).to(self.device)
         rr = torch.from_numpy(rr_np).to(self.device)
+        obs_compile.trace_event("serving.tombstone", page_ids=self.page_ids,
+                                page_bias=self.page_bias, pp=pp, rr=rr)
         self.page_ids = _put(self.page_ids, pp, rr, -1)
         self.page_bias = _put(self.page_bias, pp, rr, float("inf"))
         self._tombstones += len(locs)
@@ -842,6 +874,31 @@ class PagedListStore:
         if obs.enabled():
             obs.add("serving.store.compact_swaps")
         return True
+
+    def recluster_swap(self, clone: "PagedListStore",
+                       expected_version: int) -> bool:
+        """Adopt a maintenance staging clone — same capacity, table width
+        and operand shapes, possibly new centers — atomically. The clone
+        holds the full surviving row set; a mutation since
+        ``expected_version`` aborts (False, nothing changed), as in
+        :meth:`compact_swap`."""
+        if not self._adopt_clone(clone, expected_version, "recluster_swap"):
+            return False
+        if obs.enabled():
+            obs.add("serving.store.recluster_swaps")
+        return True
+
+    def restore_shape(self, capacity_pages: int, table_width: int) -> None:
+        """Pre-grow to a captured ``(capacity_pages, table_width)``: the
+        page plan the capacity plane keeps across a tier round trip, so a
+        promoted store scans at the operand shapes it had before demotion.
+        The device table mirror is built here, off the serving path."""
+        with self._lock:
+            if int(capacity_pages) > self.capacity_pages:
+                self._grow_pages(int(capacity_pages))
+            if int(table_width) > self.table_width:
+                self._grow_table(int(table_width))
+            self.device_table()
 
     def _ingest_rows(self, payload, ids_np, aux, labels_np, bias, extra,
                      chunk_rows: int = 65536) -> None:  # holds: _lock

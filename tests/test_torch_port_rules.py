@@ -625,6 +625,36 @@ def test_core_modules_import_neither_jax_nor_the_jax_package(rel):
     assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
 
 
+# the obs cost layer and the serving managers (Queue 1 items 2 and 3)
+COST_SERVING_MODULES = (
+    "obs/compile.py", "obs/memory.py", "obs/costmodel.py", "obs/roofline.py",
+    "obs/shadow.py", "serving/batching.py", "serving/compaction.py",
+    "serving/maintenance.py", "serving/capacity.py")
+
+
+@pytest.mark.parametrize("rel", COST_SERVING_MODULES)
+def test_cost_and_serving_modules_import_neither_jax_nor_the_jax_package(rel):
+    path = REPO / "raft_tpu_torch" / rel
+    assert path in _port_files()
+    roots = {m.split(".")[0] for m in _imported_modules(path)}
+    assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
+
+
+#: the JAX managers' try statements (AST nodes), each classifying a
+#: failure and recording it; the port keeps exactly these and adds none
+_MANAGER_TRIES = {"serving/batching.py": 3, "serving/compaction.py": 3,
+                  "serving/maintenance.py": 3, "serving/capacity.py": 9}
+
+
+@pytest.mark.parametrize("rel", sorted(_MANAGER_TRIES))
+def test_managers_keep_the_jax_try_blocks_and_add_none(rel):
+    trees = [ast.parse((REPO / pkg / rel).read_text())
+             for pkg in ("raft_tpu", "raft_tpu_torch")]
+    counts = [sum(isinstance(n, ast.Try) for n in ast.walk(t))
+              for t in trees]
+    assert counts == [_MANAGER_TRIES[rel]] * 2, (rel, counts)
+
+
 _RECOVERY = ("degrade_on_oom", "with_retries")
 _LOADERS = ("build", "load", "CDLL", "_kernel_fn", "nvcc")
 
@@ -723,7 +753,8 @@ def test_missing_nvcc_classifies_fatal(monkeypatch):
 
 def test_telemetry_initialises_no_cuda_context():
     """Importing obs and recording spans (telemetry off, then on in sync
-    mode) never initialises CUDA: the child makes CUDA's lazy init raise."""
+    mode), sampling memory, reading the memory budget and the platform
+    peaks never initialise CUDA: the child makes CUDA's lazy init raise."""
     import subprocess
     import sys
 
@@ -744,6 +775,11 @@ def test_telemetry_initialises_no_cuda_context():
         "traced('t')(lambda: None)()\n"
         "assert not torch.cuda.is_initialized()\n"
         "assert len(obs.spans()) == 3\n"
+        "from raft_tpu_torch.obs import costmodel, memory, roofline\n"
+        "assert memory.sample('t')['source'] == 'live_arrays'\n"
+        "assert costmodel.hbm_budget()['source'] == 'unknown'\n"
+        "assert roofline.platform_peaks()['source'] == 'unknown'\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
