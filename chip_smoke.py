@@ -211,6 +211,34 @@ recall ≥ 0.95. ``capacity``: 8 IVF-Flat tenants of 250,000 rows (n_lists
 every outcome and transition classified, the promote latency measured, K1
 launches for hot serves and K2 for warm ones.
 
+The CAGRA remainder and the distributed layer run last, every distributed
+path at DIST_SHARDS = 4 shards on the one card (``local_mesh(4,
+device="cuda")``): ``dist.kmeans`` (``distributed.kmeans.fit`` and
+``fit_balanced`` with 1,024 clusters on the 1M × 128 rows: seconds,
+inertia beside the single-index fit's, within DIST_KMEANS_SLACK);
+``dist.brute_force`` (exact k = 10, ids equal the single index's but at
+near-ties, and one search under the 10% mask); ``dist.ivf_flat``,
+``dist.ivf_bq``, ``dist.ivf_pq`` (build, a 10k batch at the single path's
+n_probes / k_fetch with refine for PQ and BQ: QPS as the median of 3,
+recall@10 within DIST_RECALL_SLACK of the single path's, K1 / K2 launches
+equal to the plan's shards × tiles × length classes, the kernel's share of
+the search time by CUDA events); ``dist.ivf_pq.shard_loss`` (one shard
+LOST: coverage 0.75, degraded, results equal to an index whose lost shard
+holds nothing); ``dist.snapshot`` (the IVF-PQ index saved, loaded, its
+lost shard wiped then ``restore_shard`` / ``recover``ed, results equal to
+before the loss); ``dist.cagra`` (one CAGRA build a shard, K1 launches
+per shard, the compressed loop with K6 launches 0, recall@10 ≥
+DIST_CAGRA_GATE); ``dist.nccl`` (a world-1 NCCL process group on a free
+localhost port: the nine comms self-tests, an IVF-PQ search equal to the
+``local`` transport's, then torn down); ``cagra.nn_descent``
+(``nn_descent.build`` at NND_ROWS × 128 with graph degree 64 from 128:
+seconds a round, graph recall@64 on 1,000 nodes against the exact graph,
+one round at the default 1 GiB workspace, then
+``cagra.build(build_algo="nn_descent")`` and its search recall@10);
+``cagra.hnsw`` (the single-index CAGRA graph through ``save_to_hnswlib``,
+``HnswIndex.load`` + ``knn`` on 1,000 queries, and the native and Python
+writers byte-identical on a 10,000-node slice).
+
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed phase raises: the script exits non-zero and prints no
@@ -1379,6 +1407,7 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
                             res=res)
     refine_ms = cuda_ms(lambda: refine.refine(dataset, qs, cand, K, res=res),
                         reps=3)
+    HELD["recall.main"] = (dict(pick), rec)
     emit({"phase": "main.search", **pick, "recall_final": rec,
           "qps": len(times) * q / sum(times), "batch_s": times, "search_ms": search_ms,
           "refine_ms": refine_ms, "k1_launches": launches})
@@ -1518,6 +1547,7 @@ def bq_phase(shared, n_lists=N_LISTS, dev="cuda"):
                             n_probes=pick["n_probes"], res=res)
     refine_ms = cuda_ms(lambda: refine.refine(dataset, qs, cand, K, res=res),
                         reps=3)
+    HELD["recall.bq"] = (dict(pick), rec)
     emit({"phase": "bq.search", **pick, "recall_final": rec,
           "qps": len(times) * q / sum(times), "batch_s": times,
           "search_ms": search_ms, "refine_ms": refine_ms, "build_s": build_s,
@@ -1746,6 +1776,7 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
         raise AssertionError(f"IVF-Flat recall@10 {rec} < 0.95 at {pick}")
     if launches <= 0:
         raise AssertionError("the IVF-Flat path never launched K1")
+    HELD["recall.flat"] = (dict(pick), rec)
     emit({"phase": "flat.search", **pick, "recall_final": rec,
           "qps": len(times) * q / sum(times), "batch_s": times,
           "k1_launches_uint8": launches})
@@ -3543,6 +3574,8 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
                                      index.graph_degree),
           "parents_given_ms": given_ms,
           "torch_pickup_ms_off_path": pickup_ms, **glue})
+    # the graph the hnsw export writes (cagra_hnsw_phase)
+    HELD["cagra.graph"] = (index.graph.cpu(), rec)
     del calls, mid, index
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": verdict["max_abs_err"],
@@ -3707,6 +3740,7 @@ def kmeans_phase(shared, dev="cuda"):
     rises = [(b - a) / a for a, b in zip(history, history[1:]) if b > a]
     cost = float(kmeans.cluster_cost(X, out.centroids, res=res))
     inertia = float(out.inertia)
+    HELD["kmeans"] = (fit_s, inertia)
     # predict on 10,000 rows against the argmin of the full distance block
     rows = X[:KMEANS_PREDICT_ROWS]
     labels, _ = kmeans.predict(rows, out.centroids, res=res)
@@ -5240,6 +5274,633 @@ def capacity_phase(dev="cuda"):
                              f"{failed[:3]}, promote {plat}, K1 {k1}, K2 {k2}")
 
 
+# ---------------------------------------------------------------------------
+# the CAGRA remainder and the distributed indexes: DIST_SHARDS shards on one
+# card (local transport), K1 / K2 in the shard scans, K6 never
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4              # shards on the one card
+DIST_RECALL_SLACK = 0.01     # recall@10 against the single-index path's
+DIST_KMEANS_SLACK = 1.10     # inertia against the single-index fit's
+DIST_CAGRA_GATE = 0.90
+DIST_LOST = 1                # the shard the shard-loss rung marks LOST
+NND_ROWS = N_ROWS            # nn_descent rows (cut, with the reason printed,
+NND_CUT = ""                 # where the script's time does not allow 1M)
+NND_WORKSPACE = 16 << 30     # the join's blocks at 1M rows: 17, not 260
+NND_SAMPLE_NODES = 1_000     # graph recall against the exact kNN graph
+HNSW_QUERIES = 1_000
+HNSW_SLICE = 10_000          # native and Python writers on a slice
+
+
+def dist_comms(dev="cuda", world=DIST_SHARDS):
+    from raft_tpu_torch.comms import Comms, local_mesh
+
+    return Comms(local_mesh(world, device=dev))
+
+
+def median_qps(fn, q, batches=3):
+    """Search QPS of a ``q``-query batch: the median of ``batches`` host
+    timings, each to its synchronize → (qps, batch seconds)."""
+    _, times = host_qps(fn, q, batches)
+    return q / median(times), times
+
+
+def timed_kernel(module, name):
+    """Wrap ``module.name`` (a kernel wrapper) so each call is bracketed by
+    CUDA events; → (restore, read): ``read()`` syncs and returns the summed
+    milliseconds of the wrapped calls since the wrap."""
+    import torch
+
+    orig = getattr(module, name)
+    marks = []
+
+    def wrapped(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(*args, **kw)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    setattr(module, name, wrapped)
+
+    def read():
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in marks)
+
+    return (lambda: setattr(module, name, orig)), read
+
+
+def predicted_launches(index, probes, q_width, k, workspace_bytes):
+    """Launches of a distributed IVF search's strip kernel as its plan
+    makes them: shards × Σ over query tiles of the tile's length classes."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    kf = min(int(k), ss.MC)
+    q, p = probes.shape
+    classes, cls_ord_np = ss.class_info(np.asarray(index.lens_max),
+                                        dim=q_width)
+    cls_ord = torch.as_tensor(cls_ord_np, device=probes.device)
+    q_tile = ss.fit_q_tile(q, p, index.n_lists, len(classes), kf,
+                           workspace_bytes, dim=q_width)
+    per_shard = 0
+    for start in range(0, q, q_tile):
+        qt = min(q_tile, q - start)
+        per_shard += len(ss.plan_tile(probes, start, qt, cls_ord, classes,
+                                      index.n_lists)[4])
+    return index.comms.size * per_shard, -(-q // q_tile)
+
+
+def dist_kmeans_phase(shared, dev="cuda"):
+    """``distributed.kmeans.fit`` (Lloyd, k-means++, 1,024 clusters) and
+    ``fit_balanced`` (1,024 clusters, 20 iterations) on the 1M × 128
+    dataset over DIST_SHARDS shards: seconds, n_iter, inertia beside the
+    single-index ``cluster/kmeans`` fit on the same data."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.cluster.kmeans import KMeansParams
+    from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+    from raft_tpu_torch.distributed import kmeans as dkm
+    from raft_tpu_torch.ops.distance import fused_l2_nn_argmin
+
+    res = Resources(device=dev)
+    comms = dist_comms(dev)
+    X = shared["dataset"].to(torch.float32)
+    single_s, single_inertia = HELD["kmeans"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, labels = dkm.fit(X, KMeansParams(n_clusters=KMEANS_CLUSTERS),
+                          comms=comms, res=res)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    centers, blabels, report = dkm.fit_balanced(
+        X, KMEANS_CLUSTERS, KMeansBalancedParams(), comms=comms, res=res)
+    torch.cuda.synchronize()
+    bal_s = time.perf_counter() - t
+    d2, _ = fused_l2_nn_argmin(X, centers)
+    bal_inertia = float(d2.sum())
+    sizes = torch.bincount(blabels, minlength=KMEANS_CLUSTERS)
+    row = {"phase": "dist.kmeans", "shards": comms.size,
+           "layout": f"{comms.size} shards on one card",
+           "rows": X.shape[0], "n_clusters": KMEANS_CLUSTERS,
+           "fit_s": fit_s, "n_iter": out.n_iter,
+           "inertia": float(out.inertia), "single_fit_s": single_s,
+           "single_inertia": single_inertia,
+           "inertia_over_single": float(out.inertia) / single_inertia,
+           "balanced_fit_s": bal_s, "balanced_inertia": bal_inertia,
+           "balanced_min_size": int(sizes.min()),
+           "balanced_max_size": int(sizes.max()),
+           "coverage": report.coverage}
+    emit(row)
+    if not (bool(torch.isfinite(out.centroids).all())
+            and bool(torch.isfinite(centers).all())
+            and labels.shape[0] == X.shape[0] == blabels.shape[0]
+            and report.coverage == 1.0
+            and row["inertia_over_single"] <= DIST_KMEANS_SLACK
+            and bal_inertia <= DIST_KMEANS_SLACK * single_inertia):
+        raise AssertionError(f"dist.kmeans: {row}")
+
+
+def dist_brute_phase(shared, dev="cuda"):
+    """Sharded exact search, k 10, over DIST_SHARDS shards: ids equal the
+    single-index brute force but at near-ties (recall with distances 1.0),
+    and one filtered search (the 10% mask) against the single index's."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.distributed import brute_force as dbf
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    comms = dist_comms(dev)
+    X = shared["dataset"].to(torch.float32)
+    qs = shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    t = time.perf_counter()
+    index = dbf.build(X, comms=comms, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    qps, times = median_qps(lambda: dbf.search(index, qs, K, res=res),
+                            qs.shape[0])
+    v, i = dbf.search(index, qs, K, res=res)
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    same = float((i == gt_i).float().mean())
+    rung = filter_ladder(shared)["rungs"][0]
+    fv, fi = dbf.search(index, qs, K, filter=rung["bitset"], res=res)
+    sv, si = brute_force.search(brute_force.build(X, res=res), qs, K,
+                                filter=rung["bitset"], res=res)
+    frec = neighborhood_recall(fi, si, fv, sv)
+    passed = bool(rung["mask"][fi.long()].all())
+    row = {"phase": "dist.brute_force", "shards": comms.size,
+           "layout": f"{comms.size} shards on one card", "build_s": build_s,
+           "qps": qps, "batch_s": times, "recall_with_ties": rec,
+           "ids_equal_share": same, "filtered_selectivity":
+           rung["selectivity"], "filtered_recall_with_ties": frec,
+           "filtered_ids_pass": passed}
+    emit(row)
+    if rec != 1.0 or frec != 1.0 or not passed \
+            or not bool(torch.isfinite(v).all()):
+        raise AssertionError(f"dist.brute_force: {row}")
+
+
+def dist_ivf_phase(shared, kind, dev="cuda"):
+    """A distributed IVF family over DIST_SHARDS shards at the main path's
+    configuration (n_lists 1024; IVF-PQ pq_dim 64 at 8 bits; the single
+    path's n_probes and k_fetch): build seconds, search QPS (a 10k batch,
+    median of 3), recall@10 (after refine for PQ and BQ) within
+    DIST_RECALL_SLACK of the single-index path's, the kernel's launches
+    equal to the plan's (shards × tiles × length classes) and its share of
+    the search time. IVF-PQ also runs the shard-loss rung and returns its
+    index for the snapshot phase."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch import Resources, resilience
+    from raft_tpu_torch.distributed import ivf_bq as dbq
+    from raft_tpu_torch.distributed import ivf_flat as dflat
+    from raft_tpu_torch.distributed import ivf_pq as dpq
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq, refine
+    from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    comms = dist_comms(dev)
+    dataset, qs = shared["dataset"], shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    q = qs.shape[0]
+    key = {"ivf_flat": "flat", "ivf_pq": "main", "ivf_bq": "bq"}[kind]
+    pick, single_rec = HELD[f"recall.{key}"]
+    n_probes = min(pick["n_probes"], N_LISTS)
+    k_fetch = pick.get("k_fetch", K)
+    if kind == "ivf_flat":
+        mod, params = dflat, ivf_flat.IvfFlatParams(n_lists=N_LISTS)
+        counter, wrapper, kernel = ss.STRIP_KERNEL, (ss, "strip_class"), "K1"
+    elif kind == "ivf_pq":
+        mod, params = dpq, ivf_pq.IvfPqParams(n_lists=N_LISTS, pq_dim=64,
+                                              pq_bits=8)
+        counter, wrapper, kernel = ss.STRIP_KERNEL, (ss, "strip_class"), "K1"
+    else:
+        mod, params = dbq, ivf_bq.IvfBqParams(n_lists=N_LISTS)
+        counter, wrapper, kernel = bq.BQ_KERNEL, (bq, "bq_class"), "K2"
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    index = mod.build(dataset, params, comms=comms, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+
+    def search(health=None, idx=None):
+        return mod.search(idx or index, qs, k_fetch, n_probes=n_probes,
+                          res=res, health=health)
+
+    def run():
+        v, i = search()
+        if kind == "ivf_flat":
+            return v, i
+        return refine.refine(dataset, qs, i, K, res=res)
+
+    # the plan's launch count: the probes as the search makes them
+    qf = qs.to(torch.float32)
+    if kind == "ivf_flat":
+        probes = ivf_flat._coarse_probes(qf, index.centers, n_probes,
+                                         "sqeuclidean")
+        width = index.dim
+    elif kind == "ivf_pq":
+        probes, _, _ = ivf_pq._pq_probe_prep(qf, index.centers,
+                                             index.rotation, n_probes,
+                                             "exact", True)
+        width = index.decoded[0].shape[-1]
+    else:
+        probes, qr, _ = ivf_bq._bq_search_prep(qf, index.centers,
+                                               index.rotation, n_probes,
+                                               "exact", True, index.bits,
+                                               index.rotation_kind)
+        width = qr.shape[1]
+    predicted, tiles = predicted_launches(index, probes, width, k_fetch,
+                                          res.workspace_bytes)
+    reset_counts()
+    v, i = run()
+    torch.cuda.synchronize()
+    launches = counter.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    qps, times = median_qps(run, q)
+    search_ms = cuda_ms(search, reps=3)
+    restore, read = timed_kernel(*wrapper)
+    try:
+        search()
+        kernel_ms = read()
+    finally:
+        restore()
+    row = {"phase": f"dist.{kind}", "shards": comms.size,
+           "layout": f"{comms.size} shards on one card",
+           "n_lists": N_LISTS, "max_list_size": index.max_list_size,
+           "n_probes": n_probes, "k_fetch": k_fetch, "build_s": build_s,
+           "qps": qps, "batch_s": times, "recall": rec,
+           "single_recall": single_rec, "kernel": kernel,
+           "launches": launches, "launches_predicted": predicted,
+           "tiles": tiles, "search_ms": search_ms, "kernel_ms": kernel_ms,
+           "kernel_share": kernel_ms / search_ms}
+    emit(row)
+    if not bool(torch.isfinite(v).all()) or tuple(i.shape) != (q, K):
+        raise AssertionError(f"dist.{kind} returned non-finite or misshapen "
+                             f"results")
+    if abs(rec - single_rec) > DIST_RECALL_SLACK:
+        raise AssertionError(f"dist.{kind}: recall@10 {rec} against the "
+                             f"single index's {single_rec}")
+    if launches != predicted or launches <= 0:
+        raise AssertionError(f"dist.{kind}: {launches} {kernel} launches, "
+                             f"the plan makes {predicted}")
+    if kind != "ivf_pq":
+        return {kernel: launches}, None
+
+    # one shard LOST: coverage 0.75, degraded, and exactly the search of
+    # an index whose lost shard holds nothing
+    health = resilience.ShardHealth()
+    health.mark_lost(DIST_LOST, "chip_smoke shard-loss rung")
+    lost = search(health)
+    dead = dataclasses.replace(index, bias=[
+        torch.full_like(b, float("inf")) if r == DIST_LOST else b
+        for r, b in zip(comms.ranks, index.bias)])
+    want = search(idx=dead)
+    exact = bool(torch.equal(lost[1], want[1])
+                 and torch.equal(lost[0], want[0]))
+    rows_per = -(-dataset.shape[0] // comms.size)
+    from_lost = int(((lost[1] >= DIST_LOST * rows_per)
+                     & (lost[1] < (DIST_LOST + 1) * rows_per)).sum())
+    rung = {"phase": "dist.ivf_pq.shard_loss", "lost": DIST_LOST,
+            "coverage": lost.coverage, "degraded": lost.degraded,
+            "lost_shards": list(lost.lost_shards),
+            "exact_over_survivors": exact, "ids_from_lost_shard": from_lost}
+    emit(rung)
+    if lost.coverage != 0.75 or not lost.degraded or not exact \
+            or from_lost or lost.lost_shards != (DIST_LOST,):
+        raise AssertionError(f"dist.ivf_pq shard loss: {rung}")
+    return {kernel: launches}, (index, search, health)
+
+
+def dist_snapshot_phase(index, search, health):
+    """The sharded IVF-PQ index through its snapshot: save, ``load`` (the
+    same results), the LOST shard's tensors wiped and ``restore_shard`` /
+    ``recover``ed from its file (the results before the loss, coverage
+    back to 1.0)."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch.distributed import snapshot
+
+    v0, i0 = search()
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        snapshot.save(index, d)
+        save_s = time.perf_counter() - t
+        nbytes = sum(f.stat().st_size for f in Path(d).iterdir())
+        t = time.perf_counter()
+        loaded = snapshot.load(d, index.comms)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        v1, i1 = search(idx=loaded)
+        same_load = bool(torch.equal(i1, i0) and torch.equal(v1, v0))
+        wiped = dataclasses.replace(index, decoded=[
+            torch.zeros_like(t_) if r == DIST_LOST else t_
+            for r, t_ in zip(index.comms.ranks, index.decoded)])
+        t = time.perf_counter()
+        restored = snapshot.restore_shard(wiped, d, DIST_LOST)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        v2, i2 = search(idx=restored)
+        same_restore = bool(torch.equal(i2, i0) and torch.equal(v2, v0))
+        recovered_index, recovered = snapshot.recover(wiped, d, health)
+        r3 = search(health=health, idx=recovered_index)
+        same_recover = bool(torch.equal(r3[1], i0) and torch.equal(r3[0], v0))
+    row = {"phase": "dist.snapshot", "kind": "ivf_pq", "bytes": nbytes,
+           "save_s": save_s, "load_s": load_s, "restore_shard_s": restore_s,
+           "load_equal": same_load, "restore_equal": same_restore,
+           "recovered": list(recovered), "recover_equal": same_recover,
+           "coverage_after": r3.coverage, "degraded_after": r3.degraded}
+    emit(row)
+    if not (same_load and same_restore and same_recover
+            and recovered == (DIST_LOST,) and r3.coverage == 1.0
+            and not r3.degraded):
+        raise AssertionError(f"dist.snapshot: {row}")
+
+
+def dist_cagra_phase(shared, params=None, dev="cuda"):
+    """Sharded CAGRA over DIST_SHARDS shards: one single-index build a
+    shard (the IVF candidate scan through K1, counted shard by shard),
+    then the shard bodies' compressed loop in plain torch (K6 launches 0),
+    recall@10 ≥ DIST_CAGRA_GATE, QPS. ``params`` are the CAGRA defaults
+    unless a CPU rehearsal at a tiny size sets them."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.distributed import cagra as dcagra
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import cagra_hop as ch
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    comms = dist_comms(dev)
+    dataset, qs = shared["dataset"], shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    q = qs.shape[0]
+    per_shard = []
+    orig = cagra.build
+
+    def counted(*args, **kw):
+        before = ss.STRIP_KERNEL.launches
+        out = orig(*args, **kw)
+        per_shard.append(ss.STRIP_KERNEL.launches - before)
+        return out
+
+    reset_counts()
+    cagra.build = counted
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index = dcagra.build(dataset, params or cagra.CagraParams(),
+                             comms=comms, res=res)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+    finally:
+        cagra.build = orig
+    k1_build = ss.STRIP_KERNEL.launches
+    sp = cagra.CagraSearchParams(itopk_size=64, search_width=4)
+    reset_counts()
+    st = {}
+    v, i = dcagra.search(index, qs, K, sp, res=res, stats=st)
+    torch.cuda.synchronize()
+    k6 = ch.HOP_KERNEL.launches
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    qps, times = median_qps(lambda: dcagra.search(index, qs, K, sp, res=res),
+                            q)
+    row = {"phase": "dist.cagra", "shards": comms.size,
+           "layout": f"{comms.size} shards on one card", "build_s": build_s,
+           "rows_per_shard": index.rows_per_shard,
+           "k1_launches_build": k1_build, "k1_launches_per_shard": per_shard,
+           "payload": index.nbr_codes is not None,
+           "seeding_table": index.centroids is not None,
+           "itopk": 64, "width": 4, "mode": st["mode"], "recall": rec,
+           "single_recall": HELD["cagra.graph"][1], "qps": qps,
+           "batch_s": times, "k6_launches": k6}
+    emit(row)
+    if (len(per_shard) != comms.size or min(per_shard) <= 0 or k6 != 0
+            or st["mode"] != "compressed" or rec < DIST_CAGRA_GATE
+            or not bool(torch.isfinite(v).all())):
+        raise AssertionError(f"dist.cagra: {row}")
+    del index
+    torch.cuda.empty_cache()
+    return {"K1": k1_build, "K6": k6}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_nccl_phase(shared, dev="cuda"):
+    """The ``process_group`` transport at world 1 on NCCL (a localhost
+    rendezvous): the nine self-tests, and a distributed IVF-PQ search at
+    world 1 equal to the same index's on the ``local`` transport; the
+    group is torn down after."""
+    import dataclasses
+
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.comms import (Comms, comms_self_test,
+                                      init_distributed, process_group_mesh,
+                                      shutdown_distributed)
+    from raft_tpu_torch.core.resources import use_resources
+    from raft_tpu_torch.distributed import ivf_pq as dpq
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res = Resources(device=dev)
+    dataset, qs = shared["dataset"], shared["queries"]
+    pick, _ = HELD["recall.main"]
+    local = dist_comms(dev, world=1)
+    index = dpq.build(dataset, ivf_pq.IvfPqParams(n_lists=N_LISTS, pq_dim=64,
+                                                  pq_bits=8),
+                      comms=local, res=res)
+    want = dpq.search(index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
+                      res=res)
+    t = time.perf_counter()
+    with use_resources(res):        # the backend follows the device
+        init_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=60.0)
+    init_s = time.perf_counter() - t
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        mesh = process_group_mesh()
+        checks = comms_self_test(mesh)
+        pg_index = dataclasses.replace(index, comms=Comms(mesh))
+        got = dpq.search(pg_index, qs, pick["k_fetch"],
+                         n_probes=pick["n_probes"], res=res)
+        torch.cuda.synchronize()
+    finally:
+        shutdown_distributed()
+    same = bool(torch.equal(got[1], want[1]))
+    row = {"phase": "dist.nccl", "backend": backend, "world": 1,
+           "init_s": init_s, "self_test": checks, "ids_equal_local": same,
+           "values_equal_local": bool(torch.equal(got[0], want[0]))}
+    emit(row)
+    want_backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if backend != want_backend or not all(checks.values()) or not same:
+        raise AssertionError(f"dist.nccl: {row}")
+
+
+def graph_recall(graph, X, nodes, k):
+    """Recall of ``graph``'s rows at ``nodes`` against their exact k
+    nearest neighbours in X (self excluded)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force
+
+    _, nn = brute_force.knn(X[nodes], X, k + 1, device=X.device)
+    exact = nn[:, 1:]
+    got = graph[nodes][:, :k].long()
+    return float((got[:, :, None] == exact[:, None, :].long()).any(2)
+                 .float().mean())
+
+
+def cagra_nn_descent_phase(shared, dev="cuda"):
+    """``nn_descent.build`` at NND_ROWS × 128 with the CAGRA defaults
+    (graph_degree 64, intermediate 128): seconds, iterations, graph recall
+    against the exact kNN graph on NND_SAMPLE_NODES sampled nodes; then
+    CAGRA search recall@10 from ``cagra.build(build_algo="nn_descent")``."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra, nn_descent
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev, workspace_bytes=NND_WORKSPACE)
+    X = shared["dataset"][:NND_ROWS].to(torch.float32)
+    n = X.shape[0]
+    gen = torch.Generator(device=X.device)
+    gen.manual_seed(7)
+    nodes = torch.randperm(n, generator=gen, device=X.device)[
+        :NND_SAMPLE_NODES]
+    stats = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    graph = nn_descent.build(X, nn_descent.NNDescentParams(), res=res,
+                             stats=stats)
+    torch.cuda.synchronize()
+    nnd_s = time.perf_counter() - t
+    g_rec = graph_recall(graph, X, nodes, 64)
+    del graph
+    torch.cuda.empty_cache()
+    # one round at the default workspace, whose smaller join blocks each
+    # merge the whole (n, K) state: what a user calling with default
+    # Resources pays a round
+    dflt = {}
+    nn_descent.build(X, nn_descent.NNDescentParams(max_iterations=1),
+                     res=Resources(device=dev), stats=dflt)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    index = cagra.build(X, cagra.CagraParams(build_algo="nn_descent"),
+                        res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    qs = shared["queries"]
+    if n == shared["dataset"].shape[0]:
+        gt_v, gt_i = shared["gt"]
+    else:
+        from raft_tpu_torch.neighbors import brute_force
+
+        gt_v, gt_i = brute_force.search(brute_force.build(X, res=res), qs,
+                                        K, res=res)
+    v, i = cagra.search(index, qs, K, cagra.CagraSearchParams(
+        itopk_size=64, search_width=4), res=res)
+    rec = neighborhood_recall(i, gt_i, v, gt_v)
+    row = {"phase": "cagra.nn_descent", "rows": n, "dim": X.shape[1],
+           "cut": NND_CUT or None, "graph_degree": 64,
+           "intermediate_graph_degree": 128, "seconds": nnd_s,
+           "iterations": stats["iterations"], "updates": stats["updates"],
+           "join_block": stats["block"],
+           "join_blocks": -(-n // stats["block"]), "init_s": stats["init_s"],
+           "default_workspace_bytes": Resources(device=dev).workspace_bytes,
+           "default_join_blocks": -(-n // dflt["block"]),
+           "default_round_s": dflt["round_s"][0],
+           "round_s": stats["round_s"], "graph_recall_at_64": g_rec,
+           "sample_nodes": NND_SAMPLE_NODES, "cagra_build_s": build_s,
+           "cagra_build_phases_s": index.build_timings_s,
+           "cagra_recall": rec}
+    emit(row)
+    if not 0.5 <= g_rec <= 1.0 or rec < 0.9 \
+            or not bool(torch.isfinite(v).all()):
+        raise AssertionError(f"cagra.nn_descent: {row}")
+    del index
+    torch.cuda.empty_cache()
+
+
+def cagra_hnsw_phase(shared):
+    """``save_to_hnswlib`` of the single-index 1M CAGRA graph into a
+    temporary directory, ``HnswIndex.load`` + ``knn`` on HNSW_QUERIES
+    queries (recall@10, bytes, seconds, the writer), and the native and
+    Python writers' bytes equal on a HNSW_SLICE-node slice."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from raft_tpu_torch import native
+    from raft_tpu_torch.neighbors import hnsw
+    from raft_tpu_torch.neighbors.cagra import CagraIndex
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    graph, cagra_rec = HELD.pop("cagra.graph")
+    data = shared["host"].astype(np.float32)
+    qs = shared["queries"][:HNSW_QUERIES].cpu().numpy()
+    gt_v, gt_i = (t[:HNSW_QUERIES].cpu() for t in shared["gt"])
+    lib = native.get_native_lib()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "cagra_1m.hnsw"
+        t = time.perf_counter()
+        which = hnsw.save_to_hnswlib(CagraIndex(data, graph.numpy(), None),
+                                     path)
+        save_s = time.perf_counter() - t
+        nbytes = path.stat().st_size
+        t = time.perf_counter()
+        h = hnsw.HnswIndex.load(path, dim=data.shape[1])
+        load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        dv, di = h.knn(qs, K, ef=64)
+        knn_s = time.perf_counter() - t
+        g = np.ascontiguousarray(graph.numpy()[:HNSW_SLICE], np.uint32)
+        x = np.ascontiguousarray(data[:HNSW_SLICE])
+        hnsw.write_native(lib, Path(d) / "n.bin", g, x, HNSW_SLICE // 2)
+        hnsw.write_python(Path(d) / "p.bin", g, x, HNSW_SLICE // 2)
+        same = (Path(d) / "n.bin").read_bytes() == (Path(d) / "p.bin"
+                                                     ).read_bytes()
+    rec = neighborhood_recall(di, gt_i, dv, gt_v)
+    row = {"phase": "cagra.hnsw", "rows": data.shape[0],
+           "degree": int(graph.shape[1]), "writer": which, "bytes": nbytes,
+           "save_s": save_s, "load_s": load_s, "queries": HNSW_QUERIES,
+           "knn_s": knn_s, "ef": 64, "recall": rec,
+           "cagra_recall": cagra_rec, "slice_rows": HNSW_SLICE,
+           "native_python_identical": same}
+    emit(row)
+    if which != "native" or not same or rec < 0.9:
+        raise AssertionError(f"cagra.hnsw: {row}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true",
@@ -5390,6 +6051,19 @@ def main() -> int:
             fold(k6, result)
             k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
 
+        dist_launches = {}
+
+        def dist_ivf(kind):
+            def run():
+                launches, pq = dist_ivf_phase(shared, kind)
+                dist_launches[f"dist.{kind}"] = launches
+                if pq is not None:
+                    held["dist.pq"] = pq
+            return run
+
+        def dist_cagra():
+            dist_launches["dist.cagra"] = dist_cagra_phase(shared)
+
         for name, path in (("kmeans", lambda: kmeans_phase(shared)),
                            ("main", ivf_pq), ("bq", ivf_bq),
                            ("bq.streaming", bq_streaming),
@@ -5402,7 +6076,20 @@ def main() -> int:
                            ("capacity", capacity_phase),
                            ("cagra", cagra), ("obs.cost", obs_cost_phase),
                            ("obs", obs_phase),
-                           ("faults", lambda: faults_phase(shared))):
+                           ("faults", lambda: faults_phase(shared)),
+                           ("dist.kmeans", lambda: dist_kmeans_phase(shared)),
+                           ("dist.brute_force",
+                            lambda: dist_brute_phase(shared)),
+                           ("dist.ivf_flat", dist_ivf("ivf_flat")),
+                           ("dist.ivf_bq", dist_ivf("ivf_bq")),
+                           ("dist.ivf_pq", dist_ivf("ivf_pq")),
+                           ("dist.snapshot", lambda: dist_snapshot_phase(
+                               *held.pop("dist.pq"))),
+                           ("dist.cagra", dist_cagra),
+                           ("dist.nccl", lambda: dist_nccl_phase(shared)),
+                           ("cagra.nn_descent",
+                            lambda: cagra_nn_descent_phase(shared)),
+                           ("cagra.hnsw", lambda: cagra_hnsw_phase(shared))):
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})
@@ -5410,6 +6097,15 @@ def main() -> int:
                 ab_phase(args.ab, shared)
                 ab_k6_phase(args.ab, shared)
                 return 0
+    if not args.skip_main:
+        # the distributed paths' launches ("N shards on one card")
+        k1["launches_dist"] = {
+            "dist.ivf_flat": dist_launches["dist.ivf_flat"]["K1"],
+            "dist.ivf_pq": dist_launches["dist.ivf_pq"]["K1"],
+            "dist.cagra.build": dist_launches["dist.cagra"]["K1"]}
+        k2["launches_dist"] = {"dist.ivf_bq":
+                               dist_launches["dist.ivf_bq"]["K2"]}
+        k6["launches_dist"] = {"dist.cagra": dist_launches["dist.cagra"]["K6"]}
     emit({"kernels": [k1, k2, k3, k4, k5, k6]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -40,11 +40,31 @@ class Resources:
       device: where entry points run; ``"cuda"`` by default.
       workspace_bytes: soft budget tiled algorithms use to pick tile sizes.
       compute_dtype: dtype of the coarse gemm inputs (fp32 accumulation).
+      mesh: optional default :class:`~raft_tpu_torch.comms.comms.Mesh` of
+        the distributed algorithms (the installed communicator).
     """
 
     device: DeviceLike = "cuda"
     workspace_bytes: int = 1 << 30
     compute_dtype: torch.dtype = torch.float32
+    mesh: Optional[Any] = None
+
+    def default_mesh(self, axis_name: str = "data"):
+        """The mesh distributed algorithms run over: the installed
+        ``mesh``; else, once ``torch.distributed`` is initialised, one
+        shard a rank (``process_group``); else one shard per visible card
+        when ``device`` is CUDA (raising without one), one shard on
+        ``device`` otherwise."""
+        from raft_tpu_torch.comms import bootstrap
+
+        if self.mesh is not None:
+            return self.mesh
+        if bootstrap.distributed_ready():
+            return bootstrap.process_group_mesh((axis_name,))
+        dev = resolve_device(self.device)
+        if dev.type == "cuda":
+            return bootstrap.local_mesh(axis_names=(axis_name,))
+        return bootstrap.local_mesh(1, (axis_name,), device=dev)
 
 
 def resolve_device(device: Optional[DeviceLike] = None,
@@ -72,7 +92,7 @@ def resources_for(device: Optional[DeviceLike] = None,
     """``res`` with its device resolved (and overridden by ``device``)."""
     res = res or current_resources()
     return Resources(resolve_device(device, res), res.workspace_bytes,
-                     res.compute_dtype)
+                     res.compute_dtype, res.mesh)
 
 
 _tls = threading.local()

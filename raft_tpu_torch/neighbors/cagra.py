@@ -56,8 +56,12 @@ fused hop fails; the port does not: a failed K6 launch, or a fault at the
 hop site, surfaces classified and the search does not carry on without
 the kernel.
 
-Not in this slice (each raises ``NotImplementedError``):
-``build_algo="nn_descent"``, the hnsw export and the distributed search.
+``build_algo="nn_descent"`` builds the intermediate graph with
+:mod:`raft_tpu_torch.neighbors.nn_descent` (degree 1.5·ideg, kept to ideg),
+as the JAX package does. The hnsw export is
+:mod:`raft_tpu_torch.neighbors.hnsw`; the sharded index is
+:mod:`raft_tpu_torch.distributed.cagra`, whose shard bodies resolve their
+traversal with ``allow_fused=False``.
 """
 
 from __future__ import annotations
@@ -77,7 +81,8 @@ from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
 from raft_tpu_torch.core.serialize import load_arrays, save_arrays
 from raft_tpu_torch.core.trace import traced
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
+from raft_tpu_torch.neighbors import (brute_force, ivf_flat, ivf_pq,
+                                      nn_descent, refine)
 from raft_tpu_torch.ops.cagra_hop import (fused_hop, hop_shape_error,
                                           occupancy_stats)
 from raft_tpu_torch.ops.distance import sqnorm
@@ -88,7 +93,6 @@ from raft_tpu_torch.ops.select_k import iter_topk_min, iter_topk_min_packed
 from raft_tpu_torch.resilience import faultpoint
 from raft_tpu_torch.stats.summary import cov
 
-_LATER = "arrives with a later slice of the PyTorch port"
 # candidate sets up to this width (width·degree) are deduplicated exactly
 # before the select; wider ones take the slack + re-select merge
 _CAGRA_DEDUP_LIMIT = 512
@@ -105,7 +109,7 @@ _PAYLOAD = ("proj", "code_scale", "nbr_codes", "centroids", "centroid_reps",
 class CagraParams:
     """Build params (the JAX package's, field for field). ``build_algo``:
     "auto" (brute force up to ``brute_threshold`` rows, the IVF builder
-    above), "ivf_pq", "brute"; "nn_descent" is a later slice.
+    above), "ivf_pq", "nn_descent", "brute".
     ``graph_refine_iters`` -1 = auto: 0 after the IVF-Flat scan, 2 after
     IVF-PQ. ``compress``: the inlined-codes payload, "auto" = from
     ``compress_threshold`` rows; ``compress_dim`` 0 = min(64, dim)."""
@@ -455,9 +459,6 @@ def build(dataset, params: CagraParams = CagraParams(),
     Each phase's wall seconds, measured to completion on the card, are in
     ``index.build_timings_s`` (``knn_graph``, ``refine_sweeps``,
     ``optimize``, ``compress``)."""
-    if params.build_algo == "nn_descent":
-        raise NotImplementedError(f"cagra build_algo='nn_descent' {_LATER} "
-                                  "(neighbors/nn_descent.py)")
     faultpoint("cagra.build")
     res = resources_for(device, res)
     dev = res.device
@@ -478,7 +479,7 @@ def build(dataset, params: CagraParams = CagraParams(),
         graph = _drop_self(ids, 0, ideg)
         _sync(dev)
         timings["knn_graph"] = time.perf_counter() - t0
-    else:
+    elif algo == "ivf_pq":
         graph, centroids = _build_knn_ivf_pq(X, ideg, params, res)
         _sync(dev)
         timings["knn_graph"] = time.perf_counter() - t0
@@ -492,6 +493,14 @@ def build(dataset, params: CagraParams = CagraParams(),
                                      params.seed, res)
             _sync(dev)
             timings["refine_sweeps"] = time.perf_counter() - t0
+    else:
+        graph = nn_descent.build(X, nn_descent.NNDescentParams(
+            graph_degree=ideg,
+            intermediate_graph_degree=min(int(1.5 * ideg), n - 1),
+            max_iterations=params.nn_descent_niter, seed=params.seed),
+            res=res)
+        _sync(dev)
+        timings["knn_graph"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     per_node = ideg * ideg * 4 * 2
@@ -882,7 +891,7 @@ def _run_fused_tile(index: CagraIndex, qs, gen, k: int, itopk: int,
 
 def _resolve_traversal(params: CagraSearchParams, has_payload: bool, k: int,
                        itopk: int, *, size: int, width: int, degree: int,
-                       proj_dim: int, on_cuda: bool):
+                       proj_dim: int, on_cuda: bool, allow_fused: bool = True):
     """The traversal mode and exact re-rank depth → ``(mode, refine_topk)``
     (refine_topk 0 for the exact loop). "auto" takes "fused" when the
     payload is present and the index lives on a card, "compressed" with the
@@ -891,11 +900,16 @@ def _resolve_traversal(params: CagraSearchParams, has_payload: bool, k: int,
     an explicit "fused" runs K6's twin where the JAX package runs its fused
     hop (width·degree within :data:`_CAGRA_DEDUP_LIMIT`, where the unfused
     merge dedups exactly too, and a shape K6 takes), and elsewhere the
-    compressed loop, which it is bit-identical to."""
+    compressed loop, which it is bit-identical to. ``allow_fused=False``
+    (the shard bodies of :mod:`raft_tpu_torch.distributed.cagra`, as in the
+    JAX package) resolves "auto" and "fused" to the compressed loop, on a
+    card too: K6 is a single-index kernel there."""
     mode = params.traversal
+    if mode == "fused" and has_payload and not allow_fused:
+        mode = "compressed"
     if mode == "auto":
         if has_payload:
-            mode = "fused" if on_cuda else "compressed"
+            mode = "fused" if on_cuda and allow_fused else "compressed"
         else:
             mode = "exact"
     elif mode in ("compressed", "fused") and not has_payload:

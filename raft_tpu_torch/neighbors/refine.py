@@ -2,12 +2,14 @@
 ``raft_tpu/neighbors/refine.py``): gather each query's candidate rows,
 score them exactly with one batched product, keep the best k. Tiled over
 queries by the workspace budget; candidate id -1 is skipped and never
-dereferenced."""
+dereferenced. :func:`refine_host` is the same contract in numpy, for a
+CPU serving pipeline (the re-rank beside the hnsw export)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
@@ -75,3 +77,45 @@ def refine(dataset, queries, candidates, k: int, metric: str = "sqeuclidean",
         out_v.append(vals)
         out_i.append(ids.to(torch.int32))
     return torch.cat(out_v), torch.cat(out_i)
+
+
+def refine_host(dataset, queries, candidates, k: int,
+                metric: str = "sqeuclidean") -> Tuple[np.ndarray, np.ndarray]:
+    """Exact re-rank in numpy (the reference's refine_host,
+    detail/refine_host-inl.hpp): :func:`refine`'s contract on host arrays,
+    touching no device → (distances (q, k) fp32, ids (q, k) int32)."""
+    metric = canonical_metric(metric)
+    if metric not in SUPPORTED_METRICS:
+        raise ValueError(
+            f"refine_host supports {SUPPORTED_METRICS}, got {metric!r}")
+    dataset = np.asarray(dataset, np.float32)
+    queries = np.asarray(queries, np.float32)
+    cand = np.asarray(candidates, np.int64)
+    if not 0 < k <= cand.shape[1]:
+        raise ValueError(f"k={k} out of range for n_candidates={cand.shape[1]}")
+    if metric == "cosine":
+        queries = queries / np.maximum(
+            np.linalg.norm(queries, axis=1, keepdims=True), 1e-30)
+        dataset = dataset / np.maximum(
+            np.linalg.norm(dataset, axis=1, keepdims=True), 1e-30)
+    rows = dataset[np.clip(cand, 0, dataset.shape[0] - 1)]      # (q, c, d)
+    ip = np.einsum("qd,qcd->qc", queries, rows)
+    if metric in ("sqeuclidean", "euclidean"):
+        d = np.maximum(np.sum(queries ** 2, 1)[:, None]
+                       + np.sum(rows ** 2, 2) - 2.0 * ip, 0.0)
+        if metric == "euclidean":
+            d = np.sqrt(d)
+    elif metric == "cosine":
+        d = 1.0 - ip
+    else:          # inner product ranks by max: negate for the min-select
+        d = -ip
+    d = np.where(cand >= 0, d, np.inf)
+    sel = np.argsort(d, axis=1, kind="stable")[:, :k]
+    vals = np.take_along_axis(d, sel, axis=1)
+    ids = np.take_along_axis(cand, sel, axis=1).astype(np.int32)
+    ids = np.where(np.isfinite(vals), ids, -1)
+    if metric == "inner_product":
+        vals = np.where(ids >= 0, -vals, -np.inf)
+    else:
+        vals = np.where(ids >= 0, vals, np.inf)
+    return vals.astype(np.float32), ids

@@ -46,9 +46,11 @@ __all__ = [
     "enter_span",
     "exit_span",
     "export_chrome_trace",
+    "fleet_trace_id",
     "manual_span",
     "process_info",
     "push_span",
+    "reset_fleet_ids",
     "set_ring_cap",
     "spans",
     "sync_enabled",
@@ -208,6 +210,27 @@ def exit_span(ids, token, *, name: str, t0: float, dur_s: float,
         rec["dispatch_s"] = dispatch_s
     push_span(rec)
     return rec
+
+
+_fleet_ids: dict = {}  # guarded-by: _LOCK
+
+
+def fleet_trace_id(site: str) -> str:
+    """Fleet-scoped id of one dispatch of ``site``: ``fleet:<site>:<n>``,
+    n counting this process's dispatches of the site. Not pid-prefixed:
+    every SPMD process runs the same dispatch sequence, so all stamp the
+    same id on one logical dispatch and the trace stitcher lines their
+    tracks up on it (a span ``attrs`` entry)."""
+    with _LOCK:
+        n = _fleet_ids.get(site, 0) + 1
+        _fleet_ids[site] = n
+    return f"fleet:{site}:{n}"
+
+
+def reset_fleet_ids() -> None:
+    """Re-zero the per-site dispatch counters."""
+    with _LOCK:
+        _fleet_ids.clear()
 
 
 def alloc_id() -> str:

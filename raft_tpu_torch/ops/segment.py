@@ -48,12 +48,16 @@ def segment_take(keys_sorted: torch.Tensor, n_segments: int, cap: int,
 
 def merge_topk_dedup(ids: torch.Tensor, dists: torch.Tensor,
                      cand_ids: torch.Tensor, cand_dists: torch.Tensor, k: int,
-                     exclude_self: Optional[torch.Tensor] = None):
+                     exclude_self: Optional[torch.Tensor] = None,
+                     payload: Optional[torch.Tensor] = None,
+                     cand_payload: Optional[torch.Tensor] = None):
     """Row-wise merge of (n, a) lists with (n, b) candidates, dedup by id,
     top-k → ``(ids (n, k), dists (n, k), from_cand (n, k))``. Invalid
     entries are id -1 / dist +inf; ``exclude_self`` (n,) drops each row's
     own id. One lexsort by (id, dist) puts every copy of an id next to its
-    best, a stable sort by distance restores the order."""
+    best, a stable sort by distance restores the order. With ``payload`` /
+    ``cand_payload`` (shaped like ``ids`` / ``cand_ids``) the survivors'
+    payload comes back as a fourth output (NN-descent's new/old flags)."""
     inf = float("inf")
     all_ids = torch.cat([ids, cand_ids], dim=1)
     all_d = torch.cat([dists, cand_dists], dim=1)
@@ -79,4 +83,8 @@ def merge_topk_dedup(ids: torch.Tensor, dists: torch.Tensor,
     out_ids = torch.where(torch.isinf(out_d), torch.full_like(out_ids, -1),
                           out_ids)
     out_c = out_c & ~torch.isinf(out_d)
+    if payload is not None:
+        all_p = torch.cat([payload, cand_payload.to(payload.dtype)], dim=1)
+        out_p = torch.gather(torch.gather(all_p, 1, order), 1, order2)
+        return out_ids, out_d, out_c, out_p
     return out_ids, out_d, out_c

@@ -16,6 +16,7 @@ from raft_tpu.neighbors import cagra as jc
 from raft_tpu.ops import linalg as jlinalg
 from raft_tpu.ops import segment as jseg
 from raft_tpu.stats import summary as jsummary
+from raft_tpu_torch.comms import Comms, local_mesh
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.distributed import cagra as tdist
@@ -385,19 +386,31 @@ def test_candidate_scan_runs_k1_at_ideg_plus_one_every_batch(monkeypatch):
     assert not bool((graph == torch.arange(5000)[:, None]).any())
 
 
-def test_what_later_slices_bring_raises(build_data, carried):
+def test_what_later_slices_bring_raises(build_data, carried, tmp_path):
+    """Once the entries later slices were to bring; since the CAGRA
+    remainder slice they serve: ``build_algo="nn_descent"`` builds, the
+    hnsw export writes, the sharded index searches. What still raises is
+    what is wrong: a filter of the wrong length, an unknown traversal, an
+    index on another device."""
     data, Q, _ = build_data
     _, tidx, _, _ = carried
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tc.build(data[:500], tc.CagraParams(build_algo="nn_descent"), **CPU)
-    # filters serve now; a filter of the wrong length is refused
+    idx = tc.build(data[:2100], tc.CagraParams(
+        intermediate_graph_degree=16, graph_degree=8, build_algo="nn_descent",
+        nn_descent_niter=3), **CPU)
+    assert idx.graph.shape == (2100, 8)
+    assert not bool((idx.graph == torch.arange(2100)[:, None]).any())
     with pytest.raises(ValueError, match="filter covers"):
         tc.search(tidx, Q[:4, :32], 5,
                   filter=Bitset.from_mask(np.ones(10, bool), **CPU), **CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        thnsw.save_to_hnswlib(tidx, "unused.bin")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tdist.search(tidx, Q[:4, :32], 5)
+    assert thnsw.save_to_hnswlib(idx, tmp_path / "g.bin") in ("native",
+                                                              "python")
+    assert thnsw.HnswIndex.load(tmp_path / "g.bin", dim=32).graph.shape == (
+        2100, 8)
+    sharded = tdist.build(data[:2500], tc.CagraParams(
+        intermediate_graph_degree=16, graph_degree=8),
+        comms=Comms(local_mesh(2, device="cpu")), **CPU)
+    _, ids = tdist.search(sharded, Q[:4], 5, **CPU)
+    assert ids.shape == (4, 5) and bool((ids < 2500).all())
     with pytest.raises(ValueError, match="unknown traversal"):
         tc.CagraSearchParams(traversal="pallas")
     with pytest.raises(ValueError, match="index lives on"):

@@ -18,6 +18,7 @@ families, held against the JAX package's on the same inputs.
 """
 
 import re
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +38,10 @@ from raft_tpu_torch import serving as tsv
 from raft_tpu_torch.bench.datasets import sift_like
 from raft_tpu_torch.cluster import kmeans as tkm
 from raft_tpu_torch.cluster import kmeans_balanced as tkb
+from raft_tpu_torch.comms import bootstrap as tboot
+from raft_tpu_torch.comms import comms as tcomms
+from raft_tpu_torch.core.resources import Resources, use_resources
+from raft_tpu_torch.distributed import ivf_flat as tdflat
 from raft_tpu_torch.core import serialize as tser
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.neighbors import brute_force as tbf
@@ -282,6 +287,9 @@ def _fault_cases(data, indexes, cagra_pair, tmp_path):
     tser.save_arrays(path, {"kind": "t"}, {"a": np.arange(4)})
     fused = tcg.CagraSearchParams(itopk_size=32, search_width=2,
                                   traversal="fused")
+    two = tcomms.Comms(tboot.local_mesh(2, device=CPU))
+    dflat = tdflat.build(ds, tfl.IvfFlatParams(n_lists=4, kmeans_n_iters=2),
+                         comms=two, device=CPU)
     return {
         "brute_force.search": lambda: tbf.search(
             tbf.build(ds, device=CPU), qs, 5, device=CPU),
@@ -317,7 +325,28 @@ def _fault_cases(data, indexes, cagra_pair, tmp_path):
         "serialize.save.write": lambda: tser.save_arrays(
             path, {"kind": "t"}, {"a": np.arange(9)}),
         "serialize.load.read": lambda: tser.load_arrays(path),
+        "distributed.assign_phase": lambda: tdflat.build(
+            ds, tfl.IvfFlatParams(n_lists=4, kmeans_n_iters=2), comms=two,
+            device=CPU),
+        "distributed.tiled_search.tile": lambda: tdflat.search(
+            dflat, qs, 5, n_probes=2, device=CPU),
+        "comms.init_distributed": lambda: _init_and_leave(),
     }
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _init_and_leave():
+    """A one-rank gloo group joined and left (its handshake is retried
+    once, so an armed fault surfaces only when it fires twice)."""
+    with use_resources(Resources(device=CPU)):
+        assert tboot.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                      timeout_s=30.0)
+        tboot.shutdown_distributed()
 
 
 #: modules whose faultpoints sit inside their own classifying handlers
@@ -370,7 +399,11 @@ TRANSIENT_SPECS = {spec.split("=")[0]: spec for spec in (
     "cagra.search=transient:1", "cagra.search.hop=transient:1",
     "kmeans.fit.em=transient:1", "kmeans_balanced.fit.em=transient:1",
     "serving.store.upsert=transient:1", "serialize.save.write=transient:1",
-    "serialize.load.read=transient:1")}
+    "serialize.load.read=transient:1",
+    "distributed.assign_phase=transient:1",
+    "distributed.tiled_search.tile=transient:1",
+    # the bootstrap retries one TRANSIENT failure: two make it surface
+    "comms.init_distributed=transient:2")}
 
 
 @pytest.mark.parametrize("site", sorted(TRANSIENT_SPECS))

@@ -14,8 +14,16 @@ from raft_tpu_torch import serving
 from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources, resolve_device
+from raft_tpu_torch.comms import comms as C
+from raft_tpu_torch.comms import local_mesh
+from raft_tpu_torch.distributed import brute_force as dbf
+from raft_tpu_torch.distributed import cagra as dcagra
+from raft_tpu_torch.distributed import ivf_bq as dbq
+from raft_tpu_torch.distributed import ivf_flat as dflat
+from raft_tpu_torch.distributed import ivf_pq as dpq
+from raft_tpu_torch.distributed import kmeans as dkm
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq, ivf_flat,
-                                      ivf_pq, refine)
+                                      ivf_pq, nn_descent, refine)
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import cagra_hop as ch
@@ -193,6 +201,17 @@ def _entry_points(x, q, **dev):
     cagra_cpu = cagra.build(x[:512], cagra_params, device="cpu")
     half = Bitset.from_mask(np.arange(x.shape[0]) % 2 == 0, device="cpu")
     half512 = Bitset.from_mask(np.arange(512) % 2 == 0, device="cpu")
+    nnd_params = nn_descent.NNDescentParams(graph_degree=4,
+                                            intermediate_graph_degree=8,
+                                            max_iterations=2)
+    two = C.Comms(local_mesh(2, device="cpu"))
+    pq_params = ivf_pq.IvfPqParams(n_lists=4, pq_dim=4, kmeans_n_iters=2,
+                                   codebook_n_iters=2)
+    dbf_cpu = dbf.build(x, comms=two, device="cpu")
+    dflat_cpu = dflat.build(x, flat_params, comms=two, device="cpu")
+    dpq_cpu = dpq.build(x, pq_params, comms=two, device="cpu")
+    dbq_cpu = dbq.build(x, bq_params, comms=two, device="cpu")
+    dcagra_cpu = dcagra.build(x[:512], cagra_params, comms=two, device="cpu")
     bq_store_cpu = serving.PagedListStore.from_index(bq_cpu, page_rows=64,
                                                      device="cpu")
     return {
@@ -265,7 +284,53 @@ def _entry_points(x, q, **dev):
         "kmeans.predict": lambda: kmeans.predict(x, x[:4], **dev),
         "kmeans.transform": lambda: kmeans.transform(x, x[:4], **dev),
         "kmeans.cluster_cost": lambda: kmeans.cluster_cost(x, x[:4], **dev),
+        "nn_descent.build": lambda: nn_descent.build(x[:300], nnd_params,
+                                                     **dev),
+        "cagra.build.nn_descent": lambda: cagra.build(
+            x[:2100], cagra.CagraParams(intermediate_graph_degree=8,
+                                        graph_degree=4,
+                                        build_algo="nn_descent",
+                                        nn_descent_niter=2), **dev),
+        "comms.local_mesh": lambda: local_mesh(2, device=_device_of(dev)),
+        "comms.make_comms": lambda: C.make_comms(dev.get("res")
+                                                 or _res_of(dev)),
+        "distributed.brute_force.build": lambda: dbf.build(x, comms=two,
+                                                           **dev),
+        "distributed.brute_force.search": lambda: dbf.search(
+            dbf_cpu, q, 5, filter=half, **dev),
+        "distributed.kmeans.fit": lambda: dkm.fit(x, kmeans.KMeansParams(
+            n_clusters=4, max_iter=3), comms=two, **dev),
+        "distributed.kmeans.fit_balanced": lambda: dkm.fit_balanced(
+            x, 4, kmeans_balanced.KMeansBalancedParams(n_iters=2), comms=two,
+            **dev),
+        "distributed.ivf_flat.build": lambda: dflat.build(x, flat_params,
+                                                          comms=two, **dev),
+        "distributed.ivf_flat.search": lambda: dflat.search(
+            dflat_cpu, q, 5, n_probes=2, **dev),
+        "distributed.ivf_pq.build": lambda: dpq.build(x, pq_params, comms=two,
+                                                      **dev),
+        "distributed.ivf_pq.search": lambda: dpq.search(dpq_cpu, q, 5,
+                                                        n_probes=2, **dev),
+        "distributed.ivf_bq.build": lambda: dbq.build(x, bq_params, comms=two,
+                                                      **dev),
+        "distributed.ivf_bq.search": lambda: dbq.search(dbq_cpu, q, 5,
+                                                        n_probes=2, **dev),
+        "distributed.cagra.build": lambda: dcagra.build(
+            x[:512], cagra_params, comms=two, **dev),
+        "distributed.cagra.search": lambda: dcagra.search(dcagra_cpu, q, 5,
+                                                          **dev),
     }
+
+
+def _device_of(dev):
+    """The device a test's entry-point kwargs ask for (None: the default)."""
+    if "device" in dev:
+        return dev["device"]
+    return dev["res"].device if "res" in dev else None
+
+
+def _res_of(dev):
+    return Resources(device=_device_of(dev) or "cuda")
 
 
 def _cagra_file_load(index, **dev):
@@ -301,7 +366,22 @@ def _cagra_file_load(index, **dev):
                                   "ivf_bq.build_streaming",
                                   "cagra.search.filter", "kmeans.fit",
                                   "kmeans.fit_predict", "kmeans.predict",
-                                  "kmeans.transform", "kmeans.cluster_cost"])
+                                  "kmeans.transform", "kmeans.cluster_cost",
+                                  "nn_descent.build",
+                                  "cagra.build.nn_descent",
+                                  "comms.local_mesh", "comms.make_comms",
+                                  "distributed.brute_force.build",
+                                  "distributed.brute_force.search",
+                                  "distributed.kmeans.fit",
+                                  "distributed.kmeans.fit_balanced",
+                                  "distributed.ivf_flat.build",
+                                  "distributed.ivf_flat.search",
+                                  "distributed.ivf_pq.build",
+                                  "distributed.ivf_pq.search",
+                                  "distributed.ivf_bq.build",
+                                  "distributed.ivf_bq.search",
+                                  "distributed.cagra.build",
+                                  "distributed.cagra.search"])
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -784,3 +864,64 @@ def test_telemetry_initialises_no_cuda_context():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# the CAGRA remainder, comms and the distributed indexes: K1 and K2 run on
+# their shard scans, so a CUDA shard gets the kernel or an exception
+REMAINDER_COMMS_MODULES = (
+    "neighbors/nn_descent.py", "neighbors/hnsw.py", "neighbors/refine.py",
+    "native/__init__.py", "ops/segment.py", "comms/comms.py",
+    "comms/self_test.py", "distributed/brute_force.py",
+    "distributed/kmeans.py", "distributed/ivf_flat.py",
+    "distributed/ivf_pq.py", "distributed/ivf_bq.py", "distributed/cagra.py",
+    "distributed/snapshot.py")
+
+
+@pytest.mark.parametrize("rel", REMAINDER_COMMS_MODULES)
+def test_no_try_on_the_remainder_and_distributed_paths(rel):
+    path = REPO / "raft_tpu_torch" / rel
+    assert path in _port_files()
+    tree = ast.parse(path.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+
+
+#: the JAX modules' try statements: the shard probe's classification of a
+#: failing shard, and the bootstrap's bounded coordinator probe
+_GATE_TRIES = {"distributed/_sharding.py": ("probe_shards",),
+               "comms/bootstrap.py": ("_probe_coordinator",)}
+
+
+@pytest.mark.parametrize("rel", sorted(_GATE_TRIES))
+def test_gates_keep_the_jax_try_blocks_and_add_none(rel):
+    """The port's try statements sit in the JAX package's gate functions
+    only, no more of them than there, and none on the shard scans."""
+    trees = [ast.parse((REPO / pkg / rel).read_text())
+             for pkg in ("raft_tpu", "raft_tpu_torch")]
+    counts = [sum(isinstance(n, ast.Try) for n in ast.walk(t))
+              for t in trees]
+    assert 1 <= counts[1] <= counts[0], (rel, counts)
+    for fn in ast.walk(trees[1]):
+        if isinstance(fn, ast.FunctionDef) and any(
+                isinstance(n, ast.Try) for n in ast.walk(fn)):
+            assert fn.name in _GATE_TRIES[rel], (rel, fn.name)
+
+
+def test_shard_scans_follow_the_device_rule():
+    """A CUDA shard runs the strip engine (K1 / K2) wherever the lists
+    allow it, a CPU shard the dense scan: the engine is picked from the
+    shards' devices, never from a failure."""
+    from raft_tpu_torch.distributed import _sharding as sh
+
+    cpu = C.Comms(local_mesh(2, device="cpu"))
+    assert sh.search_engine_dense(cpu, 512) is True
+    assert sh.search_engine_dense(cpu, 3 * ss.MC) is True
+    # a mesh of CUDA shards is only described here, never launched on
+    cuda0 = torch.device("cuda", 0)
+    on_card = C.Comms(C.Mesh(np.array([cuda0, cuda0], dtype=object),
+                             ("data",)))
+    assert sh.search_engine_dense(on_card, 4 * ss.MC) is False
+    assert sh.search_engine_dense(on_card, 3 * ss.MC) is True
+    # one CPU shard must not turn a CUDA shard's scan into the twin
+    with pytest.raises(ValueError, match="one device type"):
+        C.Mesh(np.array([cuda0, torch.device("cpu")], dtype=object),
+               ("data",))
