@@ -211,6 +211,35 @@ recall ≥ 0.95. ``capacity``: 8 IVF-Flat tenants of 250,000 rows (n_lists
 every outcome and transition classified, the promote latency measured, K1
 launches for hot serves and K2 for warm ones.
 
+The tuning loop and the bench runner ride the paths too. ``tuning``
+(after ``serve.queue``, on its flat store, K3): ``bench.py``'s
+``_autotune_rung`` at its full-size settings — probe ladder (4, 8, 16),
+cap ladder (16, 32, 64), 96 Poisson requests a window, every (probe rung
+∪ exact) × pow2 bucket met before any clock, the recall floor by the JAX
+rung's rule (the middle of the measured ladder's widest gap when it
+exceeds 0.08, else 0.03 under the top rung; printed as
+``recall_floor_by``); the ``Autotuner`` (default window budget and
+deadline) with a ``FlightRecorder`` writing
+``results/flight_chip_smoke.jsonl`` (window 0 carries the health probe's
+verdict): no tuner window skipped, no tuner request in an error verdict,
+no flight window degraded; the emitted operating point read back with
+``load_operating_point``, then a calm slice, a saturating spike and calm
+recovery under the ``BurnRateController``: the point meets its SLO, the
+knobs are restored, no calm action, no SLO in breach at the end, no
+consequential unknown diagnosis, no new scan signature, no unclassified
+verdict, ≥ 1 controller action, K3 launches; then the flight CLI
+(``--validate --render --frontier``) and the report CLI (``--validate``)
+on the recording, each in a child process. ``bench.runner`` (after
+``cagra``, whose index is freed by then): ``bench.runner.main`` in this
+process on the siftlike 1M × 128 config — brute force, IVF-Flat and
+IVF-PQ at the flat and main paths' picks, CAGRA 128 → 64 at the cagra
+path's fused rung — with each algo's build and searches counted apart:
+brute force's recall 1.0, every other record's ≥ 0.95 and within 0.002 of
+its path's figure earlier in the call, K1 launches for IVF-Flat and
+IVF-PQ, K6 launches = the CAGRA searches' hops, and each record read
+from the JSON the runner wrote with JAX's keys, naming the config's
+parameters.
+
 The CAGRA remainder and the distributed layer run last, every distributed
 path at DIST_SHARDS = 4 shards on the one card (``local_mesh(4,
 device="cuda")``): ``dist.kmeans`` (``distributed.kmeans.fit`` and
@@ -3576,6 +3605,8 @@ def cagra_phase(shared, params=None, recall_gate=0.95, dev="cuda"):
           "torch_pickup_ms_off_path": pickup_ms, **glue})
     # the graph the hnsw export writes (cagra_hnsw_phase)
     HELD["cagra.graph"] = (index.graph.cpu(), rec)
+    HELD["recall.cagra"] = ({"itopk": pick["itopk"], "width": pick["width"]},
+                            rec)
     del calls, mid, index
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": verdict["max_abs_err"],
@@ -3599,6 +3630,7 @@ def health_phase():
     from raft_tpu_torch import obs
 
     rep = obs.probe()
+    HELD["health"] = rep       # window 0 of the tuning phase's recording
     emit({"phase": "health", **rep.as_dict(),
           "max_timeout_s": obs.MAX_TIMEOUT})
     if not rep.healthy or rep.elapsed_s > obs.MAX_TIMEOUT:
@@ -4975,6 +5007,539 @@ def serve_queue_phase(shared, store, n_probes, dev="cuda"):
         raise AssertionError(f"serve.queue.compact: {out}, {agree}")
 
 
+TUNE_PROBES = (4, 8, 16)     # _autotune_rung's full-size probe ladder
+TUNE_CAPS = (16, 32, 64)     # the batch-cap ladder: QUEUE_MAX_BATCH's range
+TUNE_REQUESTS = 96           # Poisson requests a tuner window
+TUNE_SEED = 17
+FLIGHT_FILE = "results/flight_chip_smoke.jsonl"
+FRONTIER_FILE = "results/frontier_chip_smoke.json"
+
+
+def tuning_phase(shared, store, n_probes, dev="cuda"):
+    """The tuning loop on the serving flat store (K3), after ``bench.py``'s
+    ``_autotune_rung`` at its full-size settings: probe ladder (4, 8, 16),
+    cap ladder (16, 32, 64), 96 Poisson requests a window, every (probe
+    rung ∪ exact) × pow2 bucket met before any clock, the recall floor set
+    by the JAX rung's rule (the middle of the widest gap of the measured
+    ladder when that gap exceeds 0.08, else 0.03 under the top rung; the
+    phase prints which). Phase A: the ``Autotuner`` (default window budget
+    and deadline) moves the knobs by diagnosis and emits the operating
+    point, a ``FlightRecorder`` writing every window to ``FLIGHT_FILE``;
+    no window may be skipped and no request may end in an error verdict.
+    Phase B: serving restarts at the point read back with
+    ``load_operating_point``, a calm slice, a saturating spike and calm
+    recovery under the ``BurnRateController``. Then the flight and report
+    CLIs on the recording, each in a child process."""
+    import collections
+
+    import numpy as np
+
+    from raft_tpu_torch import Resources, obs, serving
+    from raft_tpu_torch.bench import progress as prog
+    from raft_tpu_torch.obs import compile as obs_compile
+    from raft_tpu_torch.obs import explain as obs_explain
+    from raft_tpu_torch.obs import flight as obs_flight
+    from raft_tpu_torch.obs import memory as obs_memory
+    from raft_tpu_torch.obs import report as obs_report
+    from raft_tpu_torch.obs import shadow as obs_shadow
+    from raft_tpu_torch.obs import slo as obs_slo
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.tuning import autotune
+
+    t_phase = time.perf_counter()
+    res = Resources(device=dev)
+    rng = np.random.default_rng(TUNE_SEED)
+    n_lists = store.n_lists
+    probe_ladder, cap_ladder = list(TUNE_PROBES), list(TUNE_CAPS)
+    n_req, cap_max = TUNE_REQUESTS, cap_ladder[-1]
+    host_q = shared["queries"].cpu().numpy().astype(np.float32)
+    q_pool = host_q[:max(64, 2 * n_req)]
+    store.set_filter(None)
+
+    def search(qq, nprobe):
+        return serving.search(store, qq, K, n_probes=nprobe, res=res)
+
+    def fetched(out):
+        """Host fetch of a search's ids: returns once its launches ended."""
+        return out[1].cpu().numpy()
+
+    obs.reset()
+    obs.enable()
+    obs.disable_sync()
+    reset_counts()
+    # every (probe rung ∪ exact scan) × pow2 bucket before any clock: the
+    # loop below — tuner windows, the controller's n_probes / batch-cap
+    # moves, the shadow's exact scans — meets no new scan signature
+    for np_ in probe_ladder + [n_lists]:
+        b = 1
+        while True:
+            fetched(search(np.repeat(q_pool[:1], b, axis=0), np_))
+            if b >= cap_max:
+                break
+            b = min(2 * b, cap_max)
+
+    def timed(qq, reps):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fetched(search(qq, probe_ladder[-1]))
+            times.append(time.perf_counter() - t)
+        return max(1e-6, _pct(times, 50))
+
+    lat1 = timed(q_pool[:1], 5)
+    lat_full = timed(q_pool[:cap_max], 5)
+    slo_s = max(4.0 * lat_full, 2.0 * lat1)
+
+    # the recall floor sits in the widest gap between adjacent rungs of the
+    # MEASURED ladder (meetable by a later rung, missed by the first) when
+    # that gap is wide; else just under the top rung
+    q_cal = q_pool[:cap_max]
+    exact_cal = fetched(search(q_cal, n_lists))
+
+    def recall_at(nprobe):
+        got = fetched(search(q_cal, nprobe))
+        hits = sum(len(set(got[i].tolist()) & set(exact_cal[i].tolist()))
+                   for i in range(q_cal.shape[0]))
+        return hits / (q_cal.shape[0] * K)
+
+    ladder_recall = [recall_at(p) for p in probe_ladder]
+    gaps = [ladder_recall[i + 1] - ladder_recall[i]
+            for i in range(len(ladder_recall) - 1)]
+    if gaps and max(gaps) > 0.08:
+        gi = gaps.index(max(gaps))
+        floor = (ladder_recall[gi] + ladder_recall[gi + 1]) / 2.0
+        floor_by = "widest gap"
+    else:
+        floor = ladder_recall[-1] - 0.03
+        floor_by = "top rung - 0.03"
+    floor = round(min(0.95, max(0.2, floor)), 3)
+    floor_hard = round(max(0.05, floor - 0.1), 3)
+    slo = {"p99_s": 5.0 * slo_s, "recall_floor": floor}
+    base_rate = 0.5 / lat1
+    out = {"phase": "tuning", "n_lists": n_lists, "k": K,
+           "serve_n_probes": n_probes, "probe_ladder": probe_ladder,
+           "cap_ladder": cap_ladder, "requests_per_window": n_req,
+           "batch1_ms": lat1 * 1e3, "batch64_ms": lat_full * 1e3,
+           "slo_ms": slo_s * 1e3,
+           "ladder_recall": [round(r, 4) for r in ladder_recall],
+           "recall_floor": floor, "recall_floor_by": floor_by,
+           "recall_floor_hard": floor_hard,
+           "slo_p99_ms": slo["p99_s"] * 1e3}
+
+    def window_traffic(queue, rate, n, timeout_mult=50.0, ctrl=None,
+                       ctrl_every=0):
+        """One Poisson traffic slice: submit at ``rate`` req/s and pump the
+        queue in the gaps (this loop is the serving worker)."""
+        arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+        handles = []
+        i = 0
+        t_start = time.perf_counter()
+        while i < n:
+            flight.maybe_sample()
+            now = time.perf_counter() - t_start
+            if now >= arrivals[i]:
+                handles.append(queue.submit(q_pool[i % len(q_pool)],
+                                            timeout_s=timeout_mult * slo_s))
+                i += 1
+                if ctrl is not None and ctrl_every and i % ctrl_every == 0:
+                    ctrl.pump()
+                continue
+            if not queue.pump():
+                time.sleep(min(arrivals[i] - now, 2e-4))
+        queue.drain(timeout=120.0)
+        return handles, time.perf_counter() - t_start
+
+    # one recording over both phases: its providers follow the live objects
+    live_objs = {"engine": None, "sampler": None, "queue": None,
+                 "knobs": lambda: {"algo": store.kind, "n_lists": n_lists,
+                                   "k": K}}
+    prog.truncate(FLIGHT_FILE)
+    health = HELD.get("health")
+    flight = obs_flight.FlightRecorder(
+        FLIGHT_FILE, knobs=lambda: live_objs["knobs"](),
+        engine=lambda: live_objs["engine"],
+        sampler=lambda: live_objs["sampler"],
+        queue=lambda: live_objs["queue"], health=health,
+        probe_health=health is None, interval_s=0.1)
+    flight.sample()      # window 0 (the health verdict), off every clock
+
+    # --- Phase A: the offline tuner --------------------------------------
+    tuner_handles = []
+
+    def serve_window(values):
+        """ONE window under the proposed knobs with a fresh sampler and SLO
+        engine (a windowed Wilson CI judges the knob move just made)."""
+        nprobe, cap = int(values["n_probes"]), int(values["batch_cap"])
+        sampler = obs_shadow.ShadowSampler(
+            lambda qq: search(qq, n_lists), k=K, rate=1.0, seed=TUNE_SEED,
+            max_pending=n_req + 8)
+        engine = obs_slo.SloEngine(
+            obs_slo.default_serving_slos(slo_s, sampler=sampler,
+                                         recall_floor=floor),
+            fast_window_s=30.0, slow_window_s=120.0)
+        queue = serving.QueryQueue(
+            serving.searcher(store, K, n_probes=nprobe, res=res),
+            slo_s=slo_s, max_batch=cap, fill_wait_s=lat_full, shadow=sampler)
+        live_objs.update(engine=engine, sampler=sampler, queue=queue,
+                         knobs=lambda: {"algo": store.kind,
+                                        "n_lists": n_lists, "k": K,
+                                        "n_probes": nprobe, **queue.knobs()})
+        handles, wall = window_traffic(queue, base_rate, n_req)
+        tuner_handles.extend(handles)
+        sampler.drain(timeout_s=60.0)
+        ok = [h.latency_s for h in handles if h.verdict == "ok"]
+        win = flight.sample() or {}
+        report = win.get("report")
+        if not isinstance(report, dict):
+            report = obs_report.collect(engine=engine, sampler=sampler,
+                                        queue=queue)
+        return {"ops": {"qps": len(ok) / wall if wall > 0 else 0.0,
+                        "p99_ub_s": _pct(ok, 99),
+                        "requests_ok": len(ok)},
+                "report": report}
+
+    tuner = autotune.Autotuner(
+        serve_window,
+        [autotune.Knob("n_probes", probe_ladder),
+         autotune.Knob("batch_cap", cap_ladder, start=cap_ladder[1]),
+         autotune.Knob("algo", ["ivf_flat"]),
+         autotune.Knob("n_lists", [n_lists]),
+         autotune.Knob("k", [K])],
+        slo=slo, settle=3)
+    t = time.perf_counter()
+    out["tuner"] = tuner.run()
+    out["tuner_s"] = time.perf_counter() - t
+    # a window the tuner skipped (its serve_fn raised: a launch error, the
+    # deadline) and a request that ended in an error verdict both fail here
+    out["tuner_skipped"] = out["tuner"].get("skipped", 0)
+    out["tuner_requests"] = len(tuner_handles)
+    out["tuner_deadline_misses"] = sum(h.verdict == "deadline"
+                                       for h in tuner_handles)
+    out["tuner_unclassified"] = sum(h.verdict not in ("ok", "deadline")
+                                    for h in tuner_handles)
+    emitted = tuner.emit_operating_point()
+    windows = tuner.windows()
+    primaries = collections.Counter()
+    explain_invalid = unexplained = 0
+    for rec in windows:
+        diag = rec.get("explain") or {}
+        key = diag.get("primary") or "healthy"
+        primaries[key] += 1
+        explain_invalid += len(obs_explain.validate(diag))
+        # a CONSEQUENTIAL unknown: the window missed its bound undiagnosed
+        if key == "unknown" and not rec["proposal"].get("meets_slo", True):
+            unexplained += 1
+    out.update(diagnosis_counts=dict(primaries),
+               unexplained_diagnoses=unexplained,
+               explain_invalid=explain_invalid,
+               frontier_points=tuner.frontier().get("pareto_points", 0))
+    if emitted is None:
+        raise AssertionError(f"tuning: no operating point emitted: {out}")
+    out.update(meets_slo=bool(emitted["meets_slo"]),
+               tuned_qps=emitted["qps"], tuned_recall=emitted["recall"],
+               tuned_p99_ms=(emitted["p99_ub_s"] * 1e3
+                             if emitted["p99_ub_s"] is not None else None))
+
+    # --- Phase B: online control at the tuned point ----------------------
+    point = autotune.load_operating_point()
+    knobs = (point or {}).get("knobs") or {}
+    nprobe_tuned = knobs.get("n_probes")
+    cap_tuned = knobs.get("batch_cap")
+    if nprobe_tuned not in probe_ladder or cap_tuned not in cap_ladder:
+        raise AssertionError(f"tuning: operating point read back as "
+                             f"{point}")
+    out["tuned_knobs"] = {"n_probes": nprobe_tuned, "batch_cap": cap_tuned}
+    out["tuned_by"] = point.get("tuned_by")
+    live = {"n_probes": int(nprobe_tuned)}
+
+    def live_search(qq):
+        return search(qq, live["n_probes"])
+
+    sampler2 = obs_shadow.ShadowSampler(
+        lambda qq: search(qq, n_lists), k=K, rate=1.0, seed=TUNE_SEED + 1,
+        max_pending=8 * n_req)
+    # burn windows scaled to the phase's wall clock; the latency target is
+    # 2× the serving bound, because the engine's pow2-bucket bad counting
+    # can overcount by up to 2× (the JAX rung's setting)
+    engine2 = obs_slo.SloEngine(
+        obs_slo.default_serving_slos(2.0 * slo_s, sampler=sampler2,
+                                     recall_floor=floor_hard),
+        fast_window_s=0.6, slow_window_s=2.5, threshold=5.0)
+    queue2 = serving.QueryQueue(live_search, slo_s=slo_s, max_batch=cap_max,
+                                fill_wait_s=lat_full, shadow=sampler2)
+    queue2.set_batch_cap(int(cap_tuned))
+    actuators = [
+        serving.KnobActuator("n_probes", probe_ladder,
+                             lambda: live["n_probes"],
+                             lambda v: live.__setitem__("n_probes", int(v)),
+                             costs_recall=True),
+        serving.KnobActuator("batch_cap", cap_ladder,
+                             lambda: queue2.batch_cap, queue2.set_batch_cap),
+    ]
+    ctrl = serving.BurnRateController(
+        engine2, actuators, sampler=sampler2, recall_floor=floor_hard,
+        max_actions=1, cool_windows=2, deadline_s=60.0)
+    live_objs.update(engine=engine2, sampler=sampler2, queue=queue2,
+                     knobs=lambda: {"algo": store.kind, "n_lists": n_lists,
+                                    "k": K, "n_probes": live["n_probes"],
+                                    **queue2.knobs()})
+    flight.sample()
+    traces0 = serving.scan_trace_count()
+    unexplained0 = obs_compile.unexplained_retraces()
+
+    # calm at the tuned point: the controller must hold
+    calm, calm_wall = window_traffic(queue2, base_rate, n_req, ctrl=ctrl,
+                                     ctrl_every=8)
+    sampler2.drain(timeout_s=60.0)
+    out["calm_actions"] = (ctrl.report() or {}).get("actions", 0)
+    out["calm_qps"] = sum(h.verdict == "ok" for h in calm) / calm_wall
+
+    # the spike: bursts dumped at once, each sized to a tail queue wait of
+    # ≈6× slo_s off the measured dispatch at the tuned batch; the
+    # controller is pumped between bursts
+    t = time.perf_counter()
+    fetched(live_search(q_pool[:int(cap_tuned)]))
+    t_disp = max(time.perf_counter() - t, 1e-5)
+    burst = int(cap_tuned) * min(96, max(3, int(6.0 * slo_s / t_disp) + 1))
+    spike = []
+    for _ in range(4):
+        hs, _ = window_traffic(queue2, 1e9, burst, timeout_mult=400.0)
+        spike.extend(hs)
+        ctrl.pump()
+        flight.maybe_sample()
+
+    # recovery: calm slices until every knob is back at its tuned rung
+    restored = False
+    recovery = []
+    for _ in range(40):
+        hs, _ = window_traffic(queue2, base_rate, 8)
+        recovery.extend(hs)
+        tick = ctrl.pump() or {}
+        flight.maybe_sample()
+        restored = all(a.idx == a.tuned_idx for a in actuators)
+        if restored and tick.get("status") == "cool" \
+                and not tick.get("actions"):
+            break
+        time.sleep(0.05)
+    final_rows = engine2.evaluate()
+    sampler2.drain(timeout_s=60.0)
+    obs_memory.sample("tuning")
+    flight.sample()
+
+    handles = calm + spike + recovery
+    misses = sum(h.verdict == "deadline" for h in handles)
+    crep = ctrl.report() or {}
+    out.update(
+        spike_burst=burst, spike_requests=len(spike),
+        recovery_requests=len(recovery),
+        new_scan_signatures=serving.scan_trace_count() - traces0,
+        unexplained_retraces=obs_compile.unexplained_retraces()
+        - unexplained0,
+        deadline_misses=misses,
+        unclassified=len(handles) - misses
+        - sum(h.verdict == "ok" for h in handles),
+        knobs_restored=bool(restored),
+        controller_actions=crep.get("actions", 0),
+        controller_nudges=crep.get("nudges", 0),
+        controller_reverts=crep.get("reverts", 0),
+        guardrail_holds=crep.get("guardrail_holds", 0),
+        controller_failures=crep.get("failures", 0),
+        breach_ticks=crep.get("breach_ticks", 0),
+        spike_budget_burn=sum(1 for r in final_rows.values()
+                              if isinstance(r, dict)
+                              and r.get("state") == "breach"),
+        final_slo={n: r.get("state") for n, r in final_rows.items()},
+        flight_windows=flight.windows_recorded)
+
+    # the episode from the recording alone: every controller action is a
+    # complete tuning.action event on the window timeline
+    recording = obs_flight.read_recording(FLIGHT_FILE)
+    actions_seen = [e for rec in recording
+                    if rec.get("type") == "flight_window"
+                    for e in rec.get("events") or []
+                    if e.get("event") == "tuning.action"]
+    out["tuning_action_events"] = len(actions_seen)
+    # a window whose sample or export degraded (classified, not raised)
+    counters = obs.snapshot()["counters"]
+    out["flight_degraded"] = {
+        "sample_counter": counters.get("flight.sample_degraded", 0),
+        "export_counter": counters.get("flight.export_degraded", 0),
+        "windows_with_errors": sum(1 for rec in recording
+                                   if rec.get("type") == "flight_window"
+                                   and rec.get("errors"))}
+    final_report = obs_report.collect(engine=engine2, sampler=sampler2,
+                                      queue=queue2, controller=ctrl)
+    obs_report.export(FLIGHT_FILE, final_report)
+    out["report_problems"] = obs_report.validate(final_report)
+    obs.disable()
+    out["k3_launches"] = ss.PAGED_KERNEL.launches
+
+    # the CLIs on the recording, each in a child process
+    clis = {}
+    for name, argv in (
+            ("flight", ["-m", "raft_tpu_torch.obs.flight", FLIGHT_FILE,
+                        "--validate", "--render", "--frontier",
+                        FRONTIER_FILE]),
+            ("report", ["-m", "raft_tpu_torch.obs.report", FLIGHT_FILE,
+                        "--validate", "--output",
+                        "results/report_chip_smoke.json"])):
+        proc = subprocess.run([sys.executable] + argv, capture_output=True,
+                              text=True, timeout=120)
+        clis[name] = {"rc": proc.returncode,
+                      "stdout_tail": proc.stdout.strip().splitlines()[-1:],
+                      "stderr_tail": proc.stderr.strip().splitlines()[-3:]}
+    out["clis"] = clis
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    bad = {key: out[key] for key in (
+        "calm_actions", "spike_budget_burn", "unexplained_diagnoses",
+        "new_scan_signatures", "unclassified", "explain_invalid",
+        "unexplained_retraces", "controller_failures", "tuner_skipped",
+        "tuner_unclassified") if out[key]}
+    bad.update({f"flight.{key}": n for key, n in
+                out["flight_degraded"].items() if n})
+    if not out["meets_slo"] or not out["knobs_restored"] or bad \
+            or out["controller_actions"] < 1 or out["k3_launches"] <= 0 \
+            or out["tuning_action_events"] < out["controller_actions"] \
+            or out["report_problems"] \
+            or any(c["rc"] for c in clis.values()):
+        raise AssertionError(f"tuning: {out}")
+    return out["k3_launches"]
+
+
+RUNNER_CONFIG = "results/runner_chip_smoke_config.json"
+RUNNER_OUT = "results/runner_chip_smoke.json"
+RUNNER_RECALL_SLACK = 0.002  # against the same path's figure in this call
+#: a record's keys in the JAX runner's order
+RUNNER_RECORD_KEYS = ["algo", "build_params", "search_params", "build_s",
+                      "qps", "recall", "k"]
+
+
+def runner_phase(shared, dev="cuda"):
+    """The bench runner's entry point, ``bench.runner.main``, in this
+    process (the launch counters see it) on the siftlike 1M × 128 config:
+    brute force, IVF-Flat and IVF-PQ at the picks of the flat and main
+    paths (n_probes; refine_ratio = k_fetch / k), and CAGRA 128 → 64 at the
+    cagra path's fused rung. Brute force's recall is 1.0, every other
+    record's ≥ 0.95 and within RUNNER_RECALL_SLACK of its path's figure
+    earlier in this call; K1 launches in the IVF-Flat and IVF-PQ records,
+    K6 launches = the CAGRA searches' hops. The records are read from the
+    JSON the runner writes (its ``main`` returns nothing, as JAX's): one
+    a search entry, with JAX's keys in JAX's order, naming the build and
+    search parameters the config gave."""
+    import torch
+
+    from raft_tpu_torch.bench import runner
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import cagra_hop as ch
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    flat_pick, flat_rec = HELD["recall.flat"]
+    pq_pick, pq_rec = HELD["recall.main"]
+    cagra_pick, cagra_rec = HELD["recall.cagra"]
+    n, dim = shared["dataset"].shape
+    config = {
+        "dataset": {"kind": "siftlike", "n": n, "dim": dim,
+                    "n_queries": shared["queries"].shape[0], "seed": 0},
+        "k": K,
+        "algos": [
+            {"name": "brute_force", "build": {}, "search": [{}]},
+            {"name": "ivf_flat",
+             "build": {"n_lists": N_LISTS, "kmeans_trainset_fraction": 0.2},
+             "search": [{"n_probes": flat_pick["n_probes"]}]},
+            {"name": "ivf_pq",
+             "build": {"n_lists": N_LISTS, "pq_dim": 64, "pq_bits": 8,
+                       "kmeans_trainset_fraction": 0.2},
+             "search": [{"n_probes": pq_pick["n_probes"],
+                         "refine_ratio": pq_pick["k_fetch"] // K}]},
+            {"name": "cagra",
+             "build": {"intermediate_graph_degree": 128, "graph_degree": 64},
+             "search": [{"itopk_size": cagra_pick["itopk"],
+                         "search_width": cagra_pick["width"],
+                         "traversal": "fused"}]}]}
+    with open(RUNNER_CONFIG, "w") as f:
+        json.dump(config, f)
+
+    # each algo's build and searches counted apart: the runner's factory
+    # and the CAGRA search (for its hops) wrapped for this call only
+    launches = {}
+    hops = []
+    make_algo, cagra_search = runner._make_algo, cagra.search
+
+    def counted(name, fn):
+        def run(*args):
+            k1, k6 = ss.STRIP_KERNEL.launches, ch.HOP_KERNEL.launches
+            result = fn(*args)
+            row = launches.setdefault(name, {"K1": 0, "K6": 0})
+            row["K1"] += ss.STRIP_KERNEL.launches - k1
+            row["K6"] += ch.HOP_KERNEL.launches - k6
+            return result
+        return run
+
+    def counting_make_algo(name, *args):
+        build_fn, search_fn = make_algo(name, *args)
+        return (counted(name + ".build", build_fn),
+                counted(name + ".search", search_fn))
+
+    def search_with_hops(*args, **kwargs):
+        st = {}
+        result = cagra_search(*args, stats=st, **kwargs)
+        hops.append((st.get("mode"), sum(st.get("hops") or [0])))
+        return result
+
+    reset_counts()
+    runner._make_algo, cagra.search = counting_make_algo, search_with_hops
+    t = time.perf_counter()
+    try:
+        runner.main([RUNNER_CONFIG, "-o", RUNNER_OUT])
+    finally:
+        runner._make_algo, cagra.search = make_algo, cagra_search
+    seconds = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    with open(RUNNER_OUT) as f:
+        records = json.load(f)
+    asked = {a["name"]: (a["build"], a["search"][0])
+             for a in config["algos"]}
+    as_asked = all(
+        list(r) == RUNNER_RECORD_KEYS and r["k"] == K
+        and r["search_params"] == asked[r["algo"]][1]
+        and all(r["build_params"].get(key) == v
+                for key, v in asked[r["algo"]][0].items())
+        for r in records)
+    earlier = {"ivf_flat": flat_rec, "ivf_pq": pq_rec, "cagra": cagra_rec}
+    rows = {r["algo"]: {"build_s": r["build_s"], "qps": r["qps"],
+                        "recall": r["recall"],
+                        "earlier_recall": earlier.get(r["algo"])}
+            for r in records}
+    hop_sum = sum(h for _, h in hops)
+    row = {"phase": "bench.runner", "seconds": seconds, "records": rows,
+           "launches": launches, "cagra_hops": hop_sum,
+           "cagra_modes": sorted({m for m, _ in hops}),
+           "records_as_asked": as_asked}
+    emit(row)
+    problems = []
+    if [r["algo"] for r in records] != ["brute_force", "cagra", "ivf_flat",
+                                        "ivf_pq"]:
+        problems.append("records")
+    if rows["brute_force"]["recall"] != 1.0:
+        problems.append("brute force recall")
+    for algo, ref in earlier.items():
+        got = rows[algo]["recall"]
+        if got < 0.95 or abs(got - ref) > RUNNER_RECALL_SLACK:
+            problems.append(f"{algo} recall {got} against {ref}")
+    for algo in ("ivf_flat", "ivf_pq"):
+        if launches.get(f"{algo}.search", {}).get("K1", 0) <= 0:
+            problems.append(f"{algo} launched no K1")
+    k6 = launches.get("cagra.search", {}).get("K6", 0)
+    if k6 <= 0 or k6 != hop_sum or row["cagra_modes"] != ["fused"]:
+        problems.append(f"K6 {k6} against {hop_sum} hops")
+    if not as_asked:
+        problems.append("records do not name the config's parameters")
+    if problems:
+        raise AssertionError(f"bench.runner: {problems}: {row}")
+    return launches
+
+
 def roofline_phase(shared, store, n_probes, pq_index, pq_pick, dev="cuda"):
     """Sync mode, one 10k-query batch of the serving flat store (K3) and
     of IVF-PQ ragged (K1): the roofline's static model against the
@@ -6025,6 +6590,16 @@ def main() -> int:
         def serve_queue():
             serve_queue_phase(shared, *held["serve.flat"])
 
+        def tuning():
+            k3["launches_tuning"] = tuning_phase(shared, *held["serve.flat"])
+
+        def bench_runner():
+            launches = runner_phase(shared)
+            k1["launches_runner"] = {
+                name: row["K1"] for name, row in launches.items()
+                if row["K1"]}
+            k6["launches_runner"] = launches["cagra.search"]["K6"]
+
         def serve_pq():
             serve_codes_phase(shared, "pq", *held["main"])
 
@@ -6069,12 +6644,14 @@ def main() -> int:
                            ("bq.streaming", bq_streaming),
                            ("flat", ivf_flat), ("serve", serve),
                            ("serve.queue", serve_queue),
+                           ("tuning", tuning),
                            ("serve.pq", serve_pq), ("obs.roofline", roofline),
                            ("serve.maint", serve_maint),
                            ("serve.bq", serve_bq),
                            ("lut", lut), ("cache", cache), ("brute", brute),
                            ("capacity", capacity_phase),
-                           ("cagra", cagra), ("obs.cost", obs_cost_phase),
+                           ("cagra", cagra), ("bench.runner", bench_runner),
+                           ("obs.cost", obs_cost_phase),
                            ("obs", obs_phase),
                            ("faults", lambda: faults_phase(shared)),
                            ("dist.kmeans", lambda: dist_kmeans_phase(shared)),

@@ -3,11 +3,24 @@
 ``sift_like`` is the JAX package's SIFT-shaped synthetic, generated by the
 same numpy calls from the same seed, so both packages see the same rows.
 The port keeps nothing on disk: the data is made anew on every call
-(about half a minute at 1M × 128 on one core)."""
+(about half a minute at 1M × 128 on one core). :func:`data_dir` is where
+real datasets are looked up (``bench/io.load_real_dataset``)."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+
+def data_dir() -> str:
+    """The dataset root: ``RAFT_TPU_DATA_DIR``, default
+    ``~/.cache/raft_tpu_data`` — the one default every consumer (the bench
+    runner's ``real`` datasets) resolves through, as in the JAX package."""
+    return os.environ.get(
+        "RAFT_TPU_DATA_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "raft_tpu_data"),
+    )
 
 
 def sift_like(n: int, dim: int = 128, n_queries: int = 10_000, seed: int = 0):

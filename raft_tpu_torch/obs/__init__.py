@@ -31,6 +31,14 @@ span's exit, so spans report committed time, with the enqueue wall clock
 kept as the ``dispatch_s`` attribute.
 """
 
+# NOTE: obs.aggregate, obs.report and obs.flight are deliberately NOT
+# imported here — preloading one would shadow its
+# `python -m raft_tpu_torch.obs.<mod>` runpy execution; reach them as
+# `from raft_tpu_torch.obs import aggregate, report, flight`. The SLO plane
+# (obs.slo / obs.explain / obs.shadow / obs.report / obs.flight) stays off
+# the package import path too: it reaches into resilience, which imports
+# obs back — import those modules directly when needed.
+
 from raft_tpu_torch.obs import tracing
 from raft_tpu_torch.obs.registry import (
     NOOP_SPAN,

@@ -28,7 +28,6 @@ from collections import deque
 from typing import Optional
 
 from raft_tpu_torch.obs import tracing as _tracing
-from raft_tpu_torch.obs.aggregate import percentile_bounds
 
 __all__ = [
     "DISPATCH_HIST_PREFIX",
@@ -173,6 +172,10 @@ class _HistStat:
             out["exemplars"] = list(self.exemplars)
         # p50/p90/p99 UPPER bounds from the power-of-two buckets:
         # over-estimates the true quantile by ≤2× (the bucket resolution)
+        # lazy: preloading obs.aggregate at package import would shadow
+        # the `python -m raft_tpu_torch.obs.aggregate` runpy execution
+        from raft_tpu_torch.obs.aggregate import percentile_bounds
+
         out.update(percentile_bounds(self.buckets, self.count))
         return out
 

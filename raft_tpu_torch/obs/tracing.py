@@ -12,6 +12,9 @@ contextvar parenting, a bounded ring, Chrome trace export.
   :func:`export_chrome_trace`): one ``"X"`` event per span with its
   attributes under ``args``, plus ``"i"`` instants for the resilience
   event ring — loadable in Perfetto or ``chrome://tracing``.
+* **Clocks**: :func:`clock_handshake` is the record that opens a flight
+  recording (this host's epoch and monotonic readings and its offset from
+  ``RAFT_TPU_FLEET_EPOCH``), which the trace stitcher subtracts.
 
 **Sync mode** (``RAFT_TPU_OBS_SYNC=1`` / :func:`enable_sync`): CUDA work
 is queued asynchronously, so a span around a search measures the enqueue,
@@ -32,6 +35,7 @@ import json
 import os
 import sys
 import threading
+import time
 from collections import deque
 from typing import Optional
 
@@ -39,6 +43,7 @@ __all__ = [
     "alloc_id",
     "chrome_trace",
     "clear_spans",
+    "clock_handshake",
     "current_span",
     "disable_sync",
     "drain_device",
@@ -231,6 +236,35 @@ def reset_fleet_ids() -> None:
     """Re-zero the per-site dispatch counters."""
     with _LOCK:
         _fleet_ids.clear()
+
+
+def clock_handshake(reference_epoch: Optional[float] = None) -> dict:
+    """The per-process clock-offset handshake record that opens a flight
+    recording: this host's epoch and monotonic readings, plus ``offset_s``
+    relative to a fleet-agreed reference epoch (``reference_epoch`` or the
+    ``RAFT_TPU_FLEET_EPOCH`` env var a multi-host launcher distributes).
+    With no reference the offset is 0.0 — single-host recordings stitch
+    unshifted. The stitcher subtracts ``offset_s`` from a host's event
+    timestamps so skewed wall clocks align on one timeline. Reads no
+    device: the process identity comes from :func:`process_info`."""
+    pi, pc = process_info()
+    t_epoch = time.time()
+    t_mono = time.monotonic()
+    if reference_epoch is None:
+        raw = os.environ.get("RAFT_TPU_FLEET_EPOCH", "").strip()
+        try:
+            reference_epoch = float(raw) if raw else None
+        except ValueError:
+            reference_epoch = None
+    return {
+        "type": "clock_offset",
+        "process_index": pi,
+        "process_count": pc,
+        "t_epoch": round(t_epoch, 6),
+        "t_mono": round(t_mono, 6),
+        "offset_s": (round(t_epoch - reference_epoch, 6)
+                     if reference_epoch is not None else 0.0),
+    }
 
 
 def alloc_id() -> str:

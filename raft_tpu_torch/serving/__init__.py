@@ -18,7 +18,11 @@ for flat and PQ, K4 for BQ), folded back to a packed index by
   shadow sampler's recall trend) and re-clusters hot lists online,
   swapping a staged clone in with :meth:`~PagedListStore.recluster_swap`;
 * :class:`CapacityController` serves many tenants over one memory budget
-  with HOT / WARM / COLD tiers (the warm tier is an IVF-BQ twin, K2).
+  with HOT / WARM / COLD tiers (the warm tier is an IVF-BQ twin, K2);
+* :class:`BurnRateController` keeps a live queue at its tuned operating
+  point (``tuning.autotune``): it reads an SLO engine's burn rates each
+  tick and moves one :class:`KnobActuator` (``n_probes``, the queue's batch
+  cap, a tenant tier) a rung down under pressure and back when cool.
 
 Usage::
 
@@ -41,9 +45,7 @@ Usage::
 
 ``backend="auto"`` runs K3 / K4 wherever the store's plan can feed k and
 the gather scan over the page table otherwise (flat and PQ stores; k >
-512, pages under 8 rows). The burn-rate controller
-(``BurnRateController``, ``KnobActuator``) waits for the port of
-``tuning.autotune``, which it imports.
+512, pages under 8 rows).
 """
 
 from raft_tpu_torch import obs
@@ -64,6 +66,16 @@ from raft_tpu_torch.serving.capacity import (
     CapacityRejected,
     TenantRegistry,
     TenantResult,
+)
+from raft_tpu_torch.serving.controller import (
+    CONTROL_INTERVAL_ENV,
+    COOL_WINDOWS_ENV,
+    MAX_ACTIONS_ENV,
+    BurnRateController,
+    KnobActuator,
+    default_control_interval,
+    default_cool_windows,
+    default_max_actions,
 )
 from raft_tpu_torch.serving.compaction import (
     COMPACT_DEADLINE_ENV,
@@ -131,14 +143,19 @@ def scan_trace_count() -> int:
 
 
 __all__ = [
+    "BurnRateController",
     "COLD",
     "COMPACT_DEADLINE_ENV",
     "COMPACT_INTERVAL_ENV",
     "COMPACT_RATIO_ENV",
+    "CONTROL_INTERVAL_ENV",
+    "COOL_WINDOWS_ENV",
     "CapacityController",
     "CapacityRejected",
     "CompactionManager",
     "HOT",
+    "KnobActuator",
+    "MAX_ACTIONS_ENV",
     "MAINT_DEADLINE_ENV",
     "MAINT_DRIFT_ENV",
     "MAINT_INTERVAL_ENV",
@@ -157,7 +174,10 @@ __all__ = [
     "WINDOW_ENV",
     "default_compact_deadline",
     "default_compact_ratio",
+    "default_control_interval",
+    "default_cool_windows",
     "default_drift_threshold",
+    "default_max_actions",
     "default_maintenance_deadline",
     "default_maintenance_interval",
     "default_max_pairs",

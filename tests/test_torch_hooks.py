@@ -350,11 +350,15 @@ def _init_and_leave():
 
 
 #: modules whose faultpoints sit inside their own classifying handlers
-#: (the serving managers and the shadow sampler): an armed fault there
-#: becomes a verdict or a status, never an exception, and
-#: tests/test_torch_serving_managers.py arms each one
+#: (the serving managers, the shadow sampler, the flight recorder, the
+#: tuner and the burn-rate controller): an armed fault there becomes a
+#: verdict, a status, a degraded window or a skipped window/tick, never an
+#: exception; tests/test_torch_serving_managers.py,
+#: tests/test_torch_obs_remainder.py and tests/test_torch_tuning.py arm
+#: each one
 _MANAGER_FILES = {"batching.py", "compaction.py", "maintenance.py",
-                  "capacity.py", "shadow.py"}
+                  "capacity.py", "shadow.py", "flight.py", "autotune.py",
+                  "controller.py"}
 
 
 def _port_sites():

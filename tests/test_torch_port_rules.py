@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch import random as trandom
 from raft_tpu_torch import serving
+from raft_tpu_torch.bench import io as bench_io
+from raft_tpu_torch.bench import runner
 from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources, resolve_device
@@ -319,6 +322,14 @@ def _entry_points(x, q, **dev):
             x[:512], cagra_params, comms=two, **dev),
         "distributed.cagra.search": lambda: dcagra.search(dcagra_cpu, q, 5,
                                                           **dev),
+        "random.make_blobs": lambda: trandom.make_blobs(0, 64, 4, **dev),
+        "random.rmat": lambda: trandom.rmat(0, 3, 2, 16, **dev),
+        "bench.io.generate_groundtruth": lambda: bench_io.generate_groundtruth(
+            x[:256], q, k=3, **dev),
+        "bench.runner.run_benchmark": lambda: runner.run_benchmark(
+            {"dataset": {"kind": "blobs", "n": 256, "dim": 4,
+                         "n_queries": 8, "n_clusters": 4},
+             "k": 3, "algos": [{"name": "brute_force"}]}, reps=1, **dev),
     }
 
 
@@ -381,7 +392,10 @@ def _cagra_file_load(index, **dev):
                                   "distributed.ivf_bq.build",
                                   "distributed.ivf_bq.search",
                                   "distributed.cagra.build",
-                                  "distributed.cagra.search"])
+                                  "distributed.cagra.search",
+                                  "random.make_blobs", "random.rmat",
+                                  "bench.io.generate_groundtruth",
+                                  "bench.runner.run_benchmark"])
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -405,6 +419,43 @@ def test_resolve_device_default_is_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def _generator_operand_calls(dev):
+    """The generators that take the caller's tensors, with operands on
+    ``dev`` and their results asked for there."""
+    a = torch.tensor([[2.0, 0.5], [0.5, 1.0]], dtype=torch.float64)
+    return {
+        "make_blobs.centers": lambda: trandom.make_blobs(
+            0, 32, 2, centers=torch.zeros(3, 2).to(dev), device=dev),
+        "multi_variable_gaussian": lambda: trandom.multi_variable_gaussian(
+            0, torch.zeros(2).to(dev), a.to(dev), 16, device=dev),
+        "rmat.theta": lambda: trandom.rmat(
+            0, 3, 2, 16, theta=torch.full((3, 4), 0.25).to(dev),
+            device=dev),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_generator_operand_calls("cpu")))
+def test_generators_compute_on_their_operands_device(name):
+    """A generator handed tensors off the host computes on their device and
+    never fetches them to the host. The meta device stands in for the card
+    here: a meta tensor cannot be copied to the host, so a host fetch of an
+    operand raises."""
+    out = _generator_operand_calls("meta")[name]()
+    for t in out if isinstance(out, tuple) else (out,):
+        assert t.device.type == "meta", name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_generator_operand_calls("cpu")))
+def test_generators_keep_card_operands_on_the_card(name):
+    """The same calls with operands on the card: results on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    out = _generator_operand_calls("cuda")[name]()
+    for t in out if isinstance(out, tuple) else (out,):
+        assert t.device.type == "cuda", name
 
 
 def test_bitsets_from_host_data_default_to_cuda(no_cuda):
@@ -925,3 +976,82 @@ def test_shard_scans_follow_the_device_rule():
     with pytest.raises(ValueError, match="one device type"):
         C.Mesh(np.array([cuda0, torch.device("cpu")], dtype=object),
                ("data",))
+
+
+# the obs remainder, the tuning loop and the bench runner entry point
+OBS_TUNING_RUNNER_MODULES = (
+    "obs/slo.py", "obs/report.py", "obs/explain.py", "obs/flight.py",
+    "obs/aggregate.py", "obs/tracing.py", "bench/progress.py",
+    "bench/datasets.py", "bench/io.py", "bench/runner.py",
+    "bench/__init__.py", "tuning/__init__.py", "tuning/autotune.py",
+    "serving/controller.py", "random/__init__.py", "random/generators.py")
+
+
+@pytest.mark.parametrize("rel", OBS_TUNING_RUNNER_MODULES)
+def test_slice_modules_sit_at_the_jax_paths_and_import_no_jax(rel):
+    path = REPO / "raft_tpu_torch" / rel
+    assert path in _port_files() and (REPO / "raft_tpu" / rel).is_file()
+    roots = {m.split(".")[0] for m in _imported_modules(path)}
+    assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
+
+
+@pytest.mark.parametrize("rel", ["bench/progress.py", "obs/aggregate.py"])
+def test_stdlib_modules_import_no_torch_at_module_level(rel):
+    """Module-level imports only (function bodies may import lazily): a
+    parent that never imports torch loads these files by path."""
+    tree = ast.parse((REPO / "raft_tpu_torch" / rel).read_text())
+    roots = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert roots <= {"__future__", "argparse", "json", "math", "os", "sys",
+                     "threading", "time", "typing"}, roots
+
+
+def _faultpoint_sites(path):
+    tree = ast.parse(path.read_text())
+    return sorted(
+        node.args[0].value for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and node.args
+        and isinstance(node.args[0], ast.Constant)
+        and (getattr(node.func, "attr", None) == "faultpoint"
+             or getattr(node.func, "id", None) == "faultpoint"))
+
+
+@pytest.mark.parametrize("rel,sites", [
+    ("obs/flight.py", ["obs.flight.sample"]),
+    ("tuning/autotune.py", ["tuning.autotune.window"]),
+    ("serving/controller.py", ["serving.controller.tick"])])
+def test_tuning_faultpoints_are_named_as_in_jax(rel, sites):
+    got = [_faultpoint_sites(REPO / pkg / rel)
+           for pkg in ("raft_tpu", "raft_tpu_torch")]
+    assert got == [sites, sites], (rel, got)
+
+
+#: the JAX modules' try statements, each classifying a failure into a
+#: verdict, a degraded section or a skipped window/tick; the port keeps
+#: exactly these and adds none
+_OBS_TUNING_TRIES = {"serving/controller.py": 4, "tuning/autotune.py": 4,
+                     "obs/flight.py": 6, "obs/slo.py": 3,
+                     "obs/report.py": 3, "obs/explain.py": 0,
+                     "obs/aggregate.py": 5, "bench/progress.py": 7}
+
+
+@pytest.mark.parametrize("rel", sorted(_OBS_TUNING_TRIES))
+def test_obs_and_tuning_keep_the_jax_try_blocks_and_add_none(rel):
+    trees = [ast.parse((REPO / pkg / rel).read_text())
+             for pkg in ("raft_tpu", "raft_tpu_torch")]
+    counts = [sum(isinstance(n, ast.Try) for n in ast.walk(t))
+              for t in trees]
+    assert counts == [_OBS_TUNING_TRIES[rel]] * 2, (rel, counts)
+
+
+@pytest.mark.parametrize("rel", ["bench/runner.py", "bench/io.py",
+                                 "random/generators.py"])
+def test_no_try_on_the_runner_path(rel):
+    """The runner drives K1 and K6 on the card: a CUDA tensor gets the
+    kernel or an exception, never a quiet detour."""
+    tree = ast.parse((REPO / "raft_tpu_torch" / rel).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
