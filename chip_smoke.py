@@ -268,6 +268,39 @@ one round at the default 1 GiB workspace, then
 ``HnswIndex.load`` + ``knn`` on 1,000 queries, and the native and Python
 writers byte-identical on a 10,000-node slice).
 
+The sparse tier, graph clustering and the hybrid and out-of-core paths
+run after them. ``hybrid`` (``bench.py``'s hybrid rung): the first
+200,000 rows fused with sparse rows (vocab 1,000, density 0.02,
+``default_rng(13)``) hashed to 128 columns, IVF-BQ with n_lists 256 under
+inner product (K2 over 256-wide fused rows), 256 queries at n_probes 32:
+recall@10 against the exact fused top-10 (fp32 product, TF32 off), QPS,
+K2 launches, the dense and CSR projections bit for bit, K2 against its
+twin at the path's class calls and timed there (``hybrid.k2``); then
+``hybrid.store``: ``to_store`` → ``serving.search`` over the fused
+queries (K4), ids equal to ``hybrid.search``'s but at near-ties, K4
+against its twin at the store's class calls. ``deep10m``
+(``bench.py``'s section, whole): ``sift_like(10_000_000, 96, 10_000,
+seed=1)`` on the card as uint8, ground truth and the brute baseline from
+``batch_knn.search_device_chunked`` (32,768-row windows), IVF-PQ with
+n_lists 4096, pq_dim 48 × 8 bits, train fraction 0.1 and list cap 4096
+through K1 over the int8 cache at rot_dim 96 (n_probes 32 → 64 → 128 at
+k_fetch 20, exact refine, the 0.95 gate): QPS, ``ann_beats_brute``, build
+seconds, K1 launches, ``resilience.degraded_tile`` 0 (no OOM retry), and
+K1 at the path's class calls against its twin and timed beside its bound
+and yardstick (``deep10m.k1``: 96 is not a multiple of the 64-dim staging
+chunk, so the plan takes the scalar-staged ``mma.sync`` route).
+``batch_knn.out_of_core``: the same 10M rows as a host numpy array,
+``search_out_of_core`` for 1,000 queries in workspace-sized chunks (ids
+equal to the chunked scan's but at exact ties; seconds, host-to-card
+GB/s), then ``BatchKQuery`` over the 1M brute-force index: three slabs of
+32 equal one search at k 96. ``graph`` (the first 100,000 rows):
+``knn_graph`` at k 31, its ``mst`` weight equal to scipy's minimum
+spanning tree of the same graph within rel 1e-5, ``single_linkage``
+into 64 clusters (n − 1 merge edges, 64 labels), ``spectral.partition``
+into 8 with each eigenpair's residual, ``ball_cover`` answering 1,000
+queries with brute force's ids but at near-ties, and ``eps_nn`` against
+``eps_neighbors`` (adjacency counts).
+
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed phase raises: the script exits non-zero and prints no
@@ -989,8 +1022,9 @@ def bq_path_class_inputs(index, queries, n_probes, kf, res):
 
     queries = queries.to(torch.float32)
     n_probes = min(n_probes, index.n_lists)          # as search clamps it
+    l2 = index.metric in ("sqeuclidean", "euclidean")
     probes, qr, _ = ivf_bq._bq_search_prep(
-        queries, index.centers, index.rotation, n_probes, "exact", True,
+        queries, index.centers, index.rotation, n_probes, "exact", l2,
         index.bits, index.rotation_kind)
     classes, class_counts, cls_ord, q_tile = ivf_flat._ragged_plan_static(
         index, n_probes, kf, res, index.rot_dim * index.bits)
@@ -999,7 +1033,7 @@ def bq_path_class_inputs(index, queries, n_probes, kf, res):
                        class_counts, qt, kf,
                        dict(list_codes=index.list_codes,
                             scale=index.list_scale, bias=index.list_bias,
-                            alpha=-2.0)), qt
+                            alpha=-2.0 if l2 else -1.0)), qt
 
 
 def scan_bound(calls, bytes_per_col):
@@ -6466,6 +6500,426 @@ def cagra_hnsw_phase(shared):
         raise AssertionError(f"cagra.hnsw: {row}")
 
 
+# ---------------------------------------------------------------------------
+# The sparse tier, graph clustering, the hybrid and out-of-core paths:
+# bench.py's hybrid rung (:834-864) and deep10m section (:2800-2881), then
+# the out-of-core scan and the graph half on the shared rows
+# ---------------------------------------------------------------------------
+
+HYBRID_ROWS = 200_000        # bench.py's filtered section on the card (FN)
+HYBRID_LISTS = 256
+HYBRID_VOCAB = 1_000
+HYBRID_DENSITY = 0.02
+HYBRID_SPARSE_DIM = 128
+HYBRID_QUERIES = 256         # bench.py's FQ = min(Q, 256)
+HYBRID_PROBES = 32           # NPROBE0 * 2
+HYBRID_SEED = 13             # the filtered section's default_rng(13)
+DEEP_ROWS = 10_000_000       # bench.py's _deep10m_crossover
+DEEP_DIM = 96
+DEEP_LISTS = 4096
+DEEP_CHUNK = 32_768          # the chunked exact scan's window
+DEEP_PROBES = (32, 64, 128)  # the ladder at k_fetch 2·K, then exact refine
+DEEP_REPS = 3
+OOC_QUERIES = 1_000
+SLAB = 32                    # BatchKQuery: three slabs of 32
+SLAB_QUERIES = 1_000
+GRAPH_ROWS = 100_000
+GRAPH_QUERIES = 1_000
+GRAPH_CLUSTERS = 64
+SPECTRAL_PARTS = 8
+BALL_WORKSPACE = 8 << 30     # ball cover's (tile, batch, m, dim) gathers
+
+
+def hybrid_sparse_rows(n):
+    """bench.py's hybrid rung's sparse rows: ``vocab`` term weights at
+    density 0.02, from ``default_rng(13)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(HYBRID_SEED)
+    return ((rng.random((n, HYBRID_VOCAB)) < HYBRID_DENSITY)
+            * rng.random((n, HYBRID_VOCAB))).astype(np.float32)
+
+
+def hybrid_phase(shared, dev="cuda"):
+    """bench.py's hybrid rung at its on-card sizes: a hybrid IVF-BQ index
+    over the first 200,000 rows fused with hashed sparse rows (K2 over
+    128 + 128 = 256-wide fused rows), recall@10 against the exact fused
+    ground truth (fp32 product, TF32 off, top-k), QPS and K2's launches;
+    the dense and CSR projections bit for bit; K2 against its twin at the
+    path's class calls; then ``to_store`` → ``serving.search`` over fused
+    queries (K4), its ids against ``hybrid.search``'s but at near-ties and
+    K4 against its twin at the store's class calls."""
+    import torch
+
+    from raft_tpu_torch import Resources, serving, sparse
+    from raft_tpu_torch.neighbors import hybrid, ivf_bq
+    from raft_tpu_torch.ops import bq_scan as bq
+    from raft_tpu_torch.ops import distance as dist
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    res = Resources(device=dev)
+    t = time.perf_counter()
+    sp_host = hybrid_sparse_rows(HYBRID_ROWS)
+    gen_s = time.perf_counter() - t
+    dense = shared["dataset"][:HYBRID_ROWS].to(torch.float32)
+    sp = torch.from_numpy(sp_host).to(dev)
+    proj_dense = hybrid.project_sparse(sp, HYBRID_SPARSE_DIM)
+    csr = sparse.csr_from_dense(sp)
+    proj_csr = hybrid.project_sparse(csr, HYBRID_SPARSE_DIM)
+    same_projection = bool(torch.equal(proj_dense, proj_csr))
+    nnz = int(csr.nnz())
+    del csr, proj_csr
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hyb = hybrid.build(dense, sp, ivf_bq.IvfBqParams(
+        n_lists=HYBRID_LISTS, metric="inner_product",
+        kmeans_trainset_fraction=0.2), sparse_dim=HYBRID_SPARSE_DIM, res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    qd = shared["queries"][:HYBRID_QUERIES].to(torch.float32)
+    qs_sp = sp[:HYBRID_QUERIES]
+    fused_q = hybrid.fuse_queries(hyb, qd, qs_sp)
+    fused_rows = torch.cat([dense, hyb.beta * proj_dense], dim=1)
+    gt = torch.topk(dist.matmul_t(fused_q, fused_rows), K, dim=1).indices
+
+    def run():
+        return hybrid.search(hyb, qd, qs_sp, K, n_probes=HYBRID_PROBES,
+                             res=res)
+
+    reset_counts()
+    hv, hi = run()
+    torch.cuda.synchronize()
+    launches = bq.BQ_KERNEL.launches
+    rec = id_recall(hi, gt)
+    qps, batch_s = host_qps(run, HYBRID_QUERIES)
+    emit({"phase": "hybrid", "rows": HYBRID_ROWS, "vocab": HYBRID_VOCAB,
+          "density": HYBRID_DENSITY, "nnz": nnz,
+          "sparse_dim": HYBRID_SPARSE_DIM, "fused_dim": hyb.dim,
+          "n_lists": HYBRID_LISTS, "n_probes": HYBRID_PROBES,
+          "queries": HYBRID_QUERIES, "sparse_gen_s": gen_s,
+          "build_s": build_s, "hybrid_recall": rec, "qps": qps,
+          "batch_s": batch_s, "k2_launches": launches,
+          "projection_dense_equals_csr": same_projection})
+    if not same_projection:
+        raise AssertionError("hybrid: the dense and CSR projections differ")
+    if launches <= 0 or hyb.dim != 128 + HYBRID_SPARSE_DIM \
+            or not bool(torch.isfinite(hv).all()) \
+            or tuple(hi.shape) != (HYBRID_QUERIES, K):
+        raise AssertionError(f"hybrid: {launches} K2 launches, dim "
+                             f"{hyb.dim}, results {tuple(hi.shape)}")
+    calls, qt = bq_path_class_inputs(hyb.index, fused_q, HYBRID_PROBES, K,
+                                     res)
+    k2_err = kernel_parity_at(calls, "bq_scan",
+                              f"hybrid_fused{hyb.dim}_nprobe"
+                              f"{HYBRID_PROBES}_kf{K}")
+    k2 = kernel_timing(calls, "bq_scan", bq_library_yardstick,
+                       hyb.index.code_bytes_per_row + 8)
+    emit({"phase": "hybrid.k2", "fused_dim": hyb.dim,
+          "rot_dim": hyb.index.rot_dim, "query_tile": qt,
+          "loop": "/".join(product_loops(calls, "bq_scan")), **k2})
+    del calls
+
+    store = hybrid.to_store(hyb, page_rows=SERVE_PLAN_PAGE_ROWS, res=res)
+    reset_counts()
+    sv, si = serving.search(store, fused_q, K, n_probes=HYBRID_PROBES,
+                            res=res)
+    torch.cuda.synchronize()
+    store_launches = bq.PAGED_BQ_KERNEL.launches
+    atol = 5e-4 * float((fused_q.double() ** 2).sum(1).max())
+    verdict = topk_agreement(hv, hi, sv, si, rtol=5e-4, atol=atol,
+                             tie_rtol=1e-3)
+    calls, _, row_bytes, _ = serve_codes_inputs(store, "bq", fused_q,
+                                                HYBRID_PROBES, K, res)
+    k4_err = kernel_parity_at(calls, "paged_bq_scan",
+                              f"hybrid_store_nprobe{HYBRID_PROBES}_kf{K}")
+    emit({"phase": "hybrid.store", "k4_launches": store_launches,
+          "recall": id_recall(si, gt), "agrees_with_search": verdict,
+          "page_rows": SERVE_PLAN_PAGE_ROWS, "code_bytes_per_row": row_bytes})
+    if store_launches <= 0 or not verdict["ok"]:
+        raise AssertionError(f"hybrid.store: {store_launches} K4 launches, "
+                             f"{verdict}")
+    del calls, store, hyb, fused_rows, proj_dense, sp, dense
+    torch.cuda.empty_cache()
+    return ({"launches_hybrid": launches, "max_abs_err": k2_err,
+             "hybrid_fused256": {k: k2[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            {"launches_hybrid_store": store_launches, "max_abs_err": k4_err})
+
+
+def deep10m_phase(dev="cuda"):
+    """bench.py's deep10m section whole and at full size: ``sift_like(10M,
+    96, 10k, seed=1)`` on the card as uint8; exact ground truth and the
+    brute baseline from ``batch_knn.search_device_chunked`` (32,768-row
+    windows); IVF-PQ (n_lists 4096, pq_dim 48 × 8 bits, train fraction
+    0.1, list cap 4096) searched through K1 over the int8 cache at
+    rot_dim 96 (n_probes 32 → 64 → 128 at k_fetch 20, exact refine) up to
+    the 0.95 gate; QPS, ``ann_beats_brute``, build seconds, K1's launches
+    and K1 at the path's class calls against its twin, timed beside its
+    bound and yardstick. No OOM retry: the card holds 80 GB, and
+    ``resilience.degraded_tile`` must stay 0. The host rows, the queries
+    and the ground truth stay in ``HELD`` for the out-of-core phase."""
+    import torch
+
+    from raft_tpu_torch import Resources, resilience
+    from raft_tpu_torch.bench.datasets import sift_like
+    from raft_tpu_torch.neighbors import batch_knn, ivf_pq, refine
+    from raft_tpu_torch.ops import strip_scan as ss
+    from raft_tpu_torch.stats.metrics import neighborhood_recall
+
+    res = Resources(device=dev)
+    resilience.clear_events()
+    t = time.perf_counter()
+    data_u8, queries_u8 = sift_like(DEEP_ROWS, DEEP_DIM, N_QUERIES, seed=1)
+    gen_s = time.perf_counter() - t
+    dataset = torch.from_numpy(data_u8).to(dev)
+    queries = torch.from_numpy(queries_u8).to(dev).to(torch.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gt_v, gt_i = batch_knn.search_device_chunked(
+        dataset, queries, K, chunk_rows=DEEP_CHUNK, res=res)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t
+    brute_qps, brute_s = host_qps(lambda: batch_knn.search_device_chunked(
+        dataset, queries, K, chunk_rows=DEEP_CHUNK, res=res), N_QUERIES,
+        batches=1)
+    emit({"phase": "deep10m.brute", "rows": DEEP_ROWS, "dim": DEEP_DIM,
+          "queries": N_QUERIES, "data_gen_s": gen_s, "chunk_rows": DEEP_CHUNK,
+          "ground_truth_s": gt_s, "qps": brute_qps, "batch_s": brute_s})
+
+    before = allocated()
+    t = time.perf_counter()
+    index = ivf_pq.build(dataset, ivf_pq.IvfPqParams(
+        n_lists=DEEP_LISTS, pq_dim=DEEP_DIM // 2, pq_bits=8,
+        kmeans_trainset_fraction=0.1, list_size_cap=4096), res=res)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    rot_dim = int(index.rotation.shape[0])
+    after = allocated()
+    emit({"phase": "deep10m.setup", "build_s": build_s,
+          "max_list_size": index.max_list_size, "rot_dim": rot_dim,
+          "backend": ivf_pq.resolve_backend("auto", "cuda",
+                                            index.max_list_size, 2 * K),
+          "index_bytes_growth": None if before is None else after - before})
+
+    def run(n_probes, qs=queries):
+        _, cand = ivf_pq.search(index, qs, 2 * K, n_probes=n_probes, res=res)
+        return refine.refine(dataset, qs, cand, K, res=res)
+
+    reset_counts()
+    pick, ladder = None, []
+    for n_probes in DEEP_PROBES:
+        v, i = run(n_probes)
+        rec = neighborhood_recall(i, gt_i, v, gt_v)
+        ladder.append([n_probes, rec])
+        if pick is None or rec > pick["recall"]:
+            pick = {"n_probes": n_probes, "recall": rec, "k_fetch": 2 * K}
+        if rec >= 0.95:
+            break
+    qps, batch_s = host_qps(lambda: run(pick["n_probes"]), N_QUERIES,
+                            batches=DEEP_REPS)
+    launches = ss.STRIP_KERNEL.launches
+    degraded = [e for e in resilience.recent_events()
+                if e["event"] == "degraded_tile"]
+    out = {"phase": "deep10m.search", **pick, "ladder": ladder, "qps": qps,
+           "batch_s": batch_s, "brute_qps": brute_qps,
+           "ann_beats_brute": bool(qps > brute_qps and pick["recall"] >= 0.95),
+           "build_s": build_s, "k1_launches": launches,
+           "resilience.degraded_tile": len(degraded)}
+    emit(out)
+    if pick["recall"] < 0.95 or launches <= 0 or degraded \
+            or not bool(torch.isfinite(v).all()):
+        raise AssertionError(f"deep10m: {out}")
+
+    # K1 at rot_dim 96: not a multiple of the 64-dim staging chunk, so the
+    # plan takes the scalar-staged mma.sync route
+    calls, qt = main_path_class_inputs(index, queries, pick["n_probes"],
+                                       2 * K, res)
+    k1_err = kernel_parity_at(calls, "strip_scan",
+                              f"deep10m_dim{rot_dim}_nprobe"
+                              f"{pick['n_probes']}_kf{2 * K}")
+    timing = kernel_timing(calls, "strip_scan", library_yardstick,
+                           rot_dim + 4)
+    emit({"phase": "deep10m.k1", "rot_dim": rot_dim,
+          "dim_mod_staging_chunk": rot_dim % 64,
+          "n_probes": pick["n_probes"], "kf": 2 * K, "query_tile": qt,
+          "classes": [[c["w_blocks"] * 512, c["n_sub"],
+                       int((c["strip_list"] >= 0).sum())] for c in calls],
+          **timing})
+    del calls, index, dataset
+    torch.cuda.empty_cache()
+    HELD["deep10m"] = (data_u8, queries, gt_v, gt_i)
+    return {"launches_deep10m": launches, "max_abs_err": k1_err,
+            "deep10m_dim96": {k: timing[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def out_of_core_phase(shared, dev="cuda"):
+    """``batch_knn.search_out_of_core`` over the deep10m rows kept as a host
+    numpy array, for the first 1,000 queries, chunked by the default
+    workspace: its ids against ``search_device_chunked``'s but at
+    near-ties, seconds and host-to-card GB/s; then ``BatchKQuery`` over the
+    1M ``brute_force`` index, three slabs of 32 equal to one search at
+    k 96."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import batch_knn, brute_force
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    res = Resources(device=dev)
+    data_u8, queries, gt_v, gt_i = HELD.pop("deep10m")
+    qs = queries[:OOC_QUERIES]
+    n, dim = data_u8.shape
+    chunk = int(max(K, min(n, res.workspace_bytes
+                           // max(1, (dim + qs.shape[0]) * 4))))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ov, oi = batch_knn.search_out_of_core(data_u8, qs, K, res=res)
+    torch.cuda.synchronize()
+    ooc_s = time.perf_counter() - t
+    h2d_bytes = n * dim * 4          # fp32 chunks, each row once
+    # uint8 rows and queries: every distance is an integer below 2^24, so
+    # both scans compute it exactly; ids may differ only at exact ties
+    verdict = topk_agreement(gt_v[:OOC_QUERIES], gt_i[:OOC_QUERIES], ov, oi,
+                             rtol=0.0, atol=0.5, tie_rtol=0.0)
+    out = {"phase": "batch_knn.out_of_core", "rows": n, "dim": dim,
+           "queries": OOC_QUERIES, "chunk_rows": chunk,
+           "chunks": -(-n // chunk), "seconds": ooc_s,
+           "h2d_bytes": h2d_bytes, "h2d_gb_s": h2d_bytes / ooc_s / 1e9,
+           "agrees_with_device_chunked": verdict}
+    emit(out)
+    if not verdict["ok"]:
+        raise AssertionError(f"batch_knn.out_of_core: {out}")
+    del data_u8, queries, gt_v, gt_i
+
+    bf = brute_force.build(shared["dataset"], res=res)
+    q = shared["queries"][:SLAB_QUERIES]
+    t = time.perf_counter()
+    slabs = []
+    for slab in batch_knn.BatchKQuery(bf, q, SLAB, res=res):
+        slabs.append(slab)
+        if len(slabs) == 3:
+            break
+    torch.cuda.synchronize()
+    slab_s = time.perf_counter() - t
+    whole_v, whole_i = brute_force.search(bf, q, 3 * SLAB, res=res)
+    same = bool(torch.equal(torch.cat([s[1] for s in slabs], 1), whole_i)
+                and torch.equal(torch.cat([s[0] for s in slabs], 1), whole_v))
+    emit({"phase": "batch_knn.batch_k_query", "rows": bf.size,
+          "queries": SLAB_QUERIES, "slab": SLAB, "slabs": len(slabs),
+          "seconds": slab_s, "equals_one_search_at_k96": same})
+    if not same or len(slabs) != 3:
+        raise AssertionError("batch_knn: three slabs of 32 differ from one "
+                             "search at k 96")
+
+
+def graph_phase(shared, dev="cuda"):
+    """The graph half on the first 100,000 rows: ``knn_graph`` at
+    k = ⌊log2 n⌋ + 15 = 31, its Borůvka ``mst`` total weight against
+    scipy's minimum spanning tree of the same symmetrised graph (rel
+    1e-5); ``single_linkage(n_clusters=64)`` (n − 1 merge edges, exactly
+    64 labels); ``spectral.partition`` into 8 with each eigenpair's
+    residual ‖Lv − λv‖; ``ball_cover`` answering 1,000 queries with brute
+    force's ids but at near-ties; ``eps_nn`` and ``eps_neighbors``
+    agreeing on the adjacency counts."""
+    import math
+
+    import numpy as np
+    import scipy.sparse as scsp
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    import torch
+
+    from raft_tpu_torch import Resources, spectral
+    from raft_tpu_torch.cluster.single_linkage import single_linkage
+    from raft_tpu_torch.neighbors import (ball_cover, brute_force,
+                                          epsilon_neighborhood)
+    from raft_tpu_torch.sparse import linalg, neighbors, solver
+    from raft_tpu_torch.sparse.convert import coo_to_csr
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    res = Resources(device=dev)
+    X = shared["dataset"][:GRAPH_ROWS].to(torch.float32)
+    n = X.shape[0]
+    k = int(math.log2(n)) + 15
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return out
+
+    g = timed("knn_graph_s", lambda: neighbors.knn_graph(X, k, res=res))
+    m = timed("mst_s", lambda: solver.mst(g))
+    n_edges = int(m.n_edges)
+    total = float(m.weight[:n_edges].double().sum())
+    keep = g.valid.cpu().numpy()
+    w = g.vals.cpu().numpy()[keep].astype(np.float64)
+    w[w == 0] = np.nextafter(0.0, 1.0)   # scipy reads a 0 as no edge
+    t = time.perf_counter()
+    sp_graph = scsp.csr_matrix((w, (g.rows.cpu().numpy()[keep],
+                                    g.cols.cpu().numpy()[keep])),
+                               shape=(n, n))
+    ref_tree = minimum_spanning_tree(sp_graph)
+    ref_total = float(ref_tree.sum())
+    times["scipy_mst_s"] = time.perf_counter() - t
+    rel = abs(total - ref_total) / max(ref_total, 1e-30)
+
+    link = timed("single_linkage_s",
+                 lambda: single_linkage(X, GRAPH_CLUSTERS, res=res))
+    link_edges = int((link.mst_src >= 0).sum())
+    n_labels = int(torch.unique(link.labels).numel())
+
+    labels, evals, evecs = timed("spectral_s", lambda: spectral.partition(
+        g, SPECTRAL_PARTS, res=res))
+    lap = coo_to_csr(linalg.laplacian(g, normalized=True))
+    resid = [float(torch.linalg.vector_norm(
+        linalg.spmv(lap, evecs[:, j]) - evals[j] * evecs[:, j]))
+        for j in range(evals.shape[0])]
+    parts = int(torch.unique(labels).numel())
+
+    q = shared["queries"][:GRAPH_QUERIES].to(torch.float32)
+    big = Resources(device=dev, workspace_bytes=BALL_WORKSPACE)
+    bc = timed("ball_cover_build_s", lambda: ball_cover.build(X, res=big))
+    bv, bi = timed("ball_cover_query_s",
+                   lambda: ball_cover.knn_query(bc, q, K, res=big))
+    fv, fi = brute_force.search(brute_force.build(X, res=res), q, K,
+                                res=res)
+    scale = float((X.double() ** 2).sum(1).max())
+    verdict = topk_agreement(fv, fi, bv * bv, bi,
+                             rtol=1e-5, atol=2e-6 * scale, tie_rtol=1e-4)
+    eps = float(torch.sqrt(fv[:, K - 1].median()))
+    adj, deg = timed("eps_nn_s", lambda: ball_cover.eps_nn(bc, q, eps,
+                                                           res=big))
+    adj2, deg2 = timed("eps_neighbors_s",
+                       lambda: epsilon_neighborhood.eps_neighbors(
+                           q, X, eps, res=res))
+    pair_diff = int((adj != adj2).sum())
+    deg_total = int(deg2.sum())
+    row = {"phase": "graph", "rows": n, "k": k, "capacity": g.capacity,
+           "mst_edges": n_edges, "mst_weight": total,
+           "scipy_mst_weight": ref_total, "mst_rel_err": rel,
+           "components": n - n_edges,
+           "single_linkage_edges": link_edges, "labels": n_labels,
+           "spectral_parts": parts, "eigenvalues": evals.tolist(),
+           "residuals": resid, "ball_cover_landmarks": bc.n_landmarks,
+           "ball_cover_max_list": int(bc.list_data.shape[1]),
+           "ball_cover_vs_brute": verdict, "eps": eps,
+           "eps_degree_total": deg_total,
+           "eps_pairs_differing": pair_diff,
+           "eps_degrees_equal": bool(torch.equal(deg, deg2)), **times}
+    emit(row)
+    if rel > 1e-5 or link_edges != n - 1 or n_labels != GRAPH_CLUSTERS \
+            or not verdict["ok"] or pair_diff > 1e-3 * max(deg_total, 1) \
+            or not all(math.isfinite(r) for r in resid):
+        raise AssertionError(f"graph: {row}")
+    del g, m, link, bc, adj, adj2, lap
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true",
@@ -6639,6 +7093,14 @@ def main() -> int:
         def dist_cagra():
             dist_launches["dist.cagra"] = dist_cagra_phase(shared)
 
+        def hybrid_path():
+            k2_result, k4_result = hybrid_phase(shared)
+            fold(k2, k2_result)
+            fold(k4, k4_result)
+
+        def deep10m():
+            fold(k1, deep10m_phase())
+
         for name, path in (("kmeans", lambda: kmeans_phase(shared)),
                            ("main", ivf_pq), ("bq", ivf_bq),
                            ("bq.streaming", bq_streaming),
@@ -6666,7 +7128,11 @@ def main() -> int:
                            ("dist.nccl", lambda: dist_nccl_phase(shared)),
                            ("cagra.nn_descent",
                             lambda: cagra_nn_descent_phase(shared)),
-                           ("cagra.hnsw", lambda: cagra_hnsw_phase(shared))):
+                           ("cagra.hnsw", lambda: cagra_hnsw_phase(shared)),
+                           ("hybrid", hybrid_path), ("deep10m", deep10m),
+                           ("batch_knn.out_of_core",
+                            lambda: out_of_core_phase(shared)),
+                           ("graph", lambda: graph_phase(shared))):
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})

@@ -44,6 +44,7 @@ from raft_tpu_torch.core.resources import Resources, use_resources
 from raft_tpu_torch.distributed import ivf_flat as tdflat
 from raft_tpu_torch.core import serialize as tser
 from raft_tpu_torch.core.bitset import Bitset
+from raft_tpu_torch.neighbors import batch_knn as tbk
 from raft_tpu_torch.neighbors import brute_force as tbf
 from raft_tpu_torch.neighbors import cagra as tcg
 from raft_tpu_torch.neighbors import ivf_bq as tbq
@@ -331,6 +332,10 @@ def _fault_cases(data, indexes, cagra_pair, tmp_path):
         "distributed.tiled_search.tile": lambda: tdflat.search(
             dflat, qs, 5, n_probes=2, device=CPU),
         "comms.init_distributed": lambda: _init_and_leave(),
+        "batch_knn.search_device_chunked": lambda: tbk.search_device_chunked(
+            ds, qs, 5, chunk_rows=1000, device=CPU),
+        "batch_knn.search_out_of_core.chunk": lambda: tbk.search_out_of_core(
+            ds, qs, 5, chunk_rows=1000, device=CPU),
     }
 
 
@@ -406,6 +411,8 @@ TRANSIENT_SPECS = {spec.split("=")[0]: spec for spec in (
     "serialize.load.read=transient:1",
     "distributed.assign_phase=transient:1",
     "distributed.tiled_search.tile=transient:1",
+    "batch_knn.search_device_chunked=transient:1",
+    "batch_knn.search_out_of_core.chunk=transient:1",
     # the bootstrap retries one TRANSIENT failure: two make it surface
     "comms.init_distributed=transient:2")}
 

@@ -25,8 +25,15 @@ from raft_tpu_torch.distributed import ivf_bq as dbq
 from raft_tpu_torch.distributed import ivf_flat as dflat
 from raft_tpu_torch.distributed import ivf_pq as dpq
 from raft_tpu_torch.distributed import kmeans as dkm
-from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_bq, ivf_flat,
-                                      ivf_pq, nn_descent, refine)
+from raft_tpu_torch import label, spectral
+from raft_tpu_torch import sparse as tsparse
+from raft_tpu_torch.cluster import single_linkage as tsl
+from raft_tpu_torch.neighbors import (ball_cover, batch_knn, brute_force,
+                                      cagra, epsilon_neighborhood, hybrid,
+                                      ivf_bq, ivf_flat, ivf_pq, nn_descent,
+                                      refine)
+from raft_tpu_torch.sparse import distance as sp_dist
+from raft_tpu_torch.sparse import neighbors as sp_nb
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import cagra_hop as ch
@@ -217,6 +224,14 @@ def _entry_points(x, q, **dev):
     dcagra_cpu = dcagra.build(x[:512], cagra_params, comms=two, device="cpu")
     bq_store_cpu = serving.PagedListStore.from_index(bq_cpu, page_rows=64,
                                                      device="cpu")
+    sp_rows = (x[:256] > 1.0).astype(np.float32) * x[:256]
+    csr_cpu = tsparse.csr_from_dense(sp_rows, device="cpu")
+    graph_cpu = sp_nb.knn_graph(x[:256], 6, device="cpu")
+    hy_params = ivf_bq.IvfBqParams(n_lists=2, metric="inner_product",
+                                   kmeans_n_iters=2)
+    hy_cpu = hybrid.build(x[:256], sp_rows, hy_params, sparse_dim=8,
+                          device="cpu")
+    bc_cpu = ball_cover.build(x[:512], device="cpu")
     return {
         "cagra.build": lambda: cagra.build(x[:512], cagra_params, **dev),
         "cagra.search": lambda: cagra.search(cagra_cpu, q, 5, **dev),
@@ -330,6 +345,44 @@ def _entry_points(x, q, **dev):
             {"dataset": {"kind": "blobs", "n": 256, "dim": 4,
                          "n_queries": 8, "n_clusters": 4},
              "k": 3, "algos": [{"name": "brute_force"}]}, reps=1, **dev),
+        "sparse.coo_from_dense": lambda: tsparse.coo_from_dense(
+            sp_rows, device=_device_of(dev)).rows,
+        "sparse.pairwise_distance": lambda: sp_dist.pairwise_distance(
+            csr_cpu, csr_cpu, "l1", **dev),
+        "sparse.brute_force_knn": lambda: sp_nb.brute_force_knn(
+            csr_cpu, csr_cpu, 3, **dev),
+        "sparse.knn_graph": lambda: sp_nb.knn_graph(x[:256], 6, **dev).vals,
+        "sparse.lanczos_smallest": lambda: tsparse.lanczos_smallest(
+            lambda v: 2.0 * v, 2, n=16, device=_device_of(dev)),
+        "label.make_monotonic": lambda: label.make_monotonic(
+            np.array([3, 1, 3]), device=_device_of(dev)),
+        "single_linkage": lambda: tsl.single_linkage(x[:256], 4,
+                                                     **dev).labels,
+        "spectral.partition": lambda: spectral.partition(graph_cpu, 2,
+                                                         **dev),
+        "hybrid.build": lambda: hybrid.build(
+            x[:256], sp_rows, hy_params, sparse_dim=8, **dev).index.centers,
+        "hybrid.project_sparse": lambda: hybrid.project_sparse(
+            sp_rows, 8, device=_device_of(dev)),
+        "hybrid.search": lambda: hybrid.search(hy_cpu, q, sp_rows[:16], 5,
+                                               n_probes=2, **dev),
+        "hybrid.to_store": lambda: serving.search(
+            hybrid.to_store(hy_cpu, page_rows=64, **dev),
+            hybrid.fuse_queries(hy_cpu, q, sp_rows[:16]), 5, n_probes=2,
+            **dev),
+        "batch_knn.search_device_chunked": lambda:
+            batch_knn.search_device_chunked(x, q, 5, chunk_rows=500, **dev),
+        "batch_knn.search_out_of_core": lambda: batch_knn.search_out_of_core(
+            x, q, 5, chunk_rows=500, **dev),
+        "batch_knn.BatchKQuery": lambda: next(iter(batch_knn.BatchKQuery(
+            bf_cpu, q, 4, **dev))),
+        "ball_cover.build": lambda: ball_cover.build(x[:512],
+                                                     **dev).landmarks,
+        "ball_cover.knn_query": lambda: ball_cover.knn_query(bc_cpu, q, 3,
+                                                             **dev),
+        "ball_cover.eps_nn": lambda: ball_cover.eps_nn(bc_cpu, q, 1.0, **dev),
+        "epsilon_neighborhood.eps_neighbors": lambda:
+            epsilon_neighborhood.eps_neighbors(q, x[:64], 1.0, **dev),
     }
 
 
@@ -395,7 +448,22 @@ def _cagra_file_load(index, **dev):
                                   "distributed.cagra.search",
                                   "random.make_blobs", "random.rmat",
                                   "bench.io.generate_groundtruth",
-                                  "bench.runner.run_benchmark"])
+                                  "bench.runner.run_benchmark",
+                                  "sparse.coo_from_dense",
+                                  "sparse.pairwise_distance",
+                                  "sparse.brute_force_knn",
+                                  "sparse.knn_graph",
+                                  "sparse.lanczos_smallest",
+                                  "label.make_monotonic", "single_linkage",
+                                  "spectral.partition", "hybrid.build",
+                                  "hybrid.project_sparse", "hybrid.search",
+                                  "hybrid.to_store",
+                                  "batch_knn.search_device_chunked",
+                                  "batch_knn.search_out_of_core",
+                                  "batch_knn.BatchKQuery",
+                                  "ball_cover.build", "ball_cover.knn_query",
+                                  "ball_cover.eps_nn",
+                                  "epsilon_neighborhood.eps_neighbors"])
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -1055,3 +1123,44 @@ def test_no_try_on_the_runner_path(rel):
     kernel or an exception, never a quiet detour."""
     tree = ast.parse((REPO / "raft_tpu_torch" / rel).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+
+
+# the sparse tier, graph clustering, the hybrid and out-of-core paths:
+# modules at the JAX paths, importing no JAX, with no try statement (the
+# JAX modules have none either), so a CUDA tensor on the hybrid path gets
+# K2 / K4 or an exception, and an OOM reaches only degrade_on_oom
+SPARSE_GRAPH_HYBRID_MODULES = (
+    "sparse/__init__.py", "sparse/types.py", "sparse/convert.py",
+    "sparse/op.py", "sparse/linalg.py", "sparse/distance.py",
+    "sparse/neighbors.py", "sparse/solver.py", "label/__init__.py",
+    "label/classlabels.py", "cluster/single_linkage.py",
+    "spectral/__init__.py", "spectral/partition.py", "neighbors/hybrid.py",
+    "neighbors/batch_knn.py", "neighbors/ball_cover.py",
+    "neighbors/epsilon_neighborhood.py")
+
+
+@pytest.mark.parametrize("rel", SPARSE_GRAPH_HYBRID_MODULES)
+def test_sparse_graph_hybrid_modules_mirror_jax_and_add_no_try(rel):
+    trees = [ast.parse((REPO / pkg / rel).read_text())
+             for pkg in ("raft_tpu", "raft_tpu_torch")]
+    assert REPO / "raft_tpu_torch" / rel in _port_files()
+    roots = {m.split(".")[0]
+             for m in _imported_modules(REPO / "raft_tpu_torch" / rel)}
+    assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
+    counts = [sum(isinstance(n, ast.Try) for n in ast.walk(t))
+              for t in trees]
+    assert counts == [0, 0], (rel, counts)
+    # the public names of the JAX module are the port's
+    public = [{n.name for n in t.body
+               if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+               and not n.name.startswith("_")} for t in trees]
+    assert public[0] <= public[1], (rel, public[0] - public[1])
+
+
+@pytest.mark.parametrize("rel,sites", [
+    ("neighbors/batch_knn.py", ["batch_knn.search_device_chunked",
+                                "batch_knn.search_out_of_core.chunk"])])
+def test_batch_knn_faultpoints_are_named_as_in_jax(rel, sites):
+    got = [_faultpoint_sites(REPO / pkg / rel)
+           for pkg in ("raft_tpu", "raft_tpu_torch")]
+    assert got == [sites, sites], (rel, got)
