@@ -301,6 +301,33 @@ into 8 with each eigenpair's residual, ``ball_cover`` answering 1,000
 queries with brute force's ids but at near-ties, and ``eps_nn`` against
 ``eps_neighbors`` (adjacency counts).
 
+The parity tail runs last, a line each sub-phase. ``tail.plan``: the
+IVF-Flat index (uint8 lists) at the flat path's n_probes, 10,000 queries
+searched with every query tile planned by the host planner
+(``strip_scan.plan_strips``, numpy) and by the device plan
+(``plan_tile``): values and ids bit for bit, K1 launches = the host plan's
+classes summed over its tiles, both planners' milliseconds, K1 at the host
+plan's class inputs against its twin. Then, each against float64 on the
+host: ``tail.linalg`` (keyed sums and counts over the 1M rows with the
+1,024 coarse keys and 1% out of range, twice with the same bits; gemm
+(1M × 128)ᵀ(1M × 128); svd, qr, lstsq on 100,000 × 128 and a rank-64
+lstsq; rsvd(k=16) on the 1M rows against the exact top 16 and the
+Eckart–Young residual; Lanczos on a 4,096 × 4,096 SPD matrix against
+``eigvalsh``'s 4 smallest), ``tail.stats`` (the contingency matrix of the
+k-means fit's and the coarse assignment's 1M labels equal to numpy's
+int64 one, the six comparison metrics, silhouette on 20,000 rows,
+trustworthiness on 10,000 rows of the 2-component ``eig_dc`` projection at
+k 10, the summary statistics), ``tail.kernels`` (the four Gram kernels on
+10,000 × 10,000 × 128, ``masked_l2_nn`` for 100,000 rows against the
+1,024 centres in 32 groups), ``tail.solver`` (linear assignment on 1,024
+× 1,024 integer costs, total equal to scipy's, and 512 × 512 float costs
+within n·ε_final; seconds and rounds), ``tail.merge`` (brute force on the
+two halves merged by ``merge_topk`` against the whole search),
+``tail.datasets`` (``deep_like_rows`` for 10M × 96 in 1M-row chunks,
+rows/s, unit norms, 10,000 rows regenerated alone bit-identical) and
+``tail.resources`` (``get_resources()`` from 16 threads: one instance on
+``cuda:0``).
+
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed phase raises: the script exits non-zero and prints no
@@ -6920,6 +6947,721 @@ def graph_phase(shared, dev="cuda"):
     torch.cuda.empty_cache()
 
 
+TAIL_SUB_ROWS = 100_000      # svd / qr / lstsq rows
+TAIL_SPD = 4096              # the Lanczos matrix
+TAIL_SIL_ROWS = 20_000       # silhouette rows
+TAIL_TRUST_ROWS = 10_000     # trustworthiness rows
+TAIL_GRAM = 10_000           # Gram kernels: 10,000 × 10,000 × 128
+TAIL_MASKED_ROWS = 100_000   # masked_l2_nn rows, against the 1,024 centres
+TAIL_GROUPS = 32
+TAIL_ASSIGN = (1024, 512)    # linear assignment: integer, float costs
+DEEP_TAIL_ROWS = 10_000_000  # deep_like_rows: 10M × 96 in 1M-row chunks
+DEEP_TAIL_CHUNK = 1_000_000
+DEEP_TAIL_PICKS = 10_000
+
+
+def tail_timed(times, name, fn):
+    """``fn()`` between two synchronisations; its seconds under ``name``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[name] = time.perf_counter() - t
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|, in float64 on the host."""
+    import torch
+
+    g = torch.as_tensor(got).double().cpu()
+    w = torch.as_tensor(want).double().cpu()
+    return float((g - w).abs().max() / max(float(w.abs().max()), 1e-300))
+
+
+def tail_plan_phase(shared, index, pick, dev="cuda"):
+    """K1 through the host planner: the held IVF-Flat index (uint8 lists)
+    at the flat path's n_probes, 10,000 queries, the strip search
+    (``strip_scan._scan_tiles``, K1 per class) run once with every query
+    tile planned by ``strip_scan.host_plan`` (``plan_strips``, numpy) and
+    once by the device plan (``plan_tile``): values and ids bit for bit,
+    K1's launches = the host plan's classes summed over tiles, the
+    planner's host milliseconds beside the device plan's, and K1 at the
+    host plan's class inputs against its twin."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    res = Resources(device=dev)
+    qs = shared["queries"].to(torch.float32)
+    n_probes = pick["n_probes"]
+    probes = ivf_flat._coarse_probes(qs, index.centers, n_probes,
+                                     index.metric)
+    bias = ivf_flat._ragged_bias(index.list_ids, index.list_norms, "l2")
+    lens = ivf_flat._lens_np(index)
+    n_lists, dim = index.n_lists, index.dim
+    classes, cls_ord_np = ss.class_info(lens, dim=dim)
+    cls_ord = torch.as_tensor(cls_ord_np, device=dev)
+    q, p = probes.shape
+    q_tile = ss.fit_q_tile(q, p, n_lists, len(classes), K,
+                           res.workspace_bytes, dim=dim)
+    plans = {"host": lambda: ss.host_plan(probes, lens, n_lists, dim),
+             "device": lambda: lambda start, qt: ss.plan_tile(
+                 probes, start, qt, cls_ord, classes, n_lists)}
+    k1 = ss._k1_class_fn(index.list_data, bias, -2.0, K, False)
+
+    def search(planner):
+        return ss._scan_tiles(qs, probes, index.list_ids, K, K, q_tile,
+                              plans[planner](), k1)
+
+    times, launches, out = {}, {}, {}
+    for planner in ("host", "device"):
+        search(planner)                          # warm
+        reset_counts()
+        out[planner] = tail_timed(times, f"search_{planner}_s",
+                                  lambda: search(planner))
+        launches[planner] = ss.STRIP_KERNEL.launches
+    (hv, hi), (dv, di) = out["host"], out["device"]
+    probes_np = probes.cpu().numpy()
+    host_ms, device_ms, expected, calls = [], [], 0, []
+    for start in range(0, q, q_tile):
+        qt = min(q_tile, q - start)
+        t = time.perf_counter()
+        sp = ss.plan_strips(probes_np[start:start + qt], lens, n_lists, dim)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ss.plan_tile(probes, start, qt, cls_ord, classes, n_lists)
+        torch.cuda.synchronize()
+        device_ms.append((time.perf_counter() - t) * 1e3)
+        expected += len(sp.class_layout)
+        qids = torch.from_numpy(sp.qids).to(dev)
+        strip_list = torch.from_numpy(sp.strip_list).to(dev)
+        a = ss.group_queries(qs[start:start + qt], qids)
+        rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+        for (wb, ns, st, cnt) in sp.class_layout:
+            calls.append(dict(strip_list=strip_list[st:st + cnt].contiguous(),
+                              a=a[st:st + cnt].contiguous(), w_blocks=wb,
+                              n_sub=ns, kf=K, approx_ok=False,
+                              strip_rows=rows[st:st + cnt],
+                              list_data=index.list_data, bias=bias,
+                              alpha=-2.0))
+    worst = kernel_parity_at(calls, "strip_scan",
+                             f"tail_plan_host_nprobe{n_probes}_kf{K}")
+    same = bool(torch.equal(hv, dv) and torch.equal(hi, di))
+    row = {"phase": "tail.plan", "n_probes": n_probes, "queries": q,
+           "q_tile": q_tile, "tiles": -(-q // q_tile),
+           "list_dtype": str(index.list_data.dtype).replace("torch.", ""),
+           "bit_equal": same, "k1_launches": launches,
+           "k1_launches_expected": expected,
+           "planner_host_ms": host_ms, "planner_device_ms": device_ms,
+           "k1_parity_classes": len(calls), "k1_max_abs_err": worst, **times}
+    emit(row)
+    if not same or launches["host"] != expected \
+            or launches["device"] != expected:
+        raise AssertionError(f"tail.plan: {row}")
+    return launches, worst
+
+
+def tail_linalg_phase(shared, keys, dev="cuda"):
+    """The dense linear algebra at the path's sizes, each against a float64
+    host run: keyed sums and counts over the 1M rows (1,024 keys from the
+    IVF coarse assignment, 1% of them moved out of range, twice: the same
+    bits), gemm (1M × 128)ᵀ(1M × 128), svd / qr / lstsq on 100,000 × 128
+    (and a rank-deficient lstsq), rsvd(k=16) on the 1M rows against the
+    host's exact top 16 and the Eckart–Young rebuild error, Lanczos on a
+    4,096 × 4,096 SPD matrix against ``eigvalsh``'s 4 smallest."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.ops import linalg
+
+    X = shared["dataset"].to(torch.float32)
+    n = X.shape[0]
+    x64 = shared["host"].astype(np.float64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    k_bad = keys.clone()
+    out_of_range = torch.rand(n, generator=gen, device=dev) < 0.01
+    k_bad[out_of_range] = torch.where(
+        torch.rand(n, generator=gen, device=dev)[out_of_range] < 0.5,
+        -1, KMEANS_CLUSTERS + 7).to(k_bad.dtype)
+    times, errs = {}, {}
+    sums = tail_timed(times, "reduce_rows_by_key_s", lambda: linalg.
+                      reduce_rows_by_key(X, k_bad, KMEANS_CLUSTERS))
+    again = linalg.reduce_rows_by_key(X, k_bad, KMEANS_CLUSTERS)
+    kb = k_bad.cpu().numpy().astype(np.int64)
+    ok = (kb >= 0) & (kb < KMEANS_CLUSTERS)
+    ref = torch.zeros((KMEANS_CLUSTERS, 128), dtype=torch.float64)
+    ref.index_add_(0, torch.from_numpy(kb[ok]), torch.from_numpy(x64[ok]))
+    errs["reduce_rows_by_key"] = rel_err(sums, ref)
+    counts = tail_timed(times, "bincount_s", lambda: linalg.bincount(
+        k_bad, KMEANS_CLUSTERS))
+    ref_counts = np.bincount(kb[ok], minlength=KMEANS_CLUSTERS)
+    wsum = linalg.bincount(k_bad, KMEANS_CLUSTERS, weights=X[:, 0])
+    errs["bincount_weighted"] = rel_err(wsum, np.bincount(
+        kb[ok], weights=x64[ok, 0], minlength=KMEANS_CLUSTERS))
+    gram = tail_timed(times, "gemm_s", lambda: linalg.gemm(
+        X, X, transpose_a=True))
+    g64 = x64.T @ x64
+    errs["gemm"] = rel_err(gram, g64)
+
+    sub = X[:TAIL_SUB_ROWS] - X[:TAIL_SUB_ROWS].mean(0)
+    s64 = sub.double().cpu().numpy()
+    u, s, vt = tail_timed(times, "svd_s", lambda: linalg.svd(sub))
+    ref_s = np.linalg.svd(s64, compute_uv=False)
+    errs["svd_s"] = rel_err(s, ref_s)
+    errs["svd_rebuild"] = rel_err((u * s) @ vt, s64)
+    qm, r = tail_timed(times, "qr_s", lambda: linalg.qr(sub))
+    errs["qr_rebuild"] = rel_err(qm @ r, s64)
+    errs["qr_orthonormal"] = float(
+        (qm.T.double() @ qm.double() - torch.eye(128, dtype=torch.float64,
+                                                 device=dev)).abs().max())
+    errs["qr_upper"] = float(torch.tril(r, -1).abs().max())
+    ref_r = np.linalg.qr(s64, mode="r")
+    signs = np.sign(np.diag(ref_r)) * np.sign(np.diag(
+        r.double().cpu().numpy()))
+    errs["qr_r_vs_host"] = rel_err(r.double() * torch.as_tensor(
+        signs, device=dev)[:, None], ref_r)
+    b = sub[:, :8].sum(1) + torch.randn(TAIL_SUB_ROWS, generator=gen,
+                                        device=dev)
+    b64 = b.double().cpu().numpy()
+    rc = np.finfo(np.float32).eps * TAIL_SUB_ROWS
+    x_ls = tail_timed(times, "lstsq_s", lambda: linalg.lstsq(sub, b))
+    errs["lstsq"] = rel_err(x_ls, np.linalg.lstsq(s64, b64, rcond=rc)[0])
+    deficient = torch.cat([sub[:, :64], sub[:, :64]], dim=1)   # rank 64
+    x_def = linalg.lstsq(deficient, b)
+    ref_def = np.linalg.lstsq(np.concatenate([s64[:, :64]] * 2, 1), b64,
+                              rcond=rc)[0]
+    errs["lstsq_rank_deficient"] = rel_err(x_def, ref_def)
+    errs["lstsq_split_equally"] = rel_err(x_def[:64], x_def[64:].double()
+                                          .cpu().numpy())
+
+    gen_r = torch.Generator(device=dev)
+    gen_r.manual_seed(0)
+    ru, rs, rvt = tail_timed(times, "rsvd_s", lambda: linalg.rsvd(
+        X, 16, p=16, n_iter=8, generator=gen_r))
+    ev = np.sqrt(np.maximum(np.linalg.eigvalsh(g64)[::-1], 0.0))
+    errs["rsvd_s_rel"] = float(np.abs(rs.double().cpu().numpy() / ev[:16]
+                                      - 1).max())
+    resid = 0.0
+    for s0 in range(0, n, 250_000):
+        d = X[s0:s0 + 250_000].double() - (ru[s0:s0 + 250_000].double()
+                                           * rs.double()) @ rvt.double()
+        resid += float((d * d).sum())
+    optimal = float((ev[16:] ** 2).sum())
+    errs["rsvd_rebuild_vs_optimal"] = abs(resid / optimal - 1.0)
+
+    q_, _ = torch.linalg.qr(torch.randn(TAIL_SPD, TAIL_SPD, generator=gen,
+                                        device=dev, dtype=torch.float64))
+    lam = torch.cat([torch.tensor([0.1, 0.2, 0.3, 0.4], dtype=torch.float64,
+                                  device=dev),
+                     torch.linspace(1.0, 10.0, TAIL_SPD - 4,
+                                    dtype=torch.float64, device=dev)])
+    spd64 = (q_ * lam) @ q_.T
+    spd = spd64.to(torch.float32)
+    w, _ = tail_timed(times, "lanczos_s", lambda: linalg.lanczos(
+        spd, 4, max_iters=256))
+    ref_w = np.linalg.eigvalsh(spd.double().cpu().numpy())[:4]
+    errs["lanczos_vs_lam_max"] = float(np.abs(w.double().cpu().numpy()
+                                              - ref_w).max() / 10.0)
+    bits_equal = bool(torch.equal(sums, again))
+    row = {"phase": "tail.linalg", "rows": n, "keys": KMEANS_CLUSTERS,
+           "keys_out_of_range": int(out_of_range.sum()),
+           "keyed_sum_same_bits": bits_equal,
+           "bincount_exact": bool(np.array_equal(counts.cpu().numpy()
+                                                 .astype(np.int64),
+                                                 ref_counts)),
+           "errors": errs, "rsvd_singular_values": rs.tolist(),
+           "exact_singular_values": ev[:16].tolist(),
+           "lanczos": w.tolist(), "eigvalsh": ref_w.tolist(), **times}
+    emit(row)
+    # fp32 factorizations: backward errors of O(n·eps) at n = 128
+    bounds = {"reduce_rows_by_key": 1e-6, "bincount_weighted": 1e-6,
+              "gemm": 1e-5, "svd_s": 1e-5, "svd_rebuild": 1e-4,
+              "qr_rebuild": 1e-5, "qr_orthonormal": 1e-5, "qr_upper": 0.0,
+              "qr_r_vs_host": 1e-4, "lstsq": 1e-3,
+              "lstsq_rank_deficient": 1e-3, "lstsq_split_equally": 1e-5,
+              "rsvd_s_rel": 1e-3, "rsvd_rebuild_vs_optimal": 1e-3,
+              "lanczos_vs_lam_max": 1e-4}
+    bad = {k_: v for k_, v in errs.items() if not v <= bounds[k_]}
+    if bad or not bits_equal or not row["bincount_exact"]:
+        raise AssertionError(f"tail.linalg out of bounds {bad}: {row}")
+
+
+def _host_cluster_metrics(c):
+    """RI, ARI, MI, homogeneity, completeness and V from an int64
+    contingency matrix, in float64 (sklearn's definitions)."""
+    import numpy as np
+
+    c = c.astype(np.float64)
+    n = c.sum()
+    rows, cols = c.sum(1), c.sum(0)
+
+    def comb2(v):
+        return v * (v - 1) / 2
+
+    sum_comb, sa, sb = comb2(c).sum(), comb2(rows).sum(), comb2(cols).sum()
+    expected = sa * sb / comb2(n)
+    ari = (sum_comb - expected) / ((sa + sb) / 2 - expected)
+    ri = (comb2(n) + 2 * sum_comb - sa - sb) / comb2(n)
+    pij = c / n
+    nz = pij > 0
+    pi, pj = rows / n, cols / n
+    mi = float((pij[nz] * np.log(pij[nz] / np.outer(pi, pj)[nz])).sum())
+
+    def ent(p):
+        p = p[p > 0]
+        return float(-(p * np.log(p)).sum())
+
+    h_c, h_k = ent(pi), ent(pj)
+    hom = mi / h_c if h_c else 1.0
+    com = mi / h_k if h_k else 1.0
+    v = 2 * hom * com / (hom + com) if hom + com else 0.0
+    return {"rand_index": ri, "adjusted_rand_index": ari,
+            "mutual_info_score": mi, "homogeneity_score": hom,
+            "completeness_score": com, "v_measure": v}
+
+
+def _host_silhouette(x64, lab, k):
+    """Mean silhouette (squared euclidean) in float64 on the host (torch
+    on the CPU): distance tiles by one product each, per-cluster sums by
+    ``index_add_`` along the columns."""
+    import torch
+
+    x = torch.from_numpy(x64)
+    lab_t = torch.from_numpy(lab).to(torch.int64)
+    n = x.shape[0]
+    counts = torch.bincount(lab_t, minlength=k).to(torch.float64)
+    sq = (x * x).sum(1)
+    out = []
+    for s0 in range(0, n, 2000):
+        d = torch.clamp(sq[s0:s0 + 2000, None] + sq[None, :]
+                        - 2 * x[s0:s0 + 2000] @ x.T, min=0.0)
+        csum = torch.zeros((d.shape[0], k), dtype=torch.float64)
+        csum.index_add_(1, lab_t, d)
+        lb = lab_t[s0:s0 + 2000]
+        rows = torch.arange(d.shape[0])
+        own = counts[lb]
+        a = csum[rows, lb] / torch.clamp(own - 1, min=1)
+        other = torch.where(counts[None, :] > 0, csum / torch.clamp(
+            counts, min=1), float("inf"))
+        other[rows, lb] = float("inf")
+        b = other.min(1).values
+        out.append(torch.where(own > 1, (b - a) / torch.clamp(
+            torch.maximum(a, b), min=1e-30), torch.zeros_like(a)))
+    return float(torch.cat(out).mean())
+
+
+def _host_trustworthiness(x64, e64, k):
+    """Trustworthiness in float64 on the host (torch on the CPU): each
+    row's k nearest in the embedding and their ranks in the original
+    space, both by stable sorts (the lower index first at ties), self
+    excluded."""
+    import torch
+
+    x, e = torch.from_numpy(x64), torch.from_numpy(e64)
+    n = x.shape[0]
+    sx, se = (x * x).sum(1), (e * e).sum(1)
+    cols = torch.arange(n)
+    penalty = 0
+    for s0 in range(0, n, 500):
+        rows = torch.arange(s0, min(s0 + 500, n))
+        r = torch.arange(len(rows))
+        d = sx[rows, None] + sx[None, :] - 2 * x[rows] @ x.T
+        de = se[rows, None] + se[None, :] - 2 * e[rows] @ e.T
+        d[r, rows] = float("inf")
+        de[r, rows] = float("inf")
+        knn = torch.argsort(de, dim=1, stable=True)[:, :k]
+        order = torch.argsort(d, dim=1, stable=True)
+        ranks = torch.empty_like(order)
+        ranks.scatter_(1, order, cols.expand(len(rows), n))
+        penalty += int(torch.clamp(torch.gather(ranks, 1, knn) - k + 1,
+                                   min=0).sum())
+    return 1.0 - penalty * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def tail_stats_phase(shared, centers, coarse, dev="cuda"):
+    """The metrics at the path's sizes against float64 host runs: the
+    contingency matrix of two 1M labellings (the labels of the ``kmeans``
+    path's fit, ``kmeans.fit`` with 1,024 clusters, and the IVF coarse
+    assignment) equal to numpy's int64 one, the six comparison
+    metrics from it; silhouette on 20,000 rows over the fit's 1,024
+    clusters; trustworthiness on 10,000 rows of the 2-component
+    ``eig_dc`` projection at k 10; the summary statistics of the 1M rows."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.ops import linalg
+    from raft_tpu_torch.ops.distance import fused_l2_nn_argmin
+    from raft_tpu_torch.stats import metrics, summary
+
+    res = Resources(device=dev)
+    X = shared["dataset"].to(torch.float32)
+    n = X.shape[0]
+    x_host = shared["host"]
+    times, errs = {}, {}
+    fit = tail_timed(times, "kmeans_fit_s", lambda: kmeans.fit(
+        X, kmeans.KMeansParams(n_clusters=KMEANS_CLUSTERS), res=res))
+    km = fused_l2_nn_argmin(X, fit.centroids)[1]
+    cm = tail_timed(times, "contingency_s", lambda: metrics.
+                    contingency_matrix(km, coarse))
+    a_np, b_np = km.cpu().numpy(), coarse.cpu().numpy().astype(np.int64)
+    nt, np_ = int(a_np.max()) + 1, int(b_np.max()) + 1
+    ref_cm = np.bincount(a_np * np_ + b_np, minlength=nt * np_).reshape(
+        nt, np_)
+    cm_equal = bool(np.array_equal(cm.cpu().numpy().astype(np.int64), ref_cm))
+    ref = _host_cluster_metrics(ref_cm)
+    got = {}
+    for name in ref:
+        got[name] = float(tail_timed(times, f"{name}_s", lambda name=name:
+                                     getattr(metrics, name)(km, coarse)))
+        errs[name] = abs(got[name] - ref[name]) / max(abs(ref[name]), 1e-30)
+
+    lab = km[:TAIL_SIL_ROWS]
+    sil = float(tail_timed(times, "silhouette_s", lambda: metrics.
+                           silhouette_score(X[:TAIL_SIL_ROWS], lab,
+                                            KMEANS_CLUSTERS)))
+    ref_sil = _host_silhouette(x_host[:TAIL_SIL_ROWS].astype(np.float64),
+                               lab.cpu().numpy(), KMEANS_CLUSTERS)
+    errs["silhouette"] = abs(sil - ref_sil) / abs(ref_sil)
+
+    xt = X[:TAIL_TRUST_ROWS]
+    xc = xt - xt.mean(0)
+    _, vecs = linalg.eig_dc(summary.cov(xc))
+    emb = xc @ vecs[:, -2:]                         # the 2 largest
+    tw = float(tail_timed(times, "trustworthiness_s", lambda: metrics.
+                          trustworthiness_score(xt, emb, 10)))
+    ref_tw = _host_trustworthiness(x_host[:TAIL_TRUST_ROWS].astype(
+        np.float64), emb.double().cpu().numpy(), 10)
+    errs["trustworthiness_abs"] = abs(tw - ref_tw)
+
+    x64 = x_host.astype(np.float64)
+    mean = tail_timed(times, "mean_s", lambda: summary.mean(X))
+    errs["mean"] = rel_err(mean, x64.mean(0))
+    errs["sum_"] = rel_err(summary.sum_(X), x64.sum(0))
+    var = tail_timed(times, "vars_s", lambda: summary.vars_(X))
+    errs["vars_"] = rel_err(var, x64.var(0, ddof=1))
+    errs["stddev"] = rel_err(summary.stddev(X, sample=False),
+                             x64.std(0))
+    mu, mv = summary.meanvar(X)
+    errs["meanvar"] = max(rel_err(mu, x64.mean(0)),
+                          rel_err(mv, x64.var(0, ddof=1)))
+    errs["mean_center"] = rel_err(summary.mean_center(X[:1000], device=dev),
+                                  x64[:1000] - x64[:1000].mean(0))
+    lo, hi = summary.minmax(X)
+    hist = tail_timed(times, "histogram_s", lambda: summary.histogram(
+        X, 16, 0.0, 256.0))
+    ref_hist = np.stack([np.bincount(np.minimum(x_host[:, j] // 16, 15),
+                                     minlength=16) for j in range(128)], 1)
+    w = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(3),
+                   device=dev)
+    w64 = w.double().cpu().numpy()
+    errs["weighted_mean"] = rel_err(summary.weighted_mean(X, w),
+                                    w64 @ x64 / w64.sum())
+    sizes = torch.bincount(coarse.long(), minlength=KMEANS_CLUSTERS)
+    disp = summary.dispersion(centers, sizes)
+    c64 = centers.double().cpu().numpy()
+    s64 = sizes.cpu().numpy().astype(np.float64)
+    mu_c = (c64 * s64[:, None]).sum(0) / s64.sum()
+    errs["dispersion"] = rel_err(disp, np.sqrt(
+        (((c64 - mu_c) ** 2).sum(1) * s64).sum()))
+    ent = summary.entropy(km, KMEANS_CLUSTERS)
+    p_ = np.bincount(a_np, minlength=KMEANS_CLUSTERS) / n
+    errs["entropy"] = rel_err(ent, -(p_[p_ > 0] * np.log(p_[p_ > 0])).sum())
+    q_ = np.bincount(b_np, minlength=KMEANS_CLUSTERS) / n
+    kl = summary.kl_divergence(torch.as_tensor(p_, device=dev),
+                               torch.as_tensor(q_, device=dev))
+    keep = p_ > 0
+    errs["kl_divergence"] = rel_err(kl, (p_[keep] * np.log(
+        p_[keep] / q_[keep])).sum())
+    row = {"phase": "tail.stats", "rows": n, "kmeans_n_iter": fit.n_iter,
+           "contingency_shape": list(cm.shape),
+           "contingency_equal": cm_equal, "metrics": got,
+           "host_metrics": ref, "silhouette": sil, "host_silhouette": ref_sil,
+           "trustworthiness": tw, "host_trustworthiness": ref_tw,
+           "minmax_exact": bool(np.array_equal(lo.cpu().numpy(),
+                                               x_host.min(0))
+                                and np.array_equal(hi.cpu().numpy(),
+                                                   x_host.max(0))),
+           "histogram_exact": bool(np.array_equal(hist.cpu().numpy(),
+                                                  ref_hist)),
+           "errors": errs, **times}
+    emit(row)
+    bounds = {name: 1e-5 for name in ref}
+    bounds.update(silhouette=1e-4, trustworthiness_abs=1e-3, mean=1e-6,
+                  sum_=1e-6, vars_=1e-5, stddev=1e-5, meanvar=1e-5,
+                  mean_center=1e-6, weighted_mean=1e-5, dispersion=1e-5,
+                  entropy=1e-5, kl_divergence=1e-5)
+    bad = {k_: v for k_, v in errs.items() if not v <= bounds[k_]}
+    if bad or not (cm_equal and row["minmax_exact"]
+                   and row["histogram_exact"]):
+        raise AssertionError(f"tail.stats out of bounds {bad}: {row}")
+    return km
+
+
+def tail_kernels_phase(shared, centers, dev="cuda"):
+    """The Gram kernels on 10,000 × 10,000 × 128 (the first 10,000 rows
+    against the next 10,000) and ``masked_l2_nn`` for 100,000 rows against
+    the 1,024 IVF centres in 32 groups (half the groups admitted a row,
+    16 rows admitting none), each against float64 on the host."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.ops import kernels
+
+    X = shared["dataset"].to(torch.float32)
+    xh = torch.from_numpy(shared["host"]).double()
+    x, y = X[:TAIL_GRAM], X[TAIL_GRAM:2 * TAIL_GRAM]
+    x64, y64 = xh[:TAIL_GRAM], xh[TAIL_GRAM:2 * TAIL_GRAM]
+    lin64 = x64 @ y64.T
+    d64 = torch.clamp((x64 ** 2).sum(1)[:, None] + (y64 ** 2).sum(1)[None, :]
+                      - 2 * lin64, min=0.0)
+    cases = {
+        "linear_kernel": ({}, lin64),
+        "polynomial_kernel": ({"degree": 3, "gain": 1e-6, "offset": 1.0},
+                              (1e-6 * lin64 + 1.0) ** 3),
+        "tanh_kernel": ({"gain": 1e-6, "offset": -1.0},
+                        torch.tanh(1e-6 * lin64 - 1.0)),
+        "rbf_kernel": ({"gain": 1e-6}, torch.exp(-1e-6 * d64)),
+    }
+    errs, ms = {}, {}
+    for name, (kw, want) in cases.items():
+        fn = getattr(kernels, name)
+        got = fn(x, y, **kw)
+        errs[name] = rel_err(got, want)
+        ms[name] = cuda_ms(lambda fn=fn, kw=kw: fn(x, y, **kw), reps=3)
+        del got
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    xm = X[:TAIL_MASKED_ROWS]
+    groups = torch.arange(KMEANS_CLUSTERS, device=dev) % TAIL_GROUPS
+    adj = torch.rand(TAIL_MASKED_ROWS, TAIL_GROUPS, generator=gen,
+                     device=dev) < 0.5
+    adj[:16] = False
+    mins, args = kernels.masked_l2_nn(xm, centers, adj, groups)
+    ms["masked_l2_nn"] = cuda_ms(lambda: kernels.masked_l2_nn(
+        xm, centers, adj, groups), reps=3)
+    c64 = centers.double().cpu()
+    xm64 = xh[:TAIL_MASKED_ROWS]
+    dm = torch.clamp((xm64 ** 2).sum(1)[:, None] + (c64 ** 2).sum(1)[None, :]
+                     - 2 * xm64 @ c64.T, min=0.0)
+    dm = torch.where(adj.cpu()[:, groups.cpu()], dm, float("inf")).numpy()
+    ref_min = dm.min(1)
+    ref_arg = np.where(np.isfinite(ref_min), dm.argmin(1), -1)
+    got_min = mins.double().cpu().numpy()
+    got_arg = args.cpu().numpy()
+    fin = np.isfinite(ref_min)
+    errs["masked_l2_nn_min"] = float(np.abs(got_min[fin] - ref_min[fin]).max()
+                                     / ref_min[fin].max())
+    differ = got_arg != ref_arg
+    # a different argmin only at a near-tie: its own distance within the
+    # value tolerance of the best (rows admitting nothing compare as -1)
+    alt = dm[np.arange(len(got_arg)), np.clip(got_arg, 0, None)]
+    gap = np.where(fin, alt - np.where(fin, ref_min, 0.0), 0.0)
+    near_tie = gap <= 1e-5 * ref_min[fin].max()
+    row = {"phase": "tail.kernels", "gram": [TAIL_GRAM, TAIL_GRAM, 128],
+           "masked_rows": TAIL_MASKED_ROWS, "groups": TAIL_GROUPS,
+           "none_admitted": int((~fin).sum()),
+           "argmin_differs": int(differ.sum()),
+           "argmin_differs_unexplained": int((differ & ~near_tie).sum()),
+           "errors": errs, "ms": ms}
+    emit(row)
+    bounds = {"linear_kernel": 1e-6, "polynomial_kernel": 1e-5,
+              "tanh_kernel": 1e-5, "rbf_kernel": 1e-5,
+              "masked_l2_nn_min": 1e-5}
+    bad = {k_: v for k_, v in errs.items() if not v <= bounds[k_]}
+    if bad or row["argmin_differs_unexplained"] \
+            or not np.array_equal(got_arg[~fin], ref_arg[~fin]) \
+            or row["none_admitted"] != 16:
+        raise AssertionError(f"tail.kernels out of bounds {bad}: {row}")
+
+
+def tail_solver_phase(dev="cuda"):
+    """``linear_assignment`` on 1,024 × 1,024 integer costs in [0, 1000)
+    (the total equal to scipy's) and on 512 × 512 float costs (within
+    n·ε_final of scipy's): seconds and auction rounds."""
+    import importlib
+
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch.solver import linear_assignment
+
+    la = importlib.import_module("raft_tpu_torch.solver.linear_assignment")
+    rng = np.random.default_rng(17)
+    out = {}
+    for n, kind in zip(TAIL_ASSIGN, ("int", "float")):
+        c = (rng.integers(0, 1000, (n, n)) if kind == "int"
+             else rng.standard_normal((n, n))).astype(np.float32)
+        times = {}
+        r2c, total = tail_timed(times, "s", lambda: linear_assignment(c))
+        stats = dict(la.LAST_RUN)
+        t = time.perf_counter()
+        ri, ci = linear_sum_assignment(c)
+        scipy_s = time.perf_counter() - t
+        want = float(c[ri, ci].astype(np.float64).sum())
+        perm = sorted(r2c.cpu().tolist()) == list(range(n))
+        rng_c = float(c.max() - c.min())
+        eps_final = min(rng_c / (2.0 * n * (n + 1)), 1.0 / (2.0 * (n + 1)))
+        got = float(c[np.arange(n), r2c.cpu().numpy()].astype(np.float64)
+                    .sum())
+        ok = perm and (got == want if kind == "int"
+                       else got <= want + n * eps_final + 1e-6 * abs(want))
+        out[kind] = {"n": n, "total": got, "scipy_total": want,
+                     "eps_final": eps_final, "seconds": times["s"],
+                     "scipy_s": scipy_s, **stats, "ok": ok}
+    emit({"phase": "tail.solver", **out})
+    if not all(v["ok"] for v in out.values()):
+        raise AssertionError(f"tail.solver: {out}")
+
+
+def tail_merge_phase(shared, dev="cuda"):
+    """Brute force over each half of the 1M rows, the two top-10 lists
+    merged by ``merge_topk``: the whole search's values, and its ids apart
+    from near-ties."""
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops.select_k import merge_topk
+    from raft_tpu_torch.stats.metrics import topk_agreement
+
+    res = Resources(device=dev)
+    X, qs = shared["dataset"], shared["queries"]
+    gt_v, gt_i = shared["gt"]
+    half = X.shape[0] // 2
+    times = {}
+    va, ia = tail_timed(times, "half_a_s", lambda: brute_force.search(
+        brute_force.build(X[:half], res=res), qs, K, res=res))
+    vb, ib = tail_timed(times, "half_b_s", lambda: brute_force.search(
+        brute_force.build(X[half:], res=res), qs, K, res=res))
+    ib = torch.where(ib >= 0, ib + half, ib)
+    mv, mi = tail_timed(times, "merge_s", lambda: merge_topk(va, ia, vb, ib))
+    scale = float((X[:1000].float() ** 2).sum(1).max())
+    verdict = topk_agreement(gt_v, gt_i, mv, mi, rtol=1e-5,
+                             atol=1e-6 * scale, tie_rtol=1e-5)
+    emit({"phase": "tail.merge", "queries": qs.shape[0], "k": K,
+          "values_equal": bool(torch.equal(mv, gt_v)), "agreement": verdict,
+          **times})
+    if not verdict["ok"]:
+        raise AssertionError(f"tail.merge: {verdict}")
+
+
+def tail_datasets_phase(dev="cuda"):
+    """``deep_like_rows`` for 10M × 96 rows in 1M-row chunks (rows/s):
+    unit norms, and 10,000 random row ids regenerated alone bit-identical
+    to their rows in the chunks."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.bench.datasets import deep_like_rows
+
+    rng = np.random.default_rng(96)
+    picks = np.sort(rng.choice(DEEP_TAIL_ROWS, DEEP_TAIL_PICKS,
+                               replace=False))
+    picks_t = torch.as_tensor(picks, device=dev)
+    kept, worst, gen_s = [], 0.0, 0.0
+    for s0 in range(0, DEEP_TAIL_ROWS, DEEP_TAIL_CHUNK):
+        ids = torch.arange(s0, s0 + DEEP_TAIL_CHUNK, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = deep_like_rows(ids)
+        torch.cuda.synchronize()
+        gen_s += time.perf_counter() - t
+        norms = torch.linalg.vector_norm(rows.double(), dim=1)
+        worst = max(worst, float((norms - 1.0).abs().max()))
+        inside = picks_t[(picks_t >= s0) & (picks_t < s0 + DEEP_TAIL_CHUNK)]
+        kept.append(rows[inside - s0])
+        del rows, norms
+    alone = torch.cat([deep_like_rows(picks_t[j:j + 1])
+                       for j in range(0, 100)])
+    batch = deep_like_rows(picks_t)
+    kept = torch.cat(kept)
+    same = bool(torch.equal(batch, kept) and torch.equal(alone, kept[:100]))
+    row = {"phase": "tail.datasets", "rows": DEEP_TAIL_ROWS, "dim": 96,
+           "chunk": DEEP_TAIL_CHUNK, "generate_s": gen_s,
+           "rows_per_s": DEEP_TAIL_ROWS / gen_s, "max_norm_err": worst,
+           "picked": DEEP_TAIL_PICKS, "picked_bit_equal": same}
+    emit(row)
+    if worst > 1e-6 or not same:
+        raise AssertionError(f"tail.datasets: {row}")
+
+
+def tail_resources_phase():
+    """``get_resources()`` from 16 threads: one pooled instance, on the
+    card."""
+    import threading
+
+    import torch
+
+    from raft_tpu_torch.core import resources_manager
+
+    resources_manager.clear_pool()
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        resources_manager.get_resources())) for _ in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    one = len(got) == 16 and all(r is got[0] for r in got)
+    row = {"phase": "tail.resources", "threads": 16, "one_instance": one,
+           "device": str(got[0].device)}
+    emit(row)
+    if not one or got[0].device != torch.device("cuda", 0):
+        raise AssertionError(f"tail.resources: {row}")
+
+
+def tail_phase(shared, index, pick, dev="cuda"):
+    """The parity tail on the card, one line a sub-phase: ``tail.plan``
+    (K1 through the host planner) then the linear algebra, metrics, Gram
+    kernels, solver, merge, dataset and pool sub-phases, in a
+    ``use_resources`` scope of ``dev``. Returns K1's launches and worst
+    twin error from ``tail.plan``."""
+    import torch
+
+    from raft_tpu_torch import Resources, use_resources
+    from raft_tpu_torch.ops.distance import fused_l2_nn_argmin
+
+    t = time.perf_counter()
+    launches, worst = tail_plan_phase(shared, index, pick, dev)
+    emit({"phase": "tail.plan.done", "seconds": time.perf_counter() - t})
+    centers = index.centers
+    X = shared["dataset"].to(torch.float32)
+    coarse = fused_l2_nn_argmin(X, centers)[1]       # the IVF assignment
+    del X
+    with use_resources(Resources(device=dev)):
+        tail_subphases(shared, centers, coarse, dev)
+    return launches, worst
+
+
+def tail_subphases(shared, centers, coarse, dev):
+    """The sub-phases after ``tail.plan``, each followed by its seconds."""
+    import torch
+
+    for name, run in (
+            ("linalg", lambda: tail_linalg_phase(shared, coarse, dev)),
+            ("stats", lambda: tail_stats_phase(shared, centers, coarse, dev)),
+            ("kernels", lambda: tail_kernels_phase(shared, centers, dev)),
+            ("solver", lambda: tail_solver_phase(dev)),
+            ("merge", lambda: tail_merge_phase(shared, dev)),
+            ("datasets", lambda: tail_datasets_phase(dev)),
+            ("resources", tail_resources_phase)):
+        t = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        emit({"phase": f"tail.{name}.done",
+              "seconds": time.perf_counter() - t})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true",
@@ -7037,6 +7779,7 @@ def main() -> int:
 
         def ivf_flat():
             held["flat"] = flat_phase(shared)
+            held["tail.flat"] = held["flat"][:2]    # for tail.plan
 
         def serve():
             fold(k3, serve_phase(shared, *held.pop("flat")))
@@ -7101,6 +7844,11 @@ def main() -> int:
         def deep10m():
             fold(k1, deep10m_phase())
 
+        def tail():
+            launches, worst = tail_phase(shared, *held.pop("tail.flat"))
+            k1["launches_tail_plan"] = launches
+            k1["max_abs_err"] = max(k1["max_abs_err"], worst)
+
         for name, path in (("kmeans", lambda: kmeans_phase(shared)),
                            ("main", ivf_pq), ("bq", ivf_bq),
                            ("bq.streaming", bq_streaming),
@@ -7132,7 +7880,8 @@ def main() -> int:
                            ("hybrid", hybrid_path), ("deep10m", deep10m),
                            ("batch_knn.out_of_core",
                             lambda: out_of_core_phase(shared)),
-                           ("graph", lambda: graph_phase(shared))):
+                           ("graph", lambda: graph_phase(shared)),
+                           ("tail", tail)):
             t = time.perf_counter()
             path()
             emit({"phase": f"{name}.done", "seconds": time.perf_counter() - t})

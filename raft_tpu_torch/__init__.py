@@ -12,9 +12,25 @@ request they raise ``RuntimeError`` instead of falling back.
 
 Importing this package disables TF32 for fp32 matmuls and convolutions
 (:mod:`raft_tpu_torch.core.resources`): the reference's primitives run at
-``precision="highest"``, so fp32 products here stay full fp32.
+``precision="highest"``, so fp32 products here stay full fp32. The
+subpackages load on first access (``raft_tpu_torch.stats``), so the import
+itself stays light and touches no CUDA context.
 """
 
-from raft_tpu_torch.core.resources import Resources, resolve_device
+__version__ = "0.2.0"
 
-__all__ = ["Resources", "resolve_device"]
+from raft_tpu_torch._lazy import attach
+from raft_tpu_torch.core.resources import (Resources, current_resources,
+                                           resolve_device, use_resources)
+
+_SUBPACKAGES = ("cluster", "comms", "distributed", "label", "neighbors",
+                "obs", "ops", "random", "resilience", "solver", "sparse",
+                "spectral", "stats")
+
+__getattr__, __dir__ = attach(__name__, {n: (n, None) for n in _SUBPACKAGES})
+
+__all__ = list(_SUBPACKAGES) + [
+    "Resources", "current_resources", "use_resources", "__version__",
+    # port-only: the device rule every entry point follows
+    "resolve_device",
+]

@@ -7,12 +7,9 @@ writers, and the crash-safe progress channel.
 ``bench/progress`` (stdlib only), and importing that through this package
 must not import every index family the runner drives."""
 
+from raft_tpu_torch._lazy import attach
+
+__getattr__, __dir__ = attach(__name__,
+                              {"run_benchmark": ("runner", "run_benchmark")})
+
 __all__ = ["run_benchmark"]
-
-
-def __getattr__(name):
-    if name == "run_benchmark":
-        from raft_tpu_torch.bench.runner import run_benchmark
-
-        return run_benchmark
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,6 +23,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -85,6 +86,16 @@ def resolve_device(device: Optional[DeviceLike] = None,
         if dev.index is None:  # name the card, so device checks compare equal
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """``x`` — a tensor, a numpy array (negative strides and read-only
+    arrays included, copied first) or a nested sequence — as a tensor on
+    ``dev``."""
+    if isinstance(x, np.ndarray) and (not x.flags.writeable
+                                      or any(st < 0 for st in x.strides)):
+        x = x.copy()
+    return torch.as_tensor(x).to(dev)
 
 
 def resources_for(device: Optional[DeviceLike] = None,

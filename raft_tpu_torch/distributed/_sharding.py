@@ -35,7 +35,7 @@ from raft_tpu_torch.core.interruptible import (InterruptedException,
 from raft_tpu_torch.neighbors import _packing
 from raft_tpu_torch.ops import bq_scan
 from raft_tpu_torch.ops import strip_scan as ss
-from raft_tpu_torch.ops.select_k import select_k
+from raft_tpu_torch.ops.select_k import select_candidates, select_k
 from raft_tpu_torch.resilience.retry import record_event
 
 
@@ -350,38 +350,7 @@ def dense_local_scan(queries, probes, ld, bias, li, k: int, alpha: float,
             d = d + pair_const[:, j, None]
         d_all.append(d)
         ids_all.append(li[lids])
-    return _select_candidates(torch.cat(d_all, 1), torch.cat(ids_all, 1), k)
-
-
-def bq_dense_scan(queries_rot, probes, list_codes, scale, bias, list_ids,
-                  k: int, alpha: float, pair_const=None):
-    """The dense packed scan (``scan="bq"``'s dense engine): probe by
-    probe, codes unpacked to ±1, ``alpha·⟨q, b⟩·scale + bias`` with fp32
-    accumulation → top-k."""
-    qf = queries_rot.to(torch.float32)
-    p = probes.shape[1]
-    d_all, ids_all = [], []
-    for j in range(p):
-        lids = probes[:, j].to(torch.int64)
-        cand = bq_scan._unpack_pm1(list_codes[lids]).to(torch.float32)
-        ip = torch.bmm(cand, qf[:, :, None])[:, :, 0]
-        d = alpha * ip * scale[lids] + bias[lids]
-        if pair_const is not None:
-            d = d + pair_const[:, j, None]
-        d_all.append(d)
-        ids_all.append(list_ids[lids])
-    return _select_candidates(torch.cat(d_all, 1), torch.cat(ids_all, 1), k)
-
-
-def _select_candidates(d, flat_ids, k: int):
-    vals, sel = select_k(d, min(k, d.shape[1]), select_min=True)
-    ids = torch.gather(flat_ids, 1, sel.to(torch.int64)).to(torch.int32)
-    ids = torch.where(torch.isinf(vals), torch.full_like(ids, -1), ids)
-    if ids.shape[1] < k:
-        pad = k - ids.shape[1]
-        vals = torch.nn.functional.pad(vals, (0, pad), value=float("inf"))
-        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
-    return vals, ids
+    return select_candidates(torch.cat(d_all, 1), torch.cat(ids_all, 1), k)
 
 
 def _scan_shard(queries, probes, pair_const, plan, data, ids_arr, bias,
@@ -390,8 +359,8 @@ def _scan_shard(queries, probes, pair_const, plan, data, ids_arr, bias,
     ``make_tile_fn`` up to the merge)."""
     if dense:
         if scan == "bq":
-            return bq_dense_scan(queries, probes, data, scale, bias, ids_arr,
-                                 k, alpha, pair_const)
+            return bq_scan.bq_dense_scan(queries, probes, data, scale, bias,
+                                         ids_arr, k, alpha, pair_const)
         return dense_local_scan(queries, probes, data, bias, ids_arr, k,
                                 alpha, pair_const)
     qids, strip_list, pair_strip, pair_slot, layout = plan

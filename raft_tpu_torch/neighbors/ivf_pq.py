@@ -71,12 +71,17 @@ from raft_tpu_torch.ops import pq_scan, strip_scan
 from raft_tpu_torch.ops.distance import (canonical_metric,
                                          expanded_sqeuclidean, matmul_t,
                                          sqnorm)
-from raft_tpu_torch.ops.linalg import (make_rotation_matrix, rotate_rows,
-                                       unrotate_rows)
+from raft_tpu_torch.ops import linalg
+from raft_tpu_torch.ops.linalg import rotate_rows, unrotate_rows
 from raft_tpu_torch.ops.select_k import select_k
 from raft_tpu_torch.resilience import faultpoint
 
 SUPPORTED_METRICS = ("sqeuclidean", "euclidean", "inner_product", "cosine")
+
+# the rotation helpers live in ops/linalg; these keep the JAX package's
+# public names importable from here
+make_rotation_matrix = linalg.make_rotation_matrix
+pad_rot = linalg.pad_rot
 BACKENDS = ("auto", "ragged", "pallas", "gather")
 _log = logging.getLogger("raft_tpu_torch")
 

@@ -13,7 +13,9 @@ grouping, tournament rule, sub-block merge, candidate merge) is
 The paged half (serving) scans a ``PagedListStore``'s code, scale and
 bias pools in place through kernel K4 (``csrc/paged_bq_scan.cu``),
 launched by :func:`paged_bq_class`, on strip_scan's paged plan and merge;
-its plain twin is :func:`_paged_bq_class_plain`.
+its plain twin is :func:`_paged_bq_class_plain`. :func:`bq_dense_scan` is
+the dense engine the distributed layer runs on short lists and CPU shards
+(no kernel: plain PyTorch on its operands' device, as in the JAX package).
 
 Bit layout: rotated dimension ``d`` lives at bit ``d // nb`` of byte
 ``d % nb`` (``nb = rot_dim // 8``), bit-plane-major. Multi-bit codes
@@ -31,6 +33,7 @@ import torch
 
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops import strip_scan as ss
+from raft_tpu_torch.ops.select_k import select_candidates
 
 #: launches of the hand-written K2 kernel (``csrc/bq_scan.cu``)
 BQ_KERNEL = _native.KernelCounter("bq_scan")
@@ -416,3 +419,26 @@ def occupancy_stats(lens, m: int, q: int, p: int, rot_dim: int,
                              workspace_bytes=workspace_bytes, kf=kf)
     out["code_bytes_per_entry"] = multibit_width(rot_dim, bits)
     return out
+
+
+def bq_dense_scan(queries_rot, probes, list_codes, scale, bias, list_ids,
+                  k: int, alpha: float, pair_const=None):
+    """The dense packed scan (the distributed layer's dense engine for
+    ``scan="bq"``: short lists and CPU shards): probe by probe, codes
+    unpacked to ±1, ``alpha·⟨q, b⟩·scale + bias`` with fp32 accumulation,
+    then the top-k (+inf / -1 past the candidates). One probe's (q, mls,
+    rot_dim) unpacked block is the peak intermediate. Runs on its
+    operands' device."""
+    qf = queries_rot.to(torch.float32)
+    p = probes.shape[1]
+    d_all, ids_all = [], []
+    for j in range(p):
+        lids = probes[:, j].to(torch.int64)
+        cand = _unpack_pm1(list_codes[lids]).to(torch.float32)
+        ip = torch.bmm(cand, qf[:, :, None])[:, :, 0]
+        d = alpha * ip * scale[lids] + bias[lids]
+        if pair_const is not None:
+            d = d + pair_const[:, j, None]
+        d_all.append(d)
+        ids_all.append(list_ids[lids])
+    return select_candidates(torch.cat(d_all, 1), torch.cat(ids_all, 1), k)

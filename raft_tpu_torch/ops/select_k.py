@@ -13,7 +13,11 @@ sorting:
 * ``select_k(..., algo="exact")`` — a stable sort, which reproduces
   ``lax.top_k``'s lowest-index tie order (``torch.topk`` does not promise
   one). ``algo="approx"`` runs the same exact select: an exact select meets
-  any ``recall_target``.
+  any ``recall_target``. NaN ranks as +inf in every algo (the JAX
+  package's ``iter`` / ``packed`` contract and its TPU route; its CPU
+  ``lax.top_k`` ranks NaN above everything in a max-select).
+* ``merge_topk`` — two per-row top-k lists merged by the same select, the
+  first list's entries first at ties.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from raft_tpu_torch.core.resources import (DeviceLike, Resources,
+                                           resolve_device, to_device)
 
 
 def _sanitize(values: torch.Tensor) -> torch.Tensor:
@@ -122,3 +129,33 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
     if squeeze:
         return vals[0], idx[0]
     return vals, idx
+
+
+def merge_topk(vals_a, idx_a, vals_b, idx_b, select_min: bool = True,
+               device: Optional[DeviceLike] = None,
+               res: Optional[Resources] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two per-row top-k lists (values and ids, (rows, k) each, or
+    (k,)) into one: ``a`` then ``b`` concatenated and the best k kept by
+    the exact select, so an entry of ``a`` wins a tie against one of
+    ``b``."""
+    dev = resolve_device(device, res)
+    va = to_device(vals_a, dev)
+    vals = torch.cat([va, to_device(vals_b, dev)], dim=-1)
+    idx = torch.cat([to_device(idx_a, dev), to_device(idx_b, dev)], dim=-1)
+    return select_k(vals, va.shape[-1], select_min=select_min, indices=idx)
+
+
+def select_candidates(d: torch.Tensor, flat_ids: torch.Tensor, k: int):
+    """The k smallest scores of each row of ``d`` with their ids from
+    ``flat_ids`` (int32; -1 where the score is infinite), padded to k
+    columns with +inf / -1 when a row has fewer candidates — the last step
+    of the dense list scans."""
+    vals, sel = select_k(d, min(k, d.shape[1]), select_min=True)
+    ids = torch.gather(flat_ids, 1, sel.to(torch.int64)).to(torch.int32)
+    ids = torch.where(torch.isinf(vals), torch.full_like(ids, -1), ids)
+    if ids.shape[1] < k:
+        pad = k - ids.shape[1]
+        vals = torch.nn.functional.pad(vals, (0, pad), value=float("inf"))
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+    return vals, ids

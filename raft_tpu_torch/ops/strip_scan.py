@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -284,6 +285,119 @@ def plan_tile(probes: torch.Tensor, start: int, qt: int, cls_ord, classes,
         for c in range(n_classes) if counts_np[c] > 0
     ) or ((1, 1, 0, 1),)
     return qids, strip_list, pair_strip, pair_slot, layout
+
+
+@dataclass
+class StripPlan:
+    """Host-built strip table of one query tile (numpy int32 arrays), the
+    JAX package's: ``qids`` (S_pad, C) query per strip slot (-1 unused),
+    ``strip_list`` (S_pad,) list per strip (-1 padding), ``pair_strip`` /
+    ``pair_slot`` (q, p) each probed pair's strip and slot,
+    ``class_layout`` ``((w_blocks, n_sub, start, count), ...)`` and
+    ``n_strips`` real strips."""
+
+    qids: np.ndarray
+    strip_list: np.ndarray
+    pair_strip: np.ndarray
+    pair_slot: np.ndarray
+    class_layout: Tuple[Tuple[int, int, int, int], ...]
+    n_strips: int
+
+    @property
+    def s_pad(self) -> int:
+        return self.strip_list.shape[0]
+
+
+def plan_strips(probes: np.ndarray, lens: np.ndarray, n_lists: int,
+                dim: int = 0) -> StripPlan:
+    """The host planner: the strip table of a tile's probe matrix (q, p)
+    from per-list entry counts, in numpy, bit for bit the JAX package's.
+    Each probed list's pairs fill ``ceil(pairs / C)`` strips in probe order;
+    lists are grouped by class ``(w_blocks, n_sub)`` in ascending order, a
+    group's strip count padded to :func:`_bucket`'s size with strips of
+    list -1. The layout is the device plan's ``(w_blocks, n_sub, start,
+    count)`` form, so :func:`host_plan` feeds the same tile body
+    (:func:`_scan_tiles`) and K1 as the device plan (:func:`plan_tile`):
+    both put the same pairs in the same slots, so the results are the same
+    bits.
+
+    The JAX package plans with a fixed ``MAX_CLASS = 8``, where
+    :func:`class_info` caps the class by :func:`max_class_for`; the two
+    agree for rows up to 192 wide. A wider ``dim`` raises rather than plan
+    differently from either."""
+    if max_class_for(dim) < MAX_CLASS:
+        raise ValueError(
+            f"plan_strips plans with MAX_CLASS = {MAX_CLASS}, which rows of "
+            f"width {dim} exceed (max_class_for gives "
+            f"{max_class_for(dim)}): use the device plan")
+    q, p = probes.shape
+    flat = probes.reshape(-1).astype(np.int64)
+    order = np.argsort(flat, kind="stable")
+    sorted_lists = flat[order]
+
+    r = np.bincount(flat, minlength=n_lists)             # pairs per list
+    n_qc = _ceil_div(r, C)                               # strips per list
+    n_mc = np.maximum(_ceil_div(np.maximum(lens, 0), MC), 1)
+    cls_full = 1 << np.ceil(np.log2(n_mc)).astype(np.int64)
+    cls = np.minimum(cls_full, MAX_CLASS)                # fetch-block class
+    n_sub = np.maximum(cls_full // MAX_CLASS, 1)         # sub-block count
+
+    probed = np.nonzero(n_qc)[0]
+    keys = (cls[probed] << 32) | n_sub[probed]
+    strip_base = np.zeros(n_lists, np.int64)
+    strip_list_parts, layout = [], []
+    start = 0
+    for key in np.unique(keys):
+        lists_g = probed[keys == key]
+        count = int(n_qc[lists_g].sum())
+        pad = _bucket(count)
+        sl = np.full(pad, -1, np.int32)
+        sl[:count] = np.repeat(lists_g.astype(np.int32), n_qc[lists_g])
+        strip_base[lists_g] = start + np.concatenate(
+            [[0], np.cumsum(n_qc[lists_g])[:-1]])
+        strip_list_parts.append(sl)
+        layout.append((int(key >> 32), int(key & 0xFFFFFFFF), start, pad))
+        start += pad
+
+    s_pad = start
+    strip_list = (np.concatenate(strip_list_parts) if strip_list_parts
+                  else np.zeros(1, np.int32))
+    if not layout:  # no probes: one skipped strip
+        layout = [(1, 1, 0, 1)]
+        s_pad = 1
+
+    # per pair: its rank among its list's pairs → (strip, slot)
+    pair_off = np.concatenate([[0], np.cumsum(r)]).astype(np.int64)
+    rank = np.arange(q * p) - pair_off[sorted_lists]
+    pair_strip = np.empty(q * p, np.int32)
+    pair_slot = np.empty(q * p, np.int32)
+    pair_strip[order] = (strip_base[sorted_lists] + rank // C).astype(np.int32)
+    pair_slot[order] = (rank % C).astype(np.int32)
+
+    qids = np.full((s_pad, C), -1, np.int32)
+    qids[pair_strip, pair_slot] = (np.arange(q * p) // p).astype(np.int32)
+    return StripPlan(qids=qids, strip_list=strip_list,
+                     pair_strip=pair_strip.reshape(q, p),
+                     pair_slot=pair_slot.reshape(q, p),
+                     class_layout=tuple(layout), n_strips=int(n_qc.sum()))
+
+
+def host_plan(probes, lens, n_lists: int, dim: int = 0):
+    """``plan`` of :func:`_scan_tiles` from :func:`plan_strips`: each
+    query tile's probes fetched to the host once, planned in numpy, and
+    its tables copied back to the probes' device."""
+    dev = probes.device
+    probes_np = probes.cpu().numpy()
+    lens_np = np.asarray(lens)
+
+    def plan(start, qt):
+        sp = plan_strips(probes_np[start:start + qt], lens_np, n_lists, dim)
+        return (torch.from_numpy(sp.qids).to(dev),
+                torch.from_numpy(sp.strip_list).to(dev),
+                torch.from_numpy(sp.pair_strip).to(dev),
+                torch.from_numpy(sp.pair_slot).to(dev), sp.class_layout)
+
+    return plan
 
 
 def group_queries(queries_mat: torch.Tensor, qids: torch.Tensor) -> torch.Tensor:

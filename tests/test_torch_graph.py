@@ -85,6 +85,26 @@ def test_merge_labels_equals_jax(seed):
                                   np.asarray(jmerge(a, b)))
 
 
+def test_empty_labels_give_no_class():
+    """An empty int32 array: the port returns 0 classes and empty results
+    (with and without ``ignore_value``, and from ``get_classes``). The JAX
+    package returns n_unique 1 from ``make_monotonic`` (its ``is_new``
+    pad), raises ``IndexError`` with ``ignore_value`` and ``TypeError``
+    from ``get_classes`` (ROADMAP Queue 3, in the reference only)."""
+    empty = np.zeros(0, np.int32)
+    for ignore in (None, 1):
+        mono, n = tmono(empty, ignore_value=ignore, device=CPU)
+        assert mono.dtype == torch.int32 and mono.numel() == 0
+        assert int(n) == 0
+    classes, n = tget(empty, device=CPU)
+    assert classes.numel() == 0 and int(n) == 0
+    assert int(jmono(empty)[1]) == 1
+    with pytest.raises(IndexError):
+        jmono(empty, ignore_value=1)
+    with pytest.raises(TypeError):
+        jget(empty)
+
+
 def test_labels_follow_the_device_rule():
     with pytest.raises(ValueError, match="1-D"):
         tmono(np.zeros((2, 2), np.int32), device=CPU)

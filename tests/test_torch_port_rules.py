@@ -35,6 +35,15 @@ from raft_tpu_torch.neighbors import (ball_cover, batch_knn, brute_force,
 from raft_tpu_torch.sparse import distance as sp_dist
 from raft_tpu_torch.sparse import neighbors as sp_nb
 from raft_tpu_torch.ops import _native
+from raft_tpu_torch.ops import kernels as tk
+from raft_tpu_torch.ops import linalg as tl
+from raft_tpu_torch.ops import matrix as tm
+from raft_tpu_torch.ops import select_k as tsk
+from raft_tpu_torch.bench import datasets as tds
+from raft_tpu_torch.core import resources_manager as trm
+from raft_tpu_torch.solver import linear_assignment as tla
+from raft_tpu_torch.stats import metrics as tmet
+from raft_tpu_torch.stats import summary as tsum
 from raft_tpu_torch.ops import bq_scan as bq
 from raft_tpu_torch.ops import cagra_hop as ch
 from raft_tpu_torch.ops import distance as dist
@@ -383,6 +392,102 @@ def _entry_points(x, q, **dev):
         "ball_cover.eps_nn": lambda: ball_cover.eps_nn(bc_cpu, q, 1.0, **dev),
         "epsilon_neighborhood.eps_neighbors": lambda:
             epsilon_neighborhood.eps_neighbors(q, x[:64], 1.0, **dev),
+        **_tail_entry_points(x, q, **dev),
+    }
+
+
+def _tail_entry_points(x, q, **dev):
+    """The dense linear algebra, matrix, Gram-kernel, stats, solver,
+    merge, pool and dataset entry points: small operands, host data."""
+    a = x[:64]
+    keys = np.arange(64) % 5 - 1
+    lab = (np.arange(64) % 4).astype(np.int32)
+    spd = (a.T @ a).astype(np.float32)
+    ids = np.arange(16 * 5, dtype=np.int32).reshape(16, 5)
+    return {
+        "linalg.gemm": lambda: tl.gemm(a, a, transpose_a=True, **dev),
+        "linalg.dot": lambda: tl.dot(a, a.T, **dev),
+        "linalg.axpy": lambda: tl.axpy(2.0, a, a, **dev),
+        "linalg.norm": lambda: tl.norm(a, **dev),
+        "linalg.normalize": lambda: tl.normalize(a, **dev),
+        "linalg.reduce": lambda: tl.reduce(a, 0, "max", **dev),
+        "linalg.reduce_rows_by_key": lambda: tl.reduce_rows_by_key(
+            a, keys, 3, **dev),
+        "linalg.reduce_cols_by_key": lambda: tl.reduce_cols_by_key(
+            a, np.arange(8) % 3, 3, **dev),
+        "linalg.bincount": lambda: tl.bincount(keys, 3, weights=a[:, 0],
+                                               **dev),
+        "linalg.matrix_vector_op": lambda: tl.matrix_vector_op(a, a[0],
+                                                               **dev),
+        "linalg.qr": lambda: tl.qr(a, **dev),
+        "linalg.svd": lambda: tl.svd(a, **dev),
+        "linalg.rsvd": lambda: tl.rsvd(a, 2, p=2, **dev),
+        "linalg.lstsq": lambda: tl.lstsq(a, a[:, 0], **dev),
+        "linalg.lanczos": lambda: tl.lanczos(spd, 2, **dev),
+        "matrix.argmax": lambda: tm.argmax(a, **dev),
+        "matrix.argmin": lambda: tm.argmin(a, **dev),
+        "matrix.gather": lambda: tm.gather(a, [3, 1], **dev),
+        "matrix.scatter": lambda: tm.scatter(a, [3, 1], a[:2], **dev),
+        "matrix.slice_matrix": lambda: tm.slice_matrix(a, (1, 5), (0, 3),
+                                                       **dev),
+        "matrix.sort_cols_per_row": lambda: tm.sort_cols_per_row(a, **dev),
+        "matrix.linewise_op": lambda: tm.linewise_op(a, a[0], **dev),
+        "matrix.copy": lambda: tm.copy(a, **dev),
+        "matrix.reverse": lambda: tm.reverse(a, **dev),
+        "matrix.init_constant": lambda: tm.init_constant((2, 3), 1.0, **dev),
+        "kernels.linear_kernel": lambda: tk.linear_kernel(q, a, **dev),
+        "kernels.polynomial_kernel": lambda: tk.polynomial_kernel(q, a,
+                                                                  **dev),
+        "kernels.tanh_kernel": lambda: tk.tanh_kernel(q, a, **dev),
+        "kernels.rbf_kernel": lambda: tk.rbf_kernel(q, a, **dev),
+        "kernels.masked_l2_nn": lambda: tk.masked_l2_nn(
+            q, a, np.ones((16, 2), bool), np.arange(64) % 2, **dev),
+        "metrics.accuracy": lambda: tmet.accuracy(lab, lab[::-1], **dev),
+        "metrics.contingency_matrix": lambda: tmet.contingency_matrix(
+            lab, lab[::-1], **dev),
+        "metrics.rand_index": lambda: tmet.rand_index(lab, lab[::-1], **dev),
+        "metrics.adjusted_rand_index": lambda: tmet.adjusted_rand_index(
+            lab, lab[::-1], **dev),
+        "metrics.mutual_info_score": lambda: tmet.mutual_info_score(
+            lab, lab[::-1], **dev),
+        "metrics.homogeneity_score": lambda: tmet.homogeneity_score(
+            lab, lab[::-1], **dev),
+        "metrics.completeness_score": lambda: tmet.completeness_score(
+            lab, lab[::-1], **dev),
+        "metrics.v_measure": lambda: tmet.v_measure(lab, lab[::-1], **dev),
+        "metrics.r2_score": lambda: tmet.r2_score(a[:, 0], a[:, 1], **dev),
+        "metrics.regression_metrics": lambda: tmet.regression_metrics(
+            a[:, 0], a[:, 1], **dev),
+        "metrics.silhouette_score": lambda: tmet.silhouette_score(a, lab, 4,
+                                                                  **dev),
+        "metrics.trustworthiness_score": lambda: tmet.trustworthiness_score(
+            a, a[:, :2], 3, **dev),
+        "summary.sum_": lambda: tsum.sum_(a, **dev),
+        "summary.mean": lambda: tsum.mean(a, **dev),
+        "summary.mean_center": lambda: tsum.mean_center(a, **dev),
+        "summary.mean_add": lambda: tsum.mean_add(a, a[0], **dev),
+        "summary.vars_": lambda: tsum.vars_(a, **dev),
+        "summary.stddev": lambda: tsum.stddev(a, **dev),
+        "summary.meanvar": lambda: tsum.meanvar(a, **dev),
+        "summary.minmax": lambda: tsum.minmax(a, **dev),
+        "summary.histogram": lambda: tsum.histogram(a, 4, -1.0, 1.0, **dev),
+        "summary.weighted_mean": lambda: tsum.weighted_mean(
+            a, np.ones(64, np.float32), **dev),
+        "summary.dispersion": lambda: tsum.dispersion(a[:4], [3, 1, 2, 5],
+                                                      **dev),
+        "summary.entropy": lambda: tsum.entropy(lab, 4, **dev),
+        "summary.kl_divergence": lambda: tsum.kl_divergence(
+            np.full(4, 0.25, np.float32), np.full(4, 0.25, np.float32),
+            **dev),
+        "summary.information_criterion": lambda: tsum.information_criterion(
+            a[:, 0], "bic", 3, 64, **dev),
+        "solver.linear_assignment": lambda: tla(spd[:6, :6], **dev),
+        "select_k.merge_topk": lambda: tsk.merge_topk(
+            a[:16, :5], ids, a[16:32, :5], ids, **dev),
+        "resources_manager.get_resources": lambda: trm.get_resources(
+            _device_of(dev)),
+        "datasets.deep_like_rows": lambda: tds.deep_like_rows(
+            np.arange(8), **dev),
     }
 
 
@@ -403,6 +508,32 @@ def _cagra_file_load(index, **dev):
         path = Path(d) / "cagra.bin"
         index.save(path)
         return cagra.CagraIndex.load(path, **dev).graph
+
+
+#: the tail slice's entry points (``_tail_entry_points``)
+TAIL_ENTRY_POINTS = [
+    "linalg.gemm", "linalg.dot", "linalg.axpy", "linalg.norm",
+    "linalg.normalize", "linalg.reduce", "linalg.reduce_rows_by_key",
+    "linalg.reduce_cols_by_key", "linalg.bincount", "linalg.matrix_vector_op",
+    "linalg.qr", "linalg.svd", "linalg.rsvd", "linalg.lstsq", "linalg.lanczos",
+    "matrix.argmax", "matrix.argmin", "matrix.gather", "matrix.scatter",
+    "matrix.slice_matrix", "matrix.sort_cols_per_row", "matrix.linewise_op",
+    "matrix.copy", "matrix.reverse", "matrix.init_constant",
+    "kernels.linear_kernel", "kernels.polynomial_kernel",
+    "kernels.tanh_kernel", "kernels.rbf_kernel", "kernels.masked_l2_nn",
+    "metrics.accuracy", "metrics.contingency_matrix", "metrics.rand_index",
+    "metrics.adjusted_rand_index", "metrics.mutual_info_score",
+    "metrics.homogeneity_score", "metrics.completeness_score",
+    "metrics.v_measure", "metrics.r2_score", "metrics.regression_metrics",
+    "metrics.silhouette_score", "metrics.trustworthiness_score",
+    "summary.sum_", "summary.mean", "summary.mean_center", "summary.mean_add",
+    "summary.vars_", "summary.stddev", "summary.meanvar", "summary.minmax",
+    "summary.histogram", "summary.weighted_mean", "summary.dispersion",
+    "summary.entropy", "summary.kl_divergence",
+    "summary.information_criterion", "solver.linear_assignment",
+    "select_k.merge_topk", "resources_manager.get_resources",
+    "datasets.deep_like_rows",
+]
 
 
 @pytest.mark.parametrize("name", ["cagra.build", "cagra.search",
@@ -463,7 +594,8 @@ def _cagra_file_load(index, **dev):
                                   "batch_knn.BatchKQuery",
                                   "ball_cover.build", "ball_cover.knn_query",
                                   "ball_cover.eps_nn",
-                                  "epsilon_neighborhood.eps_neighbors"])
+                                  "epsilon_neighborhood.eps_neighbors"]
+                         + TAIL_ENTRY_POINTS)
 def test_entry_points_raise_without_cuda(no_cuda, small, name):
     x, q = small
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -1164,3 +1296,82 @@ def test_batch_knn_faultpoints_are_named_as_in_jax(rel, sites):
     got = [_faultpoint_sites(REPO / pkg / rel)
            for pkg in ("raft_tpu", "raft_tpu_torch")]
     assert got == [sites, sites], (rel, got)
+
+
+# the parity tail: modules at the JAX paths (two new files, the rest
+# extended), importing no JAX, with no try statement (the JAX modules have
+# none), and every public name of the JAX module present in the port's
+TAIL_MODULES = (
+    "ops/linalg.py", "ops/matrix.py", "ops/kernels.py", "stats/metrics.py",
+    "stats/summary.py", "solver/__init__.py", "solver/linear_assignment.py",
+    "ops/select_k.py", "core/resources_manager.py", "bench/datasets.py",
+    "ops/strip_scan.py", "ops/bq_scan.py", "neighbors/ivf_pq.py")
+
+
+def _public_names(tree):
+    names = set()
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            names.update(t.id for t in n.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_") and not n.isupper()}
+
+
+@pytest.mark.parametrize("rel", TAIL_MODULES)
+def test_tail_modules_mirror_jax_and_add_no_try(rel):
+    import importlib
+
+    trees = [ast.parse((REPO / pkg / rel).read_text())
+             for pkg in ("raft_tpu", "raft_tpu_torch")]
+    assert REPO / "raft_tpu_torch" / rel in _port_files()
+    roots = {m.split(".")[0]
+             for m in _imported_modules(REPO / "raft_tpu_torch" / rel)}
+    assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
+    counts = [sum(isinstance(n, ast.Try) for n in ast.walk(t))
+              for t in trees]
+    assert counts == [0, 0], (rel, counts)
+    mod = importlib.import_module(
+        "raft_tpu_torch." + rel[:-3].replace("/", ".").replace(".__init__",
+                                                               ""))
+    missing = sorted(n for n in _public_names(trees[0])
+                     if not hasattr(mod, n))
+    assert not missing, (rel, missing)
+
+
+def test_package_import_and_lazy_access_initialise_no_cuda_context():
+    """``import raft_tpu_torch`` loads the context module and nothing
+    else of the port; reading ``.stats``, ``.ops``, ``.solver`` and every
+    name each package's ``__all__`` lists imports the modules behind them
+    and never initialises CUDA (the child makes CUDA's lazy init raise)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('CUDA initialised')\n"
+        "torch.cuda._lazy_init = boom\n"
+        "import raft_tpu_torch as r\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.startswith('raft_tpu_torch'))\n"
+        "assert loaded == ['raft_tpu_torch', 'raft_tpu_torch._lazy',\n"
+        "                  'raft_tpu_torch.core',\n"
+        "                  'raft_tpu_torch.core.resources'], loaded\n"
+        "for pkg in (r.stats, r.ops, r.solver):\n"
+        "    for name in pkg.__all__:\n"
+        "        getattr(pkg, name)\n"
+        "for name in r.__all__:\n"
+        "    sub = getattr(r, name)\n"
+        "    for inner in getattr(sub, '__all__', ()):\n"
+        "        getattr(sub, inner)\n"
+        "for name in ('core', 'utils', 'cluster', 'neighbors'):\n"
+        "    pkg = getattr(r, name)\n"
+        "    for inner in pkg.__all__:\n"
+        "        getattr(pkg, inner)\n"
+        "assert 'raft_tpu_torch.neighbors.ivf_pq' in sys.modules\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

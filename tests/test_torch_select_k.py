@@ -72,6 +72,42 @@ def test_select_k_exact_lowest_index_ties(select_min):
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
 
 
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [2, 4, 40, 300])
+def test_select_k_exact_ranks_nan_as_jax_iter(select_min, k):
+    """NaN ranks as +inf in a min-select and as -inf in a max-select (it
+    is mapped to +inf before the select): the JAX package's ``iter``
+    contract, which its TPU route runs. Rows from ``_rows``: NaN
+    sprinkled, an all-NaN row, ±inf."""
+    v = _rows(7)
+    if k <= 4:
+        v = np.array([[1, np.nan, 3, 2]], np.float32)
+    wv, wi = jsk.select_k(jnp.asarray(v), k, select_min=select_min,
+                          algo="iter")
+    gv, gi = tsk.select_k(torch.from_numpy(v), k, select_min=select_min,
+                          algo="exact")
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    assert not torch.isnan(gv).any()
+
+
+def test_jax_cpu_exact_select_ranks_nan_first_in_a_max_select():
+    """The named divergence (ROADMAP Queue 3, closed by decision): the JAX
+    package's ``algo="exact"`` on the CPU is ``lax.top_k``, which ranks
+    NaN above every number; the port keeps the ``iter`` order above."""
+    v = np.array([[1, np.nan, 3, 2]], np.float32)
+    jv, ji = jsk.select_k(jnp.asarray(v), 2, select_min=False, algo="exact")
+    assert np.isnan(np.asarray(jv)[0, 0]) and np.asarray(jv)[0, 1] == 3
+    np.testing.assert_array_equal(np.asarray(ji), [[1, 2]])
+    gv, gi = tsk.select_k(torch.from_numpy(v), 2, select_min=False)
+    np.testing.assert_array_equal(gv.numpy(), [[3, 2]])
+    np.testing.assert_array_equal(gi.numpy(), [[2, 3]])
+    jv, _ = jsk.select_k(jnp.asarray(v), 4, select_min=True, algo="exact")
+    assert np.isnan(np.asarray(jv)[0, 3])
+    gv, _ = tsk.select_k(torch.from_numpy(v), 4, select_min=True)
+    assert float(gv[0, 3]) == float("inf")
+
+
 def test_packed_zero_scores_stay_distinct():
     # the port orders packed values exactly, denormals included: ±0 scores
     # keep their own columns instead of collapsing into one pass
