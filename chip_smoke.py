@@ -328,6 +328,25 @@ rows/s, unit norms, 10,000 rows regenerated alone bit-identical) and
 ``tail.resources`` (``get_resources()`` from 16 threads: one instance on
 ``cuda:0``).
 
+The port's static analysis rides along twice. ``analysis`` (first of the
+paths): ``python -m raft_tpu_torch.analysis raft_tpu_torch
+tests/test_torch_*.py chip_smoke.py`` in a child process whose CUDA lazy
+init raises — exit 0 against the port's baseline
+(``raft_tpu_torch/analysis/baseline.json``), no CUDA context and no JAX in
+the child at its exit, under ``ANALYSIS_BUDGET_S`` of wall time; the
+finding count, the baseline's share and the seconds. ``analysis.syncs``
+(after ``obs.roofline``, while the IVF-PQ index is held): one warm ragged
+IVF-PQ search at the main path's batch, n_probes and k_fetch under
+``torch.cuda.set_sync_debug_mode("warn")``, every warning recorded
+(``simplefilter("always")``); the syncs a search makes, grouped by the
+``raft_tpu_torch`` file:line each warning points at, each site with the
+rules that report it; every site that fires more than once a search must
+be reported by ``loop-host-transfer``, ``launch-host-sync`` or
+``tensor-branch`` (or stand in the baseline with a justification); K1's
+launches equal its launches in the same search without the debug mode.
+The debug mode sees only the syncs ATen checks (``.item()``, a blocking
+copy, ``nonzero``), not ``torch.cuda.synchronize()`` or a ctypes launch.
+
 Every kernel count is set to 0 just before a path is driven and read just
 after it. Then a ``kernels`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed phase raises: the script exits non-zero and prints no
@@ -366,6 +385,11 @@ BQ_PICK = (256, 80)
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 FP32_FLOP_S = 67e12          # fp32 outside the tensor cores (K6's sums)
+
+# the analysis gate's wall-time budget (the child's torch import included)
+ANALYSIS_BUDGET_S = 30.0
+#: the rules that report a sync the card's debug mode sees
+SYNC_RULES = ("loop-host-transfer", "launch-host-sync", "tensor-branch")
 
 # values: summation-order noise plus one 12-bit packing quantum (2^-11
 # relative); the absolute floor covers scores that cancel toward zero
@@ -7662,6 +7686,154 @@ def tail_subphases(shared, centers, coarse, dev):
               "seconds": time.perf_counter() - t})
 
 
+# the child of the analysis phase: the gate's command as ``python -m`` runs
+# it, with CUDA's lazy init made to raise, reporting at exit whether CUDA
+# was initialised and which JAX modules were loaded
+ANALYSIS_CHILD = """
+import atexit, json, runpy, sys, torch
+def boom(*a, **k):
+    raise AssertionError("CUDA initialised")
+torch.cuda._lazy_init = boom
+def report():
+    print(json.dumps({"cuda": torch.cuda.is_initialized(),
+                      "jax": sorted(m for m in sys.modules if m == "jax"
+                                    or m.startswith(("jax.", "raft_tpu."))
+                                    or m == "raft_tpu")}), file=sys.stderr)
+atexit.register(report)
+sys.argv = ["raft_tpu_torch.analysis", *sys.argv[1:]]
+runpy.run_module("raft_tpu_torch.analysis", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def analysis_phase():
+    """The port's graftlint gate in a child process (module docstring)."""
+    from pathlib import Path
+
+    from raft_tpu_torch.analysis.baseline import DEFAULT_PATH, Baseline
+    from raft_tpu_torch.analysis.write_baseline import scan_paths
+
+    root = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", ANALYSIS_CHILD, "--json", *scan_paths(root)],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t
+    if out.returncode != 0:
+        raise AssertionError(f"graftlint exit {out.returncode}:\n"
+                             f"{out.stdout[-4000:]}{out.stderr[-4000:]}")
+    report = json.loads(out.stdout)
+    child = json.loads(out.stderr.strip().splitlines()[-1])
+    entries = Baseline.load(DEFAULT_PATH).entries
+    emit({"phase": "analysis", "rc": out.returncode,
+          "findings": report["new"] + report["baselined"],
+          "new": report["new"], "baselined": report["baselined"],
+          "baseline_entries": len(entries),
+          "baseline_count": sum(e["count"] for e in entries),
+          "seconds": seconds, "cuda_in_child": child["cuda"],
+          "jax_in_child": child["jax"]})
+    if report["new"] or child["cuda"] or child["jax"]:
+        raise AssertionError(f"analysis: {report['new']} new findings, "
+                             f"child {child}")
+    if seconds >= ANALYSIS_BUDGET_S:
+        raise AssertionError(f"analysis took {seconds:.1f} s "
+                             f"(budget {ANALYSIS_BUDGET_S} s)")
+
+
+def statement_lines(path, line):
+    """The first and last line of the innermost statement of ``path`` that
+    holds ``line`` (a warning names the line Python is executing, which in
+    a statement spread over lines need not be its first)."""
+    import ast
+
+    spans = [(node.end_lineno - node.lineno, node.lineno, node.end_lineno)
+             for node in ast.walk(ast.parse(path.read_text()))
+             if isinstance(node, ast.stmt)
+             and node.lineno <= line <= node.end_lineno]
+    return min(spans)[1:] if spans else (line, line)
+
+
+def analysis_syncs_phase(shared, index, pick, dev="cuda"):
+    """The syncs of one warm ragged IVF-PQ search as the card reports them,
+    held against the sync rules (module docstring)."""
+    import collections
+    import warnings
+    from pathlib import Path
+
+    import torch
+
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.analysis import analyze_paths
+    from raft_tpu_torch.analysis.baseline import DEFAULT_PATH, Baseline
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    res = Resources(device=dev)
+    qs = shared["queries"]
+
+    def run():
+        return ivf_pq.search(index, qs, pick["k_fetch"],
+                             n_probes=pick["n_probes"], backend="ragged",
+                             res=res)
+
+    run()
+    torch.cuda.synchronize()
+    reset_counts()
+    run()
+    torch.cuda.synchronize()
+    plain_launches = ss.STRIP_KERNEL.launches
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = ss.STRIP_KERNEL.launches
+
+    root = Path(__file__).resolve().parent
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    sites, outside = collections.Counter(), collections.Counter()
+    for w in syncs:
+        path = Path(w.filename).resolve()
+        if root / "raft_tpu_torch" in path.parents:
+            sites[(path.relative_to(root).as_posix(), w.lineno)] += 1
+        else:
+            outside[f"{w.filename}:{w.lineno}"] += 1
+    findings = [f for f in analyze_paths(["raft_tpu_torch"], root=root)
+                if f.rule in SYNC_RULES]
+    justified = {(e["path"], e["snippet"]) for e in
+                 Baseline.load(DEFAULT_PATH).entries
+                 if e["rule"] in SYNC_RULES and e.get("justification")}
+    rows, unreported = [], []
+    for (rel, line), count in sorted(sites.items()):
+        first, last = statement_lines(root / rel, line)
+        rules = sorted({f.rule for f in findings
+                        if f.path == rel and first <= f.line <= last})
+        baselined = any((rel, f.snippet) in justified for f in findings
+                        if f.path == rel and first <= f.line <= last)
+        rows.append({"site": f"{rel}:{line}", "count": count,
+                     "reported_by": rules, "baselined": baselined})
+        if count > 1 and not rules:
+            unreported.append(f"{rel}:{line}")
+    emit({"phase": "analysis.syncs", "n_probes": pick["n_probes"],
+          "k_fetch": pick["k_fetch"], "queries": qs.shape[0],
+          "syncs_per_search": len(syncs), "sites": rows,
+          "outside_package": dict(outside),
+          "repeated_unreported": unreported, "k1_launches": launches,
+          "k1_launches_without_debug_mode": plain_launches,
+          "other_warnings": len(caught) - len(syncs)})
+    if launches != plain_launches or launches <= 0:
+        raise AssertionError(f"K1 launched {launches} times under the sync "
+                             f"debug mode, {plain_launches} without it")
+    if unreported:
+        raise AssertionError(f"per-search sync sites no rule reports: "
+                             f"{unreported}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true",
@@ -7803,6 +7975,10 @@ def main() -> int:
         def roofline():
             roofline_phase(shared, *held.pop("serve.flat"), *held["main"])
 
+        def analysis_syncs():
+            k1["launches_analysis_syncs"] = analysis_syncs_phase(
+                shared, *held["main"])
+
         def serve_maint():
             serve_maint_phase(shared, *held.pop("main"))
 
@@ -7849,13 +8025,15 @@ def main() -> int:
             k1["launches_tail_plan"] = launches
             k1["max_abs_err"] = max(k1["max_abs_err"], worst)
 
-        for name, path in (("kmeans", lambda: kmeans_phase(shared)),
+        for name, path in (("analysis", analysis_phase),
+                           ("kmeans", lambda: kmeans_phase(shared)),
                            ("main", ivf_pq), ("bq", ivf_bq),
                            ("bq.streaming", bq_streaming),
                            ("flat", ivf_flat), ("serve", serve),
                            ("serve.queue", serve_queue),
                            ("tuning", tuning),
                            ("serve.pq", serve_pq), ("obs.roofline", roofline),
+                           ("analysis.syncs", analysis_syncs),
                            ("serve.maint", serve_maint),
                            ("serve.bq", serve_bq),
                            ("lut", lut), ("cache", cache), ("brute", brute),

@@ -466,7 +466,7 @@ def tiled_search(queries_mat, probes, lens_max, n_lists: int, k: int,
     return vals, ids, report
 
 
-def search_engine_dense(comms: C.Comms, max_list_size: int) -> bool:
+def _search_engine_dense(comms: C.Comms, max_list_size: int) -> bool:
     """The scan engine of a distributed IVF search (module docstring):
     dense on CPU shards and for lists the strip engine cannot take. A mesh
     holds one device type (``Mesh`` raises otherwise), so its first shard

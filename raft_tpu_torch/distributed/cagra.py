@@ -131,7 +131,7 @@ def build(dataset, params: sl.CagraParams = sl.CagraParams(),
             payload["centroid_reps"].append(li.centroid_reps)
             payload["proj_energy"].append(
                 li.proj_energy if li.proj_energy is not None
-                else torch.tensor(li.proj.shape[1] / dim, device=dev))
+                else torch.full((), li.proj.shape[1] / dim, device=dev))
     opt = {}
     # the payload rides only when every shard built it; the seeding table
     # also needs one of the same shape on every shard (small shards skip

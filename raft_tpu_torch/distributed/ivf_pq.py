@@ -197,7 +197,7 @@ def search(index: ShardedIvfPqIndex, queries, k: int, n_probes: int = 20,
     vals, ids, report = sh.tiled_search(
         qr_scaled, probes, index.lens_max, index.n_lists, int(k),
         index.comms, -2.0 if l2 else -1.0,
-        dense=sh.search_engine_dense(index.comms, index.max_list_size),
+        dense=sh._search_engine_dense(index.comms, index.max_list_size),
         data=index.decoded, ids_arr=index.list_ids, bias=index.bias,
         pair_const=pair_const, algo="ivf_pq", n_total=index.n_total,
         health=health, workspace_bytes=res.workspace_bytes)

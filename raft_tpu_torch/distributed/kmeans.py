@@ -276,12 +276,14 @@ def fit_balanced(X, n_clusters: int,
     xs, _ = C.shard_padded(X, comms)
     ws, _ = C.shard_padded(w, comms, fill=0.0)
     gen_init, *shard_gens = seeded_generators(params.seed, 1 + world, dev0)
+    # each shard's seed, drawn from its own generator, read in one copy
+    seeds = torch.cat([torch.randint(0, 2 ** 62, (1,), generator=shard_gens[r],
+                                     device=dev0)
+                       for r in comms.ranks]).tolist()
     gens = {}
-    for r, d in zip(comms.ranks, comms.devices):
+    for r, d, seed in zip(comms.ranks, comms.devices, seeds):
         g = torch.Generator(device=d)
-        g.manual_seed(int(torch.randint(0, 2 ** 62, (1,),
-                                        generator=shard_gens[r],
-                                        device=dev0)))
+        g.manual_seed(seed)
         gens[r] = g
     rows = torch.randint(0, n, (n_clusters,), generator=gen_init, device=dev0)
     centers0 = X[rows]

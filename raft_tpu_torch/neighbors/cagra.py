@@ -74,7 +74,6 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import obs
-from raft_tpu_torch.obs import compile as obs_compile
 from raft_tpu_torch.obs import roofline as obs_roofline
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.interruptible import check_interrupt

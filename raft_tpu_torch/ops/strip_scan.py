@@ -245,7 +245,10 @@ def _plan_device(probes: torch.Tensor, cls_ord: torch.Tensor, n_lists: int,
     counts = torch.zeros(n_classes, dtype=torch.int64, device=dev)
     counts.index_add_(0, cls_sorted, n_qc_sorted)
     class_first = torch.cumsum(counts, 0) - counts
-    starts = torch.tensor(region_starts, dtype=torch.int64, device=dev)
+    # the host list goes to the card without a stream sync (a blocking
+    # copy would wait for every kernel queued before it)
+    starts = torch.tensor(region_starts, dtype=torch.int64).to(
+        dev, non_blocking=True)
     base_sorted = starts[cls_sorted] + (csum - class_first[cls_sorted])
     strip_base = torch.zeros(n_lists, dtype=torch.int64, device=dev)
     strip_base[list_order] = base_sorted
@@ -705,8 +708,8 @@ def merge_strip_candidates(out_v, out_e, strip_list, pair_strip, pair_slot,
                                          in class_layout[:-1]])
         deltas = torch.tensor(
             [int(cs - start) for cs, (_, _, start, _)
-             in zip(concat_starts, class_layout)], dtype=torch.int64,
-            device=dev)
+             in zip(concat_starts, class_layout)],
+            dtype=torch.int64).to(dev, non_blocking=True)
         cls_idx = sum((ps >= start).to(torch.int64)
                       for (_, _, start, _) in class_layout[1:])
         ps_c = ps + deltas[cls_idx]

@@ -541,3 +541,82 @@ def test_shard_bodies_never_resolve_to_the_fused_hop():
         tcagra.CagraSearchParams(), True, 10, 64, size=100_000, width=4,
         degree=64, proj_dim=64, on_cuda=True)
     assert mode == "fused"         # the single index keeps K6
+
+
+# ---------------------------------------------------------------------------
+# armed shard faultpoints: JAX's degraded-search tests, on both packages
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def arm_both(monkeypatch):
+    """Arm a spec through ``RAFT_TPU_FAULTS`` in both packages (each keeps
+    its own fault table); disarmed after the test."""
+    from raft_tpu.resilience import faultinject as jfi
+    from raft_tpu_torch.resilience import faultinject as tfi
+
+    def arm(spec):
+        monkeypatch.setenv("RAFT_TPU_FAULTS", spec)
+        jfi.reset()
+        tfi.reset()
+
+    yield arm
+    monkeypatch.delenv("RAFT_TPU_FAULTS", raising=False)
+    jfi.reset()
+    tfi.reset()
+
+
+@pytest.mark.parametrize("spec", [
+    "distributed.brute_force.search.shard=fatal:1",
+    "distributed.brute_force.search.shard=transient:1",
+    "distributed.ivf_flat.search.shard=fatal:1"])
+def test_armed_shard_faultpoint_degrades_and_recovers_as_jax(
+        bf_pair, ivf_pairs, data, arm_both, spec):
+    """The first shard probed fails: the search answers over the
+    survivors (equal to JAX's under the same fault), a FATAL loss stays
+    lost on the next search, a TRANSIENT one heals to full coverage."""
+    _, q, _ = data
+    if ".brute_force." in spec:
+        jidx, tidx, _ = bf_pair
+        jargs, targs = (jidx, q, K), (tidx, q, K)
+        jfn, tfn, kw = jdbf.search, tdbf.search, {}
+    else:
+        jidx, tidx, _ = ivf_pairs["ivf_flat"]
+        jargs, targs = (jidx, q, K), (tidx, q, K)
+        jfn, tfn, kw = jdfl.search, tdfl.search, {"n_probes": 5}
+
+    def jsearch():
+        return jfn(*jargs, **kw)
+
+    def tsearch():
+        return tfn(*targs, **kw, **CPU)
+
+    arm_both(spec)
+    want, got = jsearch(), tsearch()
+    assert got.degraded and got.lost_shards == (0,)
+    assert got.coverage == pytest.approx(7 / 8)
+    assert_same_report(got, want)
+    assert_same_search(got, want, atol=1e-4)
+    events = [e["event"] for e in tres.recent_events()]
+    assert "partial_merge" in events
+    fatal = spec.endswith("=fatal:1")
+    assert tres.shard_health().state(0) == (tres.LOST if fatal
+                                            else tres.SUSPECT)
+    want2, got2 = jsearch(), tsearch()
+    assert_same_report(got2, want2)
+    assert got2.degraded == fatal and got2.coverage == pytest.approx(
+        7 / 8 if fatal else 1.0)
+    assert tres.shard_health().state(0) == (tres.LOST if fatal
+                                            else tres.HEALTHY)
+
+
+def test_armed_kmeans_shard_faultpoint_degrades_as_jax(data, arm_both):
+    x, _, _ = data
+    arm_both("distributed.kmeans.fit.shard=fatal:1")
+    _, _, jrep = jdkm.fit_balanced(x, 16, JKBP(n_iters=4), comms=_jc())
+    tcen, tlab, trep = tdkm.fit_balanced(
+        x, 16, KMeansBalancedParams(n_iters=4), comms=_tc(), **CPU)
+    assert (trep.coverage, trep.degraded, trep.dropped) == (
+        jrep.coverage, jrep.degraded, jrep.dropped)
+    assert trep.degraded and 0 in trep.dropped
+    assert bool(torch.isfinite(tcen).all()) and tlab.shape == (N,)

@@ -1164,14 +1164,14 @@ def test_shard_scans_follow_the_device_rule():
     from raft_tpu_torch.distributed import _sharding as sh
 
     cpu = C.Comms(local_mesh(2, device="cpu"))
-    assert sh.search_engine_dense(cpu, 512) is True
-    assert sh.search_engine_dense(cpu, 3 * ss.MC) is True
+    assert sh._search_engine_dense(cpu, 512) is True
+    assert sh._search_engine_dense(cpu, 3 * ss.MC) is True
     # a mesh of CUDA shards is only described here, never launched on
     cuda0 = torch.device("cuda", 0)
     on_card = C.Comms(C.Mesh(np.array([cuda0, cuda0], dtype=object),
                              ("data",)))
-    assert sh.search_engine_dense(on_card, 4 * ss.MC) is False
-    assert sh.search_engine_dense(on_card, 3 * ss.MC) is True
+    assert sh._search_engine_dense(on_card, 4 * ss.MC) is False
+    assert sh._search_engine_dense(on_card, 3 * ss.MC) is True
     # one CPU shard must not turn a CUDA shard's scan into the twin
     with pytest.raises(ValueError, match="one device type"):
         C.Mesh(np.array([cuda0, torch.device("cpu")], dtype=object),
@@ -1187,7 +1187,20 @@ OBS_TUNING_RUNNER_MODULES = (
     "serving/controller.py", "random/__init__.py", "random/generators.py")
 
 
-@pytest.mark.parametrize("rel", OBS_TUNING_RUNNER_MODULES)
+# the analyzer (graftlint for the port): every JAX module's counterpart
+ANALYSIS_MODULES = tuple(
+    f"analysis/{name}.py" for name in (
+        "__init__", "__main__", "findings", "registry", "walker", "baseline",
+        "cli", "projectgraph", "jit_regions", "rules/__init__",
+        "rules/_common", "rules/banned_api", "rules/bench_io",
+        "rules/env_knob", "rules/exceptions", "rules/faultpoint_contract",
+        "rules/guarded_state", "rules/host_sync", "rules/imports",
+        "rules/lock_order", "rules/mutable_defaults", "rules/obs_coverage",
+        "rules/recompile", "rules/span_name", "rules/tracer_control",
+        "rules/unclassified_except"))
+
+
+@pytest.mark.parametrize("rel", OBS_TUNING_RUNNER_MODULES + ANALYSIS_MODULES)
 def test_slice_modules_sit_at_the_jax_paths_and_import_no_jax(rel):
     path = REPO / "raft_tpu_torch" / rel
     assert path in _port_files() and (REPO / "raft_tpu" / rel).is_file()
@@ -1195,19 +1208,24 @@ def test_slice_modules_sit_at_the_jax_paths_and_import_no_jax(rel):
     assert not roots & {"jax", "jaxlib", "raft_tpu"}, rel
 
 
-@pytest.mark.parametrize("rel", ["bench/progress.py", "obs/aggregate.py"])
+@pytest.mark.parametrize("rel", ["bench/progress.py", "obs/aggregate.py",
+                                 *ANALYSIS_MODULES,
+                                 "analysis/write_baseline.py"])
 def test_stdlib_modules_import_no_torch_at_module_level(rel):
     """Module-level imports only (function bodies may import lazily): a
-    parent that never imports torch loads these files by path."""
+    parent that never imports torch loads these files by path; the
+    analyzer's modules import the stdlib and each other."""
     tree = ast.parse((REPO / "raft_tpu_torch" / rel).read_text())
     roots = set()
     for node in tree.body:
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and not (
+                node.module or "").startswith("raft_tpu_torch.analysis"):
             roots.add((node.module or "").split(".")[0])
     assert roots <= {"__future__", "argparse", "json", "math", "os", "sys",
-                     "threading", "time", "typing"}, roots
+                     "threading", "time", "typing", "ast", "collections",
+                     "dataclasses", "glob", "pathlib", "re"}, roots
 
 
 def _faultpoint_sites(path):

@@ -291,9 +291,10 @@ PORT_ONLY = {
         "shutdown_distributed": "tears down the torch.distributed group",
     },
 }
-PACKAGES = ["", "bench", "cluster", "comms", "core", "distributed", "label",
-            "neighbors", "obs", "ops", "random", "resilience", "serving",
-            "solver", "sparse", "spectral", "stats", "utils"]
+PACKAGES = ["", "analysis", "bench", "cluster", "comms", "core",
+            "distributed", "label", "neighbors", "obs", "ops", "random",
+            "resilience", "serving", "solver", "sparse", "spectral", "stats",
+            "utils"]
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
