@@ -974,10 +974,12 @@ def _pq_probe_prep(queries, centers, rotation, n_probes: int,
 def _pq_search_prep(queries, centers, rotation, b_sum, decoded_scale,
                     n_probes: int, select_algo: str, l2: bool,
                     list_ids=None, filter=None):
-    probes, qr, pair_const = _pq_probe_prep(queries, centers, rotation,
-                                            n_probes, select_algo, l2)
-    bias = _filtering.apply_filter_bias(
-        _ragged_bias_pq(b_sum, centers, rotation, l2), list_ids, filter)
+    with obs.record_span("ivf_pq::probe_select"):
+        probes, qr, pair_const = _pq_probe_prep(queries, centers, rotation,
+                                                n_probes, select_algo, l2)
+    with obs.record_span("ivf_pq::bias"):
+        bias = _filtering.apply_filter_bias(
+            _ragged_bias_pq(b_sum, centers, rotation, l2), list_ids, filter)
     return probes, qr * decoded_scale, bias, pair_const
 
 
@@ -1007,7 +1009,8 @@ def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
         qr_scaled, probes, index.decoded, bias, index.list_ids, cls_ord,
         classes, class_counts, int(k), int(k), -2.0 if l2 else -1.0,
         q_tile, pair_const=pair_const, approx_ok=True)
-    return _finalize_ragged(vals, ids, queries, index.metric)
+    with obs.record_span("ivf_pq::finalize"):
+        return _finalize_ragged(vals, ids, queries, index.metric)
 
 
 def _search_ragged_pq(index: IvfPqIndex, queries, k: int, n_probes: int,
@@ -1311,9 +1314,8 @@ def search(index: IvfPqIndex, queries, k: int, n_probes: int = 20,
     scan_attrs = None
     if obs.enabled():
         q = int(queries.shape[0])
-        scan_attrs = _scan_telemetry(
-            "ivf_pq.search", backend, q, n_probes, k, filter_attrs,
-            rows_scanned=q * n_probes * index.max_list_size)
+        scan_attrs = _scan_telemetry("ivf_pq.search", backend, q, n_probes,
+                                     k, filter_attrs)
         # the dispatch's static FLOP/byte model, with the strip planner's
         # occupancy when the host already holds the list lengths
         rot_dim_obs = int(index.rotation.shape[0])

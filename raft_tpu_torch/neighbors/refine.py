@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
+from raft_tpu_torch.core.trace import traced
 from raft_tpu_torch.ops.distance import canonical_metric, sqnorm
 from raft_tpu_torch.ops.select_k import select_k
 
@@ -24,6 +25,7 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
                            min=1e-30)
 
 
+@traced("refine::refine")
 def refine(dataset, queries, candidates, k: int, metric: str = "sqeuclidean",
            res: Optional[Resources] = None,
            device: Optional[DeviceLike] = None):

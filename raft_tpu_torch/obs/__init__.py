@@ -25,10 +25,12 @@ Instrumented code gates every emission::
     if obs.enabled():
         obs.add("ivf_pq.search.queries", q)
 
-so the telemetry-off cost of a site is one call and one branch.
-``RAFT_TPU_OBS_SYNC=1`` (or :func:`enable_sync`) drains the cards at each
-span's exit, so spans report committed time, with the enqueue wall clock
-kept as the ``dispatch_s`` attribute.
+so the telemetry-off cost of a site is one call and one branch. Where a
+CUDA context exists a span also records ``device_s``, the card's time
+between two events it puts on the stream, resolved without a wait
+(obs/tracing.py). ``RAFT_TPU_OBS_SYNC=1`` (or :func:`enable_sync`) drains
+the cards at each span's exit, so spans report committed time, with the
+enqueue wall clock kept as the ``dispatch_s`` attribute.
 """
 
 # NOTE: obs.aggregate, obs.report and obs.flight are deliberately NOT

@@ -9,7 +9,8 @@ merge is **exact**, not approximate:
 
 * counters — integer/float sums, key-wise;
 * timers — ``count``/``total_s`` sum, ``min_s``/``max_s`` min/max, mean
-  recomputed from the merged totals;
+  recomputed from the merged totals; ``device_count``/``device_total_s``
+  (a span's card time, where either side has it) sum;
 * histograms — ``count``/``sum`` sum, ``min``/``max`` min/max, and the
   power-of-two buckets merged KEY-WISE (a bucket bound is a pure function of
   the observed value, so identical bounds on different processes are the
@@ -97,13 +98,19 @@ def percentile_bounds(buckets: dict, count: int) -> dict:
 def _merge_timer(a: dict, b: dict) -> dict:
     count = a.get("count", 0) + b.get("count", 0)
     total = a.get("total_s", 0.0) + b.get("total_s", 0.0)
-    return {
+    out = {
         "count": count,
         "total_s": total,
         "min_s": min(a.get("min_s", math.inf), b.get("min_s", math.inf)),
         "max_s": max(a.get("max_s", 0.0), b.get("max_s", 0.0)),
         "mean_s": total / count if count else 0.0,
     }
+    if "device_count" in a or "device_count" in b:
+        out["device_count"] = a.get("device_count", 0) + \
+            b.get("device_count", 0)
+        out["device_total_s"] = a.get("device_total_s", 0.0) + \
+            b.get("device_total_s", 0.0)
+    return out
 
 
 def _merge_hist(a: dict, b: dict) -> dict:

@@ -12,8 +12,17 @@ disabled cost is one branch. When disabled, :func:`record_span` returns
 the shared no-op :data:`NOOP_SPAN` and never touches the registry.
 
 Span timings are host wall clock around the instrumented region. CUDA
-work is queued asynchronously, so a span measures the enqueue unless sync
-mode (``RAFT_TPU_OBS_SYNC=1``) drains the cards at its exit.
+work is queued asynchronously, so a span's ``dur_s`` measures the enqueue
+unless sync mode (``RAFT_TPU_OBS_SYNC=1``) drains the cards at its exit.
+Where a CUDA context exists a span also takes the card's time between two
+events it records on the stream (``device_s``, obs/tracing.py), resolved
+without a wait; its timer keeps the per-name ``device_total_s``.
+
+Counters are host numbers, or (:func:`add_device`) 0-d tensors that add
+on the card. A snapshot never waits on a card: it resolves the span times
+the card has passed. :func:`settle` waits once, resolves the rest and
+reads the device counters into the host counters, which snapshots then
+report.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ __all__ = [
     "MetricsRegistry",
     "NOOP_SPAN",
     "add",
+    "add_device",
     "disable",
     "enable",
     "enabled",
@@ -46,6 +56,7 @@ __all__ = [
     "register_dispatch_span",
     "registry",
     "reset",
+    "settle",
     "set_gauge",
     "snapshot",
 ]
@@ -54,20 +65,21 @@ __all__ = [
 #: percentile bucket of a latency histogram to a recent trace id
 EXEMPLAR_CAP = 8
 
-#: histogram namespace of sync-mode committed span durations:
-#: ``dispatch.<span name>``, the measured leg obs/roofline pairs with its
-#: static FLOP/byte model
+#: histogram namespace of sync-mode span device times: ``dispatch.<span
+#: name>``, the measured leg obs/roofline pairs with its static FLOP/byte
+#: model
 DISPATCH_HIST_PREFIX = "dispatch."
 
-#: spans whose sync-mode committed durations fold into a ``dispatch.*``
-#: histogram — only registered device-dispatch spans (obs/roofline
-#: registers its entries' spans at import), so host spans are never
-#: labelled as device dispatches
+#: spans whose sync-mode device times (``device_s``) fold into a
+#: ``dispatch.*`` histogram — only registered device-dispatch spans
+#: (obs/roofline registers its entries' spans at import), so host spans
+#: are never labelled as device dispatches
 _DISPATCH_SPANS: set = set()
 
 
 def register_dispatch_span(name: str) -> None:
-    """Opt a span name into the sync-mode ``dispatch.*`` histogram fold."""
+    """Opt a span name into the sync-mode ``dispatch.*`` histogram
+    fold."""
     _DISPATCH_SPANS.add(name)
 
 
@@ -93,15 +105,19 @@ def disable() -> None:
 
 
 class _TimerStat:
-    """count / total / min / max of one named wall-clock timer."""
+    """count / total / min / max of one named wall-clock timer, and the
+    count and total of the device times its spans resolved."""
 
-    __slots__ = ("count", "total_s", "min_s", "max_s")
+    __slots__ = ("count", "total_s", "min_s", "max_s", "device_count",
+                 "device_total_s")
 
     def __init__(self):
         self.count = 0
         self.total_s = 0.0
         self.min_s = math.inf
         self.max_s = 0.0
+        self.device_count = 0
+        self.device_total_s = 0.0
 
     def add(self, seconds: float) -> None:
         self.count += 1
@@ -112,13 +128,17 @@ class _TimerStat:
             self.max_s = seconds
 
     def as_dict(self) -> dict:
-        return {
+        out = {
             "count": self.count,
             "total_s": self.total_s,
             "min_s": self.min_s,
             "max_s": self.max_s,
             "mean_s": self.total_s / self.count if self.count else 0.0,
         }
+        if self.device_count:
+            out["device_count"] = self.device_count
+            out["device_total_s"] = self.device_total_s
+        return out
 
 
 class _HistStat:
@@ -220,11 +240,45 @@ class MetricsRegistry:
         self._timers: dict = {}    # guarded-by: _lock
         self._hists: dict = {}     # guarded-by: _lock
         self._gauges: dict = {}    # guarded-by: _lock
+        self._device: dict = {}    # guarded-by: _lock
 
     # -- writes -------------------------------------------------------------
     def add(self, name: str, value: float = 1) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + value
+
+    def add_device(self, name: str, value) -> None:
+        """Add a 0-d tensor to device counter ``name`` on its own device,
+        without reading it: the card does the sum."""
+        torch = sys.modules["torch"]
+        with self._lock:
+            acc = self._device.get(name)
+            if acc is None:
+                dtype = (torch.float64 if value.is_floating_point()
+                         else torch.int64)
+                self._device[name] = value.detach().to(dtype, copy=True)
+            else:
+                acc.add_(value)
+
+    def record_device_time(self, name: str, seconds: float,
+                           trace_id: Optional[str] = None) -> None:
+        """Add one span's resolved device time to ``name``'s timer."""
+        with self._lock:
+            stat = self._timers.get(name)
+            if stat is None:
+                stat = self._timers[name] = _TimerStat()
+            stat.device_count += 1
+            stat.device_total_s += seconds
+
+    def record_dispatch_time(self, name: str, seconds: float,
+                             trace_id: Optional[str] = None) -> None:
+        """:meth:`record_device_time` for a span that closed in sync mode:
+        a registered dispatch span also folds its device time into its
+        ``dispatch.*`` histogram (exemplar-linked to the span's trace)."""
+        self.record_device_time(name, seconds, trace_id)
+        if name in _DISPATCH_SPANS:
+            self.observe(f"{DISPATCH_HIST_PREFIX}{name}", seconds,
+                         trace_id=trace_id)
 
     def record_timing(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -266,8 +320,11 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         """Plain-dict copy: {"counters": .., "timers": .., "histograms": ..,
         "gauges": ..}. Empty sections are included so consumers need no key
-        checks."""
+        checks. Never waits on a card: it resolves the span device times
+        the card has passed, and its counters hold the device counters as
+        of the last :meth:`settle`."""
         pk = f"p{_tracing.process_info()[0]}"
+        _tracing.resolve_device()
         with self._lock:
             return {
                 "counters": dict(self._counters),
@@ -276,8 +333,31 @@ class MetricsRegistry:
                 "gauges": {k: v.as_dict(pk) for k, v in self._gauges.items()},
             }
 
-    def reset(self) -> None:
+    def settle(self) -> None:
+        """Wait once for the cards, then resolve every pending span device
+        time and fold the device counters into the host counters (one copy
+        per device): the one wait telemetry makes, for a reader that wants
+        exact device totals outside any request."""
+        _tracing.settle_device()
         with self._lock:
+            items = list(self._device.items())
+            self._device.clear()
+        if not items:
+            return
+        import torch
+
+        by_dev: dict = {}
+        for name, t in items:
+            by_dev.setdefault(t.device, []).append((name, t))
+        for group in by_dev.values():
+            values = torch.stack([t for _, t in group]).tolist()
+            for (name, _), v in zip(group, values):
+                self.add(name, v)
+
+    def reset(self) -> None:
+        _tracing.discard_device(self)
+        with self._lock:
+            self._device.clear()
             self._counters.clear()
             self._timers.clear()
             self._hists.clear()
@@ -306,16 +386,17 @@ class MetricsRegistry:
 
 
 class _Annotation:
-    """The span's mark on the profiler timeline: a
-    ``torch.profiler.record_function`` range, and an NVTX range when a CUDA
-    context already exists (never creating one)."""
+    """The span's mark on the profiler timeline: a profiler range of the
+    span's name (torch's C++ ``RecordFunctionFast``, ~1 µs where the Python
+    ``record_function`` costs ~12), and an NVTX range when a CUDA context
+    already exists (never creating one)."""
 
     __slots__ = ("_rf", "_nvtx")
 
     def __init__(self, name: str):
         import torch
 
-        self._rf = torch.profiler.record_function(name)
+        self._rf = torch._C._profiler._RecordFunctionFast(name)
         self._nvtx = torch.cuda.is_initialized()
         self._rf.__enter__()
         if self._nvtx:
@@ -337,7 +418,9 @@ def _classify_error(exc) -> str:
 
 class _Span:
     """Context manager: profiler annotation + registry wall clock + one
-    node of the span tree (obs/tracing.py).
+    node of the span tree (obs/tracing.py) + the card's time between its
+    entry and exit marks where a CUDA context exists (``device_s``,
+    resolved later without a wait).
 
     A body that raises still records its duration, and the span (plus a
     ``span.errors.{kind}`` counter) carries the ``resilience.classify()``
@@ -346,7 +429,7 @@ class _Span:
     ``dispatch_s`` attribute."""
 
     __slots__ = ("_name", "_reg", "_t0", "_t0_epoch", "_ann", "_attrs",
-                 "_ids", "_token")
+                 "_ids", "_token", "_ev0")
 
     def __init__(self, name: str, reg: MetricsRegistry,
                  attrs: Optional[dict] = None):
@@ -364,6 +447,7 @@ class _Span:
     def __enter__(self):
         self._ann = _Annotation(self._name)
         self._ids, self._token = _tracing.enter_span()
+        self._ev0 = _tracing.device_mark()
         self._t0_epoch = time.time()
         self._t0 = time.perf_counter()
         return self
@@ -378,20 +462,26 @@ class _Span:
             # context) records no dispatch_s
             dispatch_s = dt
             dt = time.perf_counter() - self._t0
+        # the profiler range ends next to the record's end (one clock)
         self._ann.close(exc_type, exc, tb)
+        ev1 = None if self._ev0 is None else _tracing.device_mark()
         error = None
         if exc is not None:
             error = _classify_error(exc)
             self._reg.add(f"span.errors.{error}")
         self._reg.record_timing(self._name, dt)
-        if dispatch_s is not None and self._name in _DISPATCH_SPANS:
-            # committed duration of a registered dispatch span, exemplar-
-            # linked to this span's trace
-            self._reg.observe(f"{DISPATCH_HIST_PREFIX}{self._name}", dt,
-                              trace_id=self._ids[0])
-        _tracing.exit_span(self._ids, self._token, name=self._name,
-                           t0=self._t0_epoch, dur_s=dt, attrs=self._attrs,
-                           error=error, dispatch_s=dispatch_s)
+        rec = _tracing.exit_span(self._ids, self._token, name=self._name,
+                                 t0=self._t0_epoch, dur_s=dt,
+                                 attrs=self._attrs, error=error,
+                                 dispatch_s=dispatch_s)
+        if ev1 is not None:
+            # only a sync-mode span feeds the roofline's measured leg: a
+            # measured leg in every window turns the autotuner's explain to
+            # mxu_underfill on the serving path, which its rules answer
+            # with the batch cap alone
+            _tracing.defer_device(rec, self._ev0, ev1, (
+                self._reg.record_device_time if dispatch_s is None
+                else self._reg.record_dispatch_time))
         return False
 
 
@@ -437,6 +527,13 @@ def add(name: str, value: float = 1) -> None:
         _default.add(name, value)
 
 
+def add_device(name: str, value) -> None:
+    """Add a 0-d tensor to device counter ``name`` (summed on its device;
+    read to the host only by :func:`settle`)."""
+    if _enabled:
+        _default.add_device(name, value)
+
+
 def record_timing(name: str, seconds: float) -> None:
     if _enabled:
         _default.record_timing(name, seconds)
@@ -462,6 +559,11 @@ def inc_gauge(name: str, delta: float = 1) -> None:
 
 def snapshot() -> dict:
     return _default.snapshot()
+
+
+def settle() -> None:
+    """:meth:`MetricsRegistry.settle` of the default registry."""
+    _default.settle()
 
 
 def reset() -> None:

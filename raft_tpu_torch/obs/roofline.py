@@ -22,9 +22,12 @@ bytes moved are closed forms of the layout parameters:
   peak; the name is the JAX package's), ``hbm_bw_utilization`` and
   ``model_to_measured``.
 * The measured leg: in sync mode (``RAFT_TPU_OBS_SYNC``) the spans this
-  module registers fold their committed durations into ``dispatch.<span>``
-  histograms (obs/registry), and :func:`summary` pairs each noted entry
-  with its histogram mean.
+  module registers fold their device times (``device_s``: the card's time
+  between the span's two CUDA events; obs/tracing) into
+  ``dispatch.<span>`` histograms (obs/registry), and :func:`summary`
+  pairs each noted entry with its histogram mean; no drained host time
+  is divided by. Outside sync mode there is no measured leg, so the
+  autotuner's explain sees no roofline diagnosis in a serving window.
 * :func:`xla_cost_analysis` — no XLA compiler stands behind the port: it
   returns None and records the classified
   ``roofline_xla_analysis_unavailable`` event.
@@ -470,8 +473,8 @@ _MODELS = {
     "ivf_bq.build": _fb_ivf_bq_build,
 }
 
-#: dispatch entry → the span whose sync-mode committed durations measure
-#: it (``dispatch.<span>`` histograms, obs/registry)
+#: dispatch entry → the span whose device times measure it
+#: (``dispatch.<span>`` histograms, obs/registry)
 _SPAN_OF = {
     "brute_force.search": "brute_force::search",
     "ivf_flat.search": "ivf_flat::scan",
@@ -758,17 +761,26 @@ def reset() -> None:
         _DISPATCHES.clear()
 
 
+def _settled() -> dict:
+    """The registry's snapshot once every pending span device time is
+    resolved (a report's read, outside any request: it waits once)."""
+    from raft_tpu_torch.obs.registry import settle
+
+    settle()
+    return obs.snapshot()
+
+
 def dispatch_histogram(entry: str,
                        snapshot: Optional[dict] = None) -> Optional[dict]:
-    """The ``dispatch.<span>`` histogram measuring ``entry`` (committed
-    sync-mode durations; obs/registry), or None when sync attribution
-    never ran for it."""
+    """The ``dispatch.<span>`` histogram measuring ``entry`` (its span's
+    device times; obs/registry), or None when no span of it resolved a
+    device time (no CUDA context, or telemetry off)."""
     from raft_tpu_torch.obs.registry import DISPATCH_HIST_PREFIX
 
     span = _SPAN_OF.get(entry)
     if span is None:
         return None
-    snap = snapshot if snapshot is not None else obs.snapshot()
+    snap = snapshot if snapshot is not None else _settled()
     return (snap.get("histograms") or {}).get(
         f"{DISPATCH_HIST_PREFIX}{span}")
 
@@ -777,15 +789,15 @@ def summary(snapshot: Optional[dict] = None) -> dict:
     """One report-ready roofline section: the platform peaks and, per
     noted entry, the static model + measured fold + occupancy. Both legs
     are PER-DISPATCH MEANS over the window — mean FLOPs/bytes over every
-    noted dispatch against the histogram-mean committed duration (the
-    sync-mode ``dispatch.*`` fold; ``measured_s=None`` honestly when
-    ``RAFT_TPU_OBS_SYNC`` never ran) — so mixed-shape windows (a serving
+    noted dispatch against the histogram-mean device time (the
+    sync-mode ``dispatch.*`` fold of the spans' CUDA events;
+    ``measured_s=None`` honestly when no span folded one) — so mixed-shape windows (a serving
     bucket ramp) report window-average utilization, never one shape's
     model against another shape's time. Numeric utilizations also land
     as ``roofline.<entry>.*`` gauges so the fleet merge carries them."""
     with obs.record_span("obs.roofline::summary"):
         peaks = platform_peaks()
-        snap = snapshot if snapshot is not None else obs.snapshot()
+        snap = snapshot if snapshot is not None else _settled()
         out_entries = {}
         for entry, rec in entries().items():
             n = rec.get("count", 0)

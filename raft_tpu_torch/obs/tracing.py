@@ -12,19 +12,38 @@ contextvar parenting, a bounded ring, Chrome trace export.
   :func:`export_chrome_trace`): one ``"X"`` event per span with its
   attributes under ``args``, plus ``"i"`` instants for the resilience
   event ring — loadable in Perfetto or ``chrome://tracing``.
-* **Clocks**: :func:`clock_handshake` is the record that opens a flight
-  recording (this host's epoch and monotonic readings and its offset from
+* **Clocks**: a record's ``t0`` is epoch seconds (``time.time()``) at
+  entry and ``dur_s`` host seconds (``time.perf_counter()``) to its exit,
+  so its start and end sit on the clock of ``torch.profiler``'s events
+  (kineto's ``start_ns()`` is epoch nanoseconds). The Chrome export writes
+  ``ts`` as epoch microseconds on that clock: a span trace and a profiler
+  trace of one process overlay in Perfetto without a shift.
+  :func:`clock_handshake` is the record that opens a flight recording
+  (this host's epoch and monotonic readings and its offset from
   ``RAFT_TPU_FLEET_EPOCH``), which the trace stitcher subtracts.
+
+**Device time** (telemetry on, a CUDA context present): a span records one
+CUDA event at entry and one at exit on the current stream
+(:func:`device_mark`), both from a pool, so a warm span creates none. The
+pair waits in a pending queue; later span exits resolve the pairs the card
+has passed (``Event.query()``, never a wait), as does the registry's
+snapshot; :func:`settle_device` waits once for the rest — :func:`spans`,
+the registry's ``settle`` and the Chrome export call it. A resolved pair sets ``device_s`` on its record
+(the card's time from the entry mark to the exit mark) and hands it to the
+span's sink, which adds it to the registry's per-name totals; the queue
+holds the record itself, so the totals stay exact when the ring evicts it.
 
 **Sync mode** (``RAFT_TPU_OBS_SYNC=1`` / :func:`enable_sync`): CUDA work
 is queued asynchronously, so a span around a search measures the enqueue,
 not the card's work. Sync mode drains every visible card
 (``torch.cuda.synchronize``) at span exit and records both numbers:
 ``dur_s`` becomes committed time, and the pre-drain wall clock rides the
-span as ``dispatch_s``. It costs one synchronize per span.
+span as ``dispatch_s``; its ``device_s`` alone feeds the registry's
+``dispatch.*`` fold (obs/roofline's measured leg). It costs one
+synchronize per span.
 
 This module never initialises CUDA: with no CUDA context yet, the drain is
-a no-op that reports ``False``.
+a no-op that reports ``False`` and a span takes no events.
 """
 
 from __future__ import annotations
@@ -45,6 +64,9 @@ __all__ = [
     "clear_spans",
     "clock_handshake",
     "current_span",
+    "defer_device",
+    "device_mark",
+    "discard_device",
     "disable_sync",
     "drain_device",
     "enable_sync",
@@ -53,10 +75,13 @@ __all__ = [
     "export_chrome_trace",
     "fleet_trace_id",
     "manual_span",
+    "pending_device",
     "process_info",
     "push_span",
     "reset_fleet_ids",
+    "resolve_device",
     "set_ring_cap",
+    "settle_device",
     "spans",
     "sync_enabled",
 ]
@@ -130,6 +155,111 @@ def drain_device() -> bool:
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
     return True
+
+
+# ---------------------------------------------------------------------------
+# device time (CUDA event pairs, resolved without a wait inside a request)
+# ---------------------------------------------------------------------------
+
+_EVENT_POOL: list = []      # guarded-by: _DEV_LOCK
+#: (record, entry event, exit event, sink) per span whose pair is unresolved
+_PENDING: deque = deque()   # guarded-by: _DEV_LOCK
+_DEV_LOCK = threading.Lock()
+#: one Stream object per (stream id, device, type) the marks were put on
+_STREAMS: dict = {}
+
+
+def _current_stream(torch):
+    """``torch.cuda.current_stream()`` without its Python-side device
+    lookup, which costs more than the event's record itself."""
+    key = torch._C._cuda_getCurrentStream(torch._C._cuda_getDevice())
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS[key] = torch.cuda.Stream(
+            stream_id=key[0], device_index=key[1], device_type=key[2])
+    return stream
+
+
+def device_mark():
+    """A CUDA event recorded on the current stream, taken from the pool
+    (created only when the pool is empty), or None when torch is not
+    imported or no CUDA context exists yet."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    with _DEV_LOCK:
+        ev = _EVENT_POOL.pop() if _EVENT_POOL else None
+    if ev is None:
+        ev = torch.cuda.Event(enable_timing=True)
+    ev.record(_current_stream(torch))
+    return ev
+
+
+def _drain_pending(wait: bool) -> None:
+    """Resolve the pending pairs the card has passed, oldest first; with
+    ``wait``, first wait (outside the lock) for the newest exit mark of
+    each device, so every pair queued until then resolves. Their events go
+    back to the pool."""
+    if wait:
+        with _DEV_LOCK:
+            newest = {entry[2].device: entry[2] for entry in _PENDING}
+        for ev in newest.values():
+            ev.synchronize()
+    done = []
+    with _DEV_LOCK:
+        while _PENDING and _PENDING[0][2].query():
+            rec, ev0, ev1, sink = _PENDING.popleft()
+            seconds = ev0.elapsed_time(ev1) * 1e-3
+            rec["device_s"] = seconds
+            done.append((rec, seconds, sink))
+            _EVENT_POOL.extend((ev0, ev1))
+    for rec, seconds, sink in done:
+        sink(rec["name"], seconds, rec.get("trace_id"))
+
+
+def defer_device(rec: dict, ev0, ev1, sink) -> None:
+    """Queue a span's event pair: ``rec["device_s"]`` and ``sink(name,
+    seconds, trace_id)`` follow once the card has passed ``ev1``. Resolves
+    the earlier pairs the card has already passed, without waiting."""
+    with _DEV_LOCK:
+        _PENDING.append((rec, ev0, ev1, sink))
+    _drain_pending(wait=False)
+
+
+def resolve_device() -> None:
+    """Resolve the pending pairs the card has already passed, without
+    waiting (the registry's snapshot)."""
+    _drain_pending(wait=False)
+
+
+def settle_device() -> None:
+    """Wait once for every pending span's exit mark and resolve them all:
+    the one wait on the card that telemetry makes, outside any request
+    (the span snapshot, the registry's settle, the Chrome export)."""
+    _drain_pending(wait=True)
+
+
+def discard_device(owner) -> None:
+    """Forget the pending pairs whose sink is bound to ``owner`` without
+    waiting: their records keep no ``device_s`` and their events go back to
+    the pool (a pending event may be recorded again). A registry's reset
+    calls it, so a new window's totals never take an older window's
+    spans."""
+    with _DEV_LOCK:
+        keep = deque()
+        for entry in _PENDING:
+            if getattr(entry[3], "__self__", None) is owner:
+                _EVENT_POOL.extend((entry[1], entry[2]))
+            else:
+                keep.append(entry)
+        _PENDING.clear()
+        _PENDING.extend(keep)
+
+
+def pending_device() -> int:
+    """Spans whose device time is not resolved yet."""
+    with _DEV_LOCK:
+        return len(_PENDING)
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +440,9 @@ def push_span(rec: dict) -> None:
 
 
 def spans() -> list:
-    """Snapshot of the completed-span ring, oldest first."""
+    """Snapshot of the completed-span ring, oldest first, with every
+    pending device time resolved (:func:`settle_device`)."""
+    settle_device()
     with _LOCK:
         return list(_SPANS)
 
@@ -331,10 +463,11 @@ def chrome_trace(span_records: Optional[list] = None,
     """Assemble a Chrome trace-event JSON dict from span records (default:
     the ring) and instant events (default: the resilience recovery ring).
 
-    Spans become ``"X"`` complete events (ts/dur in microseconds, pid =
-    ``process_index`` so multi-host traces interleave cleanly in one
-    Perfetto view); recovery events become ``"i"`` instants. Span attributes
-    and ids ride under ``args`` and round-trip through the file."""
+    Spans become ``"X"`` complete events (ts in epoch microseconds, the
+    profiler's clock, and dur in microseconds; pid = ``process_index`` so
+    multi-host traces interleave cleanly in one Perfetto view); recovery
+    events become ``"i"`` instants. Span attributes, ids, ``dispatch_s``
+    and ``device_s`` ride under ``args`` and round-trip through the file."""
     if span_records is None:
         span_records = spans()
     if events is None:
@@ -350,8 +483,9 @@ def chrome_trace(span_records: Optional[list] = None,
         args.update(rec.get("attrs") or {})
         if "error" in rec:
             args["error"] = rec["error"]
-        if "dispatch_s" in rec:
-            args["dispatch_s"] = rec["dispatch_s"]
+        for key in ("dispatch_s", "device_s"):
+            if key in rec:
+                args[key] = rec[key]
         out.append({
             "name": rec.get("name", "?"),
             "cat": "span",

@@ -229,9 +229,11 @@ def bq_class(strip_list, a, list_codes, scale, bias, w_blocks: int,
 
 def _bq_class_fn(list_codes, scale, bias, alpha: float, kf: int,
                  approx_ok: bool):
-    return lambda sl, a, w_blocks, n_sub, rows: bq_class(
-        sl, a, list_codes, scale, bias, w_blocks, n_sub, alpha, kf,
-        approx_ok, rows)
+    return ss.kernel_fn(
+        lambda sl, a, w_blocks, n_sub, rows: bq_class(
+            sl, a, list_codes, scale, bias, w_blocks, n_sub, alpha, kf,
+            approx_ok, rows),
+        "K2")
 
 
 def _bq_tile_body(queries_rot, qids, strip_list, pair_strip, pair_slot,
@@ -399,9 +401,11 @@ def paged_bq_search_traced(queries_rot, probes, codes, scale_pool,
         codes, bias_pool, table, chain_pages, probes, kf,
         int(codes.shape[-1]))
     class_impl = class_impl or paged_bq_class
-    class_fn = lambda sl, a, ppf, n_sub, rows: class_impl(  # noqa: E731
-        sl, table_flat, chain, sub_live, a, codes, scale_pool, bias_pool,
-        ppf, n_sub, page_rows, table_width, float(alpha), kf, rows)
+    class_fn = ss.kernel_fn(
+        lambda sl, a, ppf, n_sub, rows: class_impl(
+            sl, table_flat, chain, sub_live, a, codes, scale_pool, bias_pool,
+            ppf, n_sub, page_rows, table_width, float(alpha), kf, rows),
+        "K4")
     return ss._scan_tiles(queries_rot, probes,
                           ss.PagedIds(page_ids, table, page_rows), k, kf,
                           q_tile, plan, class_fn, pair_const)

@@ -134,3 +134,20 @@ extern "C" int raft_strip_scan_product(
                                   n_sub, kf, alpha, tournament, b_dtype,
                                   stream);
 }
+
+// The query rows one block of K1 takes for a length class of this shape,
+// as plan_launch plans them (0 for a shape the kernel does not take): K1's
+// work counters (ops/strip_scan.py) ask the plan instead of copying it.
+extern "C" int raft_strip_scan_block_rows(int c, int dim, int m, int w,
+                                          int n_sub, int kf, int tournament) {
+  Params p{};
+  p.c = c;
+  p.dim = dim;
+  p.m = m;
+  p.w = w;
+  p.n_sub = n_sub;
+  p.kf = kf;
+  p.tournament = tournament;
+  p.paged = 0;
+  return plan_launch(p) == 0 ? 0 : p.rows;
+}

@@ -30,6 +30,17 @@ source ids through the page table.
 
 The final merge selects with a stable sort (``lax.top_k``'s lowest-index
 tie order), which is what the JAX package runs off the TPU.
+
+Telemetry (``obs.enabled()``): the engine's phases are spans —
+``strip_scan::plan`` (a tile's plan), ``strip_scan::group`` (the grouped
+query operand and each strip's real rows), ``strip_scan::class`` (one
+length class's kernel call) and ``strip_scan::merge`` — each with the
+``kernel`` attribute of its per-class function (:func:`kernel_fn`). Under
+K1 alone the engine also counts, per tile, ``strip_scan.slots.launched``
+(strip slots of the layout) against ``strip_scan.slots.live`` ((query,
+probe) pairs), K1's launches as ``strip_scan.k1.launches``, and, added on
+the device, ``strip_scan.k1.products_needed`` and
+``strip_scan.k1.products_computed`` (:class:`K1Work`).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
+from raft_tpu_torch.obs.registry import add_device
 from raft_tpu_torch.ops import _native
 from raft_tpu_torch.ops.select_k import (iter_topk_min, order_key,
                                          pack_clamp_for, pack_values)
@@ -660,6 +673,130 @@ def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
 
 
 # ---------------------------------------------------------------------------
+# Work counts (telemetry)
+# ---------------------------------------------------------------------------
+
+
+def kernel_fn(fn, kernel: str, work=None):
+    """Name a per-class function for the engine's telemetry (every one the
+    engine runs is named so): ``kernel`` ("K1".."K4") rides its spans, and
+    ``work`` (K1's :class:`K1Work`), when given, counts each tile's slots,
+    launches and products. Returns ``fn``."""
+    fn.kernel = kernel
+    fn.work = work
+    return fn
+
+
+#: query rows one K1 block takes at most (``kMaxRows`` in
+#: ``csrc/strip_common.cuh``); the plain twin, which has no launch plan,
+#: is counted at it
+K1_BLOCK_ROWS = 32
+
+
+def k1_block_rows(dev, dim: int, m: int, w: int, n_sub: int, kf: int,
+                  tournament: bool) -> int:
+    """Query rows one K1 block takes for a length class of this shape: on
+    the card as K1's own ``plan_launch`` plans them
+    (``raft_strip_scan_block_rows``: :data:`K1_BLOCK_ROWS`, halved while a
+    block's shared memory does not fit); elsewhere :data:`K1_BLOCK_ROWS`."""
+    if torch.device(dev).type != "cuda":
+        return K1_BLOCK_ROWS
+    fn = _native.load("strip_scan").raft_strip_scan_block_rows
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_int
+    rows = fn(C, dim, m, w, n_sub, kf, int(tournament))
+    if rows < 1:
+        raise ValueError(f"K1 takes no class of dim {dim}, m {m}, w {w}, "
+                         f"n_sub {n_sub}, kf {kf}")
+    return rows
+
+
+class K1Work:
+    """K1's telemetry over one search's list bias (n_lists, m). Per tile
+    (:meth:`count`, only under ``obs.enabled()``) it adds
+
+    * ``strip_scan.slots.launched`` — strip slots of the layout (C a
+      strip) — against ``strip_scan.slots.live`` — the tile's (query,
+      probe) pairs;
+    * ``strip_scan.k1.launches`` — K1's launches (``STRIP_KERNEL``);
+    * ``strip_scan.k1.products_needed`` — over the tile's
+      (query, probe) pairs, the probed list's rows with a finite bias
+      (live and passing the filter);
+    * ``strip_scan.k1.products_computed`` — over the strips K1
+      runs, the query rows it computes (each block of :func:`k1_block_rows`
+      rows it does not exit, padded to the 16-row MMA tile) times the rows
+      of the sub-blocks it does not skip (:func:`sub_block_liveness`);
+      padding strips and empty row blocks count nothing, as in
+      ``csrc/strip_scan.cu``.
+
+    The two products add on the bias's device (:func:`add_device`), so
+    nothing is read to the host inside the request. What depends only on
+    the bias and a class shape (each list's finite
+    rows, its live sub-blocks, the rows a block) and on a layout (each
+    strip's class) is made once and kept for the search's other tiles."""
+
+    def __init__(self, bias, kf: int, approx_ok: bool):
+        self.bias, self.kf, self.approx_ok = bias, int(kf), approx_ok
+        self._memo: dict = {}
+
+    def begin(self) -> int:
+        """K1's launch count before a tile's class calls."""
+        return STRIP_KERNEL.launches
+
+    def _per_class(self, dim: int, class_layout):
+        """(finite rows a list, per layout class the rows a block and the
+        products a computed row block takes of each list)."""
+        memo, bias = self._memo, self.bias
+        if "fin" not in memo:
+            memo["fin"] = torch.isfinite(bias).sum(dim=1)
+        weights = []
+        for (w_blocks, n_sub, _, _) in class_layout:
+            key = (w_blocks, n_sub, dim)
+            if key not in memo:
+                w = w_blocks * MC
+                r = k1_block_rows(bias.device, dim, bias.shape[1], w, n_sub,
+                                  self.kf, tournament_engaged(
+                                      self.kf, w, self.approx_ok))
+                live = sub_block_liveness(bias, w, n_sub).reshape(
+                    -1, n_sub).sum(dim=1, dtype=torch.int64)
+                memo[key] = (r, live * (max(r, 16) * w))
+            weights.append(memo[key])
+        return memo["fin"], weights
+
+    def _per_strip(self, class_layout, weights, dev):
+        """Each strip's class ordinal and rows a block, and the stacked
+        per-list products, for a layout."""
+        key = ("layout", class_layout)
+        if key not in self._memo:
+            self._memo[key] = tuple(torch.cat([
+                torch.full((n,), v, dtype=torch.int64, device=dev)
+                for (_, _, _, n), v in zip(class_layout, values)])
+                for values in (range(len(weights)), [r for r, _ in weights])
+            ) + (torch.stack([lw for _, lw in weights]),)
+        return self._memo[key]
+
+    def count(self, launches0: int, strip_list, strip_rows, class_layout,
+              pairs: int, dim: int) -> None:
+        obs.add("strip_scan.slots.launched",
+                sum(n for (_, _, _, n) in class_layout) * C)
+        obs.add("strip_scan.slots.live", pairs)
+        launched = STRIP_KERNEL.launches - launches0
+        if launched:
+            obs.add("strip_scan.k1.launches", launched)
+        fin, weights = self._per_class(dim, class_layout)
+        segs = [slice(start, start + n) for (_, _, start, n) in class_layout]
+        lst = torch.cat([strip_list[sg] for sg in segs]).to(
+            torch.int64).clamp_(min=0)
+        rows = torch.cat([strip_rows[sg] for sg in segs]).to(torch.int64)
+        cls, r, table = self._per_strip(class_layout, weights,
+                                        strip_list.device)
+        add_device("strip_scan.k1.products_needed", (rows * fin[lst]).sum())
+        add_device("strip_scan.k1.products_computed",
+                   ((rows + r - 1) // r * table[cls, lst]).sum())
+
+
+# ---------------------------------------------------------------------------
 # Tile body, merge, entry points
 # ---------------------------------------------------------------------------
 
@@ -673,20 +810,36 @@ def _strip_tile_body(queries_mat, qids, strip_list, pair_strip, pair_slot,
     first field is the pages per fetch ``ppf``, not ``w_blocks``), then
     the candidate merge. A list's pairs fill its strips' slots in order, so
     each strip's real rows are a prefix of its C slots."""
-    a_grouped = group_queries(queries_mat, qids)
-    strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+    on = obs.enabled()
+    kernel = class_fn.kernel
+    with obs.record_span("strip_scan::group",
+                         attrs={"kernel": kernel} if on else None):
+        a_grouped = group_queries(queries_mat, qids)
+        strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+    work = class_fn.work if on else None
+    launches0 = work.begin() if work is not None else 0
     outs_v, outs_e = [], []
     for (w_blocks, n_sub, start, count) in class_layout:
-        ov, oe = class_fn(strip_list[start:start + count],
-                          a_grouped[start:start + count], w_blocks, n_sub,
-                          strip_rows[start:start + count])
+        attrs = None
+        if on:
+            attrs = {"kernel": kernel, "w_blocks": w_blocks, "n_sub": n_sub,
+                     "strips": count}
+        with obs.record_span("strip_scan::class", attrs=attrs):
+            ov, oe = class_fn(strip_list[start:start + count],
+                              a_grouped[start:start + count], w_blocks,
+                              n_sub, strip_rows[start:start + count])
         outs_v.append(ov)
         outs_e.append(oe)
+    if work is not None:
+        work.count(launches0, strip_list, strip_rows, class_layout,
+                   pair_strip.numel(), a_grouped.shape[2])
     out_v = torch.cat(outs_v, 0) if len(outs_v) > 1 else outs_v[0]
     out_e = torch.cat(outs_e, 0) if len(outs_e) > 1 else outs_e[0]
-    return merge_strip_candidates(out_v, out_e, strip_list, pair_strip,
-                                  pair_slot, list_ids, class_layout, k, kf,
-                                  pair_const)
+    with obs.record_span("strip_scan::merge",
+                         attrs={"kernel": kernel} if on else None):
+        return merge_strip_candidates(out_v, out_e, strip_list, pair_strip,
+                                      pair_slot, list_ids, class_layout, k,
+                                      kf, pair_const)
 
 
 def merge_strip_candidates(out_v, out_e, strip_list, pair_strip, pair_slot,
@@ -741,10 +894,15 @@ def _scan_tiles(queries_mat, probes, list_ids, k: int, kf: int,
     → (qids, strip_list, pair_strip, pair_slot, layout) and scanned by
     :func:`_strip_tile_body`."""
     q = probes.shape[0]
+    on = obs.enabled()
     out_v, out_i = [], []
     for start in range(0, q, q_tile):
         qt = min(q_tile, q - start)
-        qids, strip_list, pair_strip, pair_slot, layout = plan(start, qt)
+        attrs = None
+        if on:
+            attrs = {"kernel": class_fn.kernel, "queries": qt}
+        with obs.record_span("strip_scan::plan", attrs=attrs):
+            qids, strip_list, pair_strip, pair_slot, layout = plan(start, qt)
         v, i = _strip_tile_body(
             queries_mat[start:start + qt], qids, strip_list, pair_strip,
             pair_slot, list_ids, layout, int(k), kf, class_fn,
@@ -772,8 +930,11 @@ def static_plan(probes, cls_ord, classes, class_counts, n_lists: int):
 
 
 def _k1_class_fn(list_data, bias, alpha: float, kf: int, approx_ok: bool):
-    return lambda sl, a, w_blocks, n_sub, rows: strip_class(
-        sl, a, list_data, bias, w_blocks, n_sub, alpha, kf, approx_ok, rows)
+    return kernel_fn(
+        lambda sl, a, w_blocks, n_sub, rows: strip_class(
+            sl, a, list_data, bias, w_blocks, n_sub, alpha, kf, approx_ok,
+            rows),
+        "K1", K1Work(bias, kf, approx_ok))
 
 
 def strip_search_traced(queries_mat, probes, list_data, bias, list_ids,
@@ -1210,9 +1371,11 @@ def paged_strip_search_traced(queries_mat, probes, pages, bias_pool,
     plan, table_flat, chain, sub_live = paged_scan_setup(
         pages, bias_pool, table, chain_pages, probes, kf,
         int(pages.shape[-1]) * pages.element_size())
-    class_fn = lambda sl, a, ppf, n_sub, rows: paged_class(  # noqa: E731
-        sl, table_flat, chain, sub_live, a, pages, bias_pool, ppf, n_sub,
-        page_rows, table_width, float(alpha), kf, rows)
+    class_fn = kernel_fn(
+        lambda sl, a, ppf, n_sub, rows: paged_class(
+            sl, table_flat, chain, sub_live, a, pages, bias_pool, ppf, n_sub,
+            page_rows, table_width, float(alpha), kf, rows),
+        "K3")
     return _scan_tiles(queries_mat, probes,
                        PagedIds(page_ids, table, page_rows), k, kf, q_tile,
                        plan, class_fn, pair_const)

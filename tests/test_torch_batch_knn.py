@@ -41,6 +41,7 @@ def _clean_state():
     for ob in (jobs, tobs):
         ob.disable()
         ob.reset()
+    tobs.clear_spans()
 
 
 @pytest.fixture(scope="module")

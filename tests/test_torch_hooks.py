@@ -126,10 +126,17 @@ def counters(ob, prefix):
             if k.startswith(prefix)}
 
 
+#: the port's phase spans inside a search, which the JAX package does not
+#: record (tests/test_torch_obs_search.py holds them)
+PORT_PHASES = ("strip_scan::", "ivf_pq::probe_select", "ivf_pq::bias",
+               "ivf_pq::finalize", "refine::refine")
+
+
 def tree(ob):
     """(span, parent) names; the JAX package's ``obs.*`` spans (its cost
-    layer, not yet ported) are left out."""
-    spans = [s for s in ob.spans() if not s["name"].startswith("obs.")]
+    layer, not yet ported) and the port's phase spans are left out."""
+    spans = [s for s in ob.spans() if not s["name"].startswith("obs.")
+             and not s["name"].startswith(PORT_PHASES)]
     by_id = {s["span_id"]: s["name"] for s in spans}
     return {(s["name"], by_id.get(s["parent_id"])) for s in spans}
 
@@ -165,6 +172,10 @@ def test_search_counters_and_spans_match_jax(data, indexes, family, backend,
     jmod.search(jidx, qs, 10, n_probes=3, **jkw)
     tmod.search(tidx, qs, 10, n_probes=3, device=CPU, **tkw)
     want = counters(jobs, f"{family}.search.")
+    if family == "ivf_pq":
+        # the port counts K1's work exactly (strip_scan.k1.products_*) in
+        # place of this padded upper bound
+        want.pop("ivf_pq.search.rows_scanned")
     assert counters(tobs, f"{family}.search.") == want
     assert want[f"{family}.search.queries"] == qs.shape[0]
     assert tree(tobs) == tree(jobs)

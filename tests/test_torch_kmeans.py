@@ -30,6 +30,7 @@ CPU = "cpu"
 @pytest.fixture(autouse=True)
 def _clean_state():
     tres.clear_faults()
+    tobs.clear_spans()     # a span another file's test left in the ring
     yield
     tres.clear_faults()
     for ob in (jobs, tobs):

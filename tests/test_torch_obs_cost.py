@@ -498,19 +498,53 @@ def test_summary_folds_notes_against_dispatch_histograms(monkeypatch):
     assert rows[0]["model_to_measured"] <= 1.0
 
 
+class _PlantedEvent:
+    """A stand-in for a CUDA event on a card clock the test sets: each mark
+    reads ``clock[0]`` ms when recorded."""
+
+    device = "planted"
+
+    def __init__(self, clock):
+        self.t = clock[0]
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
 def test_sync_spans_fold_into_dispatch_histograms(monkeypatch):
-    """A registered dispatch span in sync mode folds its committed time
-    into ``dispatch.<span>``; an unregistered one does not."""
+    """A registered dispatch span in sync mode folds its device time
+    (``device_s``, from its entry and exit marks, not the drained host
+    time) into ``dispatch.<span>``; outside sync mode, an unregistered
+    span, and a span with no marks (no CUDA context) fold nothing."""
+    clock = [0.0]
+    monkeypatch.setattr(tobs.tracing, "_EVENT_POOL", [])
+    monkeypatch.setattr(tobs.tracing, "device_mark",
+                        lambda: _PlantedEvent(clock))
     monkeypatch.setattr(tobs.tracing, "drain_device", lambda: True)
     tobs.enable()
-    tobs.enable_sync()
+    for sync, ms in ((False, 2.0), (True, 3.0)):
+        (tobs.enable_sync if sync else tobs.disable_sync)()
+        with tobs.record_span("ivf_flat::paged_pallas"):
+            clock[0] += ms
+        with tobs.record_span("host::thing"):
+            clock[0] += 1.0
+    hists = tobs.snapshot()["histograms"]
+    h = hists["dispatch.ivf_flat::paged_pallas"]
+    assert h["count"] == 1 and h["sum"] == pytest.approx(3.0e-3)
+    assert "dispatch.host::thing" not in hists
+    assert trl.dispatch_histogram("ivf_flat.paged_pallas")["count"] == 1
+    timer = tobs.snapshot()["timers"]["ivf_flat::paged_pallas"]
+    assert timer["device_count"] == 2
+    assert timer["device_total_s"] == pytest.approx(5.0e-3)
+    monkeypatch.setattr(tobs.tracing, "device_mark", lambda: None)
     with tobs.record_span("ivf_flat::paged_pallas"):
         pass
-    with tobs.record_span("host::thing"):
-        pass
-    hists = tobs.snapshot()["histograms"]
-    assert hists["dispatch.ivf_flat::paged_pallas"]["count"] == 1
-    assert "dispatch.host::thing" not in hists
     assert trl.dispatch_histogram("ivf_flat.paged_pallas")["count"] == 1
 
 
