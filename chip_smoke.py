@@ -61,7 +61,9 @@ Phases, one JSON line each:
    0.2), the bench's n_probes / k_fetch escalation with exact refine to
    k = 10, recall@10 ≥ 0.95 asserted, QPS over three 10k-query batches
    (all queries over all their time); K1's launch count on that run, then
-   its time at the main path's own class inputs beside its plain twin, a
+   its time at the main path's own class inputs (the tile's bf16 rows and
+   the plan's ``qids``, read by id as the search reads them; every K1
+   path's class inputs are) beside its plain twin, a
    PyTorch yardstick (batched matmul + topk) and its bound, and its split
    into product and selection (``main.k1_split``: the product-only
    instantiation of the same template, ``raft_strip_scan_product``);
@@ -686,6 +688,24 @@ def _kernel_pair(kernel):
                               bq._paged_bq_class_plain)}[kernel]
 
 
+def by_id_operands(a, strip_rows, seed):
+    """The grouped (S, C, dim) operand ``a`` as K1 reads it in a search:
+    (S·C, dim) query rows in a seeded random order and the slot table
+    ``qids`` (S, C) that names them, -1 at or past ``strip_rows``."""
+    import torch
+
+    s_pad, c, dim = a.shape
+    g = torch.Generator(device=a.device)
+    g.manual_seed(seed)
+    perm = torch.randperm(s_pad * c, generator=g, device=a.device)
+    rows = torch.empty((s_pad * c, dim), dtype=a.dtype, device=a.device)
+    rows[perm] = a.reshape(-1, dim)
+    slots = torch.arange(c, device=a.device)[None, :]
+    qids = torch.where(slots < strip_rows[:, None], perm.reshape(s_pad, c),
+                       -1)
+    return rows, qids.to(torch.int32).contiguous()
+
+
 def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
                  dev="cuda"):
     import torch
@@ -704,6 +724,15 @@ def parity_phase(kernel="strip_scan", cases=PARITY_CASES, seed0=1000,
         if "order" in kw:
             verdict["bitwise"] = same_rows(got, want, call["strip_list"], rows)
             verdict["ok"] = verdict["ok"] and verdict["bitwise"]
+        if kernel == "strip_scan":
+            # K1 reading the same rows by id, as the search runs it, gives
+            # the grouped call's bits
+            q_rows, qids = by_id_operands(call["a"], rows, seed0 + i)
+            by_id = wrapper(**dict(call, a=q_rows), approx_ok=approx_ok,
+                            strip_rows=rows, qids=qids)
+            verdict["by_id_bitwise"] = same_rows(by_id, got,
+                                                 call["strip_list"], rows)
+            verdict["ok"] = verdict["ok"] and verdict["by_id_bitwise"]
         emit({"phase": "parity", "kernel": kernel, "case": name,
               "tournament": ss.tournament_engaged(kw["kf"], 512 * kw["w_blocks"],
                                                   approx_ok),
@@ -1019,10 +1048,13 @@ def paged_upsert_parity(seed, dev="cuda"):
 
 
 def class_calls(probes, a_rows, n_lists, cls_ord, classes, class_counts,
-                q_tile, kf, lists):
+                q_tile, kf, lists, by_id=False):
     """The per-class keyword arguments one search hands its kernel: every
     query tile, planned on the static layout as the search plans it.
-    ``lists`` holds the list-side operands and alpha."""
+    ``lists`` holds the list-side operands and alpha. With ``by_id`` (K1,
+    as ``_strip_tile_body`` hands it its operands) each call takes the
+    tile's rows cast to bf16 once and the class's slice of the plan's
+    ``qids``; without (K2), the class's slice of the grouped operand."""
     import torch
 
     from raft_tpu_torch.ops import strip_scan as ss
@@ -1035,14 +1067,39 @@ def class_calls(probes, a_rows, n_lists, cls_ord, classes, class_counts,
                                                        qt, p)
         qids, strip_list, _, _, _ = ss._plan_device(
             probes[start:start + qt], cls_ord, n_lists, region_starts, s_tot)
-        a_grouped = ss.group_queries(a_rows[start:start + qt], qids)
+        tile = a_rows[start:start + qt]
+        if by_id:
+            a_tile = tile.to(torch.bfloat16).contiguous()
+        else:
+            a_grouped = ss.group_queries(tile, qids)
         strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
         for (wb, ns, st, count) in layout:
-            calls.append(dict(strip_list=strip_list[st:st + count].contiguous(),
-                              a=a_grouped[st:st + count].contiguous(),
+            seg = slice(st, st + count)
+            operand = (dict(a=a_tile, qids=qids[seg]) if by_id
+                       else dict(a=a_grouped[seg].contiguous()))
+            calls.append(dict(strip_list=strip_list[seg].contiguous(),
                               w_blocks=wb, n_sub=ns, kf=kf, approx_ok=True,
-                              strip_rows=strip_rows[st:st + count], **lists))
+                              strip_rows=strip_rows[seg], **operand,
+                              **lists))
     return calls
+
+
+def grouped_operand(c, strips=slice(None)):
+    """A class call's grouped (S, C, dim) bf16 query operand over
+    ``strips``: ``a`` itself, or, for a call that reads its rows by id,
+    the rows its ``qids`` name (``group_queries``)."""
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    if c.get("qids") is None:
+        return c["a"][strips]
+    return ss.group_queries(c["a"], c["qids"][strips])
+
+
+def grouped_calls(calls):
+    """The same class calls on the grouped operand, for a K1 library that
+    reads no ``qids`` (an older tree's, in ``--ab``)."""
+    return [dict({k: v for k, v in c.items() if k != "qids"},
+                 a=grouped_operand(c).contiguous()) for c in calls]
 
 
 def main_path_class_inputs(index, queries, n_probes, kf, res):
@@ -1062,7 +1119,7 @@ def main_path_class_inputs(index, queries, n_probes, kf, res):
     return class_calls(probes, qr_scaled, index.n_lists, cls_ord, classes,
                        class_counts, qt, kf,
                        dict(list_data=index.decoded, bias=bias.contiguous(),
-                            alpha=-2.0)), qt
+                            alpha=-2.0), by_id=True), qt
 
 
 def bq_path_class_inputs(index, queries, n_probes, kf, res):
@@ -1105,7 +1162,7 @@ def scan_bound(calls, bytes_per_col):
         sl = c["strip_list"]
         live = sl >= 0
         width = c["w_blocks"] * MC * c["n_sub"]
-        dim = c["a"].shape[2]
+        dim = c["a"].shape[-1]
         live_cols = torch.isfinite(c["bias"][:, :width]).sum(1)   # per list
         lists = sl[live].long()
         rows = c["strip_rows"][live].to(torch.int64)       # per live strip
@@ -1123,13 +1180,14 @@ def scan_bound(calls, bytes_per_col):
 
 def library_yardstick(c):
     """One batched bf16 matmul plus torch.topk over the class's live
-    strips — K1's PyTorch yardstick; the port never calls it."""
+    strips (their query rows grouped first where the call reads them by
+    id) — K1's PyTorch yardstick; the port never calls it."""
     import torch
 
     live = c["strip_list"] >= 0
     lists = c["strip_list"][live].long()
     width = c["w_blocks"] * 512 * c["n_sub"]
-    a = c["a"][live]
+    a = grouped_operand(c, live)
     step = max(1, (4 << 30) // max(1, a.shape[1] * width * 10))
     for s in range(0, lists.numel(), step):
         li = lists[s:s + step]
@@ -2009,7 +2067,7 @@ def flat_path_class_inputs(index, queries, n_probes, kf, res):
     return class_calls(probes, queries, index.n_lists, cls_ord, classes,
                        class_counts, qt, kf,
                        dict(list_data=index.list_data, bias=bias,
-                            alpha=-2.0)), qt
+                            alpha=-2.0), by_id=True), qt
 
 
 def paged_class_inputs(snapshot, probes, a_rows, kf, row_bytes, q_tile,
@@ -4175,6 +4233,34 @@ AB_SHORT = {"strip_scan": "k1", "bq_scan": "k2", "paged_scan": "k3",
             "paged_bq_scan": "k4"}
 
 
+def reads_no_qids(kernel, src) -> bool:
+    """Whether the K1 source ``src`` is from before K1's entries took
+    ``qids``."""
+    return kernel == "strip_scan" and "qids" not in src.read_text()
+
+
+def older_entry(fn, new_fn, kernel, src):
+    """``fn``, an entry of an older tree's kernel library (source ``src``),
+    typed as this tree's ``new_fn``. A K1 from before its entries took
+    ``qids`` (argument 4 here) gets an adapter that drops it: the A/B
+    hands that K1 its calls on the grouped operand (``grouped_calls``),
+    which pass it null."""
+    types = list(new_fn.argtypes)
+    no_qids = reads_no_qids(kernel, src)
+    if no_qids:
+        del types[4]
+    fn.argtypes, fn.restype = types, new_fn.restype
+    if not no_qids:
+        return fn
+
+    def call(*args):
+        if args[4] is not None:
+            raise ValueError(f"{src} reads no qids")
+        return fn(*args[:4], *args[5:])
+
+    return call
+
+
 def ab_phase(old_tree, shared, dev="cuda"):
     """The strip kernels K1–K4 of an older checkout (``old_tree``, e.g. a
     ``git archive`` of the parent commit) against this tree's, in one
@@ -4185,7 +4271,9 @@ def ab_phase(old_tree, shared, dev="cuda"):
     10) and the PQ serving path (the int8 cache, kf 20), K4 at the bq
     serving path. The older sources are built by nvcc beside that tree
     (both builds' ptxas lines are printed); the wrappers, plan and inputs
-    are this tree's (the four kernels' C interfaces are the same); each
+    are this tree's (the four kernels' C interfaces are the same, but for
+    K1's ``qids``: an older K1 that reads none gets the classes grouped,
+    this tree's K1 reads them by id as the search does); each
     kernel's product alone as well (``ab.k1_product`` .. ``ab.k4_product``)
     where the older tree has its product-only instantiation. Then K5 and
     K1 at path level: each tree's LUT search and IVF-PQ ragged search in a
@@ -4207,7 +4295,7 @@ def ab_phase(old_tree, shared, dev="cuda"):
     keep_for_ab(("strip_scan", "cagra_fp32_kf129"), calls)
     out = Path(old_tree) / "raft_tpu_torch" / "_build"
     out.mkdir(parents=True, exist_ok=True)
-    old_fns, old_libs, cases = {}, {}, []
+    old_fns, old_libs, old_grouped, cases = {}, {}, {}, []
     for name in ("strip_scan", "bq_scan", "paged_scan", "paged_bq_scan"):
         src = Path(old_tree) / "raft_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
         lib = out / f"lib{name}-ab.so"
@@ -4220,12 +4308,17 @@ def ab_phase(old_tree, shared, dev="cuda"):
         mod, getter, _ = launcher_of(name)
         new_fn = getattr(mod, getter)()
         old_libs[name] = ctypes.CDLL(str(lib))
-        old_fn = getattr(old_libs[name], new_fn.__name__)
-        old_fn.argtypes, old_fn.restype = new_fn.argtypes, new_fn.restype
+        old_fn = older_entry(getattr(old_libs[name], new_fn.__name__),
+                             new_fn, name, src)
         old_fns[name] = (old_fn, new_fn)
+        old_grouped[name] = reads_no_qids(name, src)
     for key in [k for k in AB_INPUTS if isinstance(k, tuple)]:
         name, shape = key
-        calls = AB_INPUTS[key]
+        # this tree's K1 reads the rows by id, as the search hands them; an
+        # older K1 that reads no qids gets the same classes grouped
+        calls = {"new": AB_INPUTS[key]}
+        calls["old"] = (grouped_calls(calls["new"]) if old_grouped[name]
+                        else calls["new"])
         mod, getter, _ = launcher_of(name)
         old_fn, new_fn = old_fns[name]
         old_lib = old_libs[name]
@@ -4234,21 +4327,21 @@ def ab_phase(old_tree, shared, dev="cuda"):
         for which in ("old", "new", "new", "old"):
             fn = old_fn if which == "old" else new_fn
             setattr(mod, getter, lambda fn=fn: fn)
-            times.append([which, cuda_ms(lambda: [wrapper(**c)
-                                                  for c in calls])])
+            times.append([which, cuda_ms(lambda cs=calls[which]: [
+                wrapper(**c) for c in cs])])
         # the two trees' results held as the parity phases hold a kernel
         # against its twin: ids equal except at near-ties, values in rtol
         verdicts = []
-        for c in calls:
+        for c_old, c in zip(calls["old"], calls["new"]):
             setattr(mod, getter, lambda: old_fn)
-            old_out = wrapper(**c)
+            old_out = wrapper(**c_old)
             setattr(mod, getter, lambda: new_fn)
             verdicts.append(compare(wrapper(**c), old_out, c["strip_list"],
                                     c["strip_rows"]))
         old_ms = [t for w, t in times if w == "old"]
         new_ms = [t for w, t in times if w == "new"]
         cases.append({"kernel": name, "inputs": shape, "order": times,
-                      "launches_per_search": len(calls),
+                      "launches_per_search": len(calls["new"]),
                       "old_ms_mean": sum(old_ms) / 2,
                       "new_ms_mean": sum(new_ms) / 2,
                       "new_over_old": sum(new_ms) / sum(old_ms),
@@ -4261,16 +4354,17 @@ def ab_phase(old_tree, shared, dev="cuda"):
         if hasattr(old_lib, product):
             # the product alone (the product-only instantiations): the old
             # tree's loop against this tree's at the same inputs
-            old_p = getattr(old_lib, product)
+            old_p = older_entry(getattr(old_lib, product), new_fn, name,
+                                Path(old_tree) / "raft_tpu_torch" / "ops"
+                                / "csrc" / f"{name}.cu")
             new_p = getattr(_native.load(name), product)
-            for f in (old_p, new_p):
-                f.argtypes, f.restype = new_fn.argtypes, new_fn.restype
+            new_p.argtypes, new_p.restype = new_fn.argtypes, new_fn.restype
             prod = []
             for which in ("old", "new", "new", "old"):
                 fn = old_p if which == "old" else new_p
                 setattr(mod, getter, lambda fn=fn: fn)
-                prod.append([which, cuda_ms(lambda: [wrapper(**c)
-                                                     for c in calls])])
+                prod.append([which, cuda_ms(lambda cs=calls[which]: [
+                    wrapper(**c) for c in cs])])
             emit({"phase": f"ab.{AB_SHORT[name]}_product", "inputs": shape,
                   "order": prod,
                   "old_ms_mean": sum(t for w, t in prod if w == "old") / 2,

@@ -9,7 +9,10 @@
 //                      + bias[row(c)]
 //
 // with both operands in bf16 and the products summed in fp32, and keep each
-// row's kf smallest packed scores (column in the low 12 mantissa bits). They
+// row's kf smallest packed scores (column in the low 12 mantissa bits). A is
+// a grouped (S, C, dim) operand, or, for K1 in the search, read by id: row
+// qids[s, r] of the (q, dim) query rows, taken as the block stages its rows
+// (a_row; -1 stages a zero row, as the grouped operand holds there). They
 // differ in where B comes from (a list-side policy `Src`: dense rows of
 // int8/uint8/bf16/fp32 values, dense_src.cuh, or packed sign bits expanded to
 // +-1, packed_src.cuh) and in how column c of a sub-block maps to a row of
@@ -89,7 +92,8 @@ struct Params {
   const int32_t* strip_list;  // (S,)
   const int32_t* strip_rows;  // (S,) real query rows per strip, or null
   const int32_t* sub_live;    // (n_lists * n_sub,)
-  const __nv_bfloat16* a;     // (S, c, dim)
+  const __nv_bfloat16* a;     // (S, c, dim), or with qids (q, dim)
+  const int32_t* qids;        // K1: (S, c) query row of each slot, or null
   const void* b;              // list rows: K1 (n_lists, m, dim) values,
                               // K2 (n_lists, m, nb) packed uint8 codes
   const float* scale;         // (n_lists, m), K2 only
@@ -179,16 +183,25 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// The strip's query rows, all dims, once per block: rows >= nr and dims >=
-// dim are zero; row stride dim_pad + 8 keeps the fragment loads
+// The block's query row r: row r of the grouped operand at A, or, given the
+// slots' ids (K1 reading by id), row qid[r] of the query rows at A; -1 for
+// an unused slot (a zero row, as the grouped operand holds there)
+__device__ __forceinline__ int a_row(const int32_t* qid, int r) {
+  return qid ? qid[r] : r;
+}
+
+// The strip's query rows, all dims, once per block: rows >= nr, unused slots
+// and dims >= dim are zero; row stride dim_pad + 8 keeps the fragment loads
 // conflict-free.
-__device__ void stage_a(__nv_bfloat16* as, const __nv_bfloat16* A, int rows_p,
-                        int nr, int dim, int dim_pad, int tid) {
+__device__ void stage_a(__nv_bfloat16* as, const __nv_bfloat16* A,
+                        const int32_t* qid, int rows_p, int nr, int dim,
+                        int dim_pad, int tid) {
   const int st = dim_pad + 8;
   for (int i = tid; i < rows_p * dim_pad; i += kThreads) {
     const int r = i / dim_pad, d = i % dim_pad;
-    as[r * st + d] = (r < nr && d < dim) ? A[(size_t)r * dim + d]
-                                         : __float2bfloat16_rn(0.f);
+    const int row = r < nr && d < dim ? a_row(qid, r) : -1;
+    as[r * st + d] = row >= 0 ? A[(size_t)row * dim + d]
+                              : __float2bfloat16_rn(0.f);
   }
 }
 
@@ -567,11 +580,13 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   float* mv = mv_all + (size_t)warp * 2 * p.kf;           // per-warp merge
   int* me = me_all + (size_t)warp * 2 * p.kf;             // (n_sub > 1 only)
 
-  const __nv_bfloat16* A = p.a + ((size_t)s * p.c + r0) * p.dim;
+  const int32_t* qid = p.qids ? p.qids + (size_t)s * p.c + r0 : nullptr;
+  const __nv_bfloat16* A =
+      qid ? p.a : p.a + ((size_t)s * p.c + r0) * p.dim;
   float* out_v = p.out_v + ((size_t)s * p.c + r0) * p.kf;
   int32_t* out_e = p.out_e + ((size_t)s * p.c + r0) * p.kf;
   const int kf = p.kf;
-  stage_a(a_s, A, rows_p, nr, p.dim, a_st - 8, tid);  // read after a sync
+  stage_a(a_s, A, qid, rows_p, nr, p.dim, a_st - 8, tid);  // read after a sync
   float sink = INFINITY;  // product-only: keeps the scores live
 
   Addr ad;
@@ -1083,16 +1098,20 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
   int* pg_s = reinterpret_cast<int*>(mv_all) +  // after the merge buffers
               (p.n_sub > 1 ? (size_t)kWarps * 4 * kf : 0);
 
-  const __nv_bfloat16* A = p.a + ((size_t)s * p.c + r0) * p.dim;
+  const int32_t* qid = p.qids ? p.qids + (size_t)s * p.c + r0 : nullptr;
+  const __nv_bfloat16* A =
+      qid ? p.a : p.a + ((size_t)s * p.c + r0) * p.dim;
   float* out_v = p.out_v + ((size_t)s * p.c + r0) * kf;
   int32_t* out_e = p.out_e + ((size_t)s * p.c + r0) * kf;
-  // the strip's rows, all dims, once: rows >= nr are zero; a register-A
-  // list side contracts over its own order of the dims (Src::a_dim)
+  // the strip's rows, all dims, once: rows >= nr and unused slots are zero;
+  // a register-A list side contracts over its own order of the dims
+  // (Src::a_dim)
   for (int i = tid; i < kMaxRows * n_chunks * 8; i += kThreads) {
     const int c = i & 7, kc = (i >> 3) % n_chunks, r = (i >> 3) / n_chunks;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nr) {
-      const __nv_bfloat16* ar = A + (size_t)r * p.dim;
+    const int row = r < nr ? a_row(qid, r) : -1;
+    if (row >= 0) {
+      const __nv_bfloat16* ar = A + (size_t)row * p.dim;
       if constexpr (Src::kRegA) {
         __align__(16) __nv_bfloat16 o[8];
 #pragma unroll

@@ -19,6 +19,14 @@
 // slots of a list's last strip). Dead sub-blocks (no finite bias lane) skip
 // all work and, on the first visit, write +inf at offsets 0..kf-1.
 //
+// Where A comes from. The search hands K1 the tile's own (q, dim) bf16 query
+// rows and the plan's slot table qids (S, C): each block stages its rows
+// r0.. of strip s once, from row qids[s, r] (-1, an unused slot, stages as
+// zero). The tile's rows are a few MB and stay in L2, so the search never
+// writes a grouped (S, C, dim) operand over the static layout's slots, most
+// of which are padding. Without qids, A is such a grouped operand (K1's
+// direct callers; K2-K4 share the staging and always pass one).
+//
 // What bounds it on the H100. Per real query row the useful work is
 // 2*w*dim flops against w*dim bytes of list block that all rows of the
 // strip share; at 192 rows a strip does ~384 flops per byte of B, past the
@@ -71,17 +79,18 @@ namespace {
 // instantiation of `kSelect` for the list dtype
 template <bool kSelect>
 int strip_scan_launch(const void* strip_list, const void* strip_rows,
-                      const void* sub_live, const void* a, const void* b,
-                      const void* bias, void* out_v, void* out_e, int s_pad,
-                      int c, int dim, int m, int w, int n_sub, int kf,
-                      float alpha, int tournament, int b_dtype,
-                      void* stream) {
+                      const void* sub_live, const void* a, const void* qids,
+                      const void* b, const void* bias, void* out_v,
+                      void* out_e, int s_pad, int c, int dim, int m, int w,
+                      int n_sub, int kf, float alpha, int tournament,
+                      int b_dtype, void* stream) {
   if (s_pad <= 0) return (int)cudaSuccess;
   Params p{};
   p.strip_list = static_cast<const int32_t*>(strip_list);
   p.strip_rows = static_cast<const int32_t*>(strip_rows);
   p.sub_live = static_cast<const int32_t*>(sub_live);
   p.a = static_cast<const __nv_bfloat16*>(a);
+  p.qids = static_cast<const int32_t*>(qids);
   p.b = b;
   p.scale = nullptr;
   p.bias = static_cast<const float*>(bias);
@@ -106,19 +115,23 @@ int strip_scan_launch(const void* strip_list, const void* strip_rows,
 }  // namespace
 
 // Launch K1 for one length class on `stream`. `strip_rows` may be null (all
-// c rows are real). Returns cudaGetLastError() after the launch
+// c rows are real). `qids` null: `a` is the grouped (s_pad, c, dim) operand;
+// else `a` holds the query rows (q, dim) and `qids` (s_pad, c) the row of
+// each slot (-1 unused). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for shapes the kernel does not take). Allocates
 // nothing; outputs of padding strips and empty rows are left unwritten.
 // b_dtype: 0 int8, 1 bf16, 2 fp32, 3 uint8.
 extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
                                const void* sub_live, const void* a,
-                               const void* b, const void* bias, void* out_v,
-                               void* out_e, int s_pad, int c, int dim, int m,
-                               int w, int n_sub, int kf, float alpha,
-                               int tournament, int b_dtype, void* stream) {
-  return strip_scan_launch<true>(strip_list, strip_rows, sub_live, a, b, bias,
-                                 out_v, out_e, s_pad, c, dim, m, w, n_sub, kf,
-                                 alpha, tournament, b_dtype, stream);
+                               const void* qids, const void* b,
+                               const void* bias, void* out_v, void* out_e,
+                               int s_pad, int c, int dim, int m, int w,
+                               int n_sub, int kf, float alpha, int tournament,
+                               int b_dtype, void* stream) {
+  return strip_scan_launch<true>(strip_list, strip_rows, sub_live, a, qids, b,
+                                 bias, out_v, out_e, s_pad, c, dim, m, w,
+                                 n_sub, kf, alpha, tournament, b_dtype,
+                                 stream);
 }
 
 // The same launch with the product-only instantiation: the same plan, tiles
@@ -126,11 +139,12 @@ extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
 // exists to split K1's time into product and selection (chip_smoke.py).
 extern "C" int raft_strip_scan_product(
     const void* strip_list, const void* strip_rows, const void* sub_live,
-    const void* a, const void* b, const void* bias, void* out_v, void* out_e,
-    int s_pad, int c, int dim, int m, int w, int n_sub, int kf, float alpha,
-    int tournament, int b_dtype, void* stream) {
-  return strip_scan_launch<false>(strip_list, strip_rows, sub_live, a, b,
-                                  bias, out_v, out_e, s_pad, c, dim, m, w,
+    const void* a, const void* qids, const void* b, const void* bias,
+    void* out_v, void* out_e, int s_pad, int c, int dim, int m, int w,
+    int n_sub, int kf, float alpha, int tournament, int b_dtype,
+    void* stream) {
+  return strip_scan_launch<false>(strip_list, strip_rows, sub_live, a, qids,
+                                  b, bias, out_v, out_e, s_pad, c, dim, m, w,
                                   n_sub, kf, alpha, tournament, b_dtype,
                                   stream);
 }

@@ -31,16 +31,23 @@ source ids through the page table.
 The final merge selects with a stable sort (``lax.top_k``'s lowest-index
 tie order), which is what the JAX package runs off the TPU.
 
+K1 reads its query rows by id: the tile body hands it the tile's (q, dim)
+bf16 rows and the plan's slot table ``qids``, and each K1 block stages its
+rows from there. The other per-class functions (K2–K4) take the grouped
+(S, C, dim) operand of :func:`group_queries`.
+
 Telemetry (``obs.enabled()``): the engine's phases are spans —
-``strip_scan::plan`` (a tile's plan), ``strip_scan::group`` (the grouped
-query operand and each strip's real rows), ``strip_scan::class`` (one
-length class's kernel call) and ``strip_scan::merge`` — each with the
-``kernel`` attribute of its per-class function (:func:`kernel_fn`). Under
-K1 alone the engine also counts, per tile, ``strip_scan.slots.launched``
-(strip slots of the layout) against ``strip_scan.slots.live`` ((query,
-probe) pairs), K1's launches as ``strip_scan.k1.launches``, and, added on
-the device, ``strip_scan.k1.products_needed`` and
-``strip_scan.k1.products_computed`` (:class:`K1Work`).
+``strip_scan::plan`` (a tile's plan), ``strip_scan::group`` (the query
+operand — K1's bf16 rows, or the grouped operand — and each strip's real
+rows), ``strip_scan::class`` (one length class's kernel call) and
+``strip_scan::merge`` — each with the ``kernel`` attribute of its per-class
+function (:func:`kernel_fn`). Under K1 alone the engine also counts, per
+tile, ``strip_scan.slots.launched`` (strip slots of the layout) against
+``strip_scan.slots.live`` ((query, probe) pairs), K1's launches as
+``strip_scan.k1.launches``, those of them that read their rows by id as
+``strip_scan.k1.by_id_launches``, and, added on the device,
+``strip_scan.k1.products_needed`` and ``strip_scan.k1.products_computed``
+(:class:`K1Work`).
 """
 
 from __future__ import annotations
@@ -72,6 +79,8 @@ _PLAIN_CHUNK_BYTES = 256 << 20  # score block per step of the plain twin
 
 #: launches of the hand-written K1 kernel (``csrc/strip_scan.cu``)
 STRIP_KERNEL = _native.KernelCounter("strip_scan")
+#: those of K1's launches that read their query rows by id (``qids`` given)
+STRIP_KERNEL_BY_ID = _native.KernelCounter("strip_scan.by_id")
 #: launches of the hand-written K3 kernel (``csrc/paged_scan.cu``)
 PAGED_KERNEL = _native.KernelCounter("paged_scan")
 
@@ -418,7 +427,10 @@ def host_plan(probes, lens, n_lists: int, dim: int = 0):
 
 def group_queries(queries_mat: torch.Tensor, qids: torch.Tensor) -> torch.Tensor:
     """The (S, C, dim) bf16 query operand: row ``qids[s, i]`` of
-    ``queries_mat``, zeros where the slot is unused."""
+    ``queries_mat``, zeros where the slot is unused. The per-class
+    functions that take a grouped operand (K2–K4, K1's direct callers)
+    read it; K1 in the tile body reads the same rows by id instead, and
+    K1's twin groups with this function."""
     a = queries_mat[qids.clamp(min=0).long()]
     return torch.where((qids >= 0)[:, :, None], a,
                        torch.zeros((), dtype=a.dtype, device=a.device)
@@ -501,19 +513,30 @@ def sub_block_liveness(bias: torch.Tensor, w: int, n_sub: int) -> torch.Tensor:
 
 
 def _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
-                      width: Optional[int] = None):
+                      width: Optional[int] = None, qids=None):
     """Shape checks of one class call → w. ``width`` is the query operand's
-    row width (default: the list rows' last dim)."""
+    row width (default: the list rows' last dim). Given ``qids`` (S, C)
+    int32, ``a`` is the (q, dim) query rows the slots name; both must be
+    contiguous."""
     w = w_blocks * MC
-    if a.ndim != 3 or list_data.ndim != 3 or bias.ndim != 2:
-        raise ValueError("a class call wants a (S, C, dim), list rows "
-                         "(n_lists, m, ·) and bias (n_lists, m)")
+    if qids is None:
+        a_ok, n_strips = a.ndim == 3, a.shape[0]
+    else:
+        if qids.ndim != 2 or qids.dtype != torch.int32:
+            raise ValueError("qids must be (S, C) int32")
+        if not (qids.is_contiguous() and a.is_contiguous()):
+            raise ValueError("qids and the query rows must be contiguous")
+        a_ok, n_strips = a.ndim == 2, qids.shape[0]
+    if not a_ok or list_data.ndim != 3 or bias.ndim != 2:
+        raise ValueError("a class call wants a (S, C, dim) (with qids: "
+                         "(q, dim) rows), list rows (n_lists, m, ·) and "
+                         "bias (n_lists, m)")
     width = list_data.shape[2] if width is None else width
-    if a.shape[2] != width:
-        raise ValueError(f"dim mismatch: {a.shape[2]} != {width}")
+    if a.shape[-1] != width:
+        raise ValueError(f"dim mismatch: {a.shape[-1]} != {width}")
     if tuple(bias.shape) != tuple(list_data.shape[:2]):
         raise ValueError("bias must be (n_lists, m) like list_data")
-    if strip_list.shape != (a.shape[0],):
+    if strip_list.shape != (n_strips,):
         raise ValueError("strip_list must hold one list id per strip")
     if not 0 < kf <= min(MAX_KF, w):
         raise ValueError(f"kf must be in [1, {min(MAX_KF, w)}], got {kf}")
@@ -527,9 +550,11 @@ def _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
 
 def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
                        n_sub: int, alpha: float, kf: int,
-                       approx_ok: bool = False, strip_rows=None):
+                       approx_ok: bool = False, strip_rows=None, qids=None):
     """The per-class function of K1, in PyTorch ops → ((S, C, kf) fp32
-    values, (S, C, kf) int32 within-list offsets).
+    values, (S, C, kf) int32 within-list offsets). Given ``qids``, ``a``
+    holds the query rows and is grouped first (:func:`group_queries`), so
+    the result is the grouped call's, bit for bit.
 
     Scores are ``alpha·(A·Bᵀ) + bias`` with both operands rounded to bf16
     and the products summed in fp32 (``bf16 @ bf16`` on the CPU would
@@ -538,7 +563,10 @@ def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
     +inf / 0. Rows at or past ``strip_rows`` are unspecified (the kernel
     skips them); this version computes them like the others. The merge
     reads neither."""
-    w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf)
+    w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
+                          qids=qids)
+    if qids is not None:
+        a = group_queries(a, qids)
     return _class_plain(
         strip_list, a, bias, w, n_sub, alpha, kf, approx_ok,
         lambda li, j: list_data[li, j * w:(j + 1) * w].to(torch.bfloat16).float())
@@ -614,16 +642,18 @@ def check_cuda_operands(a, strip_list, strip_rows, **others):
 
 def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
                       n_sub: int, alpha: float, kf: int, approx_ok: bool,
-                      strip_rows=None):
+                      strip_rows=None, qids=None):
     """Launch K1 (``csrc/strip_scan.cu``) on the current stream."""
-    w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf)
+    w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
+                          qids=qids)
     check_cuda_operands(a, strip_list, strip_rows, list_data=list_data,
-                        bias=bias)
+                        bias=bias, qids=qids)
     if list_data.dtype not in _B_DTYPES:
         raise TypeError(f"list_data must be int8, uint8, bf16 or fp32, got "
                         f"{list_data.dtype}")
     dev = a.device
-    s_pad, c, dim = a.shape
+    s_pad, c = a.shape[:2] if qids is None else qids.shape
+    dim = a.shape[-1]
     sub_live = sub_block_liveness(bias, w, n_sub).contiguous()
     out_v = torch.empty((s_pad, c, kf), dtype=torch.float32, device=dev)
     out_e = torch.empty((s_pad, c, kf), dtype=torch.int32, device=dev)
@@ -634,6 +664,7 @@ def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
     rc = fn(strip_list.data_ptr(),
             None if strip_rows is None else strip_rows.data_ptr(),
             sub_live.data_ptr(), a.data_ptr(),
+            None if qids is None else qids.data_ptr(),
             list_data.data_ptr(), bias.data_ptr(), out_v.data_ptr(),
             out_e.data_ptr(), s_pad, c, dim, list_data.shape[1], w, n_sub,
             kf, float(alpha), int(tournament_engaged(kf, w, approx_ok)),
@@ -641,13 +672,15 @@ def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
     if rc != 0:
         raise RuntimeError(_native.launch_message("strip_scan", rc))
     STRIP_KERNEL.launches += 1
+    if qids is not None:
+        STRIP_KERNEL_BY_ID.launches += 1
     return out_v, out_e
 
 
 def _kernel_fn():
     fn = _native.load("strip_scan").raft_strip_scan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -656,20 +689,24 @@ def _kernel_fn():
 
 def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
                 alpha: float, kf: int, approx_ok: bool = False,
-                strip_rows=None):
+                strip_rows=None, *, qids=None):
     """Scan one length class: per strip ``s`` (list ``strip_list[s]``) and
     query row, the top-kf of ``alpha·(A[s]·Bᵀ) + bias`` over the class's
     ``w = w_blocks·512`` entries per sub-block, merged over ``n_sub``
     sub-blocks → ((S, C, kf) fp32, (S, C, kf) int32 offsets in the list).
     ``strip_rows`` (S,) int32, optional: strip s uses only its first
     ``strip_rows[s]`` query rows; the others are left unspecified.
+    ``a`` is the grouped (S, C, dim) bf16 operand, or, given ``qids``
+    (S, C) int32, the (q, dim) bf16 query rows read by id: ``A[s, i]`` is
+    row ``qids[s, i]``, zeros where it is -1 (:func:`group_queries`).
 
     CUDA tensors launch kernel K1; CPU tensors take the plain twin."""
     if a.device.type == "cuda":
         return _strip_class_cuda(strip_list, a, list_data, bias, w_blocks,
-                                 n_sub, alpha, kf, approx_ok, strip_rows)
+                                 n_sub, alpha, kf, approx_ok, strip_rows,
+                                 qids)
     return _strip_class_plain(strip_list, a, list_data, bias, w_blocks,
-                              n_sub, alpha, kf, approx_ok, strip_rows)
+                              n_sub, alpha, kf, approx_ok, strip_rows, qids)
 
 
 # ---------------------------------------------------------------------------
@@ -677,13 +714,17 @@ def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
 # ---------------------------------------------------------------------------
 
 
-def kernel_fn(fn, kernel: str, work=None):
-    """Name a per-class function for the engine's telemetry (every one the
-    engine runs is named so): ``kernel`` ("K1".."K4") rides its spans, and
-    ``work`` (K1's :class:`K1Work`), when given, counts each tile's slots,
-    launches and products. Returns ``fn``."""
+def kernel_fn(fn, kernel: str, work=None, by_id: bool = False):
+    """Name a per-class function for the engine (every one the engine
+    runs is named so): ``kernel`` ("K1".."K4") rides its spans, ``work``
+    (K1's :class:`K1Work`), when given, counts each tile's slots, launches
+    and products, and ``by_id`` says that ``fn`` reads its query rows by id
+    (``fn(strip_list, q_rows, w_blocks, n_sub, strip_rows, qids=...)``,
+    ``q_rows`` the tile's bf16 rows) rather than from a grouped operand.
+    Returns ``fn``."""
     fn.kernel = kernel
     fn.work = work
+    fn.by_id = by_id
     return fn
 
 
@@ -719,7 +760,9 @@ class K1Work:
     * ``strip_scan.slots.launched`` — strip slots of the layout (C a
       strip) — against ``strip_scan.slots.live`` — the tile's (query,
       probe) pairs;
-    * ``strip_scan.k1.launches`` — K1's launches (``STRIP_KERNEL``);
+    * ``strip_scan.k1.launches`` — K1's launches (``STRIP_KERNEL``), and
+      ``strip_scan.k1.by_id_launches`` — those that read their query rows
+      by id (``STRIP_KERNEL_BY_ID``; all of them in the tile body);
     * ``strip_scan.k1.products_needed`` — over the tile's
       (query, probe) pairs, the probed list's rows with a finite bias
       (live and passing the filter);
@@ -740,9 +783,9 @@ class K1Work:
         self.bias, self.kf, self.approx_ok = bias, int(kf), approx_ok
         self._memo: dict = {}
 
-    def begin(self) -> int:
-        """K1's launch count before a tile's class calls."""
-        return STRIP_KERNEL.launches
+    def begin(self) -> Tuple[int, int]:
+        """K1's launch counts (all, by id) before a tile's class calls."""
+        return STRIP_KERNEL.launches, STRIP_KERNEL_BY_ID.launches
 
     def _per_class(self, dim: int, class_layout):
         """(finite rows a list, per layout class the rows a block and the
@@ -776,14 +819,17 @@ class K1Work:
             ) + (torch.stack([lw for _, lw in weights]),)
         return self._memo[key]
 
-    def count(self, launches0: int, strip_list, strip_rows, class_layout,
-              pairs: int, dim: int) -> None:
+    def count(self, launches0: Tuple[int, int], strip_list, strip_rows,
+              class_layout, pairs: int, dim: int) -> None:
         obs.add("strip_scan.slots.launched",
                 sum(n for (_, _, _, n) in class_layout) * C)
         obs.add("strip_scan.slots.live", pairs)
-        launched = STRIP_KERNEL.launches - launches0
-        if launched:
-            obs.add("strip_scan.k1.launches", launched)
+        for name, counter, before in (
+                ("strip_scan.k1.launches", STRIP_KERNEL, launches0[0]),
+                ("strip_scan.k1.by_id_launches", STRIP_KERNEL_BY_ID,
+                 launches0[1])):
+            if counter.launches > before:
+                obs.add(name, counter.launches - before)
         fin, weights = self._per_class(dim, class_layout)
         segs = [slice(start, start + n) for (_, _, start, n) in class_layout]
         lst = torch.cat([strip_list[sg] for sg in segs]).to(
@@ -804,35 +850,45 @@ class K1Work:
 def _strip_tile_body(queries_mat, qids, strip_list, pair_strip, pair_slot,
                      list_ids, class_layout, k: int, kf: int, class_fn,
                      pair_const=None):
-    """One query tile: group the queries per strip, run every length
-    class through ``class_fn(strip_list, a, w_blocks, n_sub, strip_rows)``
-    (K1's or K2's wrapper; for the paged scans, K3's or K4's, the layout's
-    first field is the pages per fetch ``ppf``, not ``w_blocks``), then
-    the candidate merge. A list's pairs fill its strips' slots in order, so
-    each strip's real rows are a prefix of its C slots."""
+    """One query tile: the query operand, every length class through
+    ``class_fn(strip_list, a, w_blocks, n_sub, strip_rows)`` (K1's or K2's
+    wrapper; for the paged scans, K3's or K4's, the layout's first field is
+    the pages per fetch ``ppf``, not ``w_blocks``), then the candidate
+    merge. A class function that reads rows by id (``class_fn.by_id``: K1)
+    takes the tile's rows cast to bf16 once and the class's ``qids``; any
+    other takes the grouped operand (:func:`group_queries`), written over
+    every slot of the layout. A list's pairs fill its strips' slots in
+    order, so each strip's real rows are a prefix of its C slots."""
     on = obs.enabled()
-    kernel = class_fn.kernel
+    kernel, by_id = class_fn.kernel, class_fn.by_id
     with obs.record_span("strip_scan::group",
                          attrs={"kernel": kernel} if on else None):
-        a_grouped = group_queries(queries_mat, qids)
+        if by_id:
+            a = queries_mat.to(torch.bfloat16).contiguous()
+        else:
+            a = group_queries(queries_mat, qids)
         strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
     work = class_fn.work if on else None
-    launches0 = work.begin() if work is not None else 0
+    launches0 = work.begin() if work is not None else None
     outs_v, outs_e = [], []
     for (w_blocks, n_sub, start, count) in class_layout:
         attrs = None
         if on:
             attrs = {"kernel": kernel, "w_blocks": w_blocks, "n_sub": n_sub,
                      "strips": count}
+        seg = slice(start, start + count)
         with obs.record_span("strip_scan::class", attrs=attrs):
-            ov, oe = class_fn(strip_list[start:start + count],
-                              a_grouped[start:start + count], w_blocks,
-                              n_sub, strip_rows[start:start + count])
+            if by_id:
+                ov, oe = class_fn(strip_list[seg], a, w_blocks, n_sub,
+                                  strip_rows[seg], qids=qids[seg])
+            else:
+                ov, oe = class_fn(strip_list[seg], a[seg], w_blocks, n_sub,
+                                  strip_rows[seg])
         outs_v.append(ov)
         outs_e.append(oe)
     if work is not None:
         work.count(launches0, strip_list, strip_rows, class_layout,
-                   pair_strip.numel(), a_grouped.shape[2])
+                   pair_strip.numel(), queries_mat.shape[1])
     out_v = torch.cat(outs_v, 0) if len(outs_v) > 1 else outs_v[0]
     out_e = torch.cat(outs_e, 0) if len(outs_e) > 1 else outs_e[0]
     with obs.record_span("strip_scan::merge",
@@ -931,10 +987,10 @@ def static_plan(probes, cls_ord, classes, class_counts, n_lists: int):
 
 def _k1_class_fn(list_data, bias, alpha: float, kf: int, approx_ok: bool):
     return kernel_fn(
-        lambda sl, a, w_blocks, n_sub, rows: strip_class(
+        lambda sl, a, w_blocks, n_sub, rows, qids: strip_class(
             sl, a, list_data, bias, w_blocks, n_sub, alpha, kf, approx_ok,
-            rows),
-        "K1", K1Work(bias, kf, approx_ok))
+            rows, qids=qids),
+        "K1", K1Work(bias, kf, approx_ok), by_id=True)
 
 
 def strip_search_traced(queries_mat, probes, list_data, bias, list_ids,

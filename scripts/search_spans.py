@@ -25,7 +25,9 @@ totals of the registry) and counters with ``cardbench/spans.py``: the
 device ms a request spends in each phase of ``ivf_pq.search``, their
 coverage of the CUDA-event search time, K1's useful share, the slots'
 live share, the host ms inside ``ivf_pq::search``, the device idle by the
-innermost port span open at each gap, and the clock check. Last, one warm
+innermost port span open at each gap, the device work by the innermost
+port span open when it was issued (``work_by_issuing_span_s``: a span's
+own work beside its device interval), and the clock check. Last, one warm
 search under ``torch.cuda.set_sync_debug_mode("warn")`` with telemetry off
 and on. Prints one JSON line (and writes it to ``--out``). Imports neither
 JAX nor the JAX package.
@@ -86,6 +88,53 @@ def span_site_ns(on: bool, n: int = 100_000) -> float:
     obs.reset()
     obs.clear_spans()
     return ns
+
+
+#: the host activities that issue device work, by the profiler's names;
+#: where the events carry no activity type, the calls' name prefixes
+ISSUING = ("cuda_runtime", "cuda_driver")
+ISSUING_NAMES = ("cuda", "cuLaunch", "cuMem")
+
+
+def work_by_issuing_span(events, records) -> dict:
+    """Device work seconds (kernels, copies, fills) by the innermost port
+    span open on the host when the runtime call that issued the work ran
+    (matched by correlation id), the rest under ``spans.OUTSIDE``: how
+    much of each span's device interval (``device_s``) is its own work.
+    The records' ``t0``/``dur_s`` (epoch s) and the events (epoch ns) are
+    on one clock. Where the events carry no activity type, the runtime
+    calls are told by name (:data:`ISSUING_NAMES`) and the device's copies
+    of host ranges from its work by name, as
+    ``cardbench.spans.events_by_kind`` does."""
+    from cardbench import spans
+    from cardbench.trace import DEVICE_WORK, _interval, _is_device
+
+    issued, work, host_names, typed = {}, [], set(), None
+    for ev in events:
+        if typed is None:
+            typed = hasattr(ev, "activity_type")
+        if _is_device(ev):
+            if not typed or ev.activity_type() in DEVICE_WORK:
+                s, e = _interval(ev)
+                work.append((ev.correlation_id(), e - s, ev.name()))
+        elif (ev.activity_type() in ISSUING if typed
+              else ev.name().startswith(ISSUING_NAMES)):
+            issued[ev.correlation_id()] = ev.start_ns()
+        elif not typed:
+            host_names.add(ev.name())
+    work = [(c, ns) for c, ns, name in work if name not in host_names]
+    opened = sorted((int(r["t0"] * 1e9), int((r["t0"] + r["dur_s"]) * 1e9),
+                     r["name"]) for r in records)
+    out = defaultdict(float)
+    active, i = [], 0
+    for t, ns in sorted((issued[c], ns) for c, ns in work if c in issued):
+        while i < len(opened) and opened[i][0] <= t:
+            active.append(opened[i])
+            i += 1
+        active = [o for o in active if o[1] >= t]
+        out[max(active)[2] if active else spans.OUTSIDE] += ns * 1e-9
+    out["unmatched"] = sum(ns for c, ns in work if c not in issued) * 1e-9
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def main(argv=None) -> int:
@@ -258,6 +307,8 @@ def main(argv=None) -> int:
             row["spans"] = len(records)
             row.update(spans.reduce_spans(snap, records, row["search_ms"],
                                           devw, win))
+            row["work_by_issuing_span_s"] = work_by_issuing_span(
+                prof.prof.profiler.kineto_results.events(), records)
             row["clock"] = spans.clock_check(records, ranges)
         out[mode] = row
         log(f"{mode}: {json.dumps(row)[:2000]}")

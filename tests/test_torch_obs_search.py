@@ -167,6 +167,7 @@ def test_counters_equal_a_count_from_the_plan_and_the_bias(data, index,
         cnt for (_, _, _, cnt) in layout)
     assert got["strip_scan.slots.live"] == probes.numel()
     assert "strip_scan.k1.launches" not in got     # the twin launches none
+    assert "strip_scan.k1.by_id_launches" not in got
     if which == "nothing":
         assert needed == 0 and computed == 0
     else:

@@ -191,6 +191,118 @@ def test_plan_device_matches_jax():
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
 
 
+def _by_id_tile(rng, dim, b_dtype, n_sub, q=50, p=3):
+    """One query tile planned as the search plans it (static layout):
+    several length classes, padding strips and partial strips. Lists of
+    int8 or uint8 rows; with ``n_sub`` 2 one list spans two sub-blocks.
+    Returns the fp32 queries, the list operands, the plan's tables
+    (qids, strip_list, pair_strip, pair_slot) and the layout."""
+    lens = np.array([300, 900, 1500, 40, 700, 2000] if n_sub == 1
+                    else [300, 900, 5000, 40, 2000, 6000])
+    m = 8192 if n_sub == 2 else 2048
+    n_lists = lens.size
+    if b_dtype == "int8":
+        data = rng.integers(-127, 128, (n_lists, m, dim)).astype(np.int8)
+    else:
+        data = rng.integers(0, 256, (n_lists, m, dim)).astype(np.uint8)
+    bias = np.where(np.arange(m)[None] < lens[:, None],
+                    rng.random((n_lists, m)) * 1000, np.inf).astype(np.float32)
+    queries = (rng.standard_normal((q, dim)) * 4).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, p, replace=False)
+                       for _ in range(q)]).astype(np.int32)
+    classes, cls_ord = tss.class_info(lens, dim=dim)
+    starts, s_tot, layout = tss.static_layout(
+        classes, tss.class_counts_of(cls_ord, len(classes)), q, p)
+    plan = tss._plan_device(torch.from_numpy(probes),
+                            torch.from_numpy(cls_ord), n_lists, starts, s_tot)
+    return (torch.from_numpy(queries), torch.from_numpy(data),
+            torch.from_numpy(bias), plan[:4], layout)
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("tournament", [False, True])
+@pytest.mark.parametrize("b_dtype", ["int8", "uint8"])
+@pytest.mark.parametrize("dim", [96, 128])
+def test_twin_by_id_equals_twin_on_grouped_operand(dim, b_dtype, tournament,
+                                                   n_sub):
+    """K1's twin given the (q, dim) bf16 rows and the plan's qids returns
+    the grouped call's values and offsets bit for bit, in every class of a
+    tile: padding strips, partial strips, one and two sub-blocks, with and
+    without the tournament."""
+    rng = np.random.default_rng(dim + 7 * n_sub + 3 * tournament)
+    queries, data, bias, (qids, strip_list, _, _), layout = _by_id_tile(
+        rng, dim, b_dtype, n_sub)
+    strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+    rows = queries.to(torch.bfloat16)
+    kf, engaged = 20, set()
+    assert len(layout) >= 2 and bool((strip_list == -1).any())
+    assert bool(((strip_rows > 0) & (strip_rows < tss.C)).any())
+    assert max(ns for (_, ns, _, _) in layout) == n_sub
+    for (w_blocks, ns, start, count) in layout:
+        seg = slice(start, start + count)
+        args = (strip_list[seg], data, bias, w_blocks, ns, -2.0, kf,
+                tournament, strip_rows[seg])
+        want = tss.strip_class(strip_list[seg],
+                               tss.group_queries(queries, qids[seg]),
+                               *args[1:])
+        got = tss.strip_class(strip_list[seg], rows, *args[1:],
+                              qids=qids[seg])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        engaged.add(tss.tournament_engaged(kf, w_blocks * tss.MC, tournament))
+    assert tournament in engaged
+
+
+def test_tile_body_by_id_returns_the_grouped_path_exactly():
+    """``_strip_tile_body`` with K1's class function (rows by id, one bf16
+    cast of the tile's rows) returns what the grouped operand gives, on a
+    query operand that is a column slice (not contiguous, as the truncated
+    cache's) and with a per-pair constant."""
+    rng = np.random.default_rng(5)
+    queries, data, bias, plan, layout = _by_id_tile(rng, 96, "int8", 2)
+    wide = torch.cat([queries, torch.ones(queries.shape[0], 32)], dim=1)
+    q_mat = wide[:, :96]
+    assert not q_mat.is_contiguous()
+    ids = torch.arange(data.shape[0] * data.shape[1],
+                       dtype=torch.int32).reshape(data.shape[:2])
+    pair_const = torch.from_numpy(rng.random((50, 3)).astype(np.float32))
+    k1 = tss._k1_class_fn(data, bias, -2.0, 20, True)
+    grouped = tss.kernel_fn(
+        lambda sl, a, w_blocks, n_sub, rows: tss.strip_class(
+            sl, a, data, bias, w_blocks, n_sub, -2.0, 20, True, rows), "K1")
+    assert k1.by_id and not grouped.by_id
+    got, want = (tss._strip_tile_body(q_mat, *plan, ids, layout, 10, 20,
+                                      fn, pair_const) for fn in (k1, grouped))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.parametrize("bad", ["int64", "one_dim", "strip_count",
+                                 "qids_strided", "rows_strided",
+                                 "grouped_operand"])
+def test_class_call_refuses_bad_qids(bad):
+    """The class call refuses qids that are not (S, C) int32 over the
+    class's strips, and qids or query rows that are not contiguous."""
+    rng = np.random.default_rng(2)
+    sl, a, b, bias = _class_inputs(rng, 1, 1, 10)
+    rows = torch.from_numpy(a.reshape(-1, a.shape[2])).to(torch.bfloat16)
+    qids = torch.arange(rows.shape[0], dtype=torch.int32).reshape(a.shape[:2])
+    if bad == "int64":
+        qids = qids.long()
+    elif bad == "one_dim":
+        qids = qids.reshape(-1)
+    elif bad == "strip_count":
+        qids = qids[1:]
+    elif bad == "qids_strided":
+        qids = qids.t().contiguous().t()
+    elif bad == "rows_strided":
+        rows = rows.t().contiguous().t()
+    else:
+        rows = rows.reshape(a.shape)
+    with pytest.raises(ValueError):
+        tss.strip_class(torch.from_numpy(sl), rows, torch.from_numpy(b),
+                        torch.from_numpy(bias), 1, 1, -2.0, 10, qids=qids)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_twin_on_card():
     """K1 against its plain twin on the card (runs where there is one)."""
