@@ -49,12 +49,15 @@ Telemetry and fault injection are the JAX package's: ``cagra::build``
 of the kNN-graph and refine sweeps, ``cagra.build.nodes`` and one
 ``cagra.build.<phase>`` timer a phase), ``cagra::search`` (``cagra.search``
 faultpoint, ``check_interrupt`` before every query tile,
-``cagra.search.*`` counters) and, on the fused traversal, one
-``cagra::hop`` span a chunk of hops behind the ``cagra.search.hop``
-faultpoint. The JAX package falls back to its unfused traversal when a
-fused hop fails; the port does not: a failed K6 launch, or a fault at the
-hop site, surfaces classified and the search does not carry on without
-the kernel.
+``cagra.search.*`` counters), on both compressed traversals a
+``cagra::seed`` and a ``cagra::finish`` span around the seeding and the
+exit re-rank, and on the fused traversal one ``cagra::hop`` span a chunk
+of hops behind the ``cagra.search.hop`` faultpoint, the counters
+``cagra.search.hops`` and ``.frontier_checks``, and K6's work counters
+``cagra.k6.*`` (:func:`_count_k6`). The JAX package falls back to its
+unfused traversal when a fused hop fails; the port does not: a failed K6
+launch, or a fault at the hop site, surfaces classified and the search
+does not carry on without the kernel.
 
 ``build_algo="nn_descent"`` builds the intermediate graph with
 :mod:`raft_tpu_torch.neighbors.nn_descent` (degree 1.5·ideg, kept to ideg),
@@ -75,6 +78,7 @@ import torch
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.obs import roofline as obs_roofline
+from raft_tpu_torch.obs.registry import add_device
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.core.interruptible import check_interrupt
 from raft_tpu_torch.core.resources import DeviceLike, Resources, resources_for
@@ -651,16 +655,18 @@ def _traverse(state, hop_chunk, max_iter: int, min_iter: int):
     """Advance ``(ids, d, vis)`` by ``hop_chunk(state, hops)`` in chunks of
     :data:`_CAGRA_HOP_CHUNK` hops until no buffer has an unvisited entry
     (checked on the host before each chunk) or ``max_iter`` hops, and at
-    least ``min_iter``. → (state, hops run)."""
-    it = 0
+    least ``min_iter``. → (state, hops run, host reads of the frontier)."""
+    it = checks = 0
     while it < max_iter:
         ids, _, vis = state
-        if it >= min_iter and not bool(((vis == 0) & (ids >= 0)).any()):
-            break
+        if it >= min_iter:
+            checks += 1
+            if not bool(((vis == 0) & (ids >= 0)).any()):
+                break
         hops = min(_CAGRA_HOP_CHUNK, max_iter - it)
         state = hop_chunk(state, hops)
         it += hops
-    return state, it
+    return state, it, checks
 
 
 def _repeat(hop):
@@ -716,8 +722,8 @@ def _search_impl(dataset, graph, queries, gen, k: int, itopk: int,
                            torch.full_like(gr, -1)).reshape(q, b)
         return merge(ids_b, d_b, vis, nbrs, batch_dists(nbrs))
 
-    (buf_ids, buf_d, _), hops = _traverse(state, _repeat(hop), max_iter,
-                                           min_iter)
+    (buf_ids, buf_d, _), hops, _ = _traverse(state, _repeat(hop), max_iter,
+                                              min_iter)
     if filter is not None:
         buf_d = torch.where(filter.test(buf_ids), buf_d, inf)
     out_d, sel = iter_topk_min(buf_d, k)
@@ -818,7 +824,8 @@ def _search_impl_compressed(index: CagraIndex, queries, gen, k: int,
         return torch.where(ids >= 0, d, torch.full_like(d, inf))
 
     merge = _code_merge(itopk)
-    state = _seed_compressed(index, qf, qp, gen, itopk, n_rand, merge)
+    with obs.record_span("cagra::seed"):
+        state = _seed_compressed(index, qf, qp, gen, itopk, n_rand, merge)
 
     def hop(state):
         ids_b, d_b, vis = state
@@ -835,10 +842,11 @@ def _search_impl_compressed(index: CagraIndex, queries, gen, k: int,
                            torch.full_like(gr, -1)).reshape(q, b)
         return merge(ids_b, d_b, vis, nbrs, code_dists(codes, nbrs))
 
-    (buf_ids, _, _), hops = _traverse(state, _repeat(hop), max_iter,
-                                      min_iter)
-    out_d, out_ids = _exact_rerank(index.dataset, qf, buf_ids, k, refine_topk,
-                                   filter)
+    (buf_ids, _, _), hops, _ = _traverse(state, _repeat(hop), max_iter,
+                                         min_iter)
+    with obs.record_span("cagra::finish"):
+        out_d, out_ids = _exact_rerank(index.dataset, qf, buf_ids, k,
+                                       refine_topk, filter)
     return out_d, out_ids, hops
 
 
@@ -853,16 +861,37 @@ def _fused_init(index: CagraIndex, queries, gen, itopk: int, n_rand: int):
     return buf_ids, buf_d, buf_vis, qp
 
 
-def _fused_hop_chunk(index: CagraIndex, qp, state, width: int, hops: int):
+def _count_k6(started, width: int) -> None:
+    """K6's work counters over the ``(ids, vis)`` buffers its launches
+    started from: ``cagra.k6.launches``, ``cagra.k6.parents_launched``
+    (rows × the hop's parents) and, summed on the card,
+    ``cagra.k6.parents_live`` (a row's unvisited live entries, at most the
+    hop's parents: the parents that expand a real node)."""
+    ids = torch.stack([i for i, _ in started])
+    vis = torch.stack([v for _, v in started])
+    w = min(int(width), ids.shape[-1])
+    live = ((vis == 0) & (ids >= 0)).sum(-1).clamp(max=w).sum()
+    obs.add("cagra.k6.launches", len(started))
+    obs.add("cagra.k6.parents_launched", ids.shape[0] * ids.shape[1] * w)
+    add_device("cagra.k6.parents_live", live)
+
+
+def _fused_hop_chunk(index: CagraIndex, qp, state, width: int, hops: int,
+                     started=None):
     """``hops`` hops of the fused loop, each one :func:`fused_hop` that
     picks its own ``width`` parents (one launch of K6 on a card, and no
     torch op beside it), behind the ``cagra.search.hop`` faultpoint and in
-    one ``cagra::hop`` span."""
+    one ``cagra::hop`` span. ``started`` (a list, with telemetry on)
+    collects the ``(ids, vis)`` each launch starts from, which
+    :func:`_count_k6` counts once after the traversal, so the spans hold
+    K6's launches alone."""
     faultpoint("cagra.search.hop")
     with obs.record_span("cagra::hop",
                          attrs=({"hops": hops, "width": width}
                                 if obs.enabled() else None)):
         for _ in range(hops):
+            if started is not None:
+                started.append((state[0], state[2]))
             state = fused_hop(*state, None, qp, index.graph, index.nbr_codes,
                               width=width)
     return state
@@ -878,13 +907,27 @@ def _run_fused_tile(index: CagraIndex, qs, gen, k: int, itopk: int,
                     width: int, max_iter: int, min_iter: int, n_rand: int,
                     rt: int, filter=None):
     """One query tile through the fused traversal: init, hops in chunks,
-    exact exit re-rank. → (d, ids, hops)."""
-    buf_ids, buf_d, buf_vis, qp = _fused_init(index, qs, gen, itopk, n_rand)
-    (buf_ids, _, _), hops = _traverse(
+    exact exit re-rank, the first and the last in the ``cagra::seed`` and
+    ``cagra::finish`` spans. Telemetry counts the hops run
+    (``cagra.search.hops``, which the JAX package counts on its fused loop
+    alone) and the host's reads of the frontier
+    (``cagra.search.frontier_checks``). → (d, ids, hops)."""
+    with obs.record_span("cagra::seed"):
+        buf_ids, buf_d, buf_vis, qp = _fused_init(index, qs, gen, itopk,
+                                                  n_rand)
+    started = [] if obs.enabled() else None
+    (buf_ids, _, _), hops, checks = _traverse(
         (buf_ids, buf_d, buf_vis),
-        lambda state, hops: _fused_hop_chunk(index, qp, state, width, hops),
+        lambda state, hops: _fused_hop_chunk(index, qp, state, width, hops,
+                                             started),
         max_iter, min_iter)
-    out_d, out_ids = _fused_finish(index, qs, buf_ids, k, rt, filter)
+    if started is not None:
+        obs.add("cagra.search.hops", hops)
+        obs.add("cagra.search.frontier_checks", checks)
+        if started:
+            _count_k6(started, width)
+    with obs.record_span("cagra::finish"):
+        out_d, out_ids = _fused_finish(index, qs, buf_ids, k, rt, filter)
     return out_d, out_ids, hops
 
 
