@@ -133,6 +133,15 @@ all-fail filter gives -1 / +inf, recall ≥ 0.90 at 10% on every IVF and
 serving path, CAGRA's printed). ``flat.k1_filtered``: K1 at the flat
 path's class inputs with the bias of a filter passing only even lists, and
 of one passing nothing, against the same inputs unfiltered.
+``main.k1_filtered<r>`` and ``flat.k1_filtered<r>`` (r = 10, 25, 50, 75,
+90): K1 at the path's class inputs under a filter passing a random r% of
+the rows, at the n_probes the search widens to: the dense walk (at the
+main path the tournament) beside the gathered walk, each against its twin,
+the gathered walk bit for bit against the dense exact walk on every finite
+slot, each walk's measured launches, then both timed (the gathered walk
+won at every rate, so every filtered search takes it). ``<path>.filtered``
+counts the gathered launches of the path's own filtered search beside
+its K1 launches: all of them.
 ``serve.standing_filter``: ``set_filter`` gives the per-call ids and
 survives compact + compact_swap; a permutation of the 1% mask as the
 standing filter gives a fresh Bitset's ids. ``serve.gather``: k = 600 and
@@ -1295,7 +1304,7 @@ def host_qps(fn, q, batches=3):
 
 
 def filtered_rungs(shared, path, run, counter, widened,
-                   gate=FILTER_RECALL_GATE):
+                   gate=FILTER_RECALL_GATE, gathered=None):
     """``run(filter) → (values, ids)``, the path's own search (+ refine),
     unfiltered then at 10% and 1% selectivity: recall@10 against the
     survivors, the widened plan (``widened(filter)``), QPS beside the
@@ -1303,7 +1312,9 @@ def filtered_rungs(shared, path, run, counter, widened,
     (``counter``, reset just before the first filtered search). Asserts no
     returned id fails its mask, the kernel ran, recall ≥ ``gate`` at 10%
     (None: printed only), and an all-fail filter gives ids -1, values
-    +inf."""
+    +inf. ``gathered`` (K1's paths: ``STRIP_KERNEL_GATHERED``): the
+    launches of K1's gathered walk, asserted to be all of the filtered
+    search's K1 launches."""
     import torch
 
     ladder = filter_ladder(shared)
@@ -1316,6 +1327,9 @@ def filtered_rungs(shared, path, run, counter, widened,
         v, i = run(f)
         torch.cuda.synchronize()
         launches = counter.launches
+        walk = {}
+        if gathered is not None:
+            walk = {"gathered_launches": gathered.launches}
         ids = i.long()
         failed = int((~rung["mask"][ids[ids >= 0]]).sum())
         rec = id_recall(i, rung["gt"])
@@ -1327,12 +1341,15 @@ def filtered_rungs(shared, path, run, counter, widened,
                "unfiltered_qps": base_qps, "unfiltered_batch_s": base_s,
                "qps_ratio": qps / base_qps, "launches": launches,
                "masked_ids_returned": failed,
-               "short_rows": int((i < 0).any(1).sum())}
+               "short_rows": int((i < 0).any(1).sum()), **walk}
         emit(row)
         rows.append(row)
         if failed or launches <= 0:
             raise AssertionError(f"{path}.filtered: {failed} masked ids "
                                  f"returned, {launches} kernel launches")
+        if walk and walk["gathered_launches"] != launches:
+            raise AssertionError(f"{path}.filtered: {walk} against "
+                                 f"{launches} K1 launches")
         if gate is not None and rung["selectivity"] == 0.10 and rec < gate:
             raise AssertionError(f"{path}.filtered: recall@10 {rec} < {gate} "
                                  "at 10% selectivity")
@@ -1370,6 +1387,7 @@ def reset_counts():
     ch.HOP_KERNEL.reset()
     ps.PQ_KERNEL.reset()
     ss.STRIP_KERNEL.reset()
+    ss.STRIP_KERNEL_GATHERED.reset()
     bq.BQ_KERNEL.reset()
     ss.PAGED_KERNEL.reset()
     bq.PAGED_BQ_KERNEL.reset()
@@ -1604,6 +1622,8 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
                  list_dtype="int8", tournament=True)
     keep_for_ab(("strip_scan", f"main_int8_kf{pick['k_fetch']}"), calls)
     del calls
+    k1_filtered_sweep("main", index, qs, pick["n_probes"], pick["k_fetch"],
+                      res, main_path_class_inputs)
 
     def frun(f):
         _, cand = ivf_pq.search(index, qs, pick["k_fetch"],
@@ -1612,7 +1632,8 @@ def main_phase(shared, n_lists=N_LISTS, dev="cuda"):
         return refine.refine(dataset, qs, cand, K, res=res)
 
     filtered_rungs(shared, "main", frun, ss.STRIP_KERNEL, probes_widened(
-        pick["n_probes"], n_lists, pick["k_fetch"]))
+        pick["n_probes"], n_lists, pick["k_fetch"]),
+        gathered=ss.STRIP_KERNEL_GATHERED)
     obs_rung("main", lambda: ivf_pq.search(
         index, qs, pick["k_fetch"], n_probes=pick["n_probes"],
         backend="ragged", res=res), q, "ivf_pq::search", "ivf_pq::scan",
@@ -1967,13 +1988,15 @@ def flat_phase(shared, n_lists=N_LISTS, dev="cuda"):
     keep_for_ab(("strip_scan", f"flat_uint8_kf{K}"), calls)
     k1_filtered(index, calls, pick)
     del calls
+    k1_filtered_sweep("flat", index, qs, pick["n_probes"], K, res,
+                      flat_path_class_inputs)
 
     def frun(f):
         return ivf_flat.search(index, qs, K, n_probes=pick["n_probes"],
                                filter=f, res=res)
 
     filtered_rungs(shared, "flat", frun, ss.STRIP_KERNEL, probes_widened(
-        pick["n_probes"], n_lists))
+        pick["n_probes"], n_lists), gathered=ss.STRIP_KERNEL_GATHERED)
 
     # extend with the queries under ids n + i: each finds itself through K1
     n = dataset.shape[0]
@@ -2049,6 +2072,89 @@ def k1_filtered(index, calls, pick):
           "ms": {name: sum(t) / 2 for name, t in times.items()},
           "order": times, "launches_per_search": len(calls),
           "max_abs_err": err})
+
+
+#: the pass rates of the gathered walk's sweep (``k1_filtered_sweep``)
+FILTER_SWEEP_RATES = (0.10, 0.25, 0.50, 0.75, 0.90)
+
+
+def k1_filtered_sweep(path, index, queries, n_probes, kf, res,
+                      class_inputs):
+    """K1 at a path's class inputs (``class_inputs``, e.g.
+    :func:`main_path_class_inputs`) under filters passing a random share r
+    of the rows (``default_rng(23)``), r in :data:`FILTER_SWEEP_RATES`, at
+    the n_probes the search widens to: the dense walk (the main path's
+    tournament at kf 20) and the gathered walk the search takes, each held
+    against its twin; the gathered walk
+    against the dense walk with exact selection, bit for bit on every
+    finite slot; each walk's K1 and gathered launches counted over one
+    search's calls; then the two timed in the order dense, gathered,
+    gathered, dense. One row ``<path>.k1_filtered<100 r>`` a rate."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import _filtering
+    from raft_tpu_torch.ops import strip_scan as ss
+
+    wrapper = _kernel_pair("strip_scan")[0]
+    for r in FILTER_SWEEP_RATES:
+        mask = np.random.default_rng(23).random(index.size) < r
+        f = Bitset.from_mask(mask, device=index.list_ids.device)
+        np_r, _, rate, _ = _filtering.widen_plan(f, n_probes, index.n_lists)
+        calls, qt = class_inputs(index, queries, np_r, kf, res)
+        bias = _filtering.apply_filter_bias(calls[0]["bias"], index.list_ids,
+                                            f).contiguous()
+        variants = {"dense": [dict(c, bias=bias) for c in calls]}
+        variants["gathered"] = [dict(c, gathered=True)
+                                for c in variants["dense"]]
+        del calls
+        case = f"{path}_path_filtered{round(100 * r)}_nprobe{np_r}_kf{kf}"
+        err = max(kernel_parity_at(variants["dense"], "strip_scan",
+                                   f"{case}_dense"),
+                  kernel_parity_at(variants["gathered"], "strip_scan",
+                                   f"{case}_gathered"))
+        exact = True
+        for c in variants["gathered"]:
+            got = wrapper(**c)
+            want = wrapper(**dict(c, gathered=False, approx_ok=False))
+            slots = torch.arange(ss.C, device=bias.device)[None, :]
+            rows = ((c["strip_list"] >= 0)[:, None]
+                    & (slots < c["strip_rows"][:, None]))[:, :, None]
+            fin = torch.isfinite(want[0]) & rows
+            exact = exact and bool(
+                torch.equal(fin, torch.isfinite(got[0]) & rows)
+                and torch.equal(got[0][fin], want[0][fin])
+                and torch.equal(got[1][fin], want[1][fin]))
+        launches = {}
+        for name, cs in variants.items():
+            ss.STRIP_KERNEL.reset()
+            ss.STRIP_KERNEL_GATHERED.reset()
+            for c in cs:
+                wrapper(**c)
+            launches[name] = {"k1": ss.STRIP_KERNEL.launches,
+                              "gathered": ss.STRIP_KERNEL_GATHERED.launches}
+        times = {name: [] for name in variants}
+        for name in ("dense", "gathered", "gathered", "dense"):
+            cs = variants[name]
+            times[name].append(cuda_ms(lambda cs=cs: [wrapper(**c)
+                                                      for c in cs]))
+        ms = {name: sum(t) / 2 for name, t in times.items()}
+        emit({"phase": f"{path}.k1_filtered{round(100 * r)}",
+              "n_probes": np_r, "kf": kf, "pass_rate": rate,
+              "query_tile": qt, "launches": launches, "ms": ms,
+              "gathered_over_dense": ms["gathered"] / ms["dense"],
+              "order": times, "max_abs_err": err,
+              "gathered_equals_dense_exact": exact})
+        del variants
+        if not exact:
+            raise AssertionError(f"{path}.k1_filtered{round(100 * r)}: the "
+                                 "gathered walk differs from the dense "
+                                 "exact walk on a finite slot")
+        if launches["gathered"]["gathered"] != launches["gathered"]["k1"] \
+                or launches["dense"]["gathered"]:
+            raise AssertionError(f"{path}.k1_filtered{round(100 * r)}: "
+                                 f"launches {launches}")
 
 
 def flat_path_class_inputs(index, queries, n_probes, kf, res):
@@ -3297,7 +3403,8 @@ def cache_phase(shared, n_lists=N_LISTS, dev="cuda"):
         return refine.refine(dataset, qs, cand, K, res=res)
 
     filtered_rungs(shared, "cache", frun, ss.STRIP_KERNEL, probes_widened(
-        pick["n_probes"], n_lists, pick["k_fetch"]))
+        pick["n_probes"], n_lists, pick["k_fetch"]),
+        gathered=ss.STRIP_KERNEL_GATHERED)
     del index
     torch.cuda.empty_cache()
 

@@ -418,9 +418,9 @@ def _ragged_plan_static(index, n_probes: int, k: int, res, dim: int):
 
 def _ragged_fused(queries, index: IvfFlatIndex, bias, k: int, n_probes: int,
                   select_algo: str, res: Resources, classes, class_counts,
-                  cls_ord, q_tile: int):
-    """Coarse gemm, device strip plan, K1 over the probed lists, merge and
-    finalize."""
+                  cls_ord, q_tile: int, gathered: bool = False):
+    """Coarse gemm, device strip plan, K1 over the probed lists (on the
+    gathered walk with ``gathered``), merge and finalize."""
     obs_compile.trace_event(
         "ivf_flat.search_ragged", queries=queries, centers=index.centers,
         list_data=index.list_data, bias=bias, list_ids=index.list_ids,
@@ -434,7 +434,8 @@ def _ragged_fused(queries, index: IvfFlatIndex, bias, k: int, n_probes: int,
     l2 = index.metric in ("sqeuclidean", "euclidean")
     vals, ids = ss.strip_search_traced(
         queries, probes, index.list_data, bias, index.list_ids, cls_ord,
-        classes, class_counts, int(k), int(k), -2.0 if l2 else -1.0, q_tile)
+        classes, class_counts, int(k), int(k), -2.0 if l2 else -1.0, q_tile,
+        gathered=gathered)
     return _finalize_ragged(vals, ids, queries, index.metric)
 
 
@@ -442,7 +443,8 @@ def _search_ragged(index: IvfFlatIndex, queries, k: int, n_probes: int,
                    select_algo: str, res: Resources, filter=None):
     """The strip path: work follows the probed lists' real entries, each
     pair's top-k kept inside K1. The bias is the list norms (L2) or zeros,
-    +inf at padding; a filter turns its failing ids' lanes to +inf."""
+    +inf at padding; a filter turns its failing ids' lanes to +inf and puts
+    K1 on its gathered walk."""
     l2 = index.metric in ("sqeuclidean", "euclidean")
     # made per search, not cached: the index holds exactly the fields
     # obs.costmodel.predict_index_bytes counts
@@ -453,7 +455,8 @@ def _search_ragged(index: IvfFlatIndex, queries, k: int, n_probes: int,
         index, n_probes, k, res, index.dim)
     return _ragged_fused(queries, index, bias, int(k), n_probes,
                          select_algo, res, classes, class_counts, cls_ord,
-                         min(q_tile, queries.shape[0]))
+                         min(q_tile, queries.shape[0]),
+                         filter is not None)
 
 
 def _prep_queries(queries, dim: int, metric: str, dev: torch.device):

@@ -987,11 +987,11 @@ def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
                      select_algo: str, l2: bool, classes, class_counts,
                      cls_ord, q_tile: int, filter=None):
     """Prep, device plan, int8 strip scan (tournament allowed: the path
-    over-fetches and re-ranks exactly) and finalize. A cache truncated to
-    its first ``cache_dim`` rotated coordinates (``build_streaming(store=
-    "cache")``) takes the query operand's same leading coordinates; its
-    b_sum was built in the truncated space and the center terms stay
-    exact."""
+    over-fetches and re-ranks exactly; under a filter K1's gathered walk)
+    and finalize. A cache truncated to its first ``cache_dim`` rotated
+    coordinates (``build_streaming(store="cache")``) takes the query
+    operand's same leading coordinates; its b_sum was built in the
+    truncated space and the center terms stay exact."""
     obs_compile.trace_event(
         "ivf_pq.search_ragged", queries=queries, centers=index.centers,
         rotation=index.rotation, b_sum=index.b_sum, list_ids=index.list_ids,
@@ -1008,7 +1008,8 @@ def _ragged_fused_pq(queries, index: IvfPqIndex, k: int, n_probes: int,
     vals, ids = strip_scan.strip_search_traced(
         qr_scaled, probes, index.decoded, bias, index.list_ids, cls_ord,
         classes, class_counts, int(k), int(k), -2.0 if l2 else -1.0,
-        q_tile, pair_const=pair_const, approx_ok=True)
+        q_tile, pair_const=pair_const, approx_ok=True,
+        gathered=filter is not None)
     with obs.record_span("ivf_pq::finalize"):
         return _finalize_ragged(vals, ids, queries, index.metric)
 

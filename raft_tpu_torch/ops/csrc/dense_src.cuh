@@ -41,7 +41,7 @@ struct BVecByte {  // int8 / uint8: a chunk row is 64 bytes, 4 x 16
   template <class Addr>
   __device__ void load(const TB* b, const Addr& ad, int ct, int dim, int dk,
                        int tid) {
-    if constexpr (!Addr::kPaged) {  // contiguous rows from ad.row(ct)
+    if constexpr (!Addr::kPerRow) {  // contiguous rows from ad.row(ct)
       const TB* bl = b + ad.row(ct) * dim + dk;
 #pragma unroll
       for (int i = 0; i < kN; ++i) {
@@ -102,7 +102,7 @@ struct BVec<__nv_bfloat16> {  // a chunk row is 128 bytes: 8 x 16
   template <class Addr>
   __device__ void load(const __nv_bfloat16* b, const Addr& ad, int ct, int dim,
                        int dk, int tid) {
-    if constexpr (!Addr::kPaged) {
+    if constexpr (!Addr::kPerRow) {
       const __nv_bfloat16* bl = b + ad.row(ct) * dim + dk;
 #pragma unroll
       for (int i = 0; i < kN; ++i) {
@@ -144,7 +144,7 @@ struct BVec<float> {  // a chunk row is 256 bytes: 16 x 16
   template <class Addr>
   __device__ void load(const float* b, const Addr& ad, int ct, int dim, int dk,
                        int tid) {
-    if constexpr (!Addr::kPaged) {
+    if constexpr (!Addr::kPerRow) {
       const float* bl = b + ad.row(ct) * dim + dk;
 #pragma unroll
       for (int i = 0; i < kN; ++i) {
@@ -325,7 +325,7 @@ template <class Addr, bool kSelect = true>
 cudaError_t launch_dense_dtype(const Params& p, int b_dtype, int s_pad,
                                size_t smem, cudaStream_t st) {
   if (b_dtype < 0 || b_dtype > 3) return cudaErrorInvalidValue;
-  if constexpr (Addr::kPaged) {
+  if constexpr (std::is_same<Addr, PagedAddr>::value) {
     if (b_dtype == 0 || b_dtype == 3) {  // byte pools: the ring loop
       Params q = p;
       if (const size_t rs = plan_ring<int8_t>(q)) {

@@ -89,7 +89,7 @@ struct PackedSrc {
     __device__ void load(const Params& p, const Addr& ad, int ct, int dk,
                          int tid) {
       const uint8_t* codes = static_cast<const uint8_t*>(p.b);
-      if constexpr (!Addr::kPaged) {  // contiguous rows from ad.row(ct)
+      if constexpr (!Addr::kPerRow) {  // contiguous rows from ad.row(ct)
         const uint8_t* cl = codes + ad.row(ct) * p.nb;
 #pragma unroll
         for (int i = 0; i < kN; ++i) {

@@ -17,7 +17,9 @@
 // int8/uint8/bf16/fp32 values, dense_src.cuh, or packed sign bits expanded to
 // +-1, packed_src.cuh) and in how column c of a sub-block maps to a row of
 // the list arrays (an address policy `Addr`, below: the identity for the
-// packed lists of K1/K2, a page-table walk for the paged pools of K3/K4). This
+// packed lists of K1/K2, a page-table walk for the paged pools of K3/K4, and,
+// for K1 under a filter, the gathered walk over a packed list's live lanes
+// alone). This
 // header holds everything else once: the packed-key selection (order keys,
 // the per-row threshold filter and candidate queue, the sorted carry and its
 // bitonic fold, the sub-block merge), the two product loops and the launch
@@ -38,6 +40,19 @@
 // two columns' bytes in the stage, with one barrier a tile. strip_kernel's
 // mma.sync loop takes every other shape (dims not a multiple of 64, rows a
 // block shrunk by a large kf's shared memory).
+//
+// The gathered walk (K1, GatherListAddr below). Under a filter many bias
+// lanes of a sub-block are +inf, yet the dense walk runs the product and the
+// selection over all w of them. The gathered walk first
+// collects the sub-block's live lanes (finite bias) in ascending order into
+// shared memory, then walks only those: column c is lane[c], read row by
+// row through the per-row path the paged walk uses, and the walk stops at
+// the tile that holds the last of them. A key carries the lane, not c, so
+// ties, offsets and the sub-block merge see the columns the dense walk
+// gives; columns past the live ones give no key (a row with fewer than kf
+// live lanes ends with +inf slots at their own position). A gathered tile
+// does not hold each bin once, so the gathered walk never plays the
+// tournament: its selection is exact.
 //
 // The selection. Each row keeps a threshold tau, its carry's kf-th key
 // (kNoKey until the carry holds kf real keys). The epilogue of a column tile
@@ -111,6 +126,7 @@ struct Params {
   const int32_t* chain;  // (n_lists,) live pages per list
   int paged, page_rows, table_width, ppf;
   int ring;  // stages of the paged ring (strip_kernel_wg's ring loop), or 0
+  int gathered;  // K1: the gathered walk over live lanes (GatherListAddr)
 };
 
 // unsigned key whose integer order is the float order of the packed score:
@@ -419,13 +435,16 @@ __device__ const uint32_t* fold_row(const RowSel& rs, int r, uint32_t* sel,
 // ---- row addressing of one (strip, sub-block) -----------------------------
 // An address policy maps column c of the sub-block to a row of the list-side
 // arrays (b, scale, bias) and says how many columns score (`live`) and how
-// many the product loop walks (`cols`, whole 128-column tiles).
+// many the product loop walks (`cols`, whole 128-column tiles). kPerRow:
+// rows are addressed one by one (has, row), not as one contiguous block.
+// Column c's key carries its lane of the sub-block, col(c), where
+// keyed(p, c); a column that is not keyed gives no key.
 //
 // ListAddr (K1, K2): packed lists, sub-block j of list l is the rows
 // l*m + j*w .. + w; every column is walked; a dead sub-block (sub_live 0)
 // has live = 0.
 struct ListAddr {
-  static constexpr bool kPaged = false;
+  static constexpr bool kPerRow = false;
   size_t base;
   int live, cols;
   __device__ void init(const Params& p, int lst, int j, int*, int) {
@@ -435,6 +454,10 @@ struct ListAddr {
   }
   __device__ __forceinline__ bool has(int) const { return true; }
   __device__ __forceinline__ size_t row(int c) const { return base + c; }
+  __device__ __forceinline__ bool keyed(const Params&, int) const {
+    return true;
+  }
+  __device__ __forceinline__ int col(int c) const { return c; }
 };
 
 // PagedAddr (K3, K4): the sub-block's nv = clamp(chain[l] - j*ppf, 0, ppf) *
@@ -443,9 +466,10 @@ struct ListAddr {
 // nv*R columns score; the walk stops at the tile that holds the last of
 // them, so the work follows the live rows, not the capacity. Page slots at
 // or past the chain (-1 in the table) are never read, nor are pool rows past
-// nv*R.
+// nv*R. Past the chain, lanes up to w are +inf with their own offsets; a
+// column at or past w gives no key.
 struct PagedAddr {
-  static constexpr bool kPaged = true;
+  static constexpr bool kPerRow = true;
   const int* pg;
   int R, live, cols;
   __device__ void init(const Params& p, int lst, int j, int* pg_s, int tid) {
@@ -463,7 +487,83 @@ struct PagedAddr {
   __device__ __forceinline__ size_t row(int c) const {
     return (size_t)pg[c / R] * R + c % R;
   }
+  __device__ __forceinline__ bool keyed(const Params& p, int c) const {
+    return c < p.w;
+  }
+  __device__ __forceinline__ int col(int c) const { return c; }
 };
+
+// GatherListAddr (K1 under a filter): the packed lists of
+// ListAddr, walked over the sub-block's live lanes (finite bias) alone. init
+// gathers their offsets in ascending order into shared memory (lane[],
+// uint16: w <= 4096) from the sub-block's w bias floats: each warp ballots
+// its w / 8 lanes 32 at a time (the ballots kept in shared memory), a prefix
+// over the warps' counts places each warp's lanes. live counts them, cols
+// rounds live up to whole tiles, column c reads list row base + lane[c] and
+// its key carries lane[c]; the columns past the live ones give no key. A
+// sub-block with no finite lane gathers nothing (live 0: dead), so the walk
+// reads no sub_live (the launch passes none).
+// Shared memory: gather_bytes(w), in the address policy's scratch.
+struct GatherListAddr {
+  static constexpr bool kPerRow = true;
+  const uint16_t* lane;
+  size_t base;
+  int live, cols;
+  __device__ void init(const Params& p, int lst, int j, int* scratch,
+                       int tid) {
+    base = (size_t)lst * p.m + (size_t)j * p.w;
+    int* cnt = scratch;                                      // (kWarps,)
+    uint32_t* bal = reinterpret_cast<uint32_t*>(scratch + kWarps);  // w/32
+    uint16_t* ln = reinterpret_cast<uint16_t*>(bal + p.w / 32);     // (w,)
+    lane = ln;
+    const int wl = tid & 31, warp = tid >> 5;
+    const int span = p.w / kWarps;  // a warp's lanes: a multiple of 64
+    const float* b = p.bias + base + (size_t)warp * span;
+    int n = 0;
+    for (int c = 0; c < span; c += 32) {
+      const uint32_t m = __ballot_sync(0xffffffffu, isfinite(b[c + wl]));
+      if (wl == 0) bal[(warp * span + c) >> 5] = m;
+      n += __popc(m);
+    }
+    if (wl == 0) cnt[warp] = n;
+    __syncthreads();
+    int off = 0, total = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      off += i < warp ? cnt[i] : 0;
+      total += cnt[i];
+    }
+    for (int c = 0; c < span; c += 32) {
+      const uint32_t m = bal[(warp * span + c) >> 5];
+      if ((m >> wl) & 1u)
+        ln[off + __popc(m & ((1u << wl) - 1u))] =
+            (uint16_t)(warp * span + c + wl);
+      off += __popc(m);
+    }
+    live = total;
+    cols = (total + kTC - 1) / kTC * kTC;
+  }
+  __device__ __forceinline__ bool has(int c) const { return c < live; }
+  __device__ __forceinline__ size_t row(int c) const { return base + lane[c]; }
+  __device__ __forceinline__ bool keyed(const Params&, int c) const {
+    return c < live;
+  }
+  __device__ __forceinline__ int col(int c) const { return lane[c]; }
+};
+
+// shared-memory bytes of GatherListAddr's scratch for w lanes: the warps'
+// counts, the ballots and the gathered lanes
+__host__ __device__ __forceinline__ size_t gather_bytes(int w) {
+  return ((size_t)kWarps * 4 + (size_t)w / 32 * 4 + (size_t)w * 2 + 15) &
+         ~(size_t)15;
+}
+
+// shared-memory bytes of a launch's address-policy scratch: the paged walk's
+// page ids, the gathered walk's lanes, or none
+__host__ __device__ __forceinline__ size_t addr_bytes(const Params& p) {
+  if (p.paged) return (size_t)p.ppf * 4;
+  return p.gathered ? gather_bytes(p.w) : 0;
+}
 
 // a row's output for sub-block j from its sorted top-kf (kNoKey where the
 // sub-block walked fewer than kf columns: +inf at the slot's own position).
@@ -574,7 +674,9 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   uint32_t* sel_all = reinterpret_cast<uint32_t*>(b_s + kTC * kST);
   float* mv_all = reinterpret_cast<float*>(sel_all + (size_t)kWarps * p.kf_pad);
   int* me_all = reinterpret_cast<int*>(mv_all + (size_t)kWarps * 2 * p.kf);
-  int* pg_s = reinterpret_cast<int*>(mv_all) +  // after the merge buffers
+  // the address policy's scratch (page ids, gathered lanes), after the
+  // merge buffers
+  int* pg_s = reinterpret_cast<int*>(mv_all) +
               (p.n_sub > 1 ? (size_t)kWarps * 4 * p.kf : 0);
   uint32_t* sel = sel_all + (size_t)warp * p.kf_pad;  // per-warp tournament top
   float* mv = mv_all + (size_t)warp * 2 * p.kf;           // per-warp merge
@@ -593,7 +695,7 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
   for (int j = 0; j < p.n_sub; ++j) {
     __syncthreads();  // the previous sub-block's rows and page ids are read
     ad.init(p, lst, j, pg_s, tid);
-    if (Addr::kPaged) __syncthreads();  // the page ids are staged
+    if (Addr::kPerRow) __syncthreads();  // the page ids or lanes are staged
     if (ad.live == 0) {
       // dead sub-block: first visit writes the all-dead extraction result,
       // revisits leave the running top-kf as it is
@@ -614,9 +716,9 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
     }
     const int n_steps = (ad.cols / kTC) * n_chunks;
     // packed lists: the sub-block's bias and scale rows, hoisted
-    const float* bias_l = Addr::kPaged ? nullptr : p.bias + ad.row(0);
+    const float* bias_l = Addr::kPerRow ? nullptr : p.bias + ad.row(0);
     const float* scale_l =
-        (Addr::kPaged || !Src::kScaled) ? nullptr : p.scale + ad.row(0);
+        (Addr::kPerRow || !Src::kScaled) ? nullptr : p.scale + ad.row(0);
 
     // ---- scores on the tensor cores, one (kTC x kDKC) step at a time -----
     float acc[kMaxRows / 16][2][4];
@@ -669,7 +771,8 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
       if (dk + kDKC >= p.dim) {
         // epilogue of a column tile: alpha * s (* scale) + bias, packed
         // order keys offered to each row's filter; explicit roundings keep
-        // nvcc from contracting the product and the add into an FMA
+        // nvcc from contracting the product and the add into an FMA; a
+        // keyed column's key carries its lane
         int cols[4];
         float bv[4], sv[4];
 #pragma unroll
@@ -679,7 +782,7 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
             const int col = ct + n0 + nt * 8 + 2 * t4 + e;
             cols[2 * nt + e] = col;
             sv[2 * nt + e] = 1.f;
-            if constexpr (Addr::kPaged) {
+            if constexpr (Addr::kPerRow) {
               const bool h = ad.has(col);
               bv[2 * nt + e] = h ? p.bias[ad.row(col)] : INFINITY;
               if (Src::kScaled && h) sv[2 * nt + e] = p.scale[ad.row(col)];
@@ -704,11 +807,10 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
                   float x = __fmul_rn(p.alpha, acc[mt][nt][2 * h + e]);
                   if (Src::kScaled) x = __fmul_rn(x, sv[i]);
                   x = __fadd_rn(x, bv[i]);
-                  if (Addr::kPaged && !ad.has(cols[i])) x = INFINITY;
+                  if (Addr::kPerRow && !ad.has(cols[i])) x = INFINITY;
                   if (!kSelect) sink = fminf(sink, x);
-                  // paged: past the chain +inf lanes up to w, no key beyond
-                  k[i] = (Addr::kPaged && cols[i] >= p.w) ? kNoKey
-                                                          : pack_key(x, cols[i]);
+                  k[i] = ad.keyed(p, cols[i]) ? pack_key(x, ad.col(cols[i]))
+                                              : kNoKey;
                   acc[mt][nt][2 * h + e] = 0.f;
                 }
               }
@@ -734,7 +836,7 @@ __global__ void __launch_bounds__(kThreads) strip_kernel(Params p) {
 }
 
 size_t smem_bytes(int rows, int qcap, int carry_w, int dim, int kf,
-                  int kf_pad, int n_sub, int ppf) {
+                  int kf_pad, int n_sub, size_t addr_b) {
   const int rows_p = rows < 16 ? 16 : rows;
   const int rows4 = (rows + 3) & ~3;
   const int a_st = (dim + kDKC - 1) / kDKC * kDKC + 8;
@@ -742,19 +844,21 @@ size_t smem_bytes(int rows, int qcap, int carry_w, int dim, int kf,
              (size_t)rows_p * a_st * 2 + (size_t)kTC * kST * 2 +
              (size_t)kWarps * kf_pad * 4;
   if (n_sub > 1) b += (size_t)kWarps * 2 * kf * 8;
-  return b + (size_t)ppf * 4;  // the paged walk's page ids
+  return b + addr_b;  // the address policy's scratch
 }
 
 // Checks the class shape and fills the launch plan of `p` (kf_pad, rows per
 // block, candidate queue, carry, groups) from c, dim, w, n_sub, kf,
-// tournament (and, paged, page_rows, table_width, ppf). Returns the dynamic
-// shared memory the kernel needs, or 0 when the shape is one the kernel
-// does not take.
+// tournament, gathered (and, paged, page_rows, table_width, ppf). Returns the
+// dynamic shared memory the kernel needs, or 0 when the shape is one the
+// kernel does not take.
 size_t plan_launch(Params& p) {
   if (p.kf < 1 || p.kf > kMaxKf || p.kf > p.w || p.w > (1 << kPackBits) ||
       p.c < 1 || p.dim < 1 || p.n_sub < 1)
     return 0;
   if (p.tournament && p.kf < 3) return 0;  // the pool's top: 4 keys a lane
+  // the gathered walk: packed lists, exact selection
+  if (p.gathered && (p.paged || p.tournament)) return 0;
   if (p.paged) {
     if (p.page_rows < 1 || p.ppf < 1 || p.w != p.ppf * p.page_rows ||
         p.table_width < 1 || p.tournament)
@@ -762,7 +866,7 @@ size_t plan_launch(Params& p) {
   } else if (p.w % 512 != 0 || (size_t)p.n_sub * p.w > (size_t)p.m) {
     return 0;
   }
-  const int ppf = p.paged ? p.ppf : 0;
+  const size_t addr_b = addr_bytes(p);
   p.kf_pad = 1;
   while (p.kf_pad < p.kf) p.kf_pad <<= 1;
   // 32 query rows per block when they fit; each row's keys below its
@@ -773,13 +877,13 @@ size_t plan_launch(Params& p) {
   p.rows = kMaxRows;
   p.qcap = p.tournament ? 0 : (p.kf_pad <= 32 ? kMaxQueue : kMaxQueue / 2);
   while (smem_bytes(p.rows, p.qcap, p.carry_w, p.dim, p.kf, p.kf_pad,
-                    p.n_sub, ppf) > kSmemLimit) {
+                    p.n_sub, addr_b) > kSmemLimit) {
     if (p.qcap > kTC) p.qcap >>= 1;
     else if (p.rows > 1) p.rows >>= 1;
     else break;
   }
   const size_t smem = smem_bytes(p.rows, p.qcap, p.carry_w, p.dim, p.kf,
-                                 p.kf_pad, p.n_sub, ppf);
+                                 p.kf_pad, p.n_sub, addr_b);
   if (smem > kSmemLimit) return 0;
   p.groups = (p.c + p.rows - 1) / p.rows;
   return smem;
@@ -1095,7 +1199,9 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
   uint32_t* sel = sel_all + (size_t)warp * p.kf_pad;
   float* mv = mv_all + (size_t)warp * 2 * kf;
   int* me = me_all + (size_t)warp * 2 * kf;
-  int* pg_s = reinterpret_cast<int*>(mv_all) +  // after the merge buffers
+  // the address policy's scratch (page ids, gathered lanes), after the
+  // merge buffers
+  int* pg_s = reinterpret_cast<int*>(mv_all) +
               (p.n_sub > 1 ? (size_t)kWarps * 4 * kf : 0);
 
   const int32_t* qid = p.qids ? p.qids + (size_t)s * p.c + r0 : nullptr;
@@ -1144,7 +1250,7 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
   for (int j = 0; j < p.n_sub; ++j) {
     __syncthreads();  // the previous sub-block's tile, rows and pages are read
     ad.init(p, lst, j, pg_s, tid);
-    if (Addr::kPaged) __syncthreads();  // the page ids are staged
+    if (Addr::kPerRow) __syncthreads();  // the page ids or lanes are staged
     if (ad.live == 0) {
       if (kSelect && j == 0) {
         for (int i = tid; i < nr * kf; i += kThreads) {
@@ -1163,9 +1269,9 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
       }
     }
     // packed lists: the sub-block's bias and scale rows, hoisted
-    const float* bias_l = Addr::kPaged ? nullptr : p.bias + ad.row(0);
+    const float* bias_l = Addr::kPerRow ? nullptr : p.bias + ad.row(0);
     const float* scale_l =
-        (Addr::kPaged || !Src::kScaled) ? nullptr : p.scale + ad.row(0);
+        (Addr::kPerRow || !Src::kScaled) ? nullptr : p.scale + ad.row(0);
     // the bias (and scale) of this thread's columns ct + c_lo + 8h
     auto scalars = [&](int ct, float (&bv)[2], float (&sv)[2],
                        bool (&live)[2]) {
@@ -1174,7 +1280,7 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
         const int col = ct + c_lo + 8 * h;
         sv[h] = 1.f;
         live[h] = true;
-        if constexpr (Addr::kPaged) {
+        if constexpr (Addr::kPerRow) {
           live[h] = ad.has(col);
           bv[h] = live[h] ? p.bias[ad.row(col)] : INFINITY;
           if (Src::kScaled && live[h]) sv[h] = p.scale[ad.row(col)];
@@ -1188,13 +1294,13 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
     // + c_lo + 8h, row 8i + 2*t4 + e; alpha * s (* scale) + bias in the JAX
     // order, with explicit roundings (no FMA contraction); all 32 rows'
     // without a branch (rows past the strip's real rows are never offered);
-    // paged: past the chain +inf lanes up to w, no key beyond
+    // a keyed column's key carries its lane
     auto tile_keys = [&](int ct, const float (&d)[16], const float (&bv)[2],
                          const float (&sv)[2], const bool (&live)[2],
                          uint32_t (&k)[4][2][2]) {
       const int cols[2] = {ct + c_lo, ct + c_lo + 8};
-      const bool in_w[2] = {!Addr::kPaged || cols[0] < p.w,
-                            !Addr::kPaged || cols[1] < p.w};
+      const bool keyed[2] = {ad.keyed(p, cols[0]), ad.keyed(p, cols[1])};
+      const int lanes[2] = {ad.col(cols[0]), ad.col(cols[1])};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1206,7 +1312,7 @@ __global__ void __launch_bounds__(kThreads, 2) strip_kernel_wg(Params p) {
             x = __fadd_rn(x, bv[h]);
             if (!live[h]) x = INFINITY;
             if (!kSelect) sink = fminf(sink, x);
-            k[i][e][h] = in_w[h] ? pack_key(x, cols[h]) : kNoKey;
+            k[i][e][h] = keyed[h] ? pack_key(x, lanes[h]) : kNoKey;
           }
     };
     // epilogue of the column tile at ct: its keys offered at once, then the
@@ -1396,7 +1502,7 @@ size_t wg_smem_bytes(const Params& p) {
              (size_t)kMaxRows * (p.qcap + p.carry_w) * 4 +
              (size_t)kMaxRows * 2 * 4 + (size_t)kWarps * p.kf_pad * 4;
   if (p.n_sub > 1) b += (size_t)kWarps * 2 * p.kf * 8;
-  return b + (size_t)(p.paged ? p.ppf : 0) * 4;  // the paged walk's page ids
+  return b + addr_bytes(p);  // the address policy's scratch
 }
 
 // Whether strip_kernel_wg takes a shape plan_launch planned for the list

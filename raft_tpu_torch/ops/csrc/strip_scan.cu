@@ -64,20 +64,39 @@
 // sorted, so the row's top-kf is read straight off it. PERF.md holds the
 // measured gap to the bound and the product/selection split.
 //
+// Under a filter (raft_strip_scan_gathered). A filter is +inf
+// bias lanes, and at a pass rate of 10% a 512-row sub-block still holds
+// ~50 live lanes, so no sub-block is dead and the dense walk computes about
+// ten products and keys for every one that can rank. The gathered walk
+// (GatherListAddr, strip_common.cuh) walks only the live lanes: each block
+// gathers its sub-block's finite-bias lanes, in ascending order, from the w
+// bias floats into shared memory (a warp ballot, then a prefix over the
+// warps: built in every launch, nothing kept between calls), sets live to
+// their count and walks ceil(live / 128) column tiles, reading each
+// column's list row and bias by its lane as the paged walk reads pages. A
+// key carries the lane, so the values and offsets of every finite slot are
+// the dense walk's with exact selection; slots a row cannot fill read +inf
+// at their own position. The tournament is never played there (its pool
+// needs each tile to hold every bin once), so the gathered walk's selection
+// is exact. It beats the dense walk at every pass rate measured, 10% to 90%
+// (it also stops at the padded end of a list shorter than its class: PERF.md
+// §6), so every filtered call takes it. Unfiltered calls keep
+// raft_strip_scan and its instantiations.
+//
 // The selection and both kernel bodies (mma.sync and wgmma) live in
 // strip_common.cuh, shared with K2-K4; the list side (int8, uint8, bf16 or
 // fp32 list rows as bf16) in dense_src.cuh, shared with K3. This file holds
-// K1's entry points: the packed lists, addressed as they lie (ListAddr),
-// and the product-only instantiation that splits K1's time (launched by
-// chip_smoke.py alone).
+// K1's entry points: the packed lists, addressed as they lie (ListAddr) or
+// over their live lanes (GatherListAddr), and the product-only
+// instantiation that splits K1's time (launched by chip_smoke.py alone).
 
 #include "dense_src.cuh"
 
 namespace {
 
 // K1's launch for one length class: the parameters, the plan, the
-// instantiation of `kSelect` for the list dtype
-template <bool kSelect>
+// instantiation of the address policy and `kSelect` for the list dtype
+template <class Addr, bool kSelect>
 int strip_scan_launch(const void* strip_list, const void* strip_rows,
                       const void* sub_live, const void* a, const void* qids,
                       const void* b, const void* bias, void* out_v,
@@ -106,9 +125,10 @@ int strip_scan_launch(const void* strip_list, const void* strip_rows,
   p.nb = 0;
   p.alpha = alpha;
   p.paged = 0;
+  p.gathered = std::is_same<Addr, GatherListAddr>::value;
   const size_t smem = plan_launch(p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_dense_dtype<ListAddr, kSelect>(
+  return (int)launch_dense_dtype<Addr, kSelect>(
       p, b_dtype, s_pad, smem, static_cast<cudaStream_t>(stream));
 }
 
@@ -128,10 +148,24 @@ extern "C" int raft_strip_scan(const void* strip_list, const void* strip_rows,
                                int s_pad, int c, int dim, int m, int w,
                                int n_sub, int kf, float alpha, int tournament,
                                int b_dtype, void* stream) {
-  return strip_scan_launch<true>(strip_list, strip_rows, sub_live, a, qids, b,
-                                 bias, out_v, out_e, s_pad, c, dim, m, w,
-                                 n_sub, kf, alpha, tournament, b_dtype,
-                                 stream);
+  return strip_scan_launch<ListAddr, true>(
+      strip_list, strip_rows, sub_live, a, qids, b, bias, out_v, out_e, s_pad,
+      c, dim, m, w, n_sub, kf, alpha, tournament, b_dtype, stream);
+}
+
+// The same launch on the gathered walk (GatherListAddr): each (strip,
+// sub-block) walks only the lanes whose bias is finite. The same arguments;
+// `sub_live` is not read (may be null) and `tournament` must be 0 (the
+// gathered walk selects exactly).
+extern "C" int raft_strip_scan_gathered(
+    const void* strip_list, const void* strip_rows, const void* sub_live,
+    const void* a, const void* qids, const void* b, const void* bias,
+    void* out_v, void* out_e, int s_pad, int c, int dim, int m, int w,
+    int n_sub, int kf, float alpha, int tournament, int b_dtype,
+    void* stream) {
+  return strip_scan_launch<GatherListAddr, true>(
+      strip_list, strip_rows, sub_live, a, qids, b, bias, out_v, out_e, s_pad,
+      c, dim, m, w, n_sub, kf, alpha, tournament, b_dtype, stream);
 }
 
 // The same launch with the product-only instantiation: the same plan, tiles
@@ -143,17 +177,18 @@ extern "C" int raft_strip_scan_product(
     void* out_v, void* out_e, int s_pad, int c, int dim, int m, int w,
     int n_sub, int kf, float alpha, int tournament, int b_dtype,
     void* stream) {
-  return strip_scan_launch<false>(strip_list, strip_rows, sub_live, a, qids,
-                                  b, bias, out_v, out_e, s_pad, c, dim, m, w,
-                                  n_sub, kf, alpha, tournament, b_dtype,
-                                  stream);
+  return strip_scan_launch<ListAddr, false>(
+      strip_list, strip_rows, sub_live, a, qids, b, bias, out_v, out_e, s_pad,
+      c, dim, m, w, n_sub, kf, alpha, tournament, b_dtype, stream);
 }
 
 // The query rows one block of K1 takes for a length class of this shape,
-// as plan_launch plans them (0 for a shape the kernel does not take): K1's
-// work counters (ops/strip_scan.py) ask the plan instead of copying it.
+// dense or gathered, as plan_launch plans them (0 for a shape the kernel
+// does not take): K1's work counters (ops/strip_scan.py) ask the plan
+// instead of copying it.
 extern "C" int raft_strip_scan_block_rows(int c, int dim, int m, int w,
-                                          int n_sub, int kf, int tournament) {
+                                          int n_sub, int kf, int tournament,
+                                          int gathered) {
   Params p{};
   p.c = c;
   p.dim = dim;
@@ -163,5 +198,6 @@ extern "C" int raft_strip_scan_block_rows(int c, int dim, int m, int w,
   p.kf = kf;
   p.tournament = tournament;
   p.paged = 0;
+  p.gathered = gathered;
   return plan_launch(p) == 0 ? 0 : p.rows;
 }

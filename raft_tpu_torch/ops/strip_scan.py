@@ -36,6 +36,13 @@ bf16 rows and the plan's slot table ``qids``, and each K1 block stages its
 rows from there. The other per-class functions (K2–K4) take the grouped
 (S, C, dim) operand of :func:`group_queries`.
 
+Under a filter (the search's ``gathered``: the IVF-PQ and IVF-Flat ragged
+searches set it for every filtered call) K1 runs the gathered walk: each
+(strip, sub-block) walks only the lanes whose bias is finite, in ascending
+order, and selects exactly (no tournament). Every finite slot is the dense exact
+walk's, value and offset; a slot a row cannot fill reads +inf at its own
+position (:func:`_topk_gathered`, the twin's form).
+
 Telemetry (``obs.enabled()``): the engine's phases are spans —
 ``strip_scan::plan`` (a tile's plan), ``strip_scan::group`` (the query
 operand — K1's bf16 rows, or the grouped operand — and each strip's real
@@ -45,7 +52,8 @@ function (:func:`kernel_fn`). Under K1 alone the engine also counts, per
 tile, ``strip_scan.slots.launched`` (strip slots of the layout) against
 ``strip_scan.slots.live`` ((query, probe) pairs), K1's launches as
 ``strip_scan.k1.launches``, those of them that read their rows by id as
-``strip_scan.k1.by_id_launches``, and, added on the device,
+``strip_scan.k1.by_id_launches``, those on the gathered walk as
+``strip_scan.k1.gathered_launches``, and, added on the device,
 ``strip_scan.k1.products_needed`` and ``strip_scan.k1.products_computed``
 (:class:`K1Work`).
 """
@@ -81,6 +89,8 @@ _PLAIN_CHUNK_BYTES = 256 << 20  # score block per step of the plain twin
 STRIP_KERNEL = _native.KernelCounter("strip_scan")
 #: those of K1's launches that read their query rows by id (``qids`` given)
 STRIP_KERNEL_BY_ID = _native.KernelCounter("strip_scan.by_id")
+#: those of K1's launches on the gathered walk (``gathered``)
+STRIP_KERNEL_GATHERED = _native.KernelCounter("strip_scan.gathered")
 #: launches of the hand-written K3 kernel (``csrc/paged_scan.cu``)
 PAGED_KERNEL = _native.KernelCounter("paged_scan")
 
@@ -442,11 +452,16 @@ def group_queries(queries_mat: torch.Tensor, qids: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def tournament_engaged(kf: int, w: int, approx_ok: bool) -> bool:
+def tournament_engaged(kf: int, w: int, approx_ok: bool,
+                       gathered: bool = False) -> bool:
     """Whether the top-kf of a (·, w) block plays the 128-bin, keep-4
     tournament (the JAX package's ``_topk_block`` rule): only when the
     caller accepts its rare bin-collision loss, 16 ≤ kf ≤ 32, the pool can
-    hold kf, and it is less work than direct extraction."""
+    hold kf, and it is less work than direct extraction. Never on the
+    gathered walk: its pool relies on each column tile holding every bin
+    once, which a tile of gathered lanes does not."""
+    if gathered:
+        return False
     bs = w // _NB
     wins = kf * w > _KEEP * w + kf * _KEEP * _NB
     return not (not approx_ok or kf < 16 or kf > min(bs * _KEEP, _NB // 4)
@@ -465,6 +480,27 @@ def _extract_topk_packed(pv: torch.Tensor, kf: int):
     vals = torch.where(vals >= pack_clamp_for(_PACK_BITS),
                        torch.full_like(vals, float("inf")), vals)
     return vals, es
+
+
+def _topk_gathered(s: torch.Tensor, live: torch.Tensor, kf: int):
+    """Top-kf of (…, w) scores over the lanes ``live`` (broadcast against
+    ``s``) alone, as the gathered walk selects: the live lanes' packed keys
+    in ascending order (each carries its own column), then slot i past the
+    last of them +inf at offset i."""
+    pv = pack_values(s, _PACK_BITS)
+    live = live.expand_as(pv)
+    key = torch.where(live, order_key(pv), 1 << 32)   # no key: after all
+    _, order = torch.sort(key, dim=-1, stable=True)
+    order = order[..., :kf]
+    top = torch.gather(pv, -1, order).view(torch.int32)
+    vals = (top & ~_PACK_MASK).view(torch.float32)
+    vals = torch.where(vals >= pack_clamp_for(_PACK_BITS),
+                       torch.full_like(vals, float("inf")), vals)
+    es = top & _PACK_MASK
+    empty = ~torch.gather(live, -1, order)
+    slot = torch.arange(kf, dtype=torch.int32, device=s.device)
+    return (torch.where(empty, torch.full_like(vals, float("inf")), vals),
+            torch.where(empty, slot.expand_as(es), es))
 
 
 def _topk_block(s: torch.Tensor, kf: int, w: int, approx_ok: bool):
@@ -550,11 +586,14 @@ def _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
 
 def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
                        n_sub: int, alpha: float, kf: int,
-                       approx_ok: bool = False, strip_rows=None, qids=None):
+                       approx_ok: bool = False, strip_rows=None, qids=None,
+                       gathered: bool = False):
     """The per-class function of K1, in PyTorch ops → ((S, C, kf) fp32
     values, (S, C, kf) int32 within-list offsets). Given ``qids``, ``a``
     holds the query rows and is grouped first (:func:`group_queries`), so
-    the result is the grouped call's, bit for bit.
+    the result is the grouped call's, bit for bit. ``gathered``: the
+    gathered walk's selection (:func:`_topk_gathered` over the finite-bias
+    lanes, never the tournament).
 
     Scores are ``alpha·(A·Bᵀ) + bias`` with both operands rounded to bf16
     and the products summed in fp32 (``bf16 @ bf16`` on the CPU would
@@ -569,15 +608,18 @@ def _strip_class_plain(strip_list, a, list_data, bias, w_blocks: int,
         a = group_queries(a, qids)
     return _class_plain(
         strip_list, a, bias, w, n_sub, alpha, kf, approx_ok,
-        lambda li, j: list_data[li, j * w:(j + 1) * w].to(torch.bfloat16).float())
+        lambda li, j: list_data[li, j * w:(j + 1) * w].to(torch.bfloat16).float(),
+        gathered=gathered)
 
 
 def _class_plain(strip_list, a, bias, w: int, n_sub: int, alpha: float,
-                 kf: int, approx_ok: bool, b_block, scale=None):
+                 kf: int, approx_ok: bool, b_block, scale=None,
+                 gathered: bool = False):
     """The per-class loop of the plain twins of K1 and K2:
     ``b_block(lists, j)`` gives the fp32 (n, w, dim) list rows of
     sub-block j (bf16-rounded values), and ``scale`` (n_lists, m), when
-    given, multiplies ``alpha·s`` before the bias add."""
+    given, multiplies ``alpha·s`` before the bias add. ``gathered`` (K1)
+    selects over the finite-bias lanes alone (:func:`_topk_gathered`)."""
     s_pad, c, dim = a.shape
     dev = a.device
     out_v = torch.full((s_pad, c, kf), float("inf"), dtype=torch.float32,
@@ -603,8 +645,12 @@ def _class_plain(strip_list, a, bias, w: int, n_sub: int, alpha: float,
                                      b_block(li, j).transpose(1, 2))
             if scale is not None:
                 s = s * scale[li, j * w:(j + 1) * w][:, None, :]
-            s = s + bias[li, j * w:(j + 1) * w][:, None, :]
-            nv, ne = _topk_block(s, kf, w, approx_ok)
+            bias_j = bias[li, j * w:(j + 1) * w][:, None, :]
+            s = s + bias_j
+            if gathered:
+                nv, ne = _topk_gathered(s, torch.isfinite(bias_j), kf)
+            else:
+                nv, ne = _topk_block(s, kf, w, approx_ok)
             ne = ne + j * w
             if j == 0:
                 out_v[idx], out_e[idx] = nv, ne
@@ -642,8 +688,9 @@ def check_cuda_operands(a, strip_list, strip_rows, **others):
 
 def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
                       n_sub: int, alpha: float, kf: int, approx_ok: bool,
-                      strip_rows=None, qids=None):
-    """Launch K1 (``csrc/strip_scan.cu``) on the current stream."""
+                      strip_rows=None, qids=None, gathered: bool = False):
+    """Launch K1 (``csrc/strip_scan.cu``) on the current stream: the dense
+    walk, or with ``gathered`` the gathered walk's entry point."""
     w = _check_class_args(strip_list, a, list_data, bias, w_blocks, n_sub, kf,
                           qids=qids)
     check_cuda_operands(a, strip_list, strip_rows, list_data=list_data,
@@ -654,31 +701,36 @@ def _strip_class_cuda(strip_list, a, list_data, bias, w_blocks: int,
     dev = a.device
     s_pad, c = a.shape[:2] if qids is None else qids.shape
     dim = a.shape[-1]
-    sub_live = sub_block_liveness(bias, w, n_sub).contiguous()
+    # the gathered walk finds a dead sub-block by its own count of live lanes
+    sub_live = None if gathered else sub_block_liveness(bias, w,
+                                                        n_sub).contiguous()
     out_v = torch.empty((s_pad, c, kf), dtype=torch.float32, device=dev)
     out_e = torch.empty((s_pad, c, kf), dtype=torch.int32, device=dev)
     if s_pad == 0:
         return out_v, out_e
-    fn = _kernel_fn()
+    fn = _gathered_kernel_fn() if gathered else _kernel_fn()
+    live_ptr = None if gathered else sub_live.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(strip_list.data_ptr(),
             None if strip_rows is None else strip_rows.data_ptr(),
-            sub_live.data_ptr(), a.data_ptr(),
+            live_ptr, a.data_ptr(),
             None if qids is None else qids.data_ptr(),
             list_data.data_ptr(), bias.data_ptr(), out_v.data_ptr(),
             out_e.data_ptr(), s_pad, c, dim, list_data.shape[1], w, n_sub,
-            kf, float(alpha), int(tournament_engaged(kf, w, approx_ok)),
+            kf, float(alpha),
+            int(tournament_engaged(kf, w, approx_ok, gathered)),
             _B_DTYPES[list_data.dtype], stream)
     if rc != 0:
         raise RuntimeError(_native.launch_message("strip_scan", rc))
     STRIP_KERNEL.launches += 1
     if qids is not None:
         STRIP_KERNEL_BY_ID.launches += 1
+    if gathered:
+        STRIP_KERNEL_GATHERED.launches += 1
     return out_v, out_e
 
 
-def _kernel_fn():
-    fn = _native.load("strip_scan").raft_strip_scan
+def _typed_k1(fn):
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -687,9 +739,19 @@ def _kernel_fn():
     return fn
 
 
+def _kernel_fn():
+    return _typed_k1(_native.load("strip_scan").raft_strip_scan)
+
+
+def _gathered_kernel_fn():
+    """K1's gathered walk (``raft_strip_scan_gathered``: the arguments of
+    ``raft_strip_scan``)."""
+    return _typed_k1(_native.load("strip_scan").raft_strip_scan_gathered)
+
+
 def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
                 alpha: float, kf: int, approx_ok: bool = False,
-                strip_rows=None, *, qids=None):
+                strip_rows=None, *, qids=None, gathered: bool = False):
     """Scan one length class: per strip ``s`` (list ``strip_list[s]``) and
     query row, the top-kf of ``alpha·(A[s]·Bᵀ) + bias`` over the class's
     ``w = w_blocks·512`` entries per sub-block, merged over ``n_sub``
@@ -699,14 +761,19 @@ def strip_class(strip_list, a, list_data, bias, w_blocks: int, n_sub: int,
     ``a`` is the grouped (S, C, dim) bf16 operand, or, given ``qids``
     (S, C) int32, the (q, dim) bf16 query rows read by id: ``A[s, i]`` is
     row ``qids[s, i]``, zeros where it is -1 (:func:`group_queries`).
+    ``gathered``: the gathered walk over each sub-block's finite-bias lanes
+    (exact selection; every finite slot is the dense exact walk's, a slot
+    a row cannot fill reads +inf at its own position), for a bias that a
+    filter masked.
 
     CUDA tensors launch kernel K1; CPU tensors take the plain twin."""
     if a.device.type == "cuda":
         return _strip_class_cuda(strip_list, a, list_data, bias, w_blocks,
                                  n_sub, alpha, kf, approx_ok, strip_rows,
-                                 qids)
+                                 qids, gathered)
     return _strip_class_plain(strip_list, a, list_data, bias, w_blocks,
-                              n_sub, alpha, kf, approx_ok, strip_rows, qids)
+                              n_sub, alpha, kf, approx_ok, strip_rows, qids,
+                              gathered)
 
 
 # ---------------------------------------------------------------------------
@@ -735,18 +802,19 @@ K1_BLOCK_ROWS = 32
 
 
 def k1_block_rows(dev, dim: int, m: int, w: int, n_sub: int, kf: int,
-                  tournament: bool) -> int:
-    """Query rows one K1 block takes for a length class of this shape: on
-    the card as K1's own ``plan_launch`` plans them
-    (``raft_strip_scan_block_rows``: :data:`K1_BLOCK_ROWS`, halved while a
-    block's shared memory does not fit); elsewhere :data:`K1_BLOCK_ROWS`."""
+                  tournament: bool, gathered: bool = False) -> int:
+    """Query rows one K1 block takes for a length class of this shape
+    (dense or gathered walk): on the card as K1's own ``plan_launch``
+    plans them (``raft_strip_scan_block_rows``: :data:`K1_BLOCK_ROWS`,
+    halved while a block's shared memory does not fit); elsewhere
+    :data:`K1_BLOCK_ROWS`."""
     if torch.device(dev).type != "cuda":
         return K1_BLOCK_ROWS
     fn = _native.load("strip_scan").raft_strip_scan_block_rows
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 7
+        fn.argtypes = [ctypes.c_int] * 8
         fn.restype = ctypes.c_int
-    rows = fn(C, dim, m, w, n_sub, kf, int(tournament))
+    rows = fn(C, dim, m, w, n_sub, kf, int(tournament), int(gathered))
     if rows < 1:
         raise ValueError(f"K1 takes no class of dim {dim}, m {m}, w {w}, "
                          f"n_sub {n_sub}, kf {kf}")
@@ -760,18 +828,21 @@ class K1Work:
     * ``strip_scan.slots.launched`` — strip slots of the layout (C a
       strip) — against ``strip_scan.slots.live`` — the tile's (query,
       probe) pairs;
-    * ``strip_scan.k1.launches`` — K1's launches (``STRIP_KERNEL``), and
+    * ``strip_scan.k1.launches`` — K1's launches (``STRIP_KERNEL``),
       ``strip_scan.k1.by_id_launches`` — those that read their query rows
-      by id (``STRIP_KERNEL_BY_ID``; all of them in the tile body);
+      by id (``STRIP_KERNEL_BY_ID``; all of them in the tile body), and
+      ``strip_scan.k1.gathered_launches`` — those on the gathered walk
+      (``STRIP_KERNEL_GATHERED``; all of them under ``gathered``);
     * ``strip_scan.k1.products_needed`` — over the tile's
       (query, probe) pairs, the probed list's rows with a finite bias
       (live and passing the filter);
     * ``strip_scan.k1.products_computed`` — over the strips K1
       runs, the query rows it computes (each block of :func:`k1_block_rows`
-      rows it does not exit, padded to the 16-row MMA tile) times the rows
-      of the sub-blocks it does not skip (:func:`sub_block_liveness`);
-      padding strips and empty row blocks count nothing, as in
-      ``csrc/strip_scan.cu``.
+      rows it does not exit, padded to the 16-row MMA tile) times the
+      columns it walks: ``w`` a sub-block it does not skip
+      (:func:`sub_block_liveness`), or on the gathered walk its finite
+      lanes rounded up to whole 128-column tiles; padding strips and empty
+      row blocks count nothing, as in ``csrc/strip_scan.cu``.
 
     The two products add on the bias's device (:func:`add_device`), so
     nothing is read to the host inside the request. What depends only on
@@ -779,13 +850,17 @@ class K1Work:
     rows, its live sub-blocks, the rows a block) and on a layout (each
     strip's class) is made once and kept for the search's other tiles."""
 
-    def __init__(self, bias, kf: int, approx_ok: bool):
+    def __init__(self, bias, kf: int, approx_ok: bool,
+                 gathered: bool = False):
         self.bias, self.kf, self.approx_ok = bias, int(kf), approx_ok
+        self.gathered = gathered
         self._memo: dict = {}
 
-    def begin(self) -> Tuple[int, int]:
-        """K1's launch counts (all, by id) before a tile's class calls."""
-        return STRIP_KERNEL.launches, STRIP_KERNEL_BY_ID.launches
+    def begin(self) -> Tuple[int, int, int]:
+        """K1's launch counts (all, by id, gathered) before a tile's class
+        calls."""
+        return (STRIP_KERNEL.launches, STRIP_KERNEL_BY_ID.launches,
+                STRIP_KERNEL_GATHERED.launches)
 
     def _per_class(self, dim: int, class_layout):
         """(finite rows a list, per layout class the rows a block and the
@@ -800,10 +875,16 @@ class K1Work:
                 w = w_blocks * MC
                 r = k1_block_rows(bias.device, dim, bias.shape[1], w, n_sub,
                                   self.kf, tournament_engaged(
-                                      self.kf, w, self.approx_ok))
-                live = sub_block_liveness(bias, w, n_sub).reshape(
-                    -1, n_sub).sum(dim=1, dtype=torch.int64)
-                memo[key] = (r, live * (max(r, 16) * w))
+                                      self.kf, w, self.approx_ok,
+                                      self.gathered), self.gathered)
+                if self.gathered:
+                    fin = torch.isfinite(bias[:, :n_sub * w]).reshape(
+                        -1, n_sub, w).sum(dim=2, dtype=torch.int64)
+                    cols = ((fin + 127) // 128 * 128).sum(dim=1)
+                else:
+                    cols = sub_block_liveness(bias, w, n_sub).reshape(
+                        -1, n_sub).sum(dim=1, dtype=torch.int64) * w
+                memo[key] = (r, cols * max(r, 16))
             weights.append(memo[key])
         return memo["fin"], weights
 
@@ -819,7 +900,7 @@ class K1Work:
             ) + (torch.stack([lw for _, lw in weights]),)
         return self._memo[key]
 
-    def count(self, launches0: Tuple[int, int], strip_list, strip_rows,
+    def count(self, launches0: Tuple[int, int, int], strip_list, strip_rows,
               class_layout, pairs: int, dim: int) -> None:
         obs.add("strip_scan.slots.launched",
                 sum(n for (_, _, _, n) in class_layout) * C)
@@ -827,7 +908,9 @@ class K1Work:
         for name, counter, before in (
                 ("strip_scan.k1.launches", STRIP_KERNEL, launches0[0]),
                 ("strip_scan.k1.by_id_launches", STRIP_KERNEL_BY_ID,
-                 launches0[1])):
+                 launches0[1]),
+                ("strip_scan.k1.gathered_launches", STRIP_KERNEL_GATHERED,
+                 launches0[2])):
             if counter.launches > before:
                 obs.add(name, counter.launches - before)
         fin, weights = self._per_class(dim, class_layout)
@@ -985,25 +1068,28 @@ def static_plan(probes, cls_ord, classes, class_counts, n_lists: int):
     return plan
 
 
-def _k1_class_fn(list_data, bias, alpha: float, kf: int, approx_ok: bool):
+def _k1_class_fn(list_data, bias, alpha: float, kf: int, approx_ok: bool,
+                 gathered: bool = False):
     return kernel_fn(
         lambda sl, a, w_blocks, n_sub, rows, qids: strip_class(
             sl, a, list_data, bias, w_blocks, n_sub, alpha, kf, approx_ok,
-            rows, qids=qids),
-        "K1", K1Work(bias, kf, approx_ok), by_id=True)
+            rows, qids=qids, gathered=gathered),
+        "K1", K1Work(bias, kf, approx_ok, gathered), by_id=True)
 
 
 def strip_search_traced(queries_mat, probes, list_data, bias, list_ids,
                         cls_ord, classes, class_counts, k: int, kf: int,
                         alpha: float, q_tile: int, pair_const=None,
-                        approx_ok: bool = False):
+                        approx_ok: bool = False, gathered: bool = False):
     """Strip search on a static worst-case layout per query tile: no
-    device→host fetch between the coarse step and the result."""
+    device→host fetch between the coarse step and the result.
+    ``gathered``: K1 on the gathered walk (a bias a filter masked;
+    :func:`strip_class`)."""
     plan = static_plan(probes, cls_ord, classes, class_counts,
                        list_data.shape[0])
     return _scan_tiles(queries_mat, probes, list_ids, k, kf, q_tile, plan,
                        _k1_class_fn(list_data, bias, float(alpha), kf,
-                                    approx_ok), pair_const)
+                                    approx_ok, gathered), pair_const)
 
 
 def search_planned(queries_mat, probes, list_ids, lens, k: int, dim: int,

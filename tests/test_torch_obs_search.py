@@ -5,7 +5,9 @@ CPU (the strip path runs K1's plain twin there with ``backend="ragged"``).
   trace id, the class spans' attributes against the strip plan;
 * the work counters against an independent count from the probes, the
   bias and the static plan, with no filter, a filter passing half the
-  rows and one passing none;
+  rows, one passing a tenth and one passing none (under a filter K1's
+  gathered walk: its columns are the finite lanes in whole tiles); the
+  gathered launches counted under a filter alone;
 * telemetry off: no span, no counter, no device mark;
 * per-name totals (host and planted device times) exact after the ring
   evicts, and a record's ``device_s`` through the Chrome export;
@@ -129,7 +131,17 @@ def static_plan_of(index, qs, filter=None):
     return probes, bias, (qids, strip_list), layout
 
 
-FILTERS = {"none": None, "half": 0.5, "nothing": 0.0}
+FILTERS = {"none": None, "half": 0.5, "tenth": 0.1, "nothing": 0.0}
+
+
+def columns_walked(bias, w, n_sub, gathered):
+    """(n_lists,) columns K1 walks over a list's sub-blocks: w a live
+    sub-block on the dense walk, the finite lanes in whole 128-column
+    tiles on the gathered walk."""
+    fin = torch.isfinite(bias[:, :n_sub * w]).reshape(-1, n_sub, w).sum(2)
+    if gathered:
+        return ((fin + 127) // 128 * 128).sum(dim=1)
+    return (fin > 0).sum(dim=1) * w
 
 
 @pytest.mark.parametrize("which", list(FILTERS))
@@ -147,6 +159,7 @@ def test_counters_equal_a_count_from_the_plan_and_the_bias(data, index,
     settle()
     got = obs.snapshot()["counters"]
     probes, bias, (qids, strip_list), layout = static_plan_of(index, qs, filt)
+    gathered = filt is not None
     fin = torch.isfinite(bias).sum(dim=1)
     needed = int(fin[probes.long()].sum())
     rows = (qids >= 0).sum(dim=1).tolist()
@@ -154,13 +167,12 @@ def test_counters_equal_a_count_from_the_plan_and_the_bias(data, index,
     for (w_blocks, n_sub, start, count) in layout:
         w = w_blocks * ss.MC
         assert ss.k1_block_rows(CPU, qs.shape[1], bias.shape[1], w, n_sub,
-                                10, False) == 32
-        live = torch.isfinite(bias[:, :n_sub * w]).reshape(
-            -1, n_sub, w).any(dim=2).sum(dim=1)
+                                10, False, gathered) == 32
+        cols = columns_walked(bias, w, n_sub, gathered)
         for s in range(start, start + count):
             lst = int(strip_list[s])
             if lst >= 0 and rows[s] > 0:
-                computed += math.ceil(rows[s] / 32) * 32 * int(live[lst]) * w
+                computed += math.ceil(rows[s] / 32) * 32 * int(cols[lst])
     assert got["strip_scan.k1.products_needed"] == needed
     assert got["strip_scan.k1.products_computed"] == computed
     assert got["strip_scan.slots.launched"] == ss.C * sum(
@@ -168,6 +180,7 @@ def test_counters_equal_a_count_from_the_plan_and_the_bias(data, index,
     assert got["strip_scan.slots.live"] == probes.numel()
     assert "strip_scan.k1.launches" not in got     # the twin launches none
     assert "strip_scan.k1.by_id_launches" not in got
+    assert "strip_scan.k1.gathered_launches" not in got
     if which == "nothing":
         assert needed == 0 and computed == 0
     else:
@@ -177,6 +190,50 @@ def test_counters_equal_a_count_from_the_plan_and_the_bias(data, index,
         assert scan["attrs"]["filter_n_probes"] == probes.shape[1]
         assert "filter_widen_x" in scan["attrs"]
     assert "ivf_pq.search.rows_scanned" not in got
+
+
+def launching_twin(monkeypatch):
+    """``strip_class`` on the CPU counting launches as the card's wrapper
+    does (all, by id, gathered), so the engine's launch counters read the
+    search's class calls."""
+    real = ss.strip_class
+
+    def counted(*args, qids=None, gathered=False, **kw):
+        out = real(*args, qids=qids, gathered=gathered, **kw)
+        ss.STRIP_KERNEL.launches += 1
+        ss.STRIP_KERNEL_BY_ID.launches += qids is not None
+        ss.STRIP_KERNEL_GATHERED.launches += gathered
+        return out
+
+    monkeypatch.setattr(ss, "strip_class", counted)
+
+
+@pytest.mark.parametrize("share", [None, 0.1, 0.6])
+def test_gathered_launches_count_every_filtered_launch(
+        data, index, monkeypatch, share):
+    """A traced search counts every K1 launch as gathered under a filter,
+    passing a tenth of the rows or 60% of them, and none without a
+    filter."""
+    _, qs = data
+    filt = None
+    if share is not None:
+        mask = np.zeros(4000, bool)
+        mask[np.random.default_rng(4).permutation(4000)[:int(share * 4000)]] \
+            = True
+        filt = Bitset.from_mask(mask, device=CPU)
+    launching_twin(monkeypatch)
+    search(index, qs, filt)
+    obs.enable()
+    search(index, qs, filt)
+    settle()
+    got = obs.snapshot()["counters"]
+    assert got["strip_scan.k1.launches"] == got[
+        "strip_scan.k1.by_id_launches"] >= 1
+    if share is not None:
+        assert got["strip_scan.k1.gathered_launches"] == got[
+            "strip_scan.k1.launches"]
+    else:
+        assert "strip_scan.k1.gathered_launches" not in got
 
 
 def test_telemetry_off_records_no_span_counter_or_mark(data, index,

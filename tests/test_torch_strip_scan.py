@@ -317,3 +317,105 @@ def test_kernel_matches_plain_twin_on_card():
     verdict = topk_agreement(want[0], want[1], got[0], got[1], rtol=5e-4,
                              atol=1e-2, mask=args[0] >= 0)
     assert verdict["ok"], verdict
+
+
+def _gathered_class(rng, mask, dim, n_sub, kf=20, n_lists=6, s_pad=10):
+    """One class call's operands whose bias a filter masked: int8 lists of
+    w = 1024 lanes a sub-block, a random ``mask`` share of the lanes live
+    ("half": every other lane of list 1's first sub-block and 129 lanes of
+    list 2's, the others at 10%), list 0 dead, padding strips."""
+    w = 1024
+    m = w * n_sub
+    b = rng.integers(-127, 128, (n_lists, m, dim)).astype(np.int8)
+    bias = (rng.random((n_lists, m)) * 500).astype(np.float32)
+    share = 0.1 if mask == "half" else mask
+    bias[rng.random((n_lists, m)) >= share] = np.inf
+    bias[0] = np.inf
+    if mask == "half":
+        lanes = np.arange(w)
+        bias[1, :w] = np.where(lanes % 2 == 0, rng.random(w) * 500, np.inf)
+        bias[2, :w] = np.where(lanes < 129, 3.0, np.inf)
+    sl = rng.integers(0, n_lists, s_pad).astype(np.int32)
+    sl[:3] = [0, 1, 2]
+    sl[-2:] = -1
+    a = (rng.standard_normal((s_pad, tss.C, dim)) * 2).astype(np.float32)
+    return (torch.from_numpy(sl), torch.from_numpy(a).to(torch.bfloat16),
+            torch.from_numpy(b), torch.from_numpy(bias), w // tss.MC, n_sub,
+            -2.0, kf)
+
+
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("dim", [96, 128])
+@pytest.mark.parametrize("mask", [0.1, 0.01, "half"])
+def test_gathered_walk_equals_the_dense_exact_walk(mask, dim, n_sub):
+    """K1's twin on the gathered walk against the same twin's dense walk
+    with exact selection: the same +inf pattern, and on every finite slot
+    the same value and offset; an +inf slot holds an offset inside the
+    list. Random masks at 10% and 1% (fewer live lanes than kf: +inf
+    slots), a sub-block exactly half live, one with 129 live lanes (a
+    second tile), a dead list, padding strips."""
+    rng = np.random.default_rng({0.1: 1, 0.01: 2, "half": 3}[mask] * 10
+                                + dim + n_sub)
+    args = _gathered_class(rng, mask, dim, n_sub)
+    sl, bias, w, kf = args[0], args[3], args[4] * tss.MC, args[7]
+    assert not tss.tournament_engaged(kf, w, True, gathered=True)
+    dv, de = tss.strip_class(*args, approx_ok=False)
+    gv, ge = tss.strip_class(*args, approx_ok=True, gathered=True)
+    rows = (sl >= 0)[:, None, None].expand_as(dv)
+    fin = torch.isfinite(dv) & rows
+    assert torch.equal(fin, torch.isfinite(gv) & rows)
+    assert torch.equal(dv[fin], gv[fin]) and torch.equal(de[fin], ge[fin])
+    assert bool(fin.any()) and bool((~fin & rows).any())
+    assert int(ge[rows].min()) >= 0 and int(ge[rows].max()) < n_sub * w
+    if mask == "half":
+        live = torch.isfinite(bias[1, :w]).sum()
+        assert int(live) == w // 2
+        assert torch.isfinite(gv[1]).all()
+
+
+@pytest.mark.parametrize("family", ["ivf_pq", "ivf_flat"])
+@pytest.mark.parametrize("share", [None, 0.1, 0.5, 0.6])
+def test_the_search_takes_the_gathered_walk_under_any_filter(share, family,
+                                                             monkeypatch):
+    """The ragged searches hand K1 the gathered walk under a filter,
+    whatever share of the ids it passes, and the dense walk without one;
+    the filtered result holds no failing id."""
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    g = torch.Generator().manual_seed(8)
+    ds, qs = torch.randn(3000, 16, generator=g), torch.randn(20, 16,
+                                                            generator=g)
+    filt = None
+    if share is not None:
+        mask = np.zeros(3000, bool)
+        mask[np.random.default_rng(1).permutation(3000)[:int(share * 3000)]] \
+            = True
+        filt = Bitset.from_mask(mask, device="cpu")
+        assert filt.pass_rate() == share
+    if family == "ivf_pq":
+        index = ivf_pq.build(ds, ivf_pq.IvfPqParams(
+            n_lists=4, pq_dim=8, group_size=512, kmeans_n_iters=3),
+            device="cpu")
+        search = lambda: ivf_pq.search(index, qs, 10, n_probes=2,  # noqa: E731
+                                       filter=filt, backend="ragged",
+                                       device="cpu")
+    else:
+        index = ivf_flat.build(ds, ivf_flat.IvfFlatParams(
+            n_lists=4, group_size=512, kmeans_n_iters=3), device="cpu")
+        search = lambda: ivf_flat.search(  # noqa: E731
+            index, qs, 10, n_probes=2, filter=filt, backend="ragged",
+            device="cpu")
+    walks = []
+    real = tss.strip_class
+
+    def spy(*args, gathered=False, **kw):
+        walks.append(gathered)
+        return real(*args, gathered=gathered, **kw)
+
+    monkeypatch.setattr(tss, "strip_class", spy)
+    _, ids = search()
+    assert walks and set(walks) == {filt is not None}
+    if filt is not None:
+        got = ids[ids >= 0].numpy()
+        assert mask[got].all()

@@ -2,7 +2,11 @@
 grouped operand, bit for bit, on both product loops; K2 on its grouped
 operand against its twin; the IVF-PQ ragged search against the same search
 with a grouped operand; no synchronize in a warm search; every K1 launch of
-a traced search by id. The tests carry the ``cuda`` marker and skip
+a traced search by id. K1's gathered walk under a filter passing a tenth
+of the rows: against its twin and, bit for bit on every finite slot,
+against the dense walk with exact selection, on both product loops; a
+traced filtered search against the same search on the dense exact walk,
+every K1 launch gathered. The tests carry the ``cuda`` marker and skip
 without a card. This file imports neither JAX nor the JAX package:
 ``python -m pytest --noconftest -p no:cacheprovider -q
 tests/test_torch_strip_scan_card.py``."""
@@ -150,7 +154,8 @@ def test_search_by_id_returns_the_grouped_search(searched, monkeypatch):
     values and ids of the same search with K1 on a grouped operand."""
     got = searched()
 
-    def grouped_k1(list_data, bias, alpha, kf, approx_ok):
+    def grouped_k1(list_data, bias, alpha, kf, approx_ok, gathered=False):
+        assert not gathered                      # no filter
         return ss.kernel_fn(
             lambda sl, a, w_blocks, n_sub, rows: ss.strip_class(
                 sl, a, list_data, bias, w_blocks, n_sub, alpha, kf,
@@ -189,3 +194,100 @@ def test_every_k1_launch_of_a_traced_search_reads_by_id(searched):
     c = obs.snapshot()["counters"]
     assert c["strip_scan.k1.launches"] >= 1
     assert c["strip_scan.k1.by_id_launches"] == c["strip_scan.k1.launches"]
+    assert "strip_scan.k1.gathered_launches" not in c   # no filter
+
+
+def filtered(bias, share, seed):
+    """``bias`` as a filter passing a random ``share`` of the rows leaves
+    it: the other lanes +inf."""
+    g = torch.Generator(device=bias.device).manual_seed(seed)
+    keep = torch.rand(bias.shape, generator=g, device=bias.device) < share
+    return torch.where(keep, bias, float("inf")).contiguous()
+
+
+@pytest.mark.parametrize("dim,b_dtype,n_sub", [
+    (128, torch.int8, 1), (128, torch.uint8, 2), (96, torch.int8, 2),
+    (96, torch.uint8, 1)])
+def test_k1_gathered_walk_equals_its_twin_and_the_dense_exact_walk(
+        card, dim, b_dtype, n_sub):
+    """Dim 128 runs the gathered walk on wgmma, dim 96 on mma.sync: against
+    its twin within the fp32 sums' order, and against K1's dense walk with
+    exact selection bit for bit on every finite slot, with the same +inf
+    pattern and +inf slots at offsets inside the list; each launch counts
+    as gathered."""
+    queries, data, bias, qids, strip_list, layout = planned_tile(
+        card, dim, b_dtype, n_sub, q=1500)
+    bias = filtered(bias, 0.1, dim + n_sub)
+    strip_rows = (qids >= 0).sum(dim=1, dtype=torch.int32)
+    rows = queries.to(torch.bfloat16)
+    for (w_blocks, ns, start, count) in layout:
+        seg = slice(start, start + count)
+        args = (data, bias, w_blocks, ns, -2.0, 20, True, strip_rows[seg])
+        before = ss.STRIP_KERNEL_GATHERED.launches
+        got = ss.strip_class(strip_list[seg], rows, *args, qids=qids[seg],
+                             gathered=True)
+        torch.cuda.synchronize()
+        assert ss.STRIP_KERNEL_GATHERED.launches == before + 1
+        dense = ss.strip_class(strip_list[seg], rows, data, bias, w_blocks,
+                               ns, -2.0, 20, False, strip_rows[seg],
+                               qids=qids[seg])
+        twin = ss._strip_class_plain(strip_list[seg], rows, *args,
+                                     qids=qids[seg], gathered=True)
+        mask = real_rows(strip_list[seg], strip_rows[seg])
+        assert bool(mask.any())
+        verdict = topk_agreement(twin[0], twin[1], got[0], got[1],
+                                 rtol=5e-4, atol=1e-2, mask=mask)
+        assert verdict["ok"], verdict
+        fin = torch.isfinite(dense[0]) & mask[:, :, None]
+        assert torch.equal(fin, torch.isfinite(got[0]) & mask[:, :, None])
+        assert torch.equal(got[0][fin], dense[0][fin])
+        assert torch.equal(got[1][fin], dense[1][fin])
+        e = got[1][mask[:, :, None].expand_as(got[1])]
+        assert int(e.min()) >= 0 and int(e.max()) < ns * w_blocks * ss.MC
+
+
+@pytest.fixture
+def filtered_search(card):
+    from raft_tpu_torch.core.bitset import Bitset
+
+    g = torch.Generator(device=card).manual_seed(6)
+    ds = torch.randn(60_000, 128, device=card, generator=g)
+    qs = torch.randn(2_000, 128, device=card, generator=g)
+    index = ivf_pq.build(ds, ivf_pq.IvfPqParams(
+        n_lists=256, pq_dim=32, kmeans_n_iters=5), device=card)
+    keep = torch.rand(60_000, generator=g, device=card) < 0.1
+    bitset = Bitset.from_mask(keep, device=card)
+
+    def search():
+        return ivf_pq.search(index, qs, 20, n_probes=16, backend="ragged",
+                             filter=bitset, device=card)
+
+    search()
+    torch.cuda.synchronize()
+    return search, keep
+
+
+def test_traced_filtered_search_returns_the_exact_dense_walk(
+        filtered_search, monkeypatch):
+    """A traced IVF-PQ search under a 10% filter runs every K1 launch on
+    the gathered walk and returns the values and ids of the same search on
+    the dense walk with exact selection; no id fails the filter."""
+    search, keep = filtered_search
+    obs.enable()
+    got = search()
+    settle()
+    c = obs.snapshot()["counters"]
+    assert c["strip_scan.k1.launches"] >= 1
+    assert c["strip_scan.k1.gathered_launches"] == c["strip_scan.k1.launches"]
+    obs.disable()
+    real = ss._k1_class_fn
+
+    def dense_exact(list_data, bias, alpha, kf, approx_ok, gathered=False):
+        return real(list_data, bias, alpha, kf, False, False)
+
+    monkeypatch.setattr(ss, "_k1_class_fn", dense_exact)
+    want = search()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ids = got[1][got[1] >= 0].long()
+    assert bool(ids.numel()) and bool(keep[ids].all())
+
